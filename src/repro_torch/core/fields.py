@@ -1,0 +1,186 @@
+"""The four neural-graphics applications (paper Fig. 4, Table I).
+
+Each app is ``encoding -> fully-fused MLP(s)``; NeRF adds the
+spherical-harmonics direction encoding to a second (colour) MLP. All apps
+support the three encodings (hash / dense / tiled grid): app x encoding =
+the 12 configurations of Table I.
+
+``apply_field`` routes encode + MLP through the fused field kernel's
+wrapper (``kernels/fused_field``) and NeRF's colour MLP through the fused
+MLP kernel's wrapper (``kernels/fused_mlp``): the CUDA kernels for CUDA
+tensors, their plain versions (the core library's encode and MLP) for CPU
+tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import encoding as enc
+from repro_torch.core.encoding import GridConfig
+from repro_torch.core.mlp import MLPConfig, init_mlp
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.fused_field import ops as ff_ops
+from repro_torch.kernels.fused_mlp import ops as mlp_ops
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldConfig:
+    """One row of Table I."""
+    app: str                      # 'nerf' | 'nsdf' | 'gia' | 'nvr'
+    grid: GridConfig
+    density_mlp: Optional[MLPConfig] = None   # NeRF only
+    mlp: MLPConfig = None                     # main model MLP
+    name: str = ""
+
+    @property
+    def in_dim(self) -> int:
+        return self.grid.dim
+
+    @property
+    def out_dim(self) -> int:
+        return {"nerf": 4, "nvr": 4, "gia": 3, "nsdf": 1}[self.app]
+
+    def with_grid(self, grid: GridConfig) -> "FieldConfig":
+        """Replace the grid and recompute every MLP dim derived from it: the
+        grid-facing MLP's ``in_dim`` is ``grid.out_dim`` (= L*F). For nerf
+        that is the density MLP (the colour MLP's input is SH(16) + density
+        feats, grid-independent); for every other app the main MLP."""
+        cfg = dataclasses.replace(self, grid=grid)
+        if self.app == "nerf":
+            return dataclasses.replace(
+                cfg, density_mlp=dataclasses.replace(
+                    self.density_mlp, in_dim=grid.out_dim))
+        return dataclasses.replace(
+            cfg, mlp=dataclasses.replace(self.mlp, in_dim=grid.out_dim))
+
+
+def _grid_for(encoding_kind: str, dim: int, growth_hash: float,
+              log2_T: int) -> GridConfig:
+    if encoding_kind == "hash":
+        return enc.hashgrid_config(dim=dim, growth=growth_hash, log2_T=log2_T)
+    if encoding_kind == "dense":
+        return enc.densegrid_config(dim=dim, log2_T=log2_T)
+    if encoding_kind == "tiled":
+        return enc.tiledgrid_config(dim=dim, log2_T=log2_T)
+    raise ValueError(encoding_kind)
+
+
+def make_field_config(app: str, encoding_kind: str) -> FieldConfig:
+    """Exact Table I parameterizations."""
+    growth = {"nerf": 1.51572, "nsdf": 1.38191,
+              "nvr": 1.275, "gia": 1.25992}[app]
+    log2_T = 24 if app == "gia" else 19
+    dim = 2 if app == "gia" else 3
+    grid = _grid_for(encoding_kind, dim, growth, log2_T)
+    if app == "nerf":
+        # Density: enc -> MLP(64; layers=3) -> 16 (sigma = feat[0], as in
+        # instant-NGP; Table I's '->1' is the sigma channel).
+        # Colour: SH(dir) 16 + density feats 16 -> MLP(64; layers=4) -> 3.
+        return FieldConfig(
+            app=app, grid=grid,
+            density_mlp=MLPConfig(in_dim=grid.out_dim, n_hidden=3, out_dim=16),
+            mlp=MLPConfig(in_dim=32, n_hidden=4, out_dim=3),
+            name=f"nerf_{encoding_kind}")
+    out = {"nsdf": 1, "gia": 3, "nvr": 4}[app]
+    return FieldConfig(
+        app=app, grid=grid,
+        mlp=MLPConfig(in_dim=grid.out_dim, n_hidden=4, out_dim=out),
+        name=f"{app}_{encoding_kind}")
+
+
+def _mlp_shapes(m: MLPConfig) -> Dict[str, tuple]:
+    shapes = {"w_in": (m.in_dim, m.hidden_dim),
+              "w_out": (m.hidden_dim, m.out_dim)}
+    if m.n_hidden > 1:
+        shapes["w_hidden"] = (m.n_hidden - 1, m.hidden_dim, m.hidden_dim)
+    return shapes
+
+
+def param_shapes(cfg: FieldConfig) -> Dict:
+    """The param tree's leaf shapes, keyed as the JAX package keys them."""
+    g = cfg.grid
+    shapes = {"grid": (g.n_levels, g.table_size, g.n_features),
+              "mlp": _mlp_shapes(cfg.mlp)}
+    if cfg.density_mlp is not None:
+        shapes["density_mlp"] = _mlp_shapes(cfg.density_mlp)
+    return shapes
+
+
+def init_field(cfg: FieldConfig, generator: Optional[torch.Generator] = None,
+               device: DeviceLike = None) -> Dict:
+    """Param tree {'grid': (L, T, F), 'mlp': {...}[, 'density_mlp': {...}]}
+    with the JAX package's distributions: tables U(-1e-4, 1e-4), weights
+    normal / sqrt(fan_in). Drawn on the CPU from ``generator``, then moved
+    to ``device`` (CUDA unless the caller names another)."""
+    dev = resolve_device(device)
+    params = {"grid": enc.init_grid(cfg.grid, generator),
+              "mlp": init_mlp(cfg.mlp, generator)}
+    if cfg.density_mlp is not None:
+        params["density_mlp"] = init_mlp(cfg.density_mlp, generator)
+    return to_device(params, dev)
+
+
+def to_device(params: Mapping, device: torch.device) -> Dict:
+    return {k: (to_device(v, device) if isinstance(v, Mapping)
+                else v.to(device))
+            for k, v in params.items()}
+
+
+def from_jax_params(np_params: Mapping, cfg: FieldConfig,
+                    device: DeviceLike = None) -> Dict:
+    """The JAX package's unboxed param tree, with every leaf as a numpy
+    array, as the port's f32 tensors on ``device``. Raises on a missing
+    leaf or a shape that ``cfg`` does not give."""
+    dev = resolve_device(device)
+
+    def conv(tree, shapes, path):
+        if isinstance(shapes, dict):
+            return {k: conv(tree[k], s, f"{path}/{k}")
+                    for k, s in shapes.items()}
+        arr = np.asarray(tree, dtype=np.float32)
+        if arr.shape != shapes:
+            raise ValueError(f"{path}: shape {arr.shape}, config gives "
+                             f"{shapes}")
+        return torch.from_numpy(arr.copy()).to(dev)
+    return conv(np_params, param_shapes(cfg), "params")
+
+
+def apply_field(params: Dict, cfg: FieldConfig, points: torch.Tensor,
+                dirs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Evaluate the field at points (B, d) [+ dirs (B, 3) for nerf].
+
+    Returns: nerf/nvr -> (B, 4) [rgb, sigma]; gia -> (B, 3); nsdf -> (B, 1).
+    """
+    if cfg.app == "nerf":
+        dfeat = ff_ops.field(points, params["grid"], params["density_mlp"],
+                             cfg.grid, cfg.density_mlp)
+        sigma = torch.exp(dfeat[:, :1])        # instant-NGP exp activation
+        color_in = torch.cat([enc.sh_encode(dirs), dfeat], dim=-1)
+        rgb = torch.sigmoid(mlp_ops.mlp(params["mlp"], color_in, cfg.mlp))
+        return torch.cat([rgb, sigma], dim=-1)
+
+    out = ff_ops.field(points, params["grid"], params["mlp"], cfg.grid,
+                       cfg.mlp)
+    if cfg.app == "gia":
+        return torch.sigmoid(out)
+    if cfg.app == "nvr":
+        return torch.cat([torch.sigmoid(out[:, :3]), torch.exp(out[:, 3:])],
+                         dim=-1)
+    return out  # nsdf: signed distance
+
+
+def field_param_count(cfg: FieldConfig) -> int:
+    n = cfg.grid.params_bound()
+
+    def mlp_n(m: MLPConfig):
+        return (m.in_dim * m.hidden_dim
+                + (m.n_hidden - 1) * m.hidden_dim * m.hidden_dim
+                + m.hidden_dim * m.out_dim)
+    n += mlp_n(cfg.mlp)
+    if cfg.density_mlp is not None:
+        n += mlp_n(cfg.density_mlp)
+    return n

@@ -1,0 +1,46 @@
+"""Shared helpers of the kernel wrappers."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def pad_batch(x: torch.Tensor, block: int) -> Tuple[torch.Tensor, int]:
+    """Pad dim 0 with zeros up to a multiple of ``block``.
+    Returns (padded, orig_n)."""
+    n = x.shape[0]
+    padded = round_up(n, block)
+    if padded == n:
+        return x, n
+    return F.pad(x, [0, 0] * (x.ndim - 1) + [0, padded - n]), n
+
+
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when the plain version should run: every tensor lies on the
+    CPU. Tensors on a CUDA device go to the kernel, which checks them;
+    a mix of devices, or any other device, raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"tensors on {sorted(str(t.device) for t in tensors)}: "
+                     "the kernels take tensors on one CUDA device, the plain "
+                     "versions tensors on the CPU")
+
+
+def check_kernel_input(name: str, t: torch.Tensor, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape``."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: the kernel takes a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")

@@ -1,0 +1,179 @@
+"""repro_torch kernel wrappers and plain versions against the JAX kernels.
+
+On the CPU every wrapper runs its kernel's plain PyTorch version; here
+those are held against the JAX package's Pallas kernels, run in interpret
+mode as tests/test_kernels.py runs them. The CUDA kernels themselves are
+held against these plain versions on the card by tests/test_torch_cuda.py.
+
+Tolerance: f32 throughout, 1e-5: both sides run the same operations in
+another association order (XLA's dot against PyTorch's matmul, FMA
+contraction).
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import encoding as jenc
+from repro.core.mlp import MLPConfig as JMLPConfig
+from repro.kernels.fused_field import ops as jff_ops
+from repro.kernels.fused_mlp import ops as jmlp_ops
+from repro.kernels.ray_march import ops as jrm_ops
+from repro_torch import kernels as tkernels
+from repro_torch.core import encoding as tenc
+from repro_torch.core import render as trender
+from repro_torch.core.mlp import MLPConfig
+from repro_torch.kernels import build
+from repro_torch.kernels.fused_field import ops as ff_ops
+from repro_torch.kernels.fused_mlp import ops as mlp_ops
+from repro_torch.kernels.ray_march import ops as rm_ops
+
+TOL = 1e-5
+
+
+def _grid_pair(log2_T=14, n_levels=4, growth=1.51572):
+    gj = dataclasses.replace(jenc.hashgrid_config(growth=growth),
+                             log2_table_size=log2_T, n_levels=n_levels)
+    gt = dataclasses.replace(tenc.hashgrid_config(growth=growth),
+                             log2_table_size=log2_T, n_levels=n_levels)
+    return gj, gt
+
+
+def _mlp_params(cfg, seed):
+    rng = np.random.default_rng(seed)
+    p = {"w_in": rng.normal(size=(cfg.in_dim, cfg.hidden_dim))
+         / np.sqrt(cfg.in_dim),
+         "w_out": rng.normal(size=(cfg.hidden_dim, cfg.out_dim))
+         / np.sqrt(cfg.hidden_dim)}
+    if cfg.n_hidden > 1:
+        p["w_hidden"] = rng.normal(size=(cfg.n_hidden - 1, cfg.hidden_dim,
+                                         cfg.hidden_dim)) / np.sqrt(
+                                             cfg.hidden_dim)
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+def _t(tree, device="cpu"):
+    return {k: torch.from_numpy(v).to(device) for k, v in tree.items()}
+
+
+def _j(tree):
+    return {k: jnp.asarray(v) for k, v in tree.items()}
+
+
+def _field_inputs(n, seed=0, log2_T=14, n_levels=4, out_dim=16, n_hidden=3):
+    gj, gt = _grid_pair(log2_T, n_levels)
+    rng = np.random.default_rng(seed)
+    tables = rng.uniform(-1, 1, (n_levels, gt.table_size, 2)).astype(
+        np.float32)
+    pts = rng.uniform(size=(n, 3)).astype(np.float32)
+    pts[:3] = [[0, 0, 0], [1, 1, 1], [0, 1, 0.5]]         # edges
+    m = MLPConfig(in_dim=gt.out_dim, n_hidden=n_hidden, out_dim=out_dim)
+    jm = JMLPConfig(in_dim=gt.out_dim, n_hidden=n_hidden, out_dim=out_dim)
+    return gj, gt, m, jm, tables, pts, _mlp_params(m, seed + 1)
+
+
+def _composite_inputs(r, s, seed=0, broadcast_dts=False):
+    rng = np.random.default_rng(seed)
+    rgb = rng.uniform(size=(r, s, 3)).astype(np.float32)
+    sigma = rng.exponential(3.0, size=(r, s)).astype(np.float32)
+    sigma[0] = 0.0                                        # empty ray
+    sigma[1, 2:] = 1e4                                    # opaque ray
+    dts = rng.uniform(0.01, 0.2, size=(1 if broadcast_dts else r, s)
+                      ).astype(np.float32)
+    return rgb, sigma, dts
+
+
+# --------------------------------------------- plain versions vs JAX kernels
+@pytest.mark.parametrize("n,out_dim,n_hidden", [(300, 16, 3), (77, 4, 4),
+                                                (64, 16, 1)])
+def test_field_plain_matches_jax_kernel(n, out_dim, n_hidden):
+    gj, gt, m, jm, tables, pts, w = _field_inputs(n, out_dim=out_dim,
+                                                  n_hidden=n_hidden)
+    assert {gt.level_is_hashed(l) for l in range(4)} == {False, True}
+    before = tkernels.launch_counts()
+    got = ff_ops.field(torch.from_numpy(pts), torch.from_numpy(tables),
+                       _t(w), gt, m)
+    assert tkernels.launch_counts() == before      # CPU: no kernel launch
+    ref = jff_ops.field(jnp.asarray(pts), jnp.asarray(tables), _j(w), gj, jm,
+                        block_b=64)
+    assert got.shape == (n, out_dim)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("in_dim,n_hidden,out_dim,n", [(32, 4, 3, 300),
+                                                       (16, 1, 4, 50)])
+def test_mlp_plain_matches_jax_kernel(in_dim, n_hidden, out_dim, n):
+    m = MLPConfig(in_dim=in_dim, n_hidden=n_hidden, out_dim=out_dim)
+    jm = JMLPConfig(in_dim=in_dim, n_hidden=n_hidden, out_dim=out_dim)
+    w = _mlp_params(m, 5)
+    x = np.random.default_rng(6).normal(size=(n, in_dim)).astype(np.float32)
+    got = mlp_ops.mlp(_t(w), torch.from_numpy(x), m)
+    ref = jmlp_ops.mlp(_j(w), jnp.asarray(x), jm, block_b=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("r,s,broadcast", [(64, 16, False), (500, 32, False),
+                                           (100, 8, True)])
+def test_composite_plain_matches_jax_kernel(r, s, broadcast):
+    rgb, sigma, dts = _composite_inputs(r, s, broadcast_dts=broadcast)
+    pix, opac = rm_ops.composite(torch.from_numpy(rgb),
+                                 torch.from_numpy(sigma),
+                                 torch.from_numpy(dts))
+    rpix, ropac = jrm_ops.composite(jnp.asarray(rgb), jnp.asarray(sigma),
+                                    jnp.asarray(dts))
+    assert np.isfinite(pix.numpy()).all()
+    np.testing.assert_allclose(pix.numpy(), np.asarray(rpix), atol=TOL)
+    np.testing.assert_allclose(opac.numpy(), np.asarray(ropac), atol=TOL)
+    # an opaque ray's weights sum to 1 up to f32 rounding of exp(csum - x)
+    assert abs(float(opac[1]) - 1.0) < 1e-4 and float(opac[0]) == 0.0
+
+
+def test_composite_reads_packed_field_output():
+    """The render path hands the wrapper the rgb and sigma columns of the
+    field's packed (R, S, 4) output and a broadcast (1, S) dts."""
+    rgb, sigma, dts = _composite_inputs(40, 8, broadcast_dts=True)
+    packed = torch.cat([torch.from_numpy(rgb),
+                        torch.from_numpy(sigma)[..., None]], dim=-1)
+    got = rm_ops.composite(packed[..., :3], packed[..., 3],
+                           torch.from_numpy(dts))
+    ref = trender.composite(torch.from_numpy(rgb), torch.from_numpy(sigma),
+                            torch.from_numpy(np.repeat(dts, 40, axis=0)))
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_wrappers_raise_off_cpu_and_cuda():
+    """A wrapper runs the plain version only for CPU tensors; on any other
+    device it does not fall back."""
+    gt = dataclasses.replace(tenc.hashgrid_config(), log2_table_size=8,
+                             n_levels=2)
+    m = MLPConfig(in_dim=4, n_hidden=2, out_dim=4)
+    meta = {k: torch.empty(v.shape, device="meta")
+            for k, v in _t(_mlp_params(m, 0)).items()}
+    pts = torch.empty((8, 3), device="meta")
+    with pytest.raises(ValueError):
+        ff_ops.field(pts, torch.empty((2, 256, 2), device="meta"), meta,
+                     gt, m)
+    with pytest.raises(ValueError):
+        mlp_ops.mlp(meta, torch.empty((8, 4), device="meta"), m)
+    with pytest.raises(ValueError):
+        rm_ops.composite(torch.empty((8, 4, 3), device="meta"),
+                         torch.empty((8, 4), device="meta"),
+                         torch.empty((1, 4)))
+
+
+def test_build_raises_without_nvcc(monkeypatch):
+    monkeypatch.setattr(build.os.path, "isfile", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.find_nvcc()
+
+
+def test_kernel_registry_lists_the_slice():
+    assert set(tkernels.kernels()) == {"field_fwd", "mlp_fwd",
+                                       "composite_fwd"}
+    tkernels.reset_launch_counts()
+    assert set(tkernels.launch_counts().values()) == {0}

@@ -1,0 +1,185 @@
+"""The slice as a whole: repro_torch's RenderEngine against the JAX
+package's render_frame, plus the port's isolation and device rules.
+
+The engine runs on ``device="cpu"``, where every kernel wrapper runs its
+plain version; the JAX side renders each scene with
+``RenderSettings(use_pallas=True)`` (Pallas in interpret mode). Parameters
+are made with numpy from a seed (tables U(-1, 1)). Tolerance 1e-5 (f32):
+the same operations on both sides, rounded differently only where XLA
+contracts or reorders.
+"""
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import pipeline as jpipeline
+from repro.core import render as jrender
+from repro_torch.core import fields as tfields
+from repro_torch.core import pipeline as tpipeline
+from repro_torch.data import scenes as tscenes
+from repro_torch.serve import RenderEngine, RenderRequest
+from tests.conftest import small_field_config
+
+TOL = 1e-5
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _cfgs(app, log2_T=12, n_levels=4):
+    cj = small_field_config(app, "hash", log2_T=log2_T, n_levels=n_levels)
+    ct = tfields.make_field_config(app, "hash")
+    ct = ct.with_grid(dataclasses.replace(ct.grid, log2_table_size=log2_T,
+                                          n_levels=n_levels))
+    return cj, ct
+
+
+def _np_params(ct, seed):
+    rng = np.random.default_rng(seed)
+
+    def draw(shapes, grid=False):
+        if isinstance(shapes, dict):
+            return {k: draw(s, k == "grid") for k, s in shapes.items()}
+        if grid:
+            return rng.uniform(-1, 1, shapes).astype(np.float32)
+        return (rng.normal(size=shapes) / np.sqrt(shapes[-2])).astype(
+            np.float32)
+    return draw(tfields.param_shapes(ct))
+
+
+def _jax_cam(tcam):
+    return jrender.Camera(height=tcam.height, width=tcam.width,
+                          focal=tcam.focal, c2w=jnp.asarray(tcam.c2w))
+
+
+def _engine(ct, params, settings):
+    engine = RenderEngine(settings, device="cpu")
+    for s, p in enumerate(params):
+        engine.add_scene(f"s{s}", ct, tfields.from_jax_params(p, ct, "cpu"))
+    engine.warmup()
+    return engine
+
+
+@pytest.mark.parametrize("app", ["nerf", "nvr"])
+def test_engine_matches_jax_render_frame_per_scene(app):
+    """2 scenes x mixed cameras (one resolution not a multiple of the
+    tile: the last tile carries masked pad lanes)."""
+    cj, ct = _cfgs(app)
+    params = [_np_params(ct, s) for s in range(2)]
+    settings = tpipeline.RenderSettings(tile_pixels=64, n_samples=8)
+    jsettings = jpipeline.RenderSettings(tile_pixels=64, n_samples=8,
+                                         use_pallas=True)
+    engine = _engine(ct, params, settings)
+    cams = [tscenes.orbit_camera(16, 16, 0.3), tscenes.orbit_camera(12, 12, 2.5)]
+    for s in range(2):
+        cam = cams[s]
+        got = engine.render_frame(f"s{s}", cam)
+        ref = jpipeline.render_frame(jax.tree.map(jnp.asarray, params[s]), cj,
+                                     _jax_cam(cam), jsettings)
+        assert got.shape == (*cam.resolution, 3)
+        np.testing.assert_allclose(got, np.asarray(ref), atol=TOL)
+
+
+def test_random_pixel_requests_match_frames():
+    """A mixed stream (2 scenes x 3 cameras, random pixels) through
+    submit/flush returns exactly those pixels of each scene's frame."""
+    _, ct = _cfgs("nerf")
+    params = [_np_params(ct, 10 + s) for s in range(2)]
+    settings = tpipeline.RenderSettings(tile_pixels=64, n_samples=8)
+    engine = _engine(ct, params, settings)
+    cams = [tscenes.orbit_camera(8, 8, a) for a in (0.0, 2.1)] + [
+        tscenes.orbit_camera(12, 10, 4.2)]
+    frames = {(s, c): tpipeline.render_frame(
+        tfields.from_jax_params(params[s], ct, "cpu"), ct, cams[c], settings,
+        device="cpu").reshape(-1, 3).numpy()
+        for s in range(2) for c in range(3)}
+    rng = np.random.default_rng(0)
+    jobs = []
+    for r in range(8):
+        s, c = r % 2, r % 3
+        h, w = cams[c].resolution
+        ids = rng.integers(0, h * w, 40)
+        jobs.append((s, c, ids, engine.submit(
+            RenderRequest(f"s{s}", cams[c], ids))))
+    engine.flush()
+    for s, c, ids, ticket in jobs:
+        assert ticket.is_ready()
+        np.testing.assert_allclose(ticket.result(), frames[(s, c)][ids],
+                                   atol=TOL)
+    st = engine.stats()
+    assert st["n_requests"] == 8 and st["pixels"] == 8 * 40
+    assert np.isfinite(st["p50_ms"]) and st["p99_ms"] >= st["p50_ms"]
+    assert list(st["buckets"].values()) == [{"n_scenes": 2}]
+
+
+def test_engine_rejects_oversized_unknown_and_duplicate():
+    _, ct = _cfgs("nvr", log2_T=10, n_levels=2)
+    settings = tpipeline.RenderSettings(tile_pixels=16, n_samples=4)
+    engine = _engine(ct, [_np_params(ct, 0)], settings)
+    cam = tscenes.default_camera(8, 8)
+    with pytest.raises(ValueError, match="tile_pixels"):
+        engine.submit(RenderRequest("s0", cam, np.arange(17)))
+    with pytest.raises(KeyError, match="nope"):
+        engine.submit(RenderRequest("nope", cam, np.arange(4)))
+    with pytest.raises(ValueError, match="already"):
+        engine.add_scene("s0", ct, tfields.from_jax_params(
+            _np_params(ct, 1), ct, "cpu"))
+    gia = tfields.make_field_config("gia", "hash")
+    with pytest.raises(NotImplementedError):
+        engine.add_scene("g", gia, {})
+    assert engine.scenes() == ["s0"]
+    assert engine.stats()["n_requests"] == 0         # warmup not counted
+
+
+def test_scenes_stack_as_views():
+    _, ct = _cfgs("nerf", log2_T=10, n_levels=2)
+    ps = [tfields.from_jax_params(_np_params(ct, s), ct, "cpu")
+          for s in range(3)]
+    stacked = tpipeline.stack_scene_params(ps)
+    assert stacked["grid"].shape == (3, *ps[0]["grid"].shape)
+    one = tpipeline.select_scene(stacked, 2)
+    assert one["grid"].data_ptr() == stacked["grid"][2].data_ptr()
+    assert torch.equal(one["density_mlp"]["w_in"],
+                       ps[2]["density_mlp"]["w_in"])
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "assert 'repro_torch.serve.engine' in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(SRC),
+                                         "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("entry", ["init_field", "from_jax_params",
+                                   "render_frame", "RenderEngine"])
+def test_entry_points_never_fall_back_to_cpu(monkeypatch, entry):
+    """Without a GPU, an entry point called without ``device`` raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, ct = _cfgs("nvr", log2_T=8, n_levels=2)
+    cpu_params = tfields.from_jax_params(_np_params(ct, 0), ct, "cpu")
+    calls = {
+        "init_field": lambda: tfields.init_field(ct),
+        "from_jax_params": lambda: tfields.from_jax_params(
+            _np_params(ct, 0), ct),
+        "render_frame": lambda: tpipeline.render_frame(
+            cpu_params, ct, tscenes.default_camera(4, 4)),
+        "RenderEngine": lambda: RenderEngine(),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
