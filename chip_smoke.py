@@ -12,7 +12,12 @@ plain PyTorch version. Phases, each printing one JSON line:
   kernels  each kernel against its plain version on the inputs of one real
            engine tile (4096 pixels x 32 samples): max error against the
            stated tolerance, device time per call (CUDA events), the plain
-           version's time, the bound, and a PyTorch yardstick where one exists
+           version's time, the bound, and a PyTorch yardstick where one exists;
+           the quantized field kernel and the standalone encode run on the
+           same tile with tables quantized in the port (int8, fp8-e4m3)
+  unfused  the unfused route, encode_fwd then mlp_fwd at the density MLP's
+           shapes, for f32, int8 and fp8 tables, against the fused kernel
+           (the paper's fused-vs-unfused comparison), with both device times
   serve    2 scenes, warmup, 120 random-pixel requests over 2 scenes x 3
            orbit cameras at 256x256, at most 2 in flight (a closed loop);
            latency (p50, and p90: the highest percentile with 10 samples
@@ -24,8 +29,17 @@ plain PyTorch version. Phases, each printing one JSON line:
            with CUDA activity alone
   parity   a 32x32 frame from the engine on the card against the port's
            render_frame on the CPU (plain versions), same params
+  serve_quant  scene 0 quantized on the card twice, QuantSpec("int8") and
+           QuantSpec("fp8_e4m3", mlp_qtype="int8"), one bucket each; 120
+           requests alternating between them as in serve; the quantized
+           field kernel must launch and the dense one must not
+  parity_quant  each quantized scene's 32x32 frame on the card against
+           render_frame on the CPU on the same quantized params, and its
+           distance to the dense frame (finite, non-zero, under 0.2)
 
-then the ``{"kernels": [...]}`` line, the card's name and power limit as
+then the ``{"kernels": [...]}`` line (every kernel, launches from the path
+that runs it, the quantized and standalone kernels with a row per table
+type under ``variants``), the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}`` last. Any
 failure exits non-zero before that line.
 
@@ -49,6 +63,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 TOL = 1e-4          # kernel vs plain, f32: sequential FMA vs blocked sums
 PARITY_TOL = 1e-4   # engine on the card vs render_frame on the CPU
+QUANT_DENSE_MAX = 0.2   # quantized frame vs dense frame (tests/test_quant.py)
 TILE_PIXELS, N_SAMPLES, FRAME = 4096, 32, 256
 N_REQUESTS = 120
 PROFILE_REQUESTS = 20
@@ -171,7 +186,10 @@ def main():
     from repro_torch.kernels.fused_field import ops as ff_ops
     from repro_torch.kernels.fused_field.ref import field_ref
     from repro_torch.kernels.fused_mlp import ops as mlp_ops
+    from repro_torch.kernels.hashgrid import ops as hops
+    from repro_torch.kernels.hashgrid.ref import encode_ref
     from repro_torch.kernels.ray_march import ops as rm_ops
+    from repro_torch.quant import QuantSpec, quantize_field
     from repro_torch.serve import RenderEngine, RenderRequest
     from torch.profiler import ProfilerActivity, profile
 
@@ -182,7 +200,7 @@ def main():
     gpu = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi}
 
     # ------------------------------------------------------------ build
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib_path = build.build_library()
     build.load_library()
     log = (lib_path.parent / "build.log").read_text()
@@ -195,6 +213,9 @@ def main():
     params = [fields.from_jax_params(np_params(cfg, SEED + s), cfg, dev)
               for s in range(2)]
     p0 = params[0]
+    # the quantized tables of the kernel rows, made in the port on the card
+    qtab = {v: quantize_field(p0, QuantSpec(qtype))
+            for v, qtype in (("int8", "int8"), ("fp8", "fp8_e4m3"))}
     rng = np.random.default_rng(SEED)
     cam = scenes.orbit_camera(FRAME, FRAME, 0.0)
     ids = torch.from_numpy(rng.integers(0, FRAME * FRAME, TILE_PIXELS)).to(dev)
@@ -218,49 +239,83 @@ def main():
                     + m.hidden_dim * m.out_dim)
 
     def wbytes(tree):
-        return sum(t.numel() * 4 for t in tree.values())
+        return sum(t.numel() * t.element_size() for t in tree.values())
 
     rows = touched_rows(flat_pts, g)
     corners = 1 << g.dim
-    work = {
-        "field_fwd": {
-            "bytes": b * g.dim * 4 + rows * g.n_features * 4
-            + wbytes(p0["density_mlp"]) + b * dcfg.out_dim * 4,
-            # MLP, plus per level and corner the d-linear weight (d muls)
-            # and F multiply-adds
-            "flops": b * (mlp_flops(dcfg) + g.n_levels * corners
-                          * (g.dim + 2 * g.n_features))},
-        "mlp_fwd": {
-            "bytes": b * (ccfg.in_dim + ccfg.out_dim) * 4 + wbytes(p0["mlp"]),
-            "flops": b * mlp_flops(ccfg)},
-        "composite_fwd": {
-            # rgb + sigma per sample, one (1, S) dts row, pixel + opacity
-            "bytes": b * 4 * 4 + N_SAMPLES * 4 + TILE_PIXELS * 4 * 4,
-            # per sample: -sigma*dt, 2 exp, 1-alpha, csum, sub, mul, 4 fma
-            "flops": b * 16},
-    }
-    runs = {
-        "field_fwd": (
-            lambda: ff_ops.field(flat_pts, p0["grid"], p0["density_mlp"], g,
-                                 dcfg),
-            lambda: field_ref(flat_pts, p0["grid"], p0["density_mlp"], g,
-                              dcfg),
-            None),
-        "mlp_fwd": (
-            lambda: mlp_ops.mlp(p0["mlp"], color_in, ccfg),
-            lambda: apply_mlp(p0["mlp"], color_in, ccfg),
-            # yardstick: the cuBLAS matmul + relu chain at the same shapes
-            lambda: torch.relu(torch.relu(torch.relu(torch.relu(
-                color_in @ p0["mlp"]["w_in"]) @ p0["mlp"]["w_hidden"][0])
-                @ p0["mlp"]["w_hidden"][1]) @ p0["mlp"]["w_hidden"][2])
-            @ p0["mlp"]["w_out"]),
-        "composite_fwd": (
-            lambda: rm_ops.composite(rgb, sigma, dts),
-            lambda: render.composite(rgb, sigma, dts),
-            None),
-    }
-    results = {}
-    for name, (kern, plain, lib) in runs.items():
+
+    def grid_work(tables, scales):
+        """Bytes and flops of the encode of this tile: points in, the
+        distinct table rows it gathers at the table's itemsize, the scales;
+        per level and corner the d-linear weight (d muls), F multiply-adds
+        and, for codes, F dequant multiplies."""
+        quantized = scales is not None
+        return {"bytes": b * g.dim * 4
+                + rows * g.n_features * tables.element_size()
+                + (scales.numel() * 4 if quantized else 0),
+                "flops": b * g.n_levels * corners
+                * (g.dim + (3 if quantized else 2) * g.n_features)}
+
+    def grid_of(v):
+        """(tables, scales) of a table variant."""
+        if v == "f32":
+            return p0["grid"], None
+        return qtab[v]["grid"], qtab[v]["grid_scale"]
+
+    # (kernel, variant) -> (kernel call, plain call, library call, work)
+    runs = {}
+    fw = grid_work(p0["grid"], None)
+    runs["field_fwd", None] = (
+        lambda: ff_ops.field(flat_pts, p0["grid"], p0["density_mlp"], g,
+                             dcfg),
+        lambda: field_ref(flat_pts, p0["grid"], p0["density_mlp"], g, dcfg),
+        None,
+        {"bytes": fw["bytes"] + wbytes(p0["density_mlp"])
+         + b * dcfg.out_dim * 4,
+         "flops": fw["flops"] + b * mlp_flops(dcfg)})
+    for v in ("int8", "fp8"):
+        tab, sc = grid_of(v)
+        fw = grid_work(tab, sc)
+        runs["field_fwd_q", v] = (
+            lambda tab=tab, sc=sc: ff_ops.field(
+                flat_pts, tab, p0["density_mlp"], g, dcfg, table_scales=sc),
+            lambda tab=tab, sc=sc: field_ref(flat_pts, tab,
+                                             p0["density_mlp"], g, dcfg, sc),
+            None,
+            {"bytes": fw["bytes"] + wbytes(p0["density_mlp"])
+             + b * dcfg.out_dim * 4,
+             "flops": fw["flops"] + b * mlp_flops(dcfg)})
+    for v in ("f32", "int8", "fp8"):
+        tab, sc = grid_of(v)
+        fw = grid_work(tab, sc)
+        runs["encode_fwd", v] = (
+            lambda tab=tab, sc=sc: hops.encode(flat_pts, tab, g,
+                                               table_scales=sc),
+            lambda tab=tab, sc=sc: encode_ref(flat_pts, tab, g, sc),
+            None,
+            {"bytes": fw["bytes"] + b * g.out_dim * 4, "flops": fw["flops"]})
+    runs["mlp_fwd", None] = (
+        lambda: mlp_ops.mlp(p0["mlp"], color_in, ccfg),
+        lambda: apply_mlp(p0["mlp"], color_in, ccfg),
+        # yardstick: the cuBLAS matmul + relu chain at the same shapes
+        lambda: torch.relu(torch.relu(torch.relu(torch.relu(
+            color_in @ p0["mlp"]["w_in"]) @ p0["mlp"]["w_hidden"][0])
+            @ p0["mlp"]["w_hidden"][1]) @ p0["mlp"]["w_hidden"][2])
+        @ p0["mlp"]["w_out"],
+        {"bytes": b * (ccfg.in_dim + ccfg.out_dim) * 4 + wbytes(p0["mlp"]),
+         "flops": b * mlp_flops(ccfg)})
+    runs["composite_fwd", None] = (
+        lambda: rm_ops.composite(rgb, sigma, dts),
+        lambda: render.composite(rgb, sigma, dts),
+        None,
+        # rgb + sigma per sample, one (1, S) dts row, pixel + opacity;
+        # per sample: -sigma*dt, 2 exp, 1-alpha, csum, sub, mul, 4 fma
+        {"bytes": b * 4 * 4 + N_SAMPLES * 4 + TILE_PIXELS * 4 * 4,
+         "flops": b * 16})
+
+    results, outputs = {}, {}
+    for (name, v), (kern, plain, lib, w) in runs.items():
+        label = name if v is None else f"{name}[{v}]"
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -269,14 +324,14 @@ def main():
         bad = max(float(((a - r).abs() - TOL * r.abs()).max())
                   for a, r in zip(got, ref))
         if not all(bool(torch.isfinite(a).all()) for a in got):
-            fail(f"{name}: non-finite output")
+            fail(f"{label}: non-finite output")
         if bad > TOL:
-            fail(f"{name}: max abs error {err} exceeds atol {TOL} + rtol "
+            fail(f"{label}: max abs error {err} exceeds atol {TOL} + rtol "
                  f"{TOL}")
-        w = work[name]
+        outputs[name, v] = got[0]
         t_bytes = w["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = w["flops"] / PEAK_F32_FLOPS * 1e3
-        results[name] = {
+        results[name, v] = {
             "max_abs_err": err, "tol": TOL,
             "ms": device_ms(kern, reps=20),
             "plain_ms": device_ms(plain, reps=3),
@@ -285,40 +340,93 @@ def main():
             "library_ms": device_ms(lib, reps=20) if lib else None,
             "bytes": w["bytes"], "flops": w["flops"]}
     emit({"phase": "kernels", "points": b, "rays": TILE_PIXELS,
-          "table_rows_touched": rows, "results": results, **gpu})
+          "table_rows_touched": rows,
+          "results": {n if v is None else f"{n}[{v}]": r
+                      for (n, v), r in results.items()}, **gpu})
+
+    # ---------------------------------------------------------- unfused
+    # The unfused route: encode_fwd writes the (B, 32) features to device
+    # memory and mlp_fwd reads them back, against the fused kernel.
+    def unfused(v):
+        tab, sc = grid_of(v)
+        return mlp_ops.mlp(p0["density_mlp"],
+                           hops.encode(flat_pts, tab, g, table_scales=sc),
+                           dcfg)
+
+    fused = {"f32": ("field_fwd", None), "int8": ("field_fwd_q", "int8"),
+             "fp8": ("field_fwd_q", "fp8")}
+    K.reset_launch_counts()
+    unfused_out = {v: unfused(v) for v in fused}
+    torch.cuda.synchronize()
+    unfused_launches = K.launch_counts()
+    unfused_rows = {}
+    for v, key in fused.items():
+        ref = outputs[key]
+        err = float((unfused_out[v] - ref).abs().max())
+        if float(((unfused_out[v] - ref).abs() - TOL * ref.abs()).max()) \
+                > TOL:
+            fail(f"unfused[{v}]: differs from the fused kernel by {err}")
+        unfused_rows[v] = {
+            "max_abs_err_vs_fused": err,
+            "unfused_ms": device_ms(lambda v=v: unfused(v), reps=20),
+            "encode_fwd_ms": results["encode_fwd", v]["ms"],
+            "fused_ms": results[key]["ms"]}
+    if unfused_launches["encode_fwd"] != 3:
+        fail(f"unfused: encode_fwd launched {unfused_launches['encode_fwd']}"
+             " times, not 3")
+    emit({"phase": "unfused", "points": b, "mlp": "32->64x3->16",
+          "launches": unfused_launches, "results": unfused_rows, **gpu})
 
     # ------------------------------------------------------------ serve
     settings = pipeline.RenderSettings(tile_pixels=TILE_PIXELS,
                                        n_samples=N_SAMPLES)
+    cams = [scenes.orbit_camera(FRAME, FRAME, a) for a in (0.0, 2.1, 4.2)]
+
+    def serve(engine, scene_names, phase):
+        """120 random-pixel requests, scene_names and cameras in turn, with
+        the launch counts of exactly this stream and the peak device memory
+        allocated while it runs (every live tensor counts)."""
+        torch.cuda.reset_peak_memory_stats(dev)
+        warm_s = engine.warmup()
+        reqs = [RenderRequest(scene_names[i % len(scene_names)], cams[i % 3],
+                              rng.integers(0, FRAME * FRAME, TILE_PIXELS))
+                for i in range(N_REQUESTS)]
+        K.reset_launch_counts()
+        tickets = [engine.submit(r) for r in reqs]
+        engine.flush()
+        launches = K.launch_counts()
+        for t in tickets:
+            o = t.result()
+            if o.shape != (TILE_PIXELS, 3) or not np.isfinite(o).all() \
+                    or o.min() < 0 or o.max() > 1:
+                fail(f"{phase}: a request returned a bad result")
+        st = engine.stats()
+        p50, p90, p99 = (1e3 * v for v in engine.exact_percentiles(50, 90, 99))
+        per_scene = {
+            n: 1e3 * statistics.median(t.latency_s
+                                       for r, t in zip(reqs, tickets)
+                                       if r.scene == n)
+            for n in scene_names}
+        return reqs, launches, {
+            "phase": phase, "scenes": len(scene_names),
+            "requests": st["n_requests"], "tile_pixels": TILE_PIXELS,
+            "n_samples": N_SAMPLES, "p50_ms": p50, "p90_ms": p90,
+            "p99_ms": p99, "p50_ms_by_scene": per_scene,
+            "hist_p50_ms": st["p50_ms"], "hist_p99_ms": st["p99_ms"],
+            "mpix_per_s": st["mpix_per_s"], "wall_s": st["wall_s"],
+            "warmup_s": warm_s, "launches": launches,
+            "buckets": list(st["buckets"]),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev), **gpu}
+
     engine = RenderEngine(settings, device=dev)
     for s, p in enumerate(params):
         engine.add_scene(f"scene{s}", cfg, p)
-    del params, p0
-    warm_s = engine.warmup()
-    cams = [scenes.orbit_camera(FRAME, FRAME, a) for a in (0.0, 2.1, 4.2)]
-    reqs = [RenderRequest(f"scene{i % 2}", cams[i % 3],
-                          rng.integers(0, FRAME * FRAME, TILE_PIXELS))
-            for i in range(N_REQUESTS)]
-    K.reset_launch_counts()
-    tickets = [engine.submit(r) for r in reqs]
-    engine.flush()
-    launches = K.launch_counts()
-    outs = [t.result() for t in tickets]
-    for o in outs:
-        if o.shape != (TILE_PIXELS, 3) or not np.isfinite(o).all() \
-                or o.min() < 0 or o.max() > 1:
-            fail("serve: a request returned a bad result")
-    if min(launches.values()) <= 0:
+    del params
+    reqs, launches, line = serve(engine, ["scene0", "scene1"], "serve")
+    dense_path = ("field_fwd", "mlp_fwd", "composite_fwd")
+    if min(launches[k] for k in dense_path) <= 0:
         fail(f"serve: a kernel of the path never launched: {launches}")
-    st = engine.stats()
-    p50, p90, p99 = (1e3 * v for v in engine.exact_percentiles(50, 90, 99))
-    emit({"phase": "serve", "scenes": 2, "requests": st["n_requests"],
-          "tile_pixels": TILE_PIXELS, "n_samples": N_SAMPLES,
-          "p50_ms": p50, "p90_ms": p90, "p99_ms": p99,
-          "hist_p50_ms": st["p50_ms"], "hist_p99_ms": st["p99_ms"],
-          "mpix_per_s": st["mpix_per_s"], "wall_s": st["wall_s"],
-          "warmup_s": warm_s, "launches": launches,
-          "peak_mem_bytes": torch.cuda.max_memory_allocated(dev), **gpu})
+    emit(line)
 
     # ---------------------------------------------------------- profile
     # Device busy time, idle share and time by kernel, each from one trace
@@ -326,13 +434,13 @@ def main():
     # CPU + CUDA activity (the breakdown), and CUDA activity alone, whose
     # host overhead is smaller, so its idle share is nearer the unprofiled
     # stream's.
-    for window, acts in (("cpu+cuda", [ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]),
-                         ("cuda", [ProfilerActivity.CUDA])):
+    def profile_window(engine, window_reqs, acts):
+        """Device busy time, idle share, device events and time by kernel
+        of one traced window of ``window_reqs``."""
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            for r in reqs[:PROFILE_REQUESTS]:
+            for r in window_reqs:
                 engine.submit(r)
             engine.flush()
             wall_ms = (time.perf_counter() - t0) * 1e3
@@ -346,38 +454,105 @@ def main():
                               ev.time_range.end / 1e3))
         busy_ms = union_ms(spans)
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+        return {"requests": len(window_reqs), "wall_ms": wall_ms,
+                "device_busy_ms": busy_ms if spans else "not measured",
+                "device_idle_share": (1 - busy_ms / wall_ms) if spans
+                else "not measured",
+                "device_events": len(spans), "top_device_ms": top}
+
+    for window, acts in (("cpu+cuda", [ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]),
+                         ("cuda", [ProfilerActivity.CUDA])):
         emit({"phase": "profile", "window": window,
-              "requests": PROFILE_REQUESTS, "wall_ms": wall_ms,
-              "device_busy_ms": busy_ms if spans else "not measured",
-              "device_idle_share": (1 - busy_ms / wall_ms) if spans
-              else "not measured",
-              "device_events": len(spans), "top_device_ms": top, **gpu})
+              **profile_window(engine, reqs[:PROFILE_REQUESTS], acts), **gpu})
 
     # ----------------------------------------------------------- parity
     pcam = scenes.orbit_camera(32, 32, 0.9)
-    got = engine.render_frame("scene0", pcam)
+    dense_frame = engine.render_frame("scene0", pcam)
     cpu_params = fields.from_jax_params(np_params(cfg, SEED), cfg, "cpu")
     ref = pipeline.render_frame(cpu_params, cfg, pcam, settings,
                                 device="cpu").numpy()
-    perr = float(np.abs(got - ref).max())
-    if not np.isfinite(got).all() or perr > PARITY_TOL:
+    perr = float(np.abs(dense_frame - ref).max())
+    if not np.isfinite(dense_frame).all() or perr > PARITY_TOL:
         fail(f"parity: engine vs CPU render_frame max abs error {perr}")
     emit({"phase": "parity", "frame": [32, 32], "max_abs_err": perr,
-          "tol": PARITY_TOL, "mean_rgb": float(got.mean()), **gpu})
+          "tol": PARITY_TOL, "mean_rgb": float(dense_frame.mean()), **gpu})
+    del engine
+
+    # ------------------------------------------------------ serve_quant
+    # Scene 0 quantized on the card two ways, one bucket each; the stream
+    # alternates between them.
+    qspecs = {"q_int8": QuantSpec("int8"),
+              "q_fp8": QuantSpec("fp8_e4m3", mlp_qtype="int8")}
+    qparams = {n: quantize_field(p0, spec) for n, spec in qspecs.items()}
+    qengine = RenderEngine(settings, device=dev)
+    for n, spec in qspecs.items():
+        qengine.add_scene(n, cfg.with_quant(spec), qparams[n])
+    qreqs, qlaunches, line = serve(qengine, list(qspecs), "serve_quant")
+    if qlaunches["field_fwd_q"] <= 0 or qlaunches["field_fwd"] != 0 \
+            or min(qlaunches["mlp_fwd"], qlaunches["composite_fwd"]) <= 0:
+        fail(f"serve_quant: field_fwd_q, mlp_fwd and composite_fwd must "
+             f"launch and field_fwd must not: {qlaunches}")
+    # every device launch of each bucket's requests, the plain PyTorch ops
+    # around the kernels (the fp8 bucket's MLP dequant among them) included
+    line["profile_cuda_by_scene"] = {
+        n: profile_window(qengine, [r for r in qreqs if r.scene == n]
+                          [:PROFILE_REQUESTS // 2], [ProfilerActivity.CUDA])
+        for n in qspecs}
+    emit(line)
+
+    # ----------------------------------------------------- parity_quant
+    qparity = {}
+    for n, spec in qspecs.items():
+        frame = qengine.render_frame(n, pcam)
+        ref = pipeline.render_frame(
+            fields.to_device(qparams[n], torch.device("cpu")),
+            cfg.with_quant(spec), pcam, settings, device="cpu").numpy()
+        err = float(np.abs(frame - ref).max())
+        to_dense = float(np.abs(frame - dense_frame).max())
+        if not np.isfinite(frame).all() or err > PARITY_TOL:
+            fail(f"parity_quant: {n} engine vs CPU render_frame max abs "
+                 f"error {err}")
+        if not 0.0 < to_dense < QUANT_DENSE_MAX:
+            fail(f"parity_quant: {n} differs from the dense frame by "
+                 f"{to_dense}, not in (0, {QUANT_DENSE_MAX})")
+        qparity[n] = {"spec": spec.tag, "max_abs_err": err,
+                      "max_abs_diff_to_dense": to_dense}
+    emit({"phase": "parity_quant", "frame": [32, 32], "tol": PARITY_TOL,
+          "dense_max": QUANT_DENSE_MAX, "scenes": qparity, **gpu})
 
     # ----------------------------------------------------------- report
-    source = {"field_fwd": ("src/repro_torch/csrc/field.cu",
-                            "src/repro/kernels/fused_field/fused_field.py:111"),
-              "mlp_fwd": ("src/repro_torch/csrc/mlp.cu",
-                          "src/repro/kernels/fused_mlp/fused_mlp.py:74"),
-              "composite_fwd": ("src/repro_torch/csrc/composite.cu",
-                                "src/repro/kernels/ray_march/ray_march.py:53")}
-    emit({"kernels": [
-        {"name": n, "route": "cuda", "source": source[n][0],
-         "replaces": source[n][1], "launches": launches[n],
-         **{k: results[n][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")}}
-        for n in runs]})
+    # kernel -> (source, TPU kernel it replaces, path its launches are
+    # read from, launches on that path, variant of the row's own numbers)
+    report = {
+        "field_fwd": ("src/repro_torch/csrc/field.cu",
+                      "src/repro/kernels/fused_field/fused_field.py:111",
+                      "serve", launches, None),
+        "field_fwd_q": ("src/repro_torch/csrc/field.cu",
+                        "src/repro/kernels/fused_field/fused_field.py:111",
+                        "serve_quant", qlaunches, "int8"),
+        "encode_fwd": ("src/repro_torch/csrc/encode.cu",
+                       "src/repro/kernels/hashgrid/hashgrid.py:183",
+                       "unfused", unfused_launches, "f32"),
+        "mlp_fwd": ("src/repro_torch/csrc/mlp.cu",
+                    "src/repro/kernels/fused_mlp/fused_mlp.py:74",
+                    "serve", launches, None),
+        "composite_fwd": ("src/repro_torch/csrc/composite.cu",
+                          "src/repro/kernels/ray_march/ray_march.py:53",
+                          "serve", launches, None)}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    rows_out = []
+    for n, (src, tpu, path, counts, main_v) in report.items():
+        row = {"name": n, "route": "cuda", "source": src, "replaces": tpu,
+               "launches": counts[n], "path": path,
+               **{k: results[n, main_v][k] for k in keys}}
+        if main_v is not None:
+            row["variant"] = main_v
+            row["variants"] = {v: {k: r[k] for k in keys}
+                               for (kn, v), r in results.items() if kn == n}
+        rows_out.append(row)
+    emit({"kernels": rows_out, "script_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.quant import qtypes
+
 # instant-NGP's spatial hash primes (pi_1 = 1 keeps coherence in x).
 HASH_PRIMES = (1, 2654435761, 805459861, 3674653429)
 _U32 = 0xFFFFFFFF
@@ -133,28 +135,38 @@ def level_corner_index(cell: torch.Tensor, bits, level: int,
 
 
 def encode_level(points: torch.Tensor, table: torch.Tensor, level: int,
-                 cfg: GridConfig) -> torch.Tensor:
+                 cfg: GridConfig, scale: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """Encode one resolution level: lookup 2^d corners + d-linear interp.
 
-    points: (B, d) in [0, 1]; table: (T, F) -> (B, F) f32.
+    points: (B, d) in [0, 1]; table: (T, F) -> (B, F) f32. ``scale`` is the
+    level's dequant scale of an int8/fp8 table: each gathered row is
+    dequantized (``q.float() * scale``) before the lerp, as the JAX
+    kernels do; the table itself is never dequantized whole.
     """
     cell, frac = level_cell(points, cfg.level_resolution(level))
     out = torch.zeros((points.shape[0], cfg.n_features), dtype=torch.float32,
                       device=points.device)
     for bits in _corner_offsets(cfg.dim):
         feats = table[level_corner_index(cell, bits, level, cfg)]   # gather
+        feats = (feats.to(torch.float32) if scale is None
+                 else qtypes.dequantize(feats, scale))
         w = torch.ones_like(frac[:, 0])
         for i in range(cfg.dim):
             w = w * (frac[:, i] if bits[i] else 1.0 - frac[:, i])
-        out = out + w[:, None] * feats.to(torch.float32)
+        out = out + w[:, None] * feats
     return out
 
 
 def grid_encode(points: torch.Tensor, tables: torch.Tensor,
-                cfg: GridConfig) -> torch.Tensor:
-    """Full multi-resolution encoding: (B, d) -> (B, L*F)."""
-    return torch.cat([encode_level(points, tables[l], l, cfg)
-                      for l in range(cfg.n_levels)], dim=-1)
+                cfg: GridConfig, table_scales: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """Full multi-resolution encoding: (B, d) -> (B, L*F). ``table_scales``
+    (L, 1, 1) f32 goes with int8/fp8 tables."""
+    return torch.cat([encode_level(
+        points, tables[l], l, cfg,
+        None if table_scales is None else table_scales[l])
+        for l in range(cfg.n_levels)], dim=-1)
 
 
 def sh_encode(dirs: torch.Tensor) -> torch.Tensor:

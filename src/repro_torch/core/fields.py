@@ -9,7 +9,9 @@ the 12 configurations of Table I.
 wrapper (``kernels/fused_field``) and NeRF's colour MLP through the fused
 MLP kernel's wrapper (``kernels/fused_mlp``): the CUDA kernels for CUDA
 tensors, their plain versions (the core library's encode and MLP) for CPU
-tensors.
+tensors. A quantized scene (``repro_torch.quant``) carries its per-level
+table scales in a ``grid_scale`` leaf, which goes into the field kernel,
+and its MLP weights are dequantized on entry.
 """
 from __future__ import annotations
 
@@ -25,6 +27,9 @@ from repro_torch.core.mlp import MLPConfig, init_mlp
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.fused_field import ops as ff_ops
 from repro_torch.kernels.fused_mlp import ops as mlp_ops
+from repro_torch.quant.api import maybe_dequant_mlp
+from repro_torch.quant.calibrate import MLP_WEIGHT_KEYS
+from repro_torch.quant.qtypes import QuantSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +40,9 @@ class FieldConfig:
     density_mlp: Optional[MLPConfig] = None   # NeRF only
     mlp: MLPConfig = None                     # main model MLP
     name: str = ""
+    # post-training quantization recipe (repro_torch.quant); None = dense
+    # params. Part of the frozen config, so serve buckets key on it.
+    quant: Optional[QuantSpec] = None
 
     @property
     def in_dim(self) -> int:
@@ -56,6 +64,11 @@ class FieldConfig:
                     self.density_mlp, in_dim=grid.out_dim))
         return dataclasses.replace(
             cfg, mlp=dataclasses.replace(self.mlp, in_dim=grid.out_dim))
+
+    def with_quant(self, quant: Optional[QuantSpec]) -> "FieldConfig":
+        """The config twin of ``repro_torch.quant.quantize_field``: pair
+        the quantized param tree with ``cfg.with_quant(spec)``."""
+        return dataclasses.replace(self, quant=quant)
 
 
 def _grid_for(encoding_kind: str, dim: int, growth_hash: float,
@@ -92,21 +105,33 @@ def make_field_config(app: str, encoding_kind: str) -> FieldConfig:
         name=f"{app}_{encoding_kind}")
 
 
-def _mlp_shapes(m: MLPConfig) -> Dict[str, tuple]:
+def _mlp_shapes(m: MLPConfig, mlp_qtype: Optional[str] = None
+                ) -> Dict[str, tuple]:
     shapes = {"w_in": (m.in_dim, m.hidden_dim),
               "w_out": (m.hidden_dim, m.out_dim)}
     if m.n_hidden > 1:
         shapes["w_hidden"] = (m.n_hidden - 1, m.hidden_dim, m.hidden_dim)
+    if mlp_qtype is not None:     # per-tensor / per-layer sibling scales
+        for key in MLP_WEIGHT_KEYS:
+            if key in shapes:
+                s = (1, 1) if len(shapes[key]) == 2 else (shapes[key][0], 1, 1)
+                shapes[key + "_scale"] = s
+                if mlp_qtype == "int8_affine":
+                    shapes[key + "_zero"] = s
     return shapes
 
 
 def param_shapes(cfg: FieldConfig) -> Dict:
-    """The param tree's leaf shapes, keyed as the JAX package keys them."""
+    """The param tree's leaf shapes, keyed as the JAX package keys them,
+    with the scale (and zero) leaves that ``cfg.quant`` says exist."""
     g = cfg.grid
+    mlp_qtype = cfg.quant.mlp_qtype if cfg.quant else None
     shapes = {"grid": (g.n_levels, g.table_size, g.n_features),
-              "mlp": _mlp_shapes(cfg.mlp)}
+              "mlp": _mlp_shapes(cfg.mlp, mlp_qtype)}
+    if cfg.quant and cfg.quant.table_qtype:
+        shapes["grid_scale"] = (g.n_levels, 1, 1)
     if cfg.density_mlp is not None:
-        shapes["density_mlp"] = _mlp_shapes(cfg.density_mlp)
+        shapes["density_mlp"] = _mlp_shapes(cfg.density_mlp, mlp_qtype)
     return shapes
 
 
@@ -130,22 +155,45 @@ def to_device(params: Mapping, device: torch.device) -> Dict:
             for k, v in params.items()}
 
 
+def leaf_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """One leaf, carried bit for bit: int8 stays int8, fp8-e4m3 (which
+    ``torch.from_numpy`` refuses) goes through its uint8 view, and every
+    float leaf becomes f32 (bf16 -> f32 is exact)."""
+    if arr.dtype == np.int8:
+        return torch.from_numpy(arr.copy())
+    if arr.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(arr.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
+    return torch.from_numpy(np.asarray(arr, dtype=np.float32).copy())
+
+
 def from_jax_params(np_params: Mapping, cfg: FieldConfig,
                     device: DeviceLike = None) -> Dict:
     """The JAX package's unboxed param tree, with every leaf as a numpy
-    array, as the port's f32 tensors on ``device``. Raises on a missing
-    leaf or a shape that ``cfg`` does not give."""
+    array, as the port's tensors on ``device``: int8 and fp8-e4m3 codes
+    keep their dtype, every other leaf becomes f32, and the quantization
+    scale leaves come along where ``cfg.quant`` says they exist. Raises,
+    naming its path, on a missing leaf, a leaf ``cfg`` does not give, or a
+    shape it does not give."""
     dev = resolve_device(device)
 
     def conv(tree, shapes, path):
         if isinstance(shapes, dict):
+            extra = sorted(set(tree) - set(shapes))
+            if extra:
+                raise ValueError(f"{path}/{extra[0]}: a leaf the config does "
+                                 f"not give (it gives {sorted(shapes)})")
+            missing = sorted(set(shapes) - set(tree))
+            if missing:
+                raise ValueError(f"{path}/{missing[0]}: missing; the config "
+                                 "gives it")
             return {k: conv(tree[k], s, f"{path}/{k}")
                     for k, s in shapes.items()}
-        arr = np.asarray(tree, dtype=np.float32)
+        arr = np.asarray(tree)
         if arr.shape != shapes:
             raise ValueError(f"{path}: shape {arr.shape}, config gives "
                              f"{shapes}")
-        return torch.from_numpy(arr.copy()).to(dev)
+        return leaf_from_numpy(arr).to(dev)
     return conv(np_params, param_shapes(cfg), "params")
 
 
@@ -155,16 +203,18 @@ def apply_field(params: Dict, cfg: FieldConfig, points: torch.Tensor,
 
     Returns: nerf/nvr -> (B, 4) [rgb, sigma]; gia -> (B, 3); nsdf -> (B, 1).
     """
+    tscale = params.get("grid_scale")
     if cfg.app == "nerf":
         dfeat = ff_ops.field(points, params["grid"], params["density_mlp"],
-                             cfg.grid, cfg.density_mlp)
+                             cfg.grid, cfg.density_mlp, table_scales=tscale)
         sigma = torch.exp(dfeat[:, :1])        # instant-NGP exp activation
         color_in = torch.cat([enc.sh_encode(dirs), dfeat], dim=-1)
-        rgb = torch.sigmoid(mlp_ops.mlp(params["mlp"], color_in, cfg.mlp))
+        rgb = torch.sigmoid(mlp_ops.mlp(maybe_dequant_mlp(params["mlp"]),
+                                        color_in, cfg.mlp))
         return torch.cat([rgb, sigma], dim=-1)
 
     out = ff_ops.field(points, params["grid"], params["mlp"], cfg.grid,
-                       cfg.mlp)
+                       cfg.mlp, table_scales=tscale)
     if cfg.app == "gia":
         return torch.sigmoid(out)
     if cfg.app == "nvr":

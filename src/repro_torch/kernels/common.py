@@ -6,6 +6,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.quant import qtypes
+
 
 def pad_batch(x: torch.Tensor, block: int) -> Tuple[torch.Tensor, int]:
     """Pad dim 0 with zeros up to a multiple of ``block``.
@@ -35,10 +37,29 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
                      "versions tensors on the CPU")
 
 
-def check_kernel_input(name: str, t: torch.Tensor, shape=None) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape``."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+# Table dtypes the grid-encode kernels are instantiated for, and the code
+# their C entry points take for each (csrc/encode.cuh TableDtype).
+TABLE_DTYPE_CODE = {torch.float32: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+
+
+def check_table_scales(tables: torch.Tensor, table_scales) -> None:
+    """Raise unless a codec table comes with its per-level scales and a
+    dense table without: scales on a dense table, or none on a codec one,
+    would render another scene without an error."""
+    quantized = qtypes.is_quantized(tables)
+    if quantized != (table_scales is not None):
+        raise ValueError(f"tables dtype {tables.dtype} "
+                         + ("requires" if quantized else "forbids")
+                         + " table_scales")
+
+
+def check_kernel_input(name: str, t: torch.Tensor, shape=None,
+                       dtypes=(torch.float32,)) -> None:
+    """Raise unless ``t`` is a contiguous tensor of one of ``dtypes`` (the
+    kernel's own: float32 unless it says otherwise) and of ``shape``."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: the kernel takes {list(dtypes)}, "
+                        f"got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: the kernel takes a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):

@@ -36,6 +36,7 @@ from repro_torch.core.fields import FieldConfig
 from repro_torch.core.pipeline import RenderSettings
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.quant.api import is_quantized_field
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,14 +151,26 @@ class RenderEngine:
     # ------------------------------------------------------------- scenes
     def add_scene(self, name: str, cfg: FieldConfig, params) -> BucketKey:
         """Register a scene; its params move to the engine's device.
-        Scenes stack iff their FieldConfig and param dtypes match exactly;
-        otherwise they get their own bucket."""
+        Scenes stack iff their FieldConfig (``quant`` included) and param
+        dtypes match exactly; otherwise they get their own bucket. A
+        quantized scene's params and config must agree both ways."""
         if name in self._scene_bucket:
             raise ValueError(f"scene {name!r} already registered")
         if cfg.app not in pipeline.RAY_APPS:
             raise NotImplementedError(
                 f"scene {name!r}: app {cfg.app!r} is not served yet "
                 f"(ported: {pipeline.RAY_APPS})")
+        if is_quantized_field(params) and cfg.quant is None:
+            raise ValueError(
+                f"scene {name!r} has quantized params but cfg.quant is "
+                "None: pair quantize_field(params, spec) with "
+                "cfg.with_quant(spec)")
+        if cfg.quant is not None and cfg.quant.table_qtype is not None \
+                and "grid_scale" not in params:
+            raise ValueError(
+                f"scene {name!r}: cfg.quant declares table_qtype="
+                f"{cfg.quant.table_qtype!r} but params have no "
+                "'grid_scale' leaf: run repro_torch.quant.quantize_field")
         params = fields.to_device(params, self.device)
         dtype = ",".join(str(l.dtype) for l in _leaves(params))
         key = BucketKey(app=cfg.app, encoding=cfg.grid.kind,
@@ -330,7 +343,9 @@ class RenderEngine:
             "buckets": {
                 f"{k.app}/{k.encoding}/tp{k.tile_pixels}/s{k.n_samples}"
                 f"/{k.dtype}/T{k.cfg.grid.log2_table_size}"
-                f"L{k.cfg.grid.n_levels}#{b.idx}": {"n_scenes": len(b.order)}
+                f"L{k.cfg.grid.n_levels}"
+                + (f"/q-{k.cfg.quant.tag}" if k.cfg.quant else "")
+                + f"#{b.idx}": {"n_scenes": len(b.order)}
                 for k, b in self._buckets.items()},
             "metrics": self.obs.snapshot(),
         }

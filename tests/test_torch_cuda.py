@@ -25,7 +25,12 @@ from repro_torch.data import scenes
 from repro_torch.kernels.fused_field import ops as ff_ops
 from repro_torch.kernels.fused_field.ref import field_ref
 from repro_torch.kernels.fused_mlp import ops as mlp_ops
+from repro_torch.kernels.hashgrid import ops as hops
+from repro_torch.kernels.hashgrid.ref import encode_ref
 from repro_torch.kernels.ray_march import ops as rm_ops
+from repro_torch.quant import QuantSpec, quantize_field
+from repro_torch.quant.calibrate import table_scales
+from repro_torch.quant.qtypes import quantize
 from repro_torch.serve import RenderEngine
 
 TOL = 1e-4
@@ -71,6 +76,59 @@ def test_field_kernel_matches_plain(dev, n, dim, n_features, log2_T):
     torch.cuda.synchronize()
     assert tkernels.launch_counts()["field_fwd"] == before + 1
     torch.testing.assert_close(got, field_ref(pts, tables, w, g, m),
+                               atol=TOL, rtol=TOL)
+
+
+def _grid_inputs(dev, n, n_features, log2_T, qtype, seed):
+    """A 4-level hash grid, U(-1, 1) tables (quantized in the port when
+    ``qtype`` is given), and n points with an edge coordinate."""
+    g = dataclasses.replace(tenc.hashgrid_config(), log2_table_size=log2_T,
+                            n_levels=4, n_features=n_features)
+    rng = np.random.default_rng(seed)
+    tables = torch.from_numpy(rng.uniform(
+        -1, 1, (g.n_levels, g.table_size, n_features)).astype(
+            np.float32)).to(dev)
+    scales = None
+    if qtype is not None:
+        scales = table_scales(tables, QuantSpec(qtype))
+        tables = quantize(tables, scales, qtype)
+    pts = rng.uniform(size=(n, 3)).astype(np.float32)
+    pts[:1] = 1.0                                        # edge coordinate
+    return g, tables, scales, torch.from_numpy(pts).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("n,n_features,log2_T", [(1, 2, 14), (4099, 2, 19),
+                                                 (257, 8, 12)])
+def test_encode_kernel_matches_plain(dev, qtype, n, n_features, log2_T):
+    g, tables, scales, pts = _grid_inputs(dev, n, n_features, log2_T, qtype,
+                                          n)
+    before = tkernels.launch_counts()["encode_fwd"]
+    got = hops.encode(pts, tables, g, table_scales=scales)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts()["encode_fwd"] == before + 1
+    torch.testing.assert_close(got, encode_ref(pts, tables, g, scales),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("n,n_features,log2_T", [(300, 2, 14), (4099, 2, 19),
+                                                 (257, 8, 12)])
+def test_quantized_field_kernel_matches_plain(dev, qtype, n, n_features,
+                                              log2_T):
+    g, tables, scales, pts = _grid_inputs(dev, n, n_features, log2_T, qtype,
+                                          n + 7)
+    m = MLPConfig(in_dim=g.out_dim, n_hidden=3, out_dim=16)
+    w = _mlp_params(m, n + 1, dev)
+    before = tkernels.launch_counts()
+    got = ff_ops.field(pts, tables, w, g, m, table_scales=scales)
+    torch.cuda.synchronize()
+    after = tkernels.launch_counts()
+    assert after["field_fwd_q"] == before["field_fwd_q"] + 1
+    assert after["field_fwd"] == before["field_fwd"]
+    torch.testing.assert_close(got, field_ref(pts, tables, w, g, m, scales),
                                atol=TOL, rtol=TOL)
 
 
@@ -128,4 +186,35 @@ def test_engine_on_card_matches_cpu_render_frame(dev, app):
     assert launched == ({"field_fwd", "composite_fwd"}
                         | ({"mlp_fwd"} if app == "nerf" else set()))
     ref = pipeline.render_frame(params, cfg, cam, settings, device="cpu")
+    np.testing.assert_allclose(got, ref.numpy(), atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app,spec", [
+    ("nerf", QuantSpec("int8")), ("nerf", QuantSpec("fp8_e4m3", "int8")),
+    ("nvr", QuantSpec("fp8_e4m3"))])
+def test_quantized_engine_on_card_matches_cpu_render_frame(dev, app, spec):
+    """Scenes quantized on the card, served through their own bucket, equal
+    the CPU render of the same quantized params."""
+    cfg = fields.make_field_config(app, "hash")
+    cfg = cfg.with_grid(dataclasses.replace(cfg.grid, log2_table_size=14,
+                                            n_levels=6))
+    params = fields.init_field(cfg, torch.Generator().manual_seed(0),
+                               device=dev)
+    params["grid"] = torch.rand(params["grid"].shape,
+                                generator=torch.Generator().manual_seed(1)
+                                ).to(dev) * 2 - 1
+    qparams = quantize_field(params, spec)
+    qcfg = cfg.with_quant(spec)
+    settings = pipeline.RenderSettings(tile_pixels=64, n_samples=8)
+    engine = RenderEngine(settings, device=dev)
+    engine.add_scene("q", qcfg, qparams)
+    engine.warmup()
+    cam = scenes.orbit_camera(12, 12, 0.7)
+    tkernels.reset_launch_counts()
+    got = engine.render_frame("q", cam)
+    counts = tkernels.launch_counts()
+    assert counts["field_fwd_q"] > 0 and counts["field_fwd"] == 0
+    ref = pipeline.render_frame(fields.to_device(qparams, torch.device("cpu")),
+                                qcfg, cam, settings, device="cpu")
     np.testing.assert_allclose(got, ref.numpy(), atol=TOL)

@@ -26,6 +26,8 @@ from repro_torch.core import encoding as tenc
 from repro_torch.core import render as trender
 from repro_torch.core.mlp import MLPConfig
 from repro_torch.kernels import build
+from repro_torch.kernels.common import TABLE_DTYPE_CODE, check_kernel_input
+from repro_torch.kernels.hashgrid.hashgrid import check_tables
 from repro_torch.kernels.fused_field import ops as ff_ops
 from repro_torch.kernels.fused_mlp import ops as mlp_ops
 from repro_torch.kernels.ray_march import ops as rm_ops
@@ -173,7 +175,27 @@ def test_build_raises_without_nvcc(monkeypatch):
 
 
 def test_kernel_registry_lists_the_slice():
-    assert set(tkernels.kernels()) == {"field_fwd", "mlp_fwd",
+    assert set(tkernels.kernels()) == {"field_fwd", "field_fwd_q",
+                                       "encode_fwd", "mlp_fwd",
                                        "composite_fwd"}
     tkernels.reset_launch_counts()
     assert set(tkernels.launch_counts().values()) == {0}
+
+
+def test_check_kernel_input_takes_codec_tables_only_where_asked():
+    """Codec tables pass exactly the grid kernels' table check; every other
+    kernel input stays f32."""
+    codes = torch.zeros((2, 256, 2), dtype=torch.int8)
+    with pytest.raises(TypeError):
+        check_kernel_input("w_in", codes)
+    check_kernel_input("tables", codes, (2, 256, 2),
+                       dtypes=tuple(TABLE_DTYPE_CODE))
+    gt = dataclasses.replace(tenc.hashgrid_config(), log2_table_size=8,
+                             n_levels=2)
+    for dtype in (torch.int8, torch.float8_e4m3fn):
+        check_tables(codes.to(dtype), torch.ones((2, 1, 1)), gt)
+    with pytest.raises(TypeError):
+        check_tables(codes.to(torch.float16), None, gt)
+    with pytest.raises(ValueError, match="aligned"):
+        check_tables(torch.zeros(2 * 256 * 2 + 1, dtype=torch.int8)[1:]
+                     .view(2, 256, 2), torch.ones((2, 1, 1)), gt)

@@ -21,9 +21,12 @@ import torch
 
 from repro.core import pipeline as jpipeline
 from repro.core import render as jrender
+from repro.quant import QuantSpec as JQuantSpec
+from repro.quant import api as japi
 from repro_torch.core import fields as tfields
 from repro_torch.core import pipeline as tpipeline
 from repro_torch.data import scenes as tscenes
+from repro_torch.quant import QuantSpec, quantize_field
 from repro_torch.serve import RenderEngine, RenderRequest
 from tests.conftest import small_field_config
 
@@ -83,6 +86,68 @@ def test_engine_matches_jax_render_frame_per_scene(app):
                                      _jax_cam(cam), jsettings)
         assert got.shape == (*cam.resolution, 3)
         np.testing.assert_allclose(got, np.asarray(ref), atol=TOL)
+
+
+@pytest.mark.parametrize("app,table_qtype,mlp_qtype", [
+    ("nerf", "int8", None), ("nerf", "fp8_e4m3", "int8"),
+    ("nvr", "fp8_e4m3", None), ("nvr", "int8", "int8_affine")])
+def test_quantized_engine_matches_jax_render_frame(app, table_qtype,
+                                                   mlp_qtype):
+    """A JAX quantize_field tree served through the port's engine equals
+    the JAX Pallas render of the same tree."""
+    cj, ct = _cfgs(app)
+    jspec = JQuantSpec(table_qtype, mlp_qtype)
+    jq = japi.quantize_field(jax.tree.map(jnp.asarray, _np_params(ct, 4)),
+                             jspec)
+    qcfg = ct.with_quant(QuantSpec(table_qtype, mlp_qtype))
+    settings = tpipeline.RenderSettings(tile_pixels=64, n_samples=8)
+    engine = RenderEngine(settings, device="cpu")
+    engine.add_scene("q", qcfg, tfields.from_jax_params(
+        jax.tree.map(np.asarray, jq), qcfg, "cpu"))
+    engine.warmup()
+    cam = tscenes.orbit_camera(12, 12, 1.3)
+    got = engine.render_frame("q", cam)
+    ref = jpipeline.render_frame(
+        jq, cj.with_quant(jspec), _jax_cam(cam),
+        jpipeline.RenderSettings(tile_pixels=64, n_samples=8,
+                                 use_pallas=True))
+    np.testing.assert_allclose(got, np.asarray(ref), atol=TOL)
+
+
+def test_quantized_and_dense_scenes_never_share_a_bucket():
+    _, ct = _cfgs("nerf", log2_T=10, n_levels=2)
+    dense = tfields.from_jax_params(_np_params(ct, 0), ct, "cpu")
+    engine = RenderEngine(tpipeline.RenderSettings(tile_pixels=64,
+                                                   n_samples=8), device="cpu")
+    keys = [engine.add_scene("dense", ct, dense)]
+    for name, spec in (("i8", QuantSpec("int8")),
+                       ("f8", QuantSpec("fp8_e4m3", mlp_qtype="int8")),
+                       ("i8b", QuantSpec("int8"))):
+        keys.append(engine.add_scene(name, ct.with_quant(spec),
+                                     quantize_field(dense, spec)))
+    assert len(set(keys)) == 3 and keys[1] == keys[3]
+    names = list(engine.stats()["buckets"])
+    assert [n.split("/q-")[-1] if "/q-" in n else n[-2:] for n in names] \
+        == ["#0", "t:int8#1", "t:fp8_e4m3+m:int8#2"]
+    engine.warmup()
+    cam = tscenes.orbit_camera(8, 8, 0.4)
+    rgb_d = engine.render_frame("dense", cam)
+    for name in ("i8", "f8"):
+        err = np.abs(engine.render_frame(name, cam) - rgb_d).max()
+        assert 0.0 < err < 0.2                 # same scene, small error
+
+
+def test_engine_rejects_quant_config_param_drift():
+    _, ct = _cfgs("nvr", log2_T=8, n_levels=2)
+    spec = QuantSpec("int8")
+    params = tfields.from_jax_params(_np_params(ct, 0), ct, "cpu")
+    engine = RenderEngine(tpipeline.RenderSettings(tile_pixels=16,
+                                                   n_samples=4), device="cpu")
+    with pytest.raises(ValueError, match="cfg.quant is None"):
+        engine.add_scene("a", ct, quantize_field(params, spec))
+    with pytest.raises(ValueError, match="grid_scale"):
+        engine.add_scene("b", ct.with_quant(spec), params)
+    assert engine.scenes() == []
 
 
 def test_random_pixel_requests_match_frames():
