@@ -8,13 +8,16 @@ Drives the port's main path, serving Table-I ``nerf_hash`` at full width
 plain PyTorch version. Phases, each printing one JSON line:
 
   build    compile the kernel library from ``src/repro_torch/csrc`` (nvcc,
-           sm_90a); ptxas' registers and spills per kernel
+           sm_90a); ptxas' registers and spills per kernel, the tensor-core
+           instructions (HMMA) in each kernel's SASS (cuobjdump), and the
+           shared memory per block of the MLP and field kernels' plans
   kernels  each kernel against its plain version on the inputs of one real
            engine tile (4096 pixels x 32 samples): max error against the
            stated tolerance, device time per call (CUDA events), the plain
            version's time, the bound, and a PyTorch yardstick where one exists;
            the quantized field kernel and the standalone encode run on the
            same tile with tables quantized in the port (int8, fp8-e4m3)
+           and cast to bf16 (field_fwd with bf16 weights too)
   unfused  the unfused route, encode_fwd then mlp_fwd at the density MLP's
            shapes, for f32, int8 and fp8 tables, against the fused kernel
            (the paper's fused-vs-unfused comparison), with both device times
@@ -30,12 +33,13 @@ plain PyTorch version. Phases, each printing one JSON line:
   parity   a 32x32 frame from the engine on the card against the port's
            render_frame on the CPU (plain versions), same params
   serve_quant  scene 0 quantized on the card twice, QuantSpec("int8") and
-           QuantSpec("fp8_e4m3", mlp_qtype="int8"), one bucket each; 120
-           requests alternating between them as in serve; the quantized
-           field kernel must launch and the dense one must not
-  parity_quant  each quantized scene's 32x32 frame on the card against
-           render_frame on the CPU on the same quantized params, and its
-           distance to the dense frame (finite, non-zero, under 0.2)
+           QuantSpec("fp8_e4m3", mlp_qtype="int8"), and with its tables cast
+           to bf16, one bucket each; 120 requests alternating between them
+           as in serve; field_fwd_q must launch for the quantized buckets and
+           field_fwd exactly once per bf16 request
+  parity_quant  each of those scenes' 32x32 frame on the card against
+           render_frame on the CPU on the same params, and its distance to
+           the dense frame (finite, non-zero, under 0.2)
 
 then the ``{"kernels": [...]}`` line (every kernel, launches from the path
 that runs it, the quantized and standalone kernels with a row per table
@@ -57,11 +61,14 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W): HBM3 rate
-# and f32 outside the tensor cores, which is what these kernels use.
+# H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W): HBM3 rate,
+# TF32 on the tensor cores (the MLP products, three passes in 3xTF32) and
+# f32 outside them (the encode's arithmetic).
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
-TOL = 1e-4          # kernel vs plain, f32: sequential FMA vs blocked sums
+TF32_PASSES = 3
+TOL = 1e-4          # kernel vs plain, f32: 3xTF32 products, another sum order
 PARITY_TOL = 1e-4   # engine on the card vs render_frame on the CPU
 QUANT_DENSE_MAX = 0.2   # quantized frame vs dense frame (tests/test_quant.py)
 TILE_PIXELS, N_SAMPLES, FRAME = 4096, 32, 256
@@ -120,14 +127,25 @@ def union_ms(spans):
     return busy
 
 
+# a kernel's mangled name: repro::<name>_kernel<template args>
+KERNEL_NAME = re.compile(r"_ZN5repro\d+(\w+?_kernel)(?:I(\w+?)E)?E")
+
+
+def kernel_name(line):
+    """``name<template args>`` of the repro kernel a tool's line names, or
+    None."""
+    m = KERNEL_NAME.search(line)
+    if not m:
+        return None
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
 def ptxas_summary(log):
     """[(kernel, registers, spill bytes)] from nvcc -Xptxas -v output."""
     rows, name, spill = [], None, 0
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_ZN5repro\d+(\w+?_kernel)"
-                      r"(?:I(\w+?)E)?E", line)
-        if m:
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        if "Compiling entry function" in line:
+            name = kernel_name(line)
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = int(m.group(1))
@@ -136,6 +154,26 @@ def ptxas_summary(log):
             rows.append([name, int(m.group(1)), spill])
             name = None
     return rows
+
+
+def sass_mma_counts(lib_path):
+    """{kernel: tensor-core (HMMA) instructions in its SASS}, from cuobjdump
+    beside nvcc; None if the toolkit has no cuobjdump."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = kernel_name(line)
+            if name:
+                counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def np_params(cfg, seed):
@@ -184,7 +222,9 @@ def main():
     from repro_torch.data import scenes
     from repro_torch.kernels import build
     from repro_torch.kernels.fused_field import ops as ff_ops
+    from repro_torch.kernels.fused_field.fused_field import field_plan
     from repro_torch.kernels.fused_field.ref import field_ref
+    from repro_torch.kernels.fused_mlp.fused_mlp import mlp_plan
     from repro_torch.kernels.fused_mlp import ops as mlp_ops
     from repro_torch.kernels.hashgrid import ops as hops
     from repro_torch.kernels.hashgrid.ref import encode_ref
@@ -204,12 +244,27 @@ def main():
     lib_path = build.build_library()
     build.load_library()
     log = (lib_path.parent / "build.log").read_text()
+    ptxas = ptxas_summary(log)
+    mma = sass_mma_counts(lib_path)
+    cfg = fields.make_field_config("nerf", "hash")
+    smem = {"mlp_fwd (colour MLP)": mlp_plan(cfg.mlp)["smem_bytes"],
+            "field_fwd (density MLP)": field_plan(cfg.density_mlp)[
+                "smem_bytes"]}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(lib_path, ROOT),
-          "ptxas_kernel_registers_spill_bytes": ptxas_summary(log), **gpu})
+          "ptxas_kernel_registers_spill_bytes": ptxas,
+          "sass_hmma_per_kernel": mma, "smem_bytes_per_block": smem, **gpu})
+    spilled = [r for r in ptxas if r[2] > 0]
+    if spilled:
+        fail(f"build: ptxas spilled registers: {spilled}")
+    if mma is not None:
+        no_mma = [k for k, n in mma.items()
+                  if k.startswith(("mlp_fwd", "field_fwd")) and n == 0]
+        if no_mma or not any(k.startswith("field_fwd") for k in mma):
+            fail(f"build: MLP kernels without tensor-core instructions: "
+                 f"{no_mma or mma}")
 
     # ---------------------------------------------------------- kernels
-    cfg = fields.make_field_config("nerf", "hash")
     params = [fields.from_jax_params(np_params(cfg, SEED + s), cfg, dev)
               for s in range(2)]
     p0 = params[0]
@@ -245,7 +300,7 @@ def main():
     corners = 1 << g.dim
 
     def grid_work(tables, scales):
-        """Bytes and flops of the encode of this tile: points in, the
+        """Bytes and f32 flops of the encode of this tile: points in, the
         distinct table rows it gathers at the table's itemsize, the scales;
         per level and corner the d-linear weight (d muls), F multiply-adds
         and, for codes, F dequant multiplies."""
@@ -254,46 +309,53 @@ def main():
                 + rows * g.n_features * tables.element_size()
                 + (scales.numel() * 4 if quantized else 0),
                 "flops": b * g.n_levels * corners
-                * (g.dim + (3 if quantized else 2) * g.n_features)}
+                * (g.dim + (3 if quantized else 2) * g.n_features),
+                "mlp_flops": 0}
 
     def grid_of(v):
         """(tables, scales) of a table variant."""
         if v == "f32":
             return p0["grid"], None
+        if v == "bf16":
+            return grid_bf16, None
         return qtab[v]["grid"], qtab[v]["grid_scale"]
 
-    # (kernel, variant) -> (kernel call, plain call, library call, work)
+    grid_bf16 = p0["grid"].to(torch.bfloat16)
+    dmlp_bf16 = {k: t.to(torch.bfloat16)
+                 for k, t in p0["density_mlp"].items()}
+
+    def field_work(v, dmlp):
+        fw = grid_work(*grid_of(v))
+        return {"bytes": fw["bytes"] + wbytes(dmlp) + b * dcfg.out_dim * 4,
+                "flops": fw["flops"], "mlp_flops": b * mlp_flops(dcfg)}
+
+    # (kernel, variant) -> (kernel call, plain call, library call, work);
+    # field_fwd[bf16] takes bf16 tables and bf16 density weights
     runs = {}
-    fw = grid_work(p0["grid"], None)
-    runs["field_fwd", None] = (
-        lambda: ff_ops.field(flat_pts, p0["grid"], p0["density_mlp"], g,
-                             dcfg),
-        lambda: field_ref(flat_pts, p0["grid"], p0["density_mlp"], g, dcfg),
-        None,
-        {"bytes": fw["bytes"] + wbytes(p0["density_mlp"])
-         + b * dcfg.out_dim * 4,
-         "flops": fw["flops"] + b * mlp_flops(dcfg)})
+    for v, dmlp in (("f32", p0["density_mlp"]), ("bf16", dmlp_bf16)):
+        tab, _ = grid_of(v)
+        runs["field_fwd", v] = (
+            lambda tab=tab, dmlp=dmlp: ff_ops.field(flat_pts, tab, dmlp, g,
+                                                    dcfg),
+            lambda tab=tab, dmlp=dmlp: field_ref(flat_pts, tab, dmlp, g,
+                                                 dcfg),
+            None, field_work(v, dmlp))
     for v in ("int8", "fp8"):
         tab, sc = grid_of(v)
-        fw = grid_work(tab, sc)
         runs["field_fwd_q", v] = (
             lambda tab=tab, sc=sc: ff_ops.field(
                 flat_pts, tab, p0["density_mlp"], g, dcfg, table_scales=sc),
             lambda tab=tab, sc=sc: field_ref(flat_pts, tab,
                                              p0["density_mlp"], g, dcfg, sc),
-            None,
-            {"bytes": fw["bytes"] + wbytes(p0["density_mlp"])
-             + b * dcfg.out_dim * 4,
-             "flops": fw["flops"] + b * mlp_flops(dcfg)})
-    for v in ("f32", "int8", "fp8"):
+            None, field_work(v, p0["density_mlp"]))
+    for v in ("f32", "bf16", "int8", "fp8"):
         tab, sc = grid_of(v)
         fw = grid_work(tab, sc)
         runs["encode_fwd", v] = (
             lambda tab=tab, sc=sc: hops.encode(flat_pts, tab, g,
                                                table_scales=sc),
             lambda tab=tab, sc=sc: encode_ref(flat_pts, tab, g, sc),
-            None,
-            {"bytes": fw["bytes"] + b * g.out_dim * 4, "flops": fw["flops"]})
+            None, {**fw, "bytes": fw["bytes"] + b * g.out_dim * 4})
     runs["mlp_fwd", None] = (
         lambda: mlp_ops.mlp(p0["mlp"], color_in, ccfg),
         lambda: apply_mlp(p0["mlp"], color_in, ccfg),
@@ -303,7 +365,7 @@ def main():
             @ p0["mlp"]["w_hidden"][1]) @ p0["mlp"]["w_hidden"][2])
         @ p0["mlp"]["w_out"],
         {"bytes": b * (ccfg.in_dim + ccfg.out_dim) * 4 + wbytes(p0["mlp"]),
-         "flops": b * mlp_flops(ccfg)})
+         "flops": 0, "mlp_flops": b * mlp_flops(ccfg)})
     runs["composite_fwd", None] = (
         lambda: rm_ops.composite(rgb, sigma, dts),
         lambda: render.composite(rgb, sigma, dts),
@@ -311,7 +373,7 @@ def main():
         # rgb + sigma per sample, one (1, S) dts row, pixel + opacity;
         # per sample: -sigma*dt, 2 exp, 1-alpha, csum, sub, mul, 4 fma
         {"bytes": b * 4 * 4 + N_SAMPLES * 4 + TILE_PIXELS * 4 * 4,
-         "flops": b * 16})
+         "flops": b * 16, "mlp_flops": 0})
 
     results, outputs = {}, {}
     for (name, v), (kern, plain, lib, w) in runs.items():
@@ -329,16 +391,24 @@ def main():
             fail(f"{label}: max abs error {err} exceeds atol {TOL} + rtol "
                  f"{TOL}")
         outputs[name, v] = got[0]
+        # the least time on the units the kernel uses: HBM bytes, the MLP
+        # products on the tensor cores (3 TF32 passes), the rest in f32 on
+        # the CUDA cores, which run beside the tensor cores; and, for the
+        # record, with every flop in f32 on the CUDA cores
         t_bytes = w["bytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = w["flops"] / PEAK_F32_FLOPS * 1e3
+        t_ops = max(TF32_PASSES * w["mlp_flops"] / PEAK_TF32_FLOPS,
+                    w["flops"] / PEAK_F32_FLOPS) * 1e3
+        t_f32 = (w["flops"] + w["mlp_flops"]) / PEAK_F32_FLOPS * 1e3
         results[name, v] = {
             "max_abs_err": err, "tol": TOL,
             "ms": device_ms(kern, reps=20),
             "plain_ms": device_ms(plain, reps=3),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_f32_cuda_cores_ms": max(t_bytes, t_f32),
             "library_ms": device_ms(lib, reps=20) if lib else None,
-            "bytes": w["bytes"], "flops": w["flops"]}
+            "bytes": w["bytes"], "flops": w["flops"],
+            "mlp_flops": w["mlp_flops"]}
     emit({"phase": "kernels", "points": b, "rays": TILE_PIXELS,
           "table_rows_touched": rows,
           "results": {n if v is None else f"{n}[{v}]": r
@@ -353,7 +423,7 @@ def main():
                            hops.encode(flat_pts, tab, g, table_scales=sc),
                            dcfg)
 
-    fused = {"f32": ("field_fwd", None), "int8": ("field_fwd_q", "int8"),
+    fused = {"f32": ("field_fwd", "f32"), "int8": ("field_fwd_q", "int8"),
              "fp8": ("field_fwd_q", "fp8")}
     K.reset_launch_counts()
     unfused_out = {v: unfused(v) for v in fused}
@@ -480,34 +550,38 @@ def main():
     del engine
 
     # ------------------------------------------------------ serve_quant
-    # Scene 0 quantized on the card two ways, one bucket each; the stream
-    # alternates between them.
+    # Scene 0 quantized on the card two ways, and with its tables cast to
+    # bf16, one bucket each; the stream alternates between them.
     qspecs = {"q_int8": QuantSpec("int8"),
               "q_fp8": QuantSpec("fp8_e4m3", mlp_qtype="int8")}
-    qparams = {n: quantize_field(p0, spec) for n, spec in qspecs.items()}
+    qscenes = {n: (cfg.with_quant(spec), quantize_field(p0, spec))
+               for n, spec in qspecs.items()}
+    qscenes["bf16"] = (cfg, {**p0, "grid": grid_bf16})
     qengine = RenderEngine(settings, device=dev)
-    for n, spec in qspecs.items():
-        qengine.add_scene(n, cfg.with_quant(spec), qparams[n])
-    qreqs, qlaunches, line = serve(qengine, list(qspecs), "serve_quant")
-    if qlaunches["field_fwd_q"] <= 0 or qlaunches["field_fwd"] != 0 \
+    for n, (qcfg, qp) in qscenes.items():
+        qengine.add_scene(n, qcfg, qp)
+    qreqs, qlaunches, line = serve(qengine, list(qscenes), "serve_quant")
+    n_bf16 = sum(r.scene == "bf16" for r in qreqs)
+    if qlaunches["field_fwd_q"] <= 0 or qlaunches["field_fwd"] != n_bf16 \
             or min(qlaunches["mlp_fwd"], qlaunches["composite_fwd"]) <= 0:
         fail(f"serve_quant: field_fwd_q, mlp_fwd and composite_fwd must "
-             f"launch and field_fwd must not: {qlaunches}")
+             f"launch, and field_fwd once per bf16 request ({n_bf16}): "
+             f"{qlaunches}")
     # every device launch of each bucket's requests, the plain PyTorch ops
     # around the kernels (the fp8 bucket's MLP dequant among them) included
     line["profile_cuda_by_scene"] = {
         n: profile_window(qengine, [r for r in qreqs if r.scene == n]
                           [:PROFILE_REQUESTS // 2], [ProfilerActivity.CUDA])
-        for n in qspecs}
+        for n in qscenes}
     emit(line)
 
     # ----------------------------------------------------- parity_quant
     qparity = {}
-    for n, spec in qspecs.items():
+    for n, (qcfg, qp) in qscenes.items():
         frame = qengine.render_frame(n, pcam)
         ref = pipeline.render_frame(
-            fields.to_device(qparams[n], torch.device("cpu")),
-            cfg.with_quant(spec), pcam, settings, device="cpu").numpy()
+            fields.to_device(qp, torch.device("cpu")), qcfg, pcam, settings,
+            device="cpu").numpy()
         err = float(np.abs(frame - ref).max())
         to_dense = float(np.abs(frame - dense_frame).max())
         if not np.isfinite(frame).all() or err > PARITY_TOL:
@@ -516,7 +590,8 @@ def main():
         if not 0.0 < to_dense < QUANT_DENSE_MAX:
             fail(f"parity_quant: {n} differs from the dense frame by "
                  f"{to_dense}, not in (0, {QUANT_DENSE_MAX})")
-        qparity[n] = {"spec": spec.tag, "max_abs_err": err,
+        qparity[n] = {"spec": qcfg.quant.tag if qcfg.quant else "bf16 grid",
+                      "max_abs_err": err,
                       "max_abs_diff_to_dense": to_dense}
     emit({"phase": "parity_quant", "frame": [32, 32], "tol": PARITY_TOL,
           "dense_max": QUANT_DENSE_MAX, "scenes": qparity, **gpu})
@@ -527,7 +602,7 @@ def main():
     report = {
         "field_fwd": ("src/repro_torch/csrc/field.cu",
                       "src/repro/kernels/fused_field/fused_field.py:111",
-                      "serve", launches, None),
+                      "serve", launches, "f32"),
         "field_fwd_q": ("src/repro_torch/csrc/field.cu",
                         "src/repro/kernels/fused_field/fused_field.py:111",
                         "serve_quant", qlaunches, "int8"),
@@ -541,7 +616,7 @@ def main():
                           "src/repro/kernels/ray_march/ray_march.py:53",
                           "serve", launches, None)}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "bound_f32_cuda_cores_ms", "library_ms")
     rows_out = []
     for n, (src, tpu, path, counts, main_v) in report.items():
         row = {"name": n, "route": "cuda", "source": src, "replaces": tpu,

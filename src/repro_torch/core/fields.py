@@ -156,14 +156,17 @@ def to_device(params: Mapping, device: torch.device) -> Dict:
 
 
 def leaf_from_numpy(arr: np.ndarray) -> torch.Tensor:
-    """One leaf, carried bit for bit: int8 stays int8, fp8-e4m3 (which
-    ``torch.from_numpy`` refuses) goes through its uint8 view, and every
-    float leaf becomes f32 (bf16 -> f32 is exact)."""
+    """One leaf, carried bit for bit: int8 stays int8; fp8-e4m3 and bf16
+    (which ``torch.from_numpy`` refuses) keep their dtype through a uint8
+    or uint16 view; every other float leaf becomes f32."""
     if arr.dtype == np.int8:
         return torch.from_numpy(arr.copy())
     if arr.dtype.name == "float8_e4m3fn":
         return torch.from_numpy(arr.view(np.uint8).copy()).view(
             torch.float8_e4m3fn)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
     return torch.from_numpy(np.asarray(arr, dtype=np.float32).copy())
 
 
@@ -171,10 +174,10 @@ def from_jax_params(np_params: Mapping, cfg: FieldConfig,
                     device: DeviceLike = None) -> Dict:
     """The JAX package's unboxed param tree, with every leaf as a numpy
     array, as the port's tensors on ``device``: int8 and fp8-e4m3 codes
-    keep their dtype, every other leaf becomes f32, and the quantization
-    scale leaves come along where ``cfg.quant`` says they exist. Raises,
-    naming its path, on a missing leaf, a leaf ``cfg`` does not give, or a
-    shape it does not give."""
+    and bf16 leaves keep their dtype, every other leaf becomes f32, and
+    the quantization scale leaves come along where ``cfg.quant`` says they
+    exist. Raises, naming its path, on a missing leaf, a leaf ``cfg`` does
+    not give, or a shape it does not give."""
     dev = resolve_device(device)
 
     def conv(tree, shapes, path):

@@ -43,8 +43,9 @@ def init_mlp(cfg: MLPConfig, generator: Optional[torch.Generator] = None
 
 def apply_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
               cfg: MLPConfig) -> torch.Tensor:
-    """(B, in_dim) -> (B, out_dim), f32."""
-    h = torch.relu(x @ params["w_in"])
+    """(B, in_dim) -> (B, out_dim), f32. bf16 weights are widened to f32
+    (exactly) before their product, as the JAX package promotes them."""
+    h = torch.relu(x @ params["w_in"].float())
     for k in range(cfg.n_hidden - 1):
-        h = torch.relu(h @ params["w_hidden"][k])
-    return h @ params["w_out"]
+        h = torch.relu(h @ params["w_hidden"][k].float())
+    return h @ params["w_out"].float()

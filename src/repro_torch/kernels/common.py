@@ -38,13 +38,15 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 
 
 # Table dtypes the grid-encode kernels are instantiated for, and the code
-# their C entry points take for each (csrc/encode.cuh TableDtype).
-TABLE_DTYPE_CODE = {torch.float32: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+# their C entry points take for each (csrc/encode.cuh TableDtype): f32 and
+# bf16 are dense, int8 and fp8-e4m3 are codes with per-level scales.
+TABLE_DTYPE_CODE = {torch.float32: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
+                    torch.bfloat16: 3}
 
 
 def check_table_scales(tables: torch.Tensor, table_scales) -> None:
     """Raise unless a codec table comes with its per-level scales and a
-    dense table without: scales on a dense table, or none on a codec one,
+    dense (f32 or bf16) table without: scales on a dense table, or none on a codec one,
     would render another scene without an error."""
     quantized = qtypes.is_quantized(tables)
     if quantized != (table_scales is not None):

@@ -2,11 +2,11 @@
 builds the level metadata every grid kernel reads.
 
 The kernel replaces the JAX package's ``kernels/hashgrid/hashgrid.py:
-hashgrid_encode_pallas``, for f32 tables and, with ``table_scales``, for
-int8 and fp8-e4m3 ones (its quantized variant). Its body, the JAX
-package's ``encode_one_level``, is the device function of the same name in
-``csrc/encode.cuh``, which the fused field kernels (``csrc/field.cu``) run
-for every level too. The source note in ``csrc/encode.cu`` says what
+hashgrid_encode_pallas``, for f32 and bf16 tables and, with
+``table_scales``, for int8 and fp8-e4m3 ones (its quantized variant). Its
+body, the JAX package's ``encode_one_level``, is the device function of the
+same name in ``csrc/encode.cuh``, whose pieces the fused field kernels
+(``csrc/field.cu``) run for every level too. The source note in ``csrc/encode.cu`` says what
 bounds it and what its launch order does about that.
 """
 from __future__ import annotations
@@ -60,7 +60,7 @@ def hashgrid_encode_cuda(points: torch.Tensor, tables: torch.Tensor,
                          table_scales: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """points (B, d) in [0, 1] -> (B, L*F) f32, all tensors on one CUDA
-    device. ``tables`` (L, T, F) is f32, or int8 / fp8-e4m3 with its
+    device. ``tables`` (L, T, F) is f32 or bf16, or int8 / fp8-e4m3 with its
     (L, 1, 1) f32 ``table_scales``, which the kernel reads on the device."""
     check_tables(tables, table_scales, cfg)
     b = points.shape[0]

@@ -7,9 +7,12 @@ machine without them:
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Inputs are made with numpy from a seed; tables are U(-1, 1) so that a
-wrong row, corner or level shows. Tolerance 1e-4 (f32): the kernels
-accumulate every dot product sequentially with FMAs while the plain
-version's matmul blocks it, and the exp heads magnify the difference.
+wrong row, corner or level shows. Tolerance 1e-4 (f32): the MLP kernels
+take their products on the tensor cores in 3xTF32 (near, not at, f32
+rounding) and sum in another order than the plain version's matmul, and
+the exp heads magnify the difference. Row counts straddle the kernels'
+16-row warp tiles and 128-point field tiles, and reach past one round of
+the persistent grid (132 blocks on an H100), so its loop wraps.
 """
 import dataclasses
 
@@ -46,18 +49,19 @@ def dev():
     return torch.device("cuda")
 
 
-def _mlp_params(cfg, seed, device):
+def _mlp_params(cfg, seed, device, dtype=torch.float32):
     rng = np.random.default_rng(seed)
     shapes = fields._mlp_shapes(cfg)
     return {k: torch.from_numpy((rng.normal(size=s) / np.sqrt(s[-2])
-                                 ).astype(np.float32)).to(device)
+                                 ).astype(np.float32)).to(device, dtype)
             for k, s in shapes.items()}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,dim,n_features,log2_T", [
-    (1, 3, 2, 14), (300, 3, 2, 14), (4099, 3, 2, 19), (500, 3, 2, 12),
-    (257, 3, 8, 12)])
+    (1, 3, 2, 14), (127, 3, 2, 14), (128, 3, 2, 14), (129, 3, 2, 14),
+    (300, 3, 2, 14), (4099, 3, 2, 19), (500, 3, 2, 12), (257, 3, 8, 12),
+    (20000, 3, 2, 14)])
 def test_field_kernel_matches_plain(dev, n, dim, n_features, log2_T):
     g = dataclasses.replace(tenc.hashgrid_config(dim=dim),
                             log2_table_size=log2_T, n_levels=4,
@@ -98,12 +102,14 @@ def _grid_inputs(dev, n, n_features, log2_T, qtype, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("qtype", [None, "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8_e4m3", "bf16"])
 @pytest.mark.parametrize("n,n_features,log2_T", [(1, 2, 14), (4099, 2, 19),
                                                  (257, 8, 12)])
 def test_encode_kernel_matches_plain(dev, qtype, n, n_features, log2_T):
-    g, tables, scales, pts = _grid_inputs(dev, n, n_features, log2_T, qtype,
-                                          n)
+    g, tables, scales, pts = _grid_inputs(
+        dev, n, n_features, log2_T, None if qtype == "bf16" else qtype, n)
+    if qtype == "bf16":
+        tables = tables.to(torch.bfloat16)
     before = tkernels.launch_counts()["encode_fwd"]
     got = hops.encode(pts, tables, g, table_scales=scales)
     torch.cuda.synchronize()
@@ -133,16 +139,61 @@ def test_quantized_field_kernel_matches_plain(dev, qtype, n, n_features,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("in_dim,n_hidden,out_dim,n", [(32, 4, 3, 4099),
-                                                       (16, 1, 4, 65)])
-def test_mlp_kernel_matches_plain(dev, in_dim, n_hidden, out_dim, n):
-    m = MLPConfig(in_dim=in_dim, n_hidden=n_hidden, out_dim=out_dim)
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 127, 129, 4099, 40000])
+@pytest.mark.parametrize("in_dim,hidden,n_hidden,out_dim", [
+    (32, 64, 4, 3), (16, 64, 1, 4), (8, 64, 2, 1), (32, 64, 3, 16),
+    (32, 32, 2, 3), (16, 128, 1, 4), (13, 24, 2, 5)])
+def test_mlp_kernel_matches_plain(dev, in_dim, hidden, n_hidden, out_dim, n):
+    """Widths the kernel pads (in 13, hidden 24 and 32 to 64, out to 8) and
+    its 128-wide instantiation, at row counts around its 16-row tiles."""
+    m = MLPConfig(in_dim=in_dim, hidden_dim=hidden, n_hidden=n_hidden,
+                  out_dim=out_dim)
     w = _mlp_params(m, 9, dev)
     x = torch.from_numpy(np.random.default_rng(3).normal(
         size=(n, in_dim)).astype(np.float32)).to(dev)
+    before = tkernels.launch_counts()["mlp_fwd"]
     got = mlp_ops.mlp(w, x, m)
     torch.cuda.synchronize()
+    assert tkernels.launch_counts()["mlp_fwd"] == before + 1
     torch.testing.assert_close(got, apply_mlp(w, x, m), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dim,n_hidden,out_dim", [(32, 4, 3), (16, 3, 16)])
+def test_mlp_kernel_bf16_weights_match_plain(dev, in_dim, n_hidden, out_dim):
+    """bf16 weights are widened exactly as they are staged."""
+    m = MLPConfig(in_dim=in_dim, n_hidden=n_hidden, out_dim=out_dim)
+    w = _mlp_params(m, 4, dev, torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(4099, in_dim)).astype(np.float32)).to(dev)
+    before = tkernels.launch_counts()["mlp_fwd"]
+    got = mlp_ops.mlp(w, x, m)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts()["mlp_fwd"] == before + 1
+    torch.testing.assert_close(got, apply_mlp(w, x, m), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_features,hidden,n_hidden,out_dim,w_dtype", [
+    (1, 2, 64, 3, 16, torch.bfloat16), (129, 2, 64, 3, 16, torch.float32),
+    (4099, 2, 64, 3, 16, torch.bfloat16), (20000, 2, 32, 1, 1, torch.float32),
+    (257, 8, 64, 2, 4, torch.bfloat16)])
+def test_bf16_field_kernel_matches_plain(dev, n, n_features, hidden, n_hidden,
+                                         out_dim, w_dtype):
+    """bf16 tables (field_fwd, no scales), with f32 or bf16 weights."""
+    g, tables, _, pts = _grid_inputs(dev, n, n_features, 14, None, n + 3)
+    tables = tables.to(torch.bfloat16)
+    m = MLPConfig(in_dim=g.out_dim, hidden_dim=hidden, n_hidden=n_hidden,
+                  out_dim=out_dim)
+    w = _mlp_params(m, n + 1, dev, w_dtype)
+    before = tkernels.launch_counts()
+    got = ff_ops.field(pts, tables, w, g, m)
+    torch.cuda.synchronize()
+    after = tkernels.launch_counts()
+    assert after["field_fwd"] == before["field_fwd"] + 1
+    assert after["field_fwd_q"] == before["field_fwd_q"]
+    torch.testing.assert_close(got, field_ref(pts, tables, w, g, m),
+                               atol=TOL, rtol=TOL)
 
 
 @pytest.mark.cuda
@@ -217,4 +268,31 @@ def test_quantized_engine_on_card_matches_cpu_render_frame(dev, app, spec):
     assert counts["field_fwd_q"] > 0 and counts["field_fwd"] == 0
     ref = pipeline.render_frame(fields.to_device(qparams, torch.device("cpu")),
                                 qcfg, cam, settings, device="cpu")
+    np.testing.assert_allclose(got, ref.numpy(), atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["nerf", "nvr"])
+def test_bf16_engine_on_card_matches_cpu_render_frame(dev, app):
+    """A scene with bf16 tables gets its own bucket, runs field_fwd on its
+    bf16 tables, and equals the CPU render of the same params."""
+    cfg = fields.make_field_config(app, "hash")
+    cfg = cfg.with_grid(dataclasses.replace(cfg.grid, log2_table_size=14,
+                                            n_levels=6))
+    params = fields.init_field(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    params["grid"] = (torch.rand(params["grid"].shape,
+                                 generator=torch.Generator().manual_seed(1))
+                      * 2 - 1).to(torch.bfloat16)
+    settings = pipeline.RenderSettings(tile_pixels=64, n_samples=8)
+    engine = RenderEngine(settings, device=dev)
+    key = engine.add_scene("b", cfg, params)
+    assert key.dtype.startswith("torch.bfloat16")
+    engine.warmup()
+    cam = scenes.orbit_camera(12, 12, 0.7)
+    tkernels.reset_launch_counts()
+    got = engine.render_frame("b", cam)
+    counts = tkernels.launch_counts()
+    assert counts["field_fwd"] > 0 and counts["field_fwd_q"] == 0
+    ref = pipeline.render_frame(params, cfg, cam, settings, device="cpu")
     np.testing.assert_allclose(got, ref.numpy(), atol=TOL)

@@ -18,18 +18,27 @@ import torch
 
 from repro.core import encoding as jenc
 from repro.core.mlp import MLPConfig as JMLPConfig
+from repro.core.mlp import apply_mlp as japply_mlp
 from repro.kernels.fused_field import ops as jff_ops
+from repro.kernels.fused_field.ref import field_ref as jfield_ref
+from repro.kernels.hashgrid.ref import encode_ref as jencode_ref
 from repro.kernels.fused_mlp import ops as jmlp_ops
 from repro.kernels.ray_march import ops as jrm_ops
 from repro_torch import kernels as tkernels
 from repro_torch.core import encoding as tenc
+from repro_torch.core import fields as tfields
 from repro_torch.core import render as trender
 from repro_torch.core.mlp import MLPConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.common import TABLE_DTYPE_CODE, check_kernel_input
 from repro_torch.kernels.hashgrid.hashgrid import check_tables
 from repro_torch.kernels.fused_field import ops as ff_ops
+from repro_torch.kernels.fused_field.fused_field import (field_plan,
+                                                         fused_field_cuda)
 from repro_torch.kernels.fused_mlp import ops as mlp_ops
+from repro_torch.kernels.fused_mlp.fused_mlp import (MAX_SMEM_BYTES,
+                                                     fused_mlp_cuda, mlp_plan)
+from repro_torch.kernels.hashgrid import ops as hops
 from repro_torch.kernels.ray_march import ops as rm_ops
 
 TOL = 1e-5
@@ -199,3 +208,91 @@ def test_check_kernel_input_takes_codec_tables_only_where_asked():
     with pytest.raises(ValueError, match="aligned"):
         check_tables(torch.zeros(2 * 256 * 2 + 1, dtype=torch.int8)[1:]
                      .view(2, 256, 2), torch.ones((2, 1, 1)), gt)
+
+
+# ----------------------------------------------------------- bf16 leaves
+def _bf16(tree):
+    """numpy f32 arrays -> JAX bf16 arrays -> numpy (ml_dtypes bfloat16)."""
+    return {k: np.asarray(jnp.asarray(v, dtype=jnp.bfloat16))
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("n,n_hidden,out_dim", [(300, 3, 16), (77, 1, 4)])
+def test_bf16_plain_versions_match_jax_xla_route(n, n_hidden, out_dim):
+    """bf16 tables and weights, widened after the gather and before each
+    product, give the JAX XLA route's field, encode and MLP within 1e-5."""
+    gj, gt, m, jm, tables, pts, w = _field_inputs(n, seed=2,
+                                                  out_dim=out_dim,
+                                                  n_hidden=n_hidden)
+    tab = np.asarray(jnp.asarray(tables, dtype=jnp.bfloat16))
+    wb = _bf16(w)
+    tt = tfields.leaf_from_numpy(tab)
+    tw = {k: tfields.leaf_from_numpy(v) for k, v in wb.items()}
+    assert tt.dtype == torch.bfloat16 and tw["w_in"].dtype == torch.bfloat16
+    tp = torch.from_numpy(pts)
+    before = tkernels.launch_counts()
+    got = {"field": ff_ops.field(tp, tt, tw, gt, m),
+           "encode": hops.encode(tp, tt, gt),
+           "mlp": mlp_ops.mlp(tw, hops.encode(tp, tt, gt), m)}
+    assert tkernels.launch_counts() == before      # CPU: no kernel launch
+    jtab, jw = jnp.asarray(tab), {k: jnp.asarray(v) for k, v in wb.items()}
+    feats = jencode_ref(jnp.asarray(pts), jtab, gj)
+    want = {"field": jfield_ref(jnp.asarray(pts), jtab, jw, gj, jm),
+            "encode": feats, "mlp": japply_mlp(jw, feats, jm)}
+    for k, v in want.items():
+        assert got[k].dtype == torch.float32, k
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(v), atol=TOL,
+                                   rtol=TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("hidden,n_hidden,why", [
+    (60, 2, "multiple of 8"), (136, 1, "from 8 to 128"),
+    (0, 1, "multiple of 8"), (128, 4, "shared-memory plan")])
+def test_mlp_wrapper_raises_on_widths_the_kernel_does_not_take(
+        hidden, n_hidden, why):
+    m = MLPConfig(in_dim=32, hidden_dim=hidden, n_hidden=n_hidden,
+                  out_dim=3)
+    with pytest.raises(ValueError, match=why):
+        mlp_plan(m)
+    meta = {k: torch.empty(v.shape, device="meta")
+            for k, v in _t(_mlp_params(m, 0)).items()}
+    with pytest.raises(ValueError, match=why):
+        fused_mlp_cuda(torch.empty((8, 32), device="meta"), meta["w_in"],
+                       meta.get("w_hidden"), meta["w_out"], m)
+
+
+def test_field_wrapper_raises_on_widths_the_kernel_does_not_take():
+    """The field kernel's MLP is built 64 wide: 72 to 128 is the
+    standalone MLP kernel's only."""
+    gt = dataclasses.replace(tenc.hashgrid_config(), log2_table_size=8,
+                             n_levels=2)
+    for hidden, why in ((128, "from 8 to 64"), (20, "multiple of 8")):
+        m = MLPConfig(in_dim=gt.out_dim, hidden_dim=hidden, n_hidden=1,
+                      out_dim=4)
+        with pytest.raises(ValueError, match=why):
+            field_plan(m)
+        meta = {k: torch.empty(v.shape, device="meta")
+                for k, v in _t(_mlp_params(m, 0)).items()}
+        with pytest.raises(ValueError, match=why):
+            fused_field_cuda(torch.empty((8, 3), device="meta"),
+                             torch.empty((2, 256, 2), device="meta"),
+                             meta["w_in"], None, meta["w_out"], gt, m)
+
+
+@pytest.mark.parametrize("app", ["nerf", "nsdf", "gia", "nvr"])
+@pytest.mark.parametrize("encoding", ["hash", "dense", "tiled"])
+def test_kernel_plans_fit_every_table1_config(app, encoding):
+    """The shared-memory plans of the field kernel (the grid-facing MLP)
+    and of the MLP kernel (NeRF's colour MLP) fit in the 227 KB a block
+    may use, for all 12 Table-I configurations."""
+    cfg = tfields.make_field_config(app, encoding)
+    grid_mlp = cfg.density_mlp if app == "nerf" else cfg.mlp
+    plans = [field_plan(grid_mlp)]
+    if app == "nerf":
+        plans.append(mlp_plan(cfg.mlp))
+    for plan in plans:
+        assert plan["hidden_padded"] == 64
+        assert 0 < plan["smem_bytes"] <= MAX_SMEM_BYTES == 232_448
+    # the colour MLP's weights, split hi/lo: 116 KB
+    assert mlp_plan(tfields.make_field_config("nerf", "hash").mlp)[
+        "smem_bytes"] == 118_784

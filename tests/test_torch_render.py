@@ -111,6 +111,38 @@ def test_from_jax_params_takes_jax_init_field():
         tfields.from_jax_params(bad, ct, "cpu")
 
 
+@pytest.mark.parametrize("app", ["nerf", "nvr"])
+def test_from_jax_params_keeps_bf16_leaves(app):
+    """A JAX tree with a bf16 grid and bf16 weights comes across as bf16,
+    bit for bit (torch.from_numpy refuses ml_dtypes' bfloat16), and its
+    field equals the JAX XLA route's within 1e-5."""
+    cj, ct = _cfgs(app)
+    jtree = jax.tree.map(lambda a: jnp.asarray(a, dtype=jnp.bfloat16),
+                         _np_params(ct, 5))
+    np_tree = jax.tree.map(np.asarray, jtree)
+    tp = tfields.from_jax_params(np_tree, ct, "cpu")
+
+    def check(t_tree, n_tree, path):
+        for k, v in n_tree.items():
+            if isinstance(v, dict):
+                check(t_tree[k], v, f"{path}/{k}")
+                continue
+            assert t_tree[k].dtype == torch.bfloat16, f"{path}/{k}"
+            np.testing.assert_array_equal(
+                t_tree[k].view(torch.int16).numpy(), v.view(np.int16),
+                err_msg=f"{path}/{k}")
+    check(tp, np_tree, "params")
+    rng = np.random.default_rng(6)
+    pts = rng.uniform(size=(120, 3)).astype(np.float32)
+    dirs = rng.normal(size=(120, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    want = jfields.apply_field(jtree, cj, jnp.asarray(pts), jnp.asarray(dirs))
+    got = tfields.apply_field(tp, ct, torch.from_numpy(pts),
+                              torch.from_numpy(dirs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
 def test_init_field_distributions():
     _, ct = _cfgs("nerf", log2_T=12)
     p = tfields.init_field(ct, torch.Generator().manual_seed(0),

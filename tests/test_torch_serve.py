@@ -137,6 +137,34 @@ def test_quantized_and_dense_scenes_never_share_a_bucket():
         assert 0.0 < err < 0.2                 # same scene, small error
 
 
+@pytest.mark.parametrize("app", ["nerf", "nvr"])
+def test_bf16_scene_gets_its_own_bucket_and_matches_render_frame(app):
+    """A scene with bf16 tables, carried from a JAX tree, is bucketed apart
+    from f32 scenes of the same config, as the JAX engine buckets it by its
+    leaf dtypes, and its frame equals the JAX render_frame of that tree."""
+    cj, ct = _cfgs(app)
+    np_p = _np_params(ct, 8)
+    jtree = jax.tree.map(jnp.asarray, np_p)
+    jtree["grid"] = jtree["grid"].astype(jnp.bfloat16)
+    settings = tpipeline.RenderSettings(tile_pixels=64, n_samples=8)
+    engine = RenderEngine(settings, device="cpu")
+    k_f32 = engine.add_scene("f32", ct, tfields.from_jax_params(np_p, ct,
+                                                                 "cpu"))
+    k_bf16 = engine.add_scene("bf16", ct, tfields.from_jax_params(
+        jax.tree.map(np.asarray, jtree), ct, "cpu"))
+    assert k_f32 != k_bf16 and k_bf16.cfg == k_f32.cfg
+    assert k_bf16.dtype.split(",")[0] == "torch.bfloat16"
+    assert len(engine.stats()["buckets"]) == 2
+    engine.warmup()
+    cam = tscenes.orbit_camera(12, 12, 0.8)
+    got = engine.render_frame("bf16", cam)
+    ref = jpipeline.render_frame(jtree, cj, _jax_cam(cam),
+                                 jpipeline.RenderSettings(tile_pixels=64,
+                                                          n_samples=8))
+    np.testing.assert_allclose(got, np.asarray(ref), atol=TOL)
+    assert np.abs(got - engine.render_frame("f32", cam)).max() > 0
+
+
 def test_engine_rejects_quant_config_param_drift():
     _, ct = _cfgs("nvr", log2_T=8, n_levels=2)
     spec = QuantSpec("int8")
