@@ -157,12 +157,13 @@ def ptxas_summary(log):
 
 
 def sass_mma_counts(lib_path):
-    """{kernel: tensor-core (HMMA) instructions in its SASS}, from cuobjdump
-    beside nvcc; None if the toolkit has no cuobjdump."""
+    """{kernel: tensor-core (HMMA) instructions in its SASS}, from the
+    cuobjdump that ships beside nvcc."""
     from repro_torch.kernels import build
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
-        return None
+        fail(f"build: {tool} not found, so the MLP kernels' tensor-core "
+             "instructions cannot be counted")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
     counts, name = {}, None
@@ -257,12 +258,14 @@ def main():
     spilled = [r for r in ptxas if r[2] > 0]
     if spilled:
         fail(f"build: ptxas spilled registers: {spilled}")
-    if mma is not None:
-        no_mma = [k for k, n in mma.items()
-                  if k.startswith(("mlp_fwd", "field_fwd")) and n == 0]
-        if no_mma or not any(k.startswith("field_fwd") for k in mma):
-            fail(f"build: MLP kernels without tensor-core instructions: "
-                 f"{no_mma or mma}")
+    # every MLP kernel, the colour MLP's 64-wide one and a field kernel
+    # among them, must take its products on the tensor cores
+    mlp_kernels = {k: n for k, n in mma.items()
+                   if k.startswith(("mlp_fwd_kernel", "field_fwd_kernel"))}
+    if (min(mlp_kernels.values(), default=0) == 0
+            or not any(k.startswith("mlp_fwd_kernel<Li64") for k in mma)
+            or not any(k.startswith("field_fwd_kernel") for k in mma)):
+        fail(f"build: MLP kernels without tensor-core instructions: {mma}")
 
     # ---------------------------------------------------------- kernels
     params = [fields.from_jax_params(np_params(cfg, SEED + s), cfg, dev)
@@ -616,7 +619,7 @@ def main():
                           "src/repro/kernels/ray_march/ray_march.py:53",
                           "serve", launches, None)}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "bound_f32_cuda_cores_ms", "library_ms")
+            "library_ms")
     rows_out = []
     for n, (src, tpu, path, counts, main_v) in report.items():
         row = {"name": n, "route": "cuda", "source": src, "replaces": tpu,

@@ -194,8 +194,8 @@ cudaError_t launch_field(const float* points, const void* tables,
   auto kernel = field_fwd_kernel<DIM, F, TableT>;
   unsigned grid = 0;
   cudaError_t err = persistent_grid(
-      kernel, kFieldThreads, smem, (n_points + kFieldRows - 1) / kFieldRows,
-      device, &grid);
+      reinterpret_cast<const void*>(kernel), kFieldThreads, smem,
+      (n_points + kFieldRows - 1) / kFieldRows, device, &grid);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kFieldThreads, smem, stream>>>(
       points, static_cast<const TableT*>(tables), scales, meta, n_levels,

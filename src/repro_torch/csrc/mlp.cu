@@ -15,6 +15,8 @@
 // device memory into A fragments, keeps the activations in registers
 // through every layer and writes only the (rows, dout) output. There is no
 // block-wide barrier after the staging.
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 #include "mlp.cuh"
@@ -77,14 +79,14 @@ cudaError_t launch_mlp(const float* x, const MlpWeights& w, const MlpDims& d,
                        cudaStream_t stream) {
   const size_t smem = (size_t)weight_frags(d, kHidden) * sizeof(float4);
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-  constexpr int kThreads = 32 * mlp_warps<kHidden>();
+  constexpr int kWarps = mlp_warps<kHidden>(), kThreads = 32 * kWarps;
   auto kernel = mlp_fwd_kernel<kHidden>;
   const long long tiles = (n_rows + 15) / 16;
   unsigned grid = 0;
-  cudaError_t err = persistent_grid(kernel, kThreads, smem,
-                                    (tiles + mlp_warps<kHidden>() - 1) /
-                                        mlp_warps<kHidden>(),
-                                    device, &grid);
+  cudaError_t err = persistent_grid(reinterpret_cast<const void*>(kernel),
+                                    kThreads, smem,
+                                    (tiles + kWarps - 1) / kWarps, device,
+                                    &grid);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(x, w, d, out, n_rows);
   return cudaGetLastError();
@@ -94,7 +96,8 @@ cudaError_t launch_mlp(const float* x, const MlpWeights& w, const MlpDims& d,
 
 // x (B, din) f32; w_in (din, hidden), w_hidden (n_hidden - 1, hidden,
 // hidden), w_out (hidden, dout), all f32 (w_bf16 = 0) or all bf16 (1);
-// out (B, dout) f32. hidden is a multiple of 8 up to 128, and the staged
+// out (B, dout) f32; x 8-byte aligned when din is even (its rows are read
+// two floats at a time). hidden is a multiple of 8 up to 128, and the staged
 // weights must fit in shared memory (kernels/fused_mlp/fused_mlp.py
 // mlp_plan says so before the launch). Launches on `stream` after making
 // `device` current; returns the CUDA error of the launch (0 on success).
@@ -105,7 +108,8 @@ extern "C" int mlp_fwd(const float* x, const void* w_in, const void* w_hidden,
   if (cudaError_t err = cudaSetDevice(device)) return err;
   using namespace repro;
   if (din < 1 || dout < 1 || n_hidden < 1 || hidden < 8 || hidden > 128 ||
-      hidden % 8 != 0)
+      hidden % 8 != 0 ||
+      (din % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 8 != 0))
     return cudaErrorInvalidValue;
   if (n_rows == 0) return cudaSuccess;
   const MlpDims d{din, hidden, n_hidden, dout};

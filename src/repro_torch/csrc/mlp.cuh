@@ -31,6 +31,8 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
+#include <vector>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -229,22 +231,48 @@ __device__ __forceinline__ void mlp_warp_rows16(LoadA load_a, Release release,
 }
 
 // Persistent grid: at most as many blocks as fit on the card at once, and
-// no more than the work needs. Sets the kernel's dynamic shared memory.
-template <typename Kernel>
-cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem,
-                            long long blocks_needed, int device,
-                            unsigned* grid) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                      smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long cap = (long long)sms * per_sm;
+// no more than the work needs. The cap depends only on the kernel, its block
+// and shared-memory sizes and the device, so it is worked out at the first
+// launch of each (raising the kernel's dynamic shared-memory limit to
+// kMaxSmemBytes, reading the SM count and the occupancy) and looked up after
+// that: a steady launch makes no runtime call for it.
+inline cudaError_t persistent_grid(const void* kernel, int threads,
+                                   size_t smem, long long blocks_needed,
+                                   int device, unsigned* grid) {
+  struct Cap {
+    const void* kernel;
+    int threads;
+    size_t smem;
+    int device;
+    long long blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Cap> caps;
+  long long cap = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (const Cap& c : caps)
+      if (c.kernel == kernel && c.threads == threads && c.smem == smem &&
+          c.device == device)
+        cap = c.blocks;
+  }
+  if (cap == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kMaxSmemBytes);
+    if (err != cudaSuccess) return err;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cap = (long long)sms * per_sm;
+    std::lock_guard<std::mutex> lock(mu);
+    caps.push_back({kernel, threads, smem, device, cap});
+  }
   *grid = (unsigned)(blocks_needed < cap ? blocks_needed : cap);
   return cudaSuccess;
 }

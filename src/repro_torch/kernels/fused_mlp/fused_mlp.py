@@ -98,10 +98,13 @@ def fused_mlp_cuda(x: torch.Tensor, w_in: torch.Tensor,
                    w_hidden: Optional[torch.Tensor], w_out: torch.Tensor,
                    cfg: MLPConfig) -> torch.Tensor:
     """x (B, in_dim) f32 -> (B, out_dim) f32, all on one CUDA device;
-    weights f32 or bf16."""
+    weights f32 or bf16. x must be 8-byte aligned when in_dim is even."""
     mlp_plan(cfg)
     b = x.shape[0]
     check_kernel_input("x", x, (b, cfg.in_dim))
+    if cfg.in_dim % 2 == 0 and x.data_ptr() % 8:
+        # csrc/mlp.cu loads two floats at once from rows of an even width
+        raise ValueError("x: rows of an even width must be 8-byte aligned")
     w_hidden = check_weights(w_in, w_hidden, w_out, cfg)
     out = torch.empty((b, cfg.out_dim), dtype=torch.float32, device=x.device)
     MLP_FWD(x.device, x.data_ptr(), w_in.data_ptr(), w_hidden.data_ptr(),

@@ -159,6 +159,29 @@ def test_mlp_kernel_matches_plain(dev, in_dim, hidden, n_hidden, out_dim, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("in_dim", [32, 13])
+def test_mlp_kernel_rows_off_an_8_byte_boundary(dev, in_dim):
+    """x a contiguous view 4 bytes into its storage: refused before the
+    launch at an even width, whose rows the kernel reads two floats at a
+    time, and run at an odd one; the card goes on working after either."""
+    m = MLPConfig(in_dim=in_dim, n_hidden=2, out_dim=3)
+    w = _mlp_params(m, 6, dev)
+    buf = torch.from_numpy(np.random.default_rng(7).normal(
+        size=300 * in_dim + 1).astype(np.float32)).to(dev)
+    x = buf[1:].view(300, in_dim)
+    before = tkernels.launch_counts()["mlp_fwd"]
+    if in_dim % 2 == 0:
+        with pytest.raises(ValueError, match="aligned"):
+            mlp_ops.mlp(w, x, m)
+        assert tkernels.launch_counts()["mlp_fwd"] == before
+        x = x.clone()
+    got = mlp_ops.mlp(w, x, m)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts()["mlp_fwd"] == before + 1
+    torch.testing.assert_close(got, apply_mlp(w, x, m), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("in_dim,n_hidden,out_dim", [(32, 4, 3), (16, 3, 16)])
 def test_mlp_kernel_bf16_weights_match_plain(dev, in_dim, n_hidden, out_dim):
     """bf16 weights are widened exactly as they are staged."""

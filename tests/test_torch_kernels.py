@@ -10,6 +10,7 @@ another association order (XLA's dot against PyTorch's matmul, FMA
 contraction).
 """
 import dataclasses
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +34,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import TABLE_DTYPE_CODE, check_kernel_input
 from repro_torch.kernels.hashgrid.hashgrid import check_tables
 from repro_torch.kernels.fused_field import ops as ff_ops
+from repro_torch.kernels.fused_field import fused_field as tff
 from repro_torch.kernels.fused_field.fused_field import (field_plan,
                                                          fused_field_cuda)
 from repro_torch.kernels.fused_mlp import ops as mlp_ops
@@ -296,3 +298,37 @@ def test_kernel_plans_fit_every_table1_config(app, encoding):
     # the colour MLP's weights, split hi/lo: 116 KB
     assert mlp_plan(tfields.make_field_config("nerf", "hash").mlp)[
         "smem_bytes"] == 118_784
+
+
+def test_mlp_wrapper_raises_on_misaligned_rows():
+    """The MLP kernel reads rows of an even width two floats at a time: a
+    contiguous view that starts 4 bytes into its storage is refused before
+    the launch, not left to fault on the card."""
+    m = MLPConfig(in_dim=32, n_hidden=2, out_dim=3)
+    w = _t(_mlp_params(m, 0))
+    x = torch.zeros(8 * 32 + 1)[1:].view(8, 32)
+    assert x.is_contiguous() and x.data_ptr() % 8 == 4
+    with pytest.raises(ValueError, match="aligned"):
+        fused_mlp_cuda(x, w["w_in"], w.get("w_hidden"), w["w_out"], m)
+
+
+_HIDDEN_128 = MLPConfig(in_dim=32, hidden_dim=128, n_hidden=1, out_dim=3)
+
+
+@pytest.mark.parametrize("source,constant,mirror", [
+    ("mlp.cuh", r"kMaxSmemBytes = (\d+);", MAX_SMEM_BYTES),
+    ("mlp.cu", r"kHidden <= 64 \? (\d+) :", mlp_plan(MLPConfig(in_dim=32))["warps"]),
+    ("mlp.cu", r"kHidden <= 64 \? \d+ : (\d+);",
+     mlp_plan(_HIDDEN_128)["warps"]),
+    ("field.cu", r"kEncodeWarps = (\d+);", tff.ENCODE_WARPS),
+    ("field.cu", r"kMlpWarps = (\d+);", tff.MLP_WARPS),
+    ("field.cu", r"kFieldRows = (\d+) \* kMlpWarps;",
+     tff.TILE_ROWS // tff.MLP_WARPS),
+    ("field.cu", r"kFieldHidden = (\d+);",
+     field_plan(MLPConfig(in_dim=32))["hidden_padded"])])
+def test_kernel_plans_mirror_the_cuda_sources(source, constant, mirror):
+    """The wrappers' shared-memory plans repeat constants of the CUDA
+    sources; each copy equals its source."""
+    m = re.search(constant, (build.CSRC / source).read_text())
+    assert m is not None, constant
+    assert int(m.group(1)) == mirror
