@@ -1,28 +1,37 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's main path, serving Table-I ``nerf_hash`` at full width
-(L=16 levels of 2^19 x 2 f32 tables, density MLP 32->64x3->16, colour MLP
-32->64x4->3; random weights and U(-1, 1) tables from a numpy seed) through
-``RenderEngine``, and holds every CUDA kernel on that path against its
-plain PyTorch version. Phases, each printing one JSON line:
+Drives the port's serving paths through ``RenderEngine`` at Table-I width
+and depth, and holds every CUDA kernel on them against its plain PyTorch
+version: ``nerf_hash`` (L=16 levels of 2^19 x 2 f32 tables, density MLP
+32->64x3->16, colour MLP 32->64x4->3), ``gia_hash`` (2-D points, L=16
+levels of 2^24 x 2 tables, 2 GiB per scene in f32; MLP 32->64x4->3) and
+``nsdf_hash`` (L=16 levels of 2^19 x 2; MLP 32->64x4->1, sphere-traced).
+Weights and U(-1, 1) tables come from a numpy seed; the served nsdf scenes
+are ``scenes.baked_sdf_params`` (a sphere in level 0, random perturbation
+elsewhere), on which sphere tracing converges. Phases, each printing one
+JSON line:
 
   build    compile the kernel library from ``src/repro_torch/csrc`` (nvcc,
            sm_90a); ptxas' registers and spills per kernel, the tensor-core
            instructions (HMMA) in each kernel's SASS (cuobjdump), and the
            shared memory per block of the MLP and field kernels' plans
   kernels  each kernel against its plain version on the inputs of one real
-           engine tile (4096 pixels x 32 samples): max error against the
-           stated tolerance, device time per call (CUDA events), the plain
-           version's time, the bound, and a PyTorch yardstick where one exists;
-           the quantized field kernel and the standalone encode run on the
-           same tile with tables quantized in the port (int8, fp8-e4m3)
-           and cast to bf16 (field_fwd with bf16 weights too)
-  unfused  the unfused route, encode_fwd then mlp_fwd at the density MLP's
-           shapes, for f32, int8 and fp8 tables, against the fused kernel
-           (the paper's fused-vs-unfused comparison), with both device times
-  serve    2 scenes, warmup, 120 random-pixel requests over 2 scenes x 3
-           orbit cameras at 256x256, at most 2 in flight (a closed loop);
+           engine tile (nerf: 4096 pixels x 32 samples; gia: 4096 pixels):
+           max error against the stated tolerance, device time per call
+           (CUDA events), host time to enqueue one call (the wrapper's
+           checks, plan and launch), the plain version's time, the bound, and a
+           PyTorch yardstick where one exists; the quantized field kernel
+           and the standalone encode run on the same tile with tables
+           quantized in the port (int8, fp8-e4m3) and cast to bf16
+           (nerf's field_fwd with bf16 weights too); field_fwd at nsdf's
+           MLP on 131,072 random points with U(-1, 1) params
+  unfused  the unfused route, encode_fwd then mlp_fwd, for nerf's f32, int8
+           and fp8 tables and gia's f32 and int8 ones, against the fused
+           kernel (the paper's fused-vs-unfused comparison), with both
+           device times
+  serve    2 nerf scenes, warmup, 120 random-pixel requests over 2 scenes x
+           3 orbit cameras at 256x256, at most 2 in flight (a closed loop);
            latency (p50, and p90: the highest percentile with 10 samples
            beyond it), throughput, and the launch count of every kernel
            during the stream (each must be > 0)
@@ -40,12 +49,26 @@ plain PyTorch version. Phases, each printing one JSON line:
   parity_quant  each of those scenes' 32x32 frame on the card against
            render_frame on the CPU on the same params, and its distance to
            the dense frame (finite, non-zero, under 0.2)
+  serve_gia  2 gia scenes in three buckets (f32, bf16 tables, int8 tables
+           quantized on the card), 120 requests of 4096 random pixels of a
+           4096x4096 image; as serve, plus the seconds to make the tables
+           and the device memory quantize_field takes on top of a 2 GiB
+           stack; field_fwd and field_fwd_q must launch
+  serve_nsdf  2 baked nsdf scenes, 3 orbit cameras at 256x256, 120
+           requests of 4096 pixels; field_fwd must launch exactly 55 times
+           per request (48 trace steps, the hit points, 6 for the normal)
+  profile_gia, profile_nsdf  one CUDA-only window of 20 requests each
+  parity_gia  each gia bucket's 32x32 frame against render_frame on the
+           CPU, and the bf16 and int8 frames' distance to the f32 frame
+           (finite, non-zero, under 0.2)
+  parity_nsdf  the nsdf frame against render_frame on the CPU, and its hit
+           fraction, which must be neither 0 nor 1
 
 then the ``{"kernels": [...]}`` line (every kernel, launches from the path
-that runs it, the quantized and standalone kernels with a row per table
-type under ``variants``), the card's name and power limit as
-nvidia-smi gives them, and ``{"ok": true, "device": {...}}`` last. Any
-failure exits non-zero before that line.
+that runs it and per path, the rows of other table types and apps under
+``variants``), the card's name and power limit as nvidia-smi gives them,
+and ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero
+before that line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Needs one CUDA
 GPU and the CUDA toolkit (nvcc); imports nothing of JAX.
@@ -72,6 +95,8 @@ TOL = 1e-4          # kernel vs plain, f32: 3xTF32 products, another sum order
 PARITY_TOL = 1e-4   # engine on the card vs render_frame on the CPU
 QUANT_DENSE_MAX = 0.2   # quantized frame vs dense frame (tests/test_quant.py)
 TILE_PIXELS, N_SAMPLES, FRAME = 4096, 32, 256
+GIA_FRAME = 4096             # gia's image side: 16.7 Mpix
+NSDF_POINTS = 131_072        # nsdf's kernel row: one nerf tile's points
 N_REQUESTS = 120
 PROFILE_REQUESTS = 20
 SEED = 0
@@ -114,6 +139,21 @@ def device_ms(fn, reps, rounds=5, warm=2):
         torch.cuda.synchronize()
         per_call.append(start.elapsed_time(end) / reps)
     return statistics.median(per_call)
+
+
+def host_ms(fn, reps=20):
+    """Host milliseconds per call to enqueue ``fn`` (its checks, its plan
+    and its launch), without waiting for the device: the launch queue holds
+    far more than ``reps`` launches."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
 
 
 def union_ms(spans):
@@ -187,8 +227,11 @@ def np_params(cfg, seed):
     def draw(shapes, grid):
         if isinstance(shapes, dict):
             return {k: draw(s, k == "grid") for k, s in shapes.items()}
-        if grid:
-            return rng.random(shapes, dtype=np.float32) * 2 - 1
+        if grid:                  # in place: gia's stack is 2 GiB
+            tables = rng.random(shapes, dtype=np.float32)
+            tables *= 2
+            tables -= 1
+            return tables
         return (rng.standard_normal(shapes, dtype=np.float32)
                 / np.float32(np.sqrt(shapes[-2])))
     return draw(fields.param_shapes(cfg), False)
@@ -248,9 +291,13 @@ def main():
     ptxas = ptxas_summary(log)
     mma = sass_mma_counts(lib_path)
     cfg = fields.make_field_config("nerf", "hash")
+    gcfg = fields.make_field_config("gia", "hash")
+    ncfg = fields.make_field_config("nsdf", "hash")
     smem = {"mlp_fwd (colour MLP)": mlp_plan(cfg.mlp)["smem_bytes"],
             "field_fwd (density MLP)": field_plan(cfg.density_mlp)[
-                "smem_bytes"]}
+                "smem_bytes"],
+            "field_fwd (gia MLP)": field_plan(gcfg.mlp)["smem_bytes"],
+            "field_fwd (nsdf MLP)": field_plan(ncfg.mlp)["smem_bytes"]}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(lib_path, ROOT),
           "ptxas_kernel_registers_spill_bytes": ptxas,
@@ -264,8 +311,12 @@ def main():
                    if k.startswith(("mlp_fwd_kernel", "field_fwd_kernel"))}
     if (min(mlp_kernels.values(), default=0) == 0
             or not any(k.startswith("mlp_fwd_kernel<Li64") for k in mma)
-            or not any(k.startswith("field_fwd_kernel") for k in mma)):
-        fail(f"build: MLP kernels without tensor-core instructions: {mma}")
+            or not any(k.startswith("field_fwd_kernel<Li3E") for k in mma)
+            or not any(k.startswith("field_fwd_kernel<Li2E") for k in mma)):
+        fail(f"build: MLP kernels without tensor-core instructions, or no "
+             f"3-D and 2-D field kernels: {mma}")
+    if not any(k.startswith("encode_fwd_kernel<Li2E") for k in mma):
+        fail(f"build: no 2-D encode kernel in the library: {sorted(mma)}")
 
     # ---------------------------------------------------------- kernels
     params = [fields.from_jax_params(np_params(cfg, SEED + s), cfg, dev)
@@ -284,6 +335,32 @@ def main():
     b = flat_pts.shape[0]
     dcfg, ccfg, g = cfg.density_mlp, cfg.mlp, cfg.grid
 
+    # gia: 2 scenes of 2 GiB f32 tables, made once (numpy, then the card);
+    # the int8 and fp8 stacks of scene 0 quantized on the card, with the
+    # device memory quantize_field takes on top of the stack
+    t0 = time.perf_counter()
+    gia_np0 = np_params(gcfg, SEED + 10)
+    gia_params = [fields.from_jax_params(gia_np0, gcfg, dev),
+                  fields.from_jax_params(np_params(gcfg, SEED + 11), gcfg,
+                                         dev)]
+    torch.cuda.synchronize()
+    gia_make_s = time.perf_counter() - t0
+    g0 = gia_params[0]
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    gqtab = {"gia_int8": quantize_field(g0, QuantSpec("int8"))}
+    torch.cuda.synchronize()
+    quant_peak_extra = torch.cuda.max_memory_allocated(dev) - base
+    gqtab["gia_fp8"] = quantize_field(g0, QuantSpec("fp8_e4m3"))
+    gia_bf16 = g0["grid"].to(torch.bfloat16)
+    gia_cam = scenes.orbit_camera(GIA_FRAME, GIA_FRAME, 0.0)
+    gia_pts = pipeline.pixel_coords(gia_cam, torch.from_numpy(
+        rng.integers(0, GIA_FRAME * GIA_FRAME, TILE_PIXELS)).to(dev))
+    # nsdf's kernel row: U(-1, 1) params, random points
+    nsdf_rand = fields.from_jax_params(np_params(ncfg, SEED + 20), ncfg, dev)
+    nsdf_pts = torch.from_numpy(rng.random((NSDF_POINTS, 3),
+                                           dtype=np.float32)).to(dev)
+
     dfeat_ref = field_ref(flat_pts, p0["grid"], p0["density_mlp"], g, dcfg)
     color_in = torch.cat([sh_encode(flat_dirs), dfeat_ref], -1).contiguous()
     rgb_ref = torch.sigmoid(apply_mlp(p0["mlp"], color_in, ccfg))
@@ -299,66 +376,78 @@ def main():
     def wbytes(tree):
         return sum(t.numel() * t.element_size() for t in tree.values())
 
-    rows = touched_rows(flat_pts, g)
-    corners = 1 << g.dim
+    # each app's grid tile: (points, grid config, distinct rows it touches)
+    tiles = {"nerf": (flat_pts, g, touched_rows(flat_pts, g)),
+             "gia": (gia_pts, gcfg.grid, touched_rows(gia_pts, gcfg.grid)),
+             "nsdf": (nsdf_pts, ncfg.grid, touched_rows(nsdf_pts,
+                                                        ncfg.grid))}
 
-    def grid_work(tables, scales):
+    def grid_work(app, tables, scales):
         """Bytes and f32 flops of the encode of this tile: points in, the
         distinct table rows it gathers at the table's itemsize, the scales;
         per level and corner the d-linear weight (d muls), F multiply-adds
         and, for codes, F dequant multiplies."""
+        x, gg, rows = tiles[app]
         quantized = scales is not None
-        return {"bytes": b * g.dim * 4
-                + rows * g.n_features * tables.element_size()
+        return {"bytes": x.numel() * 4
+                + rows * gg.n_features * tables.element_size()
                 + (scales.numel() * 4 if quantized else 0),
-                "flops": b * g.n_levels * corners
-                * (g.dim + (3 if quantized else 2) * g.n_features),
+                "flops": x.shape[0] * gg.n_levels * (1 << gg.dim)
+                * (gg.dim + (3 if quantized else 2) * gg.n_features),
                 "mlp_flops": 0}
-
-    def grid_of(v):
-        """(tables, scales) of a table variant."""
-        if v == "f32":
-            return p0["grid"], None
-        if v == "bf16":
-            return grid_bf16, None
-        return qtab[v]["grid"], qtab[v]["grid_scale"]
 
     grid_bf16 = p0["grid"].to(torch.bfloat16)
     dmlp_bf16 = {k: t.to(torch.bfloat16)
                  for k, t in p0["density_mlp"].items()}
+    # variant -> (app, tables, scales, MLP weights, MLP config)
+    field_inputs = {
+        "f32": ("nerf", p0["grid"], None, p0["density_mlp"], dcfg),
+        "bf16": ("nerf", grid_bf16, None, dmlp_bf16, dcfg),
+        "int8": ("nerf", qtab["int8"]["grid"], qtab["int8"]["grid_scale"],
+                 p0["density_mlp"], dcfg),
+        "fp8": ("nerf", qtab["fp8"]["grid"], qtab["fp8"]["grid_scale"],
+                p0["density_mlp"], dcfg),
+        "gia_f32": ("gia", g0["grid"], None, g0["mlp"], gcfg.mlp),
+        "gia_bf16": ("gia", gia_bf16, None, g0["mlp"], gcfg.mlp),
+        "gia_int8": ("gia", gqtab["gia_int8"]["grid"],
+                     gqtab["gia_int8"]["grid_scale"], g0["mlp"], gcfg.mlp),
+        "gia_fp8": ("gia", gqtab["gia_fp8"]["grid"],
+                    gqtab["gia_fp8"]["grid_scale"], g0["mlp"], gcfg.mlp),
+        "nsdf_f32": ("nsdf", nsdf_rand["grid"], None, nsdf_rand["mlp"],
+                     ncfg.mlp)}
 
-    def field_work(v, dmlp):
-        fw = grid_work(*grid_of(v))
-        return {"bytes": fw["bytes"] + wbytes(dmlp) + b * dcfg.out_dim * 4,
-                "flops": fw["flops"], "mlp_flops": b * mlp_flops(dcfg)}
+    def field_call(v, kernel):
+        app, tab, sc, w, m = field_inputs[v]
+        x, gg, _ = tiles[app]
+        if kernel:
+            return lambda: ff_ops.field(x, tab, w, gg, m, table_scales=sc)
+        return lambda: field_ref(x, tab, w, gg, m, sc)
+
+    def encode_call(v, kernel):
+        app, tab, sc, _, _ = field_inputs[v]
+        x, gg, _ = tiles[app]
+        if kernel:
+            return lambda: hops.encode(x, tab, gg, table_scales=sc)
+        return lambda: encode_ref(x, tab, gg, sc)
 
     # (kernel, variant) -> (kernel call, plain call, library call, work);
     # field_fwd[bf16] takes bf16 tables and bf16 density weights
     runs = {}
-    for v, dmlp in (("f32", p0["density_mlp"]), ("bf16", dmlp_bf16)):
-        tab, _ = grid_of(v)
-        runs["field_fwd", v] = (
-            lambda tab=tab, dmlp=dmlp: ff_ops.field(flat_pts, tab, dmlp, g,
-                                                    dcfg),
-            lambda tab=tab, dmlp=dmlp: field_ref(flat_pts, tab, dmlp, g,
-                                                 dcfg),
-            None, field_work(v, dmlp))
-    for v in ("int8", "fp8"):
-        tab, sc = grid_of(v)
-        runs["field_fwd_q", v] = (
-            lambda tab=tab, sc=sc: ff_ops.field(
-                flat_pts, tab, p0["density_mlp"], g, dcfg, table_scales=sc),
-            lambda tab=tab, sc=sc: field_ref(flat_pts, tab,
-                                             p0["density_mlp"], g, dcfg, sc),
-            None, field_work(v, p0["density_mlp"]))
-    for v in ("f32", "bf16", "int8", "fp8"):
-        tab, sc = grid_of(v)
-        fw = grid_work(tab, sc)
+    for v, (app, tab, sc, w, m) in field_inputs.items():
+        fw = grid_work(app, tab, sc)
+        n = tiles[app][0].shape[0]
+        runs["field_fwd" if sc is None else "field_fwd_q", v] = (
+            field_call(v, True), field_call(v, False), None,
+            {"bytes": fw["bytes"] + wbytes(w) + n * m.out_dim * 4,
+             "flops": fw["flops"], "mlp_flops": n * mlp_flops(m)})
+    for v in ("f32", "bf16", "int8", "fp8", "gia_f32", "gia_bf16",
+              "gia_int8", "gia_fp8"):
+        app, tab, sc, _, _ = field_inputs[v]
+        fw = grid_work(app, tab, sc)
+        x, gg, _ = tiles[app]
         runs["encode_fwd", v] = (
-            lambda tab=tab, sc=sc: hops.encode(flat_pts, tab, g,
-                                               table_scales=sc),
-            lambda tab=tab, sc=sc: encode_ref(flat_pts, tab, g, sc),
-            None, {**fw, "bytes": fw["bytes"] + b * g.out_dim * 4})
+            encode_call(v, True), encode_call(v, False), None,
+            {**fw, "bytes": fw["bytes"] + x.shape[0] * gg.out_dim * 4})
     runs["mlp_fwd", None] = (
         lambda: mlp_ops.mlp(p0["mlp"], color_in, ccfg),
         lambda: apply_mlp(p0["mlp"], color_in, ccfg),
@@ -405,6 +494,7 @@ def main():
         results[name, v] = {
             "max_abs_err": err, "tol": TOL,
             "ms": device_ms(kern, reps=20),
+            "host_ms_per_call": host_ms(kern),
             "plain_ms": device_ms(plain, reps=3),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -412,22 +502,24 @@ def main():
             "library_ms": device_ms(lib, reps=20) if lib else None,
             "bytes": w["bytes"], "flops": w["flops"],
             "mlp_flops": w["mlp_flops"]}
-    emit({"phase": "kernels", "points": b, "rays": TILE_PIXELS,
-          "table_rows_touched": rows,
+    emit({"phase": "kernels",
+          "points": {app: t[0].shape[0] for app, t in tiles.items()},
+          "rays": TILE_PIXELS,
+          "table_rows_touched": {app: t[2] for app, t in tiles.items()},
           "results": {n if v is None else f"{n}[{v}]": r
                       for (n, v), r in results.items()}, **gpu})
 
     # ---------------------------------------------------------- unfused
-    # The unfused route: encode_fwd writes the (B, 32) features to device
+    # The unfused route: encode_fwd writes the (B, L*F) features to device
     # memory and mlp_fwd reads them back, against the fused kernel.
     def unfused(v):
-        tab, sc = grid_of(v)
-        return mlp_ops.mlp(p0["density_mlp"],
-                           hops.encode(flat_pts, tab, g, table_scales=sc),
-                           dcfg)
+        app, tab, sc, w, m = field_inputs[v]
+        x, gg, _ = tiles[app]
+        return mlp_ops.mlp(w, hops.encode(x, tab, gg, table_scales=sc), m)
 
-    fused = {"f32": ("field_fwd", "f32"), "int8": ("field_fwd_q", "int8"),
-             "fp8": ("field_fwd_q", "fp8")}
+    fused = {v: ("field_fwd" if field_inputs[v][2] is None
+                 else "field_fwd_q", v)
+             for v in ("f32", "int8", "fp8", "gia_f32", "gia_int8")}
     K.reset_launch_counts()
     unfused_out = {v: unfused(v) for v in fused}
     torch.cuda.synchronize()
@@ -444,26 +536,33 @@ def main():
             "unfused_ms": device_ms(lambda v=v: unfused(v), reps=20),
             "encode_fwd_ms": results["encode_fwd", v]["ms"],
             "fused_ms": results[key]["ms"]}
-    if unfused_launches["encode_fwd"] != 3:
-        fail(f"unfused: encode_fwd launched {unfused_launches['encode_fwd']}"
-             " times, not 3")
-    emit({"phase": "unfused", "points": b, "mlp": "32->64x3->16",
+    if unfused_launches["encode_fwd"] != len(fused) \
+            or unfused_launches["mlp_fwd"] != len(fused):
+        fail(f"unfused: encode_fwd and mlp_fwd must launch {len(fused)} "
+             f"times each: {unfused_launches}")
+    emit({"phase": "unfused",
+          "mlp": {"nerf": "32->64x3->16", "gia": "32->64x4->3"},
           "launches": unfused_launches, "results": unfused_rows, **gpu})
+    gia_q0 = gqtab["gia_int8"]
+    del runs, outputs, unfused_out, field_inputs, tiles, gqtab, nsdf_rand
 
     # ------------------------------------------------------------ serve
     settings = pipeline.RenderSettings(tile_pixels=TILE_PIXELS,
                                        n_samples=N_SAMPLES)
     cams = [scenes.orbit_camera(FRAME, FRAME, a) for a in (0.0, 2.1, 4.2)]
 
-    def serve(engine, scene_names, phase):
+    def serve(engine, scene_names, phase, cams=cams):
         """120 random-pixel requests, scene_names and cameras in turn, with
         the launch counts of exactly this stream and the peak device memory
         allocated while it runs (every live tensor counts)."""
         torch.cuda.reset_peak_memory_stats(dev)
         warm_s = engine.warmup()
-        reqs = [RenderRequest(scene_names[i % len(scene_names)], cams[i % 3],
-                              rng.integers(0, FRAME * FRAME, TILE_PIXELS))
-                for i in range(N_REQUESTS)]
+        reqs = []
+        for i in range(N_REQUESTS):
+            c = cams[i % len(cams)]
+            reqs.append(RenderRequest(
+                scene_names[i % len(scene_names)], c,
+                rng.integers(0, c.height * c.width, TILE_PIXELS)))
         K.reset_launch_counts()
         tickets = [engine.submit(r) for r in reqs]
         engine.flush()
@@ -529,6 +628,8 @@ def main():
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
         return {"requests": len(window_reqs), "wall_ms": wall_ms,
                 "device_busy_ms": busy_ms if spans else "not measured",
+                "device_busy_ms_per_request": busy_ms / len(window_reqs)
+                if spans else "not measured",
                 "device_idle_share": (1 - busy_ms / wall_ms) if spans
                 else "not measured",
                 "device_events": len(spans), "top_device_ms": top}
@@ -599,9 +700,115 @@ def main():
     emit({"phase": "parity_quant", "frame": [32, 32], "tol": PARITY_TOL,
           "dense_max": QUANT_DENSE_MAX, "scenes": qparity, **gpu})
 
+    # -------------------------------------------------------- serve_gia
+    # 2 gia scenes, each in three buckets: f32 tables, bf16 tables, and
+    # int8 tables quantized on the card; requests of random pixels of a
+    # 4096x4096 image.
+    gia_scenes = {}
+    for s_, gp in enumerate(gia_params):
+        gia_scenes[f"gia{s_}"] = (gcfg, gp)
+    for s_, gp in enumerate(gia_params):
+        gia_scenes[f"gia{s_}_bf16"] = (gcfg, {
+            **gp, "grid": gia_bf16 if s_ == 0 else gp["grid"].to(
+                torch.bfloat16)})
+    qspec = QuantSpec("int8")
+    for s_, gp in enumerate(gia_params):
+        gia_scenes[f"gia{s_}_int8"] = (gcfg.with_quant(qspec), gia_q0
+                                       if s_ == 0 else quantize_field(
+                                           gp, qspec))
+    del gia_params, gia_bf16, gia_q0
+    gengine = RenderEngine(settings, device=dev)
+    for n, (c, gp) in gia_scenes.items():
+        gengine.add_scene(n, c, gp)
+    greqs, glaunches, line = serve(gengine, list(gia_scenes), "serve_gia",
+                                   cams=[gia_cam])
+    if min(glaunches["field_fwd"], glaunches["field_fwd_q"]) <= 0 \
+            or glaunches["field_fwd"] + glaunches["field_fwd_q"] \
+            != N_REQUESTS:
+        fail(f"serve_gia: field_fwd and field_fwd_q must launch, once per "
+             f"request in all: {glaunches}")
+    line.update(image=[GIA_FRAME, GIA_FRAME], make_tables_s=gia_make_s,
+                quantize_peak_extra_bytes=quant_peak_extra,
+                table_bytes_per_scene=g0["grid"].numel() * 4)
+    emit(line)
+    emit({"phase": "profile_gia", "window": "cuda",
+          **profile_window(gengine, greqs[:PROFILE_REQUESTS],
+                           [ProfilerActivity.CUDA]), **gpu})
+
+    # ------------------------------------------------------- parity_gia
+    gparity, gia_frames = {}, {}
+    gia_cpu = fields.from_jax_params(gia_np0, gcfg, "cpu")
+    del gia_np0
+    for n in ("gia0", "gia0_bf16", "gia0_int8"):
+        c, gp = gia_scenes[n]
+        frame = gengine.render_frame(n, pcam)
+        cpu_p = (gia_cpu if n == "gia0" else
+                 {**gia_cpu, "grid": gia_cpu["grid"].to(torch.bfloat16)}
+                 if n == "gia0_bf16" else
+                 fields.to_device(gp, torch.device("cpu")))
+        ref = pipeline.render_frame(cpu_p, c, pcam, settings,
+                                    device="cpu").numpy()
+        err = float(np.abs(frame - ref).max())
+        if not np.isfinite(frame).all() or err > PARITY_TOL:
+            fail(f"parity_gia: {n} engine vs CPU render_frame max abs "
+                 f"error {err}")
+        gia_frames[n] = frame
+        gparity[n] = {"max_abs_err": err, "mean_rgb": float(frame.mean())}
+        del cpu_p
+    for n in ("gia0_bf16", "gia0_int8"):
+        to_dense = float(np.abs(gia_frames[n] - gia_frames["gia0"]).max())
+        if not 0.0 < to_dense < QUANT_DENSE_MAX:
+            fail(f"parity_gia: {n} differs from the f32 frame by "
+                 f"{to_dense}, not in (0, {QUANT_DENSE_MAX})")
+        gparity[n]["max_abs_diff_to_f32"] = to_dense
+    emit({"phase": "parity_gia", "frame": [32, 32], "tol": PARITY_TOL,
+          "dense_max": QUANT_DENSE_MAX, "scenes": gparity, **gpu})
+    del gengine, gia_scenes, gia_cpu, g0
+
+    # ------------------------------------------------------- serve_nsdf
+    # 2 baked nsdf scenes: sphere tracing converges on them (a field with
+    # random tables would amplify any rounding difference without bound)
+    nsdf_np = [scenes.baked_sdf_params(ncfg, SEED + 30 + s_)
+               for s_ in range(2)]
+    nengine = RenderEngine(settings, device=dev)
+    for s_, npp in enumerate(nsdf_np):
+        nengine.add_scene(f"nsdf{s_}", ncfg,
+                          fields.from_jax_params(npp, ncfg, dev))
+    nreqs, nlaunches, line = serve(nengine, ["nsdf0", "nsdf1"], "serve_nsdf")
+    evals = settings.sphere_steps + 7
+    if nlaunches["field_fwd"] != evals * N_REQUESTS \
+            or sum(nlaunches.values()) != nlaunches["field_fwd"]:
+        fail(f"serve_nsdf: field_fwd must launch {evals} times per request "
+             f"and no other kernel: {nlaunches}")
+    line.update(field_evals_per_request=evals,
+                sphere_steps=settings.sphere_steps)
+    emit(line)
+    emit({"phase": "profile_nsdf", "window": "cuda",
+          **profile_window(nengine, nreqs[:PROFILE_REQUESTS],
+                           [ProfilerActivity.CUDA]), **gpu})
+
+    # ------------------------------------------------------ parity_nsdf
+    frame = nengine.render_frame("nsdf0", pcam)
+    ref = pipeline.render_frame(fields.from_jax_params(nsdf_np[0], ncfg,
+                                                       "cpu"),
+                                ncfg, pcam, settings, device="cpu").numpy()
+    err = float(np.abs(frame - ref).max())
+    hit = float((frame.sum(-1) > 0).mean())
+    if not np.isfinite(frame).all() or err > PARITY_TOL:
+        fail(f"parity_nsdf: engine vs CPU render_frame max abs error {err}")
+    if not 0.0 < hit < 1.0:
+        fail(f"parity_nsdf: hit fraction {hit}, not in (0, 1)")
+    emit({"phase": "parity_nsdf", "frame": [32, 32], "max_abs_err": err,
+          "tol": PARITY_TOL, "hit_fraction": hit,
+          "hit_fraction_cpu": float((ref.sum(-1) > 0).mean()), **gpu})
+    del nengine
+
     # ----------------------------------------------------------- report
     # kernel -> (source, TPU kernel it replaces, path its launches are
     # read from, launches on that path, variant of the row's own numbers)
+    paths = {"serve": launches, "serve_quant": qlaunches,
+             "serve_gia": glaunches, "serve_nsdf": nlaunches,
+             "unfused": unfused_launches}
     report = {
         "field_fwd": ("src/repro_torch/csrc/field.cu",
                       "src/repro/kernels/fused_field/fused_field.py:111",
@@ -624,6 +831,7 @@ def main():
     for n, (src, tpu, path, counts, main_v) in report.items():
         row = {"name": n, "route": "cuda", "source": src, "replaces": tpu,
                "launches": counts[n], "path": path,
+               "launches_by_path": {p: c[n] for p, c in paths.items()},
                **{k: results[n, main_v][k] for k in keys}}
         if main_v is not None:
             row["variant"] = main_v

@@ -1,17 +1,19 @@
 """Frame rendering pipeline: one schedulable tile of pixels at a time.
 
-A tile is ``tile_pixels`` rays x ``n_samples`` samples; the serve engine
-pads every request to one tile. The camera is host data and the scene is a
-view into a stack of scenes, so one tile function serves every viewpoint,
-resolution and scene of a bucket.
+A tile is ``tile_pixels`` pixels; the serve engine pads every request to
+one tile. The camera is host data and the scene is a view into a stack of
+scenes, so one tile function serves every viewpoint, resolution and scene
+of a bucket. Per app, a tile is:
 
-Only the ray-marched apps (nerf, nvr) have a tile function so far; gia and
-nsdf (sphere tracing) are not ported yet.
+- nerf, nvr: rays ray-marched with ``n_samples`` samples each, composited;
+- gia: the field at each pixel's (x, y) in the unit square;
+- nsdf: rays sphere-traced through the signed-distance field for
+  ``sphere_steps`` steps, then shaded with a central-difference normal.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional, Sequence
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -19,25 +21,85 @@ from repro_torch.core import fields, render
 from repro_torch.core.fields import FieldConfig
 from repro_torch.device import DeviceLike, resolve_device
 
-RAY_APPS = ("nerf", "nvr")
+APPS = ("nerf", "nvr", "gia", "nsdf")
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderSettings:
     tile_pixels: int = 4096       # pixels per scheduled tile
-    n_samples: int = 32           # ray-march samples
+    n_samples: int = 32           # ray-march samples (nerf, nvr)
     near: float = 0.5
     far: float = 4.5
+    sphere_steps: int = 48        # sphere-tracing iterations (nsdf)
 
 
+# ------------------------------------------------------------- NSDF shading
+def sphere_trace(sdf_fn: Callable, origins: torch.Tensor, dirs: torch.Tensor,
+                 n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-iteration sphere tracing: every ray takes ``n_steps`` steps,
+    so the time does not depend on the scene. ``sdf_fn(p (R, 3)) -> (R, 1)``
+    in world coordinates. Returns (hit points (R, 3), hit mask (R,))."""
+    t = torch.full((origins.shape[0],), 0.05, dtype=torch.float32,
+                   device=origins.device)
+    for _ in range(n_steps):
+        t = t + sdf_fn(origins + t[:, None] * dirs)[:, 0]
+    p = origins + t[:, None] * dirs
+    d = sdf_fn(p)[:, 0]
+    return p, (torch.abs(d) < 5e-3) & (t < 6.0)
+
+
+def _offset(p: torch.Tensor, axis: int, eps: float) -> torch.Tensor:
+    """``p`` with ``eps`` added to one coordinate, on the device: the JAX
+    package's ``p + [eps, 0, 0]`` (adding 0 leaves the others exact)."""
+    q = p.clone()
+    q[:, axis] = p[:, axis] + eps
+    return q
+
+
+def shade_nsdf(params, cfg: FieldConfig, origins: torch.Tensor,
+               dirs: torch.Tensor, settings: RenderSettings) -> torch.Tensor:
+    """Sphere-trace the field, then Lambert-shade the hits with the normal
+    from central differences (eps 2e-3); misses are black. (R, 3)."""
+    def sdf_world(p):
+        return fields.apply_field(params, cfg, (p + 1.0) / 2.0)
+    p, hit = sphere_trace(sdf_world, origins, dirs, settings.sphere_steps)
+    eps = 2e-3
+    g = [(sdf_world(_offset(p, i, eps)) - sdf_world(_offset(p, i, -eps)))[:, 0]
+         for i in range(3)]
+    norm = torch.sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2])
+    n = [c / (norm + 1e-8) for c in g]
+    lambert = torch.clamp(n[0] * 0.577 + n[1] * 0.577 + n[2] * 0.577,
+                          0.0, 1.0)
+    shade = 0.15 + 0.85 * lambert
+    color = torch.stack([c * shade for c in (0.8, 0.82, 0.9)], dim=-1)
+    return torch.where(hit[:, None], color, 0.0)
+
+
+def pixel_coords(cam: render.Camera, pixel_ids: torch.Tensor) -> torch.Tensor:
+    """gia's sample points: pixel (row, col) as (col / W, row / H) in f32,
+    (P, 2). Integer division, then one correctly rounded f32 divide by a
+    tensor: a CUDA divide by a Python number multiplies by its reciprocal,
+    which may differ in the last bit, and the finest level scales a
+    coordinate by 511."""
+    py = torch.div(pixel_ids, cam.width, rounding_mode="floor").float()
+    px = torch.remainder(pixel_ids, cam.width).float()
+    return torch.stack([px / torch.full_like(px, float(cam.width)),
+                        py / torch.full_like(py, float(cam.height))], dim=-1)
+
+
+# ---------------------------------------------------------------- tile step
 def make_tile_fn(cfg: FieldConfig, settings: RenderSettings) -> Callable:
     """(params, cam, pixel_ids (P,)) -> rgb (P, 3): one schedulable tile."""
-    if cfg.app not in RAY_APPS:
-        raise NotImplementedError(
-            f"no tile function for app {cfg.app!r} yet (ported: {RAY_APPS})")
+    if cfg.app not in APPS:
+        raise ValueError(f"unknown app {cfg.app!r} (apps: {APPS})")
 
     def tile(params, cam: render.Camera, pixel_ids: torch.Tensor):
+        if cfg.app == "gia":
+            return fields.apply_field(params, cfg,
+                                      pixel_coords(cam, pixel_ids))
         origins, dirs = render.make_rays(cam, pixel_ids)
+        if cfg.app == "nsdf":
+            return shade_nsdf(params, cfg, origins, dirs, settings)
         return render.render_rays(
             lambda p, d: fields.apply_field(params, cfg, p, d), origins, dirs,
             near=settings.near, far=settings.far,

@@ -59,8 +59,10 @@ def make_rays(cam: Camera, pixel_ids: torch.Tensor
     f32 on the device of ``pixel_ids``."""
     py = torch.div(pixel_ids, cam.width, rounding_mode="floor").float()
     px = torch.remainder(pixel_ids, cam.width).float()
-    # float32 scalars: the camera's values as the JAX package holds them
-    focal = float(np.float32(cam.focal))
+    # float32 scalars: the camera's values as the JAX package holds them;
+    # the focal length divides as a tensor, since a CUDA divide by a Python
+    # number multiplies by its reciprocal, which may differ in the last bit
+    focal = torch.full_like(px, float(np.float32(cam.focal)))
     x = (px - float(np.float32(cam.width)) * 0.5 + 0.5) / focal
     y = (py - float(np.float32(cam.height)) * 0.5 + 0.5) / focal
     rot = cam.c2w[:3, :3].astype(np.float64)     # exact float32 values

@@ -5,7 +5,8 @@
 // and, with per-level f32 scales, for int8 / fp8-e4m3 tables (its quantized
 // variant, hashgrid.py:154-155,167,177,221-223). Each thread encodes one
 // point at one level with encode_one_level (encode.cuh) and writes its F
-// features to the (B, L*F) f32 output in device memory.
+// features to the (B, L*F) f32 output in device memory. It is instantiated
+// for 3-D and 2-D points, F = 2 and 8, and each table type.
 //
 // What bounds it on the card: per point and level it gathers 2^d table
 // rows and writes F floats; at Table-I nerf_hash width (131,072 points of
@@ -99,6 +100,14 @@ extern "C" int encode_fwd(const float* points, const void* tables,
   REPRO_ENCODE_CASE(3, 8, kTableFp8E4M3, __nv_fp8_e4m3)
   REPRO_ENCODE_CASE(3, 2, kTableBf16, __nv_bfloat16)
   REPRO_ENCODE_CASE(3, 8, kTableBf16, __nv_bfloat16)
+  REPRO_ENCODE_CASE(2, 2, kTableF32, float)
+  REPRO_ENCODE_CASE(2, 8, kTableF32, float)
+  REPRO_ENCODE_CASE(2, 2, kTableInt8, int8_t)
+  REPRO_ENCODE_CASE(2, 8, kTableInt8, int8_t)
+  REPRO_ENCODE_CASE(2, 2, kTableFp8E4M3, __nv_fp8_e4m3)
+  REPRO_ENCODE_CASE(2, 8, kTableFp8E4M3, __nv_fp8_e4m3)
+  REPRO_ENCODE_CASE(2, 2, kTableBf16, __nv_bfloat16)
+  REPRO_ENCODE_CASE(2, 8, kTableBf16, __nv_bfloat16)
 #undef REPRO_ENCODE_CASE
   return cudaErrorInvalidValue;
 }

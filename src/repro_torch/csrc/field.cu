@@ -4,7 +4,9 @@
 // fused_field_pallas (body _field_kernel): field_fwd for dense f32 or bf16
 // tables, field_fwd_q for int8 / fp8-e4m3 tables with per-level f32 scales
 // (its quantized branch, fused_field.py:41,58,164-166). The encoded
-// features never reach device memory.
+// features never reach device memory. It is instantiated for 3-D points
+// (nerf, nvr, nsdf) and 2-D ones (gia), for F = 2 (hash and dense grids)
+// and F = 8 (tiled), and for each table type.
 //
 // What bounds it on the card: at Table-I nerf_hash width each point gathers
 // 16 levels x 8 corners x F=2 features from the table stack and then runs
@@ -232,6 +234,14 @@ int field_entry(const float* points, const void* tables, const float* scales,
   REPRO_FIELD_CASE(3, 8, kTableInt8, int8_t)
   REPRO_FIELD_CASE(3, 2, kTableFp8E4M3, __nv_fp8_e4m3)
   REPRO_FIELD_CASE(3, 8, kTableFp8E4M3, __nv_fp8_e4m3)
+  REPRO_FIELD_CASE(2, 2, kTableF32, float)
+  REPRO_FIELD_CASE(2, 8, kTableF32, float)
+  REPRO_FIELD_CASE(2, 2, kTableBf16, __nv_bfloat16)
+  REPRO_FIELD_CASE(2, 8, kTableBf16, __nv_bfloat16)
+  REPRO_FIELD_CASE(2, 2, kTableInt8, int8_t)
+  REPRO_FIELD_CASE(2, 8, kTableInt8, int8_t)
+  REPRO_FIELD_CASE(2, 2, kTableFp8E4M3, __nv_fp8_e4m3)
+  REPRO_FIELD_CASE(2, 8, kTableFp8E4M3, __nv_fp8_e4m3)
 #undef REPRO_FIELD_CASE
   return cudaErrorInvalidValue;
 }

@@ -22,8 +22,10 @@ from repro_torch.kernels.common import TABLE_DTYPE_CODE, check_kernel_input
 
 ENCODE_FWD = CudaKernel("encode_fwd", [PTR, PTR, PTR, INT, PTR, INT, INT, INT,
                                        INT, PTR, I64])
-# (dim, n_features) pairs the grid kernels are instantiated for
-SUPPORTED = {(3, 2), (3, 8)}
+# (dim, n_features) pairs the grid kernels are instantiated for: 3-D points
+# (nerf, nvr, nsdf) and 2-D ones (gia), hash or dense levels (F = 2) and
+# tiled ones (F = 8)
+SUPPORTED = {(3, 2), (3, 8), (2, 2), (2, 8)}
 
 
 def level_meta(cfg: GridConfig) -> np.ndarray:

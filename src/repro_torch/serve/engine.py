@@ -156,10 +156,9 @@ class RenderEngine:
         quantized scene's params and config must agree both ways."""
         if name in self._scene_bucket:
             raise ValueError(f"scene {name!r} already registered")
-        if cfg.app not in pipeline.RAY_APPS:
-            raise NotImplementedError(
-                f"scene {name!r}: app {cfg.app!r} is not served yet "
-                f"(ported: {pipeline.RAY_APPS})")
+        if cfg.app not in pipeline.APPS:
+            raise ValueError(f"scene {name!r}: unknown app {cfg.app!r} "
+                             f"(apps: {pipeline.APPS})")
         if is_quantized_field(params) and cfg.quant is None:
             raise ValueError(
                 f"scene {name!r} has quantized params but cfg.quant is "

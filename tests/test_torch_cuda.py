@@ -319,3 +319,138 @@ def test_bf16_engine_on_card_matches_cpu_render_frame(dev, app):
     assert counts["field_fwd"] > 0 and counts["field_fwd_q"] == 0
     ref = pipeline.render_frame(params, cfg, cam, settings, device="cpu")
     np.testing.assert_allclose(got, ref.numpy(), atol=TOL)
+
+
+def _grid2d_inputs(dev, n, n_features, table, seed):
+    """gia's 2-D grid (growth 1.25992): with F = 2, 12 levels of 2^14 rows
+    (levels 0-9 dense, 10-11 hashed); with F = 8, 4 levels of 2^12 rows.
+    U(-1, 1) tables as ``table`` (f32, bf16, or int8 / fp8_e4m3 codes
+    quantized in the port), n points with edge coordinates."""
+    log2_T, n_levels = (14, 12) if n_features == 2 else (12, 4)
+    g = dataclasses.replace(tenc.hashgrid_config(dim=2, growth=1.25992),
+                            log2_table_size=log2_T, n_levels=n_levels,
+                            n_features=n_features)
+    rng = np.random.default_rng(seed)
+    tables = torch.from_numpy(rng.uniform(
+        -1, 1, (g.n_levels, g.table_size, n_features)).astype(
+            np.float32)).to(dev)
+    scales = None
+    if table == "bf16":
+        tables = tables.to(torch.bfloat16)
+    elif table != "f32":
+        scales = table_scales(tables, QuantSpec(table))
+        tables = quantize(tables, scales, table)
+    pts = rng.uniform(size=(n, 2)).astype(np.float32)
+    pts[:1] = 1.0
+    pts[1:2] = 0.0
+    return g, tables, scales, torch.from_numpy(pts).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["f32", "bf16", "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("n_features", [2, 8])
+@pytest.mark.parametrize("n", [1, 4099, 40000])
+def test_2d_field_kernel_matches_plain(dev, table, n_features, n):
+    """gia's (2, F) cases: field_fwd for f32 and bf16 tables, field_fwd_q
+    for codes, with gia's MLP (4 hidden layers of 64, 3 outputs)."""
+    g, tables, scales, pts = _grid2d_inputs(dev, n, n_features, table, n)
+    m = MLPConfig(in_dim=g.out_dim, n_hidden=4, out_dim=3)
+    w = _mlp_params(m, n + 2, dev)
+    kernel = "field_fwd" if scales is None else "field_fwd_q"
+    before = tkernels.launch_counts()
+    got = ff_ops.field(pts, tables, w, g, m, table_scales=scales)
+    torch.cuda.synchronize()
+    after = tkernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == kernel) for k in after}
+    torch.testing.assert_close(got, field_ref(pts, tables, w, g, m, scales),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["f32", "bf16", "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("n_features", [2, 8])
+@pytest.mark.parametrize("n", [1, 4099, 40000])
+def test_2d_encode_kernel_matches_plain(dev, table, n_features, n):
+    g, tables, scales, pts = _grid2d_inputs(dev, n, n_features, table, n + 1)
+    before = tkernels.launch_counts()["encode_fwd"]
+    got = hops.encode(pts, tables, g, table_scales=scales)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts()["encode_fwd"] == before + 1
+    torch.testing.assert_close(got, encode_ref(pts, tables, g, scales),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 4099, 40000])
+def test_field_kernel_single_output_matches_plain(dev, monkeypatch, table, n):
+    """nsdf's MLP (32 -> 64 x 4 -> 1): the kernel writes the one column of
+    its (B, 1) output and nothing past it: the output is handed out as the
+    head of a buffer whose 64-float tail holds a sentinel, which the
+    kernel must leave as it was."""
+    g, tables, _, pts = _grid_inputs(dev, n, 2, 14, None, n + 5)
+    g = dataclasses.replace(g, growth=1.38191)
+    if table == "bf16":
+        tables = tables.to(torch.bfloat16)
+    m = MLPConfig(in_dim=g.out_dim, n_hidden=4, out_dim=1)
+    w = _mlp_params(m, n + 6, dev)
+    ref = field_ref(pts, tables, w, g, m)
+    bufs = []
+
+    def guarded_empty(shape, dtype, device):
+        bufs.append(torch.full((shape[0] * shape[1] + 64,), 7.0,
+                               dtype=dtype, device=device))
+        return bufs[-1][:shape[0] * shape[1]].view(shape)
+    monkeypatch.setattr(torch, "empty", guarded_empty)
+    got = ff_ops.field(pts, tables, w, g, m)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert len(bufs) == 1 and got.data_ptr() == bufs[0].data_ptr()
+    torch.testing.assert_close(got, ref, atol=TOL, rtol=TOL)
+    assert bool((bufs[0][n:] == 7.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app,table", [("gia", "f32"), ("gia", "bf16"),
+                                       ("gia", "int8"), ("nsdf", "f32")])
+def test_app_engine_on_card_matches_cpu_render_frame(dev, app, table):
+    """gia (dense and hashed 2-D levels; f32, bf16 or int8 tables, each in
+    its own bucket) and nsdf (the baked sphere, sphere-traced) through the
+    engine on the card, against the CPU render of the same params. nsdf
+    launches field_fwd 55 times per tile: 48 trace steps, the hit points
+    and six offsets for the normal."""
+    cfg = fields.make_field_config(app, "hash")
+    log2_T, n_levels = (14, 12) if app == "gia" else (14, 6)
+    cfg = cfg.with_grid(dataclasses.replace(cfg.grid, log2_table_size=log2_T,
+                                            n_levels=n_levels))
+    if app == "nsdf":
+        np_params = scenes.baked_sdf_params(cfg, 3)
+    else:
+        rng = np.random.default_rng(3)
+        np_params = {"grid": rng.uniform(-1, 1, fields.param_shapes(cfg)[
+            "grid"]).astype(np.float32),
+            "mlp": {k: v.cpu().numpy()
+                    for k, v in _mlp_params(cfg.mlp, 4, "cpu").items()}}
+    params = fields.from_jax_params(np_params, cfg, dev)
+    if table == "bf16":
+        params["grid"] = params["grid"].to(torch.bfloat16)
+    elif table == "int8":
+        cfg = cfg.with_quant(QuantSpec("int8"))
+        params = quantize_field(params, cfg.quant)
+    settings = pipeline.RenderSettings(tile_pixels=64)
+    engine = RenderEngine(settings, device=dev)
+    engine.add_scene("a", cfg, params)
+    engine.warmup()
+    cam = scenes.orbit_camera(12, 12, 0.7)
+    tkernels.reset_launch_counts()
+    got = engine.render_frame("a", cam)
+    counts = {k: n for k, n in tkernels.launch_counts().items() if n}
+    kernel = "field_fwd_q" if table == "int8" else "field_fwd"
+    assert counts == {kernel: 3 * (55 if app == "nsdf" else 1)}
+    ref = pipeline.render_frame(fields.to_device(params, torch.device("cpu")),
+                                cfg, cam, settings, device="cpu")
+    np.testing.assert_allclose(got, ref.numpy(), atol=TOL)
+    if app == "nsdf":
+        hit = got.sum(-1) > 0
+        assert 0 < hit.sum() < hit.size

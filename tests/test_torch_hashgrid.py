@@ -66,6 +66,37 @@ def test_encode_plain_matches_jax_kernel(qtype, n, n_features):
                                rtol=TOL)
 
 
+@pytest.mark.parametrize("qtype", [None, "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("n_features", [2, 8])
+def test_encode_plain_matches_jax_kernel_2d(qtype, n_features):
+    """gia's 2-D grid (growth 1.25992): at T = 2^9 levels 0-1 are dense and
+    2-3 hashed."""
+    gj = dataclasses.replace(jenc.hashgrid_config(dim=2, growth=1.25992),
+                             log2_table_size=9, n_levels=4,
+                             n_features=n_features)
+    gt = dataclasses.replace(tenc.hashgrid_config(dim=2, growth=1.25992),
+                             log2_table_size=9, n_levels=4,
+                             n_features=n_features)
+    assert [gt.level_is_hashed(l) for l in range(4)] == [False, False, True,
+                                                         True]
+    rng = np.random.default_rng(n_features)
+    tables = jnp.asarray(rng.uniform(-1, 1, (4, gt.table_size, n_features)
+                                     ).astype(np.float32))
+    scales = None
+    if qtype is not None:
+        scales = jq.absmax_scale(tables, qtype, axis=(1, 2))
+        tables = jq.quantize(tables, scales, qtype)
+    pts = rng.uniform(size=(150, 2)).astype(np.float32)
+    pts[:3] = [[0, 0], [1, 1], [0, 1]]                    # edges
+    got = hops.encode(torch.from_numpy(pts), _t(tables), gt,
+                      table_scales=_t(scales))
+    ref = jhops.encode(jnp.asarray(pts), tables, gj, table_scales=scales,
+                       block_b=64)
+    assert got.shape == (150, 4 * n_features)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+
+
 def test_quantized_encode_dequantizes_per_gather():
     """The plain version dequantizes each gathered row with the same
     formula as the whole table: the two agree bit for bit (int8 codes and

@@ -32,6 +32,7 @@ from repro_torch.core import render as trender
 from repro_torch.core.mlp import MLPConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.common import TABLE_DTYPE_CODE, check_kernel_input
+from repro_torch.kernels.hashgrid import hashgrid
 from repro_torch.kernels.hashgrid.hashgrid import check_tables
 from repro_torch.kernels.fused_field import ops as ff_ops
 from repro_torch.kernels.fused_field import fused_field as tff
@@ -112,6 +113,35 @@ def test_field_plain_matches_jax_kernel(n, out_dim, n_hidden):
     ref = jff_ops.field(jnp.asarray(pts), jnp.asarray(tables), _j(w), gj, jm,
                         block_b=64)
     assert got.shape == (n, out_dim)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("app,log2_T", [("gia", 9), ("nsdf", 14)])
+def test_field_plain_matches_jax_kernel_at_app_shapes(app, log2_T):
+    """gia's 2-D grid with its MLP (4 hidden layers, 3 outputs) and nsdf's
+    3-D one with its single signed-distance output; dense and hashed
+    levels both."""
+    gj = dataclasses.replace(jenc.hashgrid_config(
+        dim=2 if app == "gia" else 3,
+        growth=1.25992 if app == "gia" else 1.38191),
+        log2_table_size=log2_T, n_levels=4)
+    gt = dataclasses.replace(tenc.hashgrid_config(
+        dim=gj.dim, growth=gj.growth), log2_table_size=log2_T, n_levels=4)
+    assert {gt.level_is_hashed(l) for l in range(4)} == {False, True}
+    out_dim = 3 if app == "gia" else 1
+    m = MLPConfig(in_dim=8, n_hidden=4, out_dim=out_dim)
+    jm = JMLPConfig(in_dim=8, n_hidden=4, out_dim=out_dim)
+    rng = np.random.default_rng(log2_T)
+    tables = rng.uniform(-1, 1, (4, gt.table_size, 2)).astype(np.float32)
+    pts = rng.uniform(size=(200, gt.dim)).astype(np.float32)
+    pts[0] = 1.0                                          # edge
+    w = _mlp_params(m, 5)
+    got = ff_ops.field(torch.from_numpy(pts), torch.from_numpy(tables),
+                       _t(w), gt, m)
+    ref = jff_ops.field(jnp.asarray(pts), jnp.asarray(tables), _j(w), gj, jm,
+                        block_b=64)
+    assert got.shape == (200, out_dim)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL,
                                rtol=TOL)
 
@@ -332,3 +362,18 @@ def test_kernel_plans_mirror_the_cuda_sources(source, constant, mirror):
     m = re.search(constant, (build.CSRC / source).read_text())
     assert m is not None, constant
     assert int(m.group(1)) == mirror
+
+
+@pytest.mark.parametrize("source,case", [("field.cu", "REPRO_FIELD_CASE"),
+                                         ("encode.cu", "REPRO_ENCODE_CASE")])
+def test_grid_kernel_cases_mirror_supported(source, case):
+    """The wrappers' ``hashgrid.SUPPORTED`` (dim, n_features) pairs are
+    exactly those the CUDA sources instantiate, and each pair for every
+    table type of ``TABLE_DTYPE_CODE``."""
+    cases = re.findall(case + r"\((\d+), (\d+), (\w+), [\w:]+\)",
+                       (build.CSRC / source).read_text())
+    pairs = {(int(d), int(f)) for d, f, _ in cases}
+    assert pairs == hashgrid.SUPPORTED
+    assert {(2, 2), (2, 8), (3, 2), (3, 8)} <= pairs
+    assert len(cases) == len(pairs) * len(TABLE_DTYPE_CODE)
+    assert len(set(cases)) == len(cases)

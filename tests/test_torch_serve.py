@@ -222,10 +222,16 @@ def test_engine_rejects_oversized_unknown_and_duplicate():
     with pytest.raises(ValueError, match="already"):
         engine.add_scene("s0", ct, tfields.from_jax_params(
             _np_params(ct, 1), ct, "cpu"))
-    gia = tfields.make_field_config("gia", "hash")
-    with pytest.raises(NotImplementedError):
-        engine.add_scene("g", gia, {})
-    assert engine.scenes() == ["s0"]
+    with pytest.raises(ValueError, match="unknown app"):
+        engine.add_scene("x", dataclasses.replace(ct, app="volume"), {})
+    # every app of the paper is served: gia and nsdf get buckets of their own
+    keys = [engine.add_scene(app, c, tfields.from_jax_params(
+        _np_params(c, 2), c, "cpu"))
+        for app in ("gia", "nsdf") for c in [_cfgs(app, log2_T=10)[1]]]
+    assert [k.app for k in keys] == ["gia", "nsdf"]
+    assert all(k.n_samples == settings.n_samples for k in keys)
+    assert len(engine.stats()["buckets"]) == 3
+    assert engine.scenes() == ["s0", "gia", "nsdf"]
     assert engine.stats()["n_requests"] == 0         # warmup not counted
 
 
