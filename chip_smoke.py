@@ -19,13 +19,20 @@ JSON line:
   kernels  each kernel against its plain version on the inputs of one real
            engine tile (nerf: 4096 pixels x 32 samples; gia: 4096 pixels):
            max error against the stated tolerance, device time per call
-           (CUDA events), host time to enqueue one call (the wrapper's
-           checks, plan and launch), the plain version's time, the bound, and a
-           PyTorch yardstick where one exists; the quantized field kernel
-           and the standalone encode run on the same tile with tables
-           quantized in the port (int8, fp8-e4m3) and cast to bf16
-           (nerf's field_fwd with bf16 weights too); field_fwd at nsdf's
-           MLP on 131,072 random points with U(-1, 1) params
+           (CUDA events), ``floor_ms`` (the same kernel's queued time on
+           the smallest input: 1 ray, 1 point, 1 row), host time to
+           enqueue one call (the wrapper's checks, plan and launch), the
+           plain version's time, the bound, and a PyTorch yardstick where
+           one exists; the quantized field kernel and the standalone
+           encode run on the same tile with tables quantized in the port
+           (int8, fp8-e4m3) and cast to bf16 (nerf's field_fwd with bf16
+           weights too); field_fwd at nsdf's MLP on 131,072 random points
+           with U(-1, 1) params; composite_fwd on the field's packed
+           (R, S, 4) output with a broadcast (1, S) dts (the served
+           layout) and on separate rgb, sigma and (R, S) dts (its strided
+           path); each encode row adds its gather count (B x L x 2^d),
+           gathers per second and the level-group plan (G, points per
+           block, groups, blocks)
   unfused  the unfused route, encode_fwd then mlp_fwd, for nerf's f32, int8
            and fp8 tables and gia's f32 and int8 ones, against the fused
            kernel (the paper's fused-vs-unfused comparison), with both
@@ -65,10 +72,10 @@ JSON line:
            fraction, which must be neither 0 nor 1
 
 then the ``{"kernels": [...]}`` line (every kernel, launches from the path
-that runs it and per path, the rows of other table types and apps under
-``variants``), the card's name and power limit as nvidia-smi gives them,
-and ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero
-before that line.
+that runs it and per path, ``floor_ms``, the rows of other table types,
+apps and layouts under ``variants``), the card's name and power limit as
+nvidia-smi gives them, and ``{"ok": true, "device": {...}}`` last. Any
+failure exits non-zero before that line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Needs one CUDA
 GPU and the CUDA toolkit (nvcc); imports nothing of JAX.
@@ -271,6 +278,7 @@ def main():
     from repro_torch.kernels.fused_mlp.fused_mlp import mlp_plan
     from repro_torch.kernels.fused_mlp import ops as mlp_ops
     from repro_torch.kernels.hashgrid import ops as hops
+    from repro_torch.kernels.hashgrid.hashgrid import encode_plan
     from repro_torch.kernels.hashgrid.ref import encode_ref
     from repro_torch.kernels.ray_march import ops as rm_ops
     from repro_torch.quant import QuantSpec, quantize_field
@@ -416,22 +424,25 @@ def main():
         "nsdf_f32": ("nsdf", nsdf_rand["grid"], None, nsdf_rand["mlp"],
                      ncfg.mlp)}
 
-    def field_call(v, kernel):
+    def field_call(v, kernel, n=None):
         app, tab, sc, w, m = field_inputs[v]
         x, gg, _ = tiles[app]
+        x = x[:n]
         if kernel:
             return lambda: ff_ops.field(x, tab, w, gg, m, table_scales=sc)
         return lambda: field_ref(x, tab, w, gg, m, sc)
 
-    def encode_call(v, kernel):
+    def encode_call(v, kernel, n=None):
         app, tab, sc, _, _ = field_inputs[v]
         x, gg, _ = tiles[app]
+        x = x[:n]
         if kernel:
             return lambda: hops.encode(x, tab, gg, table_scales=sc)
         return lambda: encode_ref(x, tab, gg, sc)
 
-    # (kernel, variant) -> (kernel call, plain call, library call, work);
-    # field_fwd[bf16] takes bf16 tables and bf16 density weights
+    # (kernel, variant) -> (kernel call, plain call, library call, work,
+    # the kernel call on the smallest input); field_fwd[bf16] takes bf16
+    # tables and bf16 density weights
     runs = {}
     for v, (app, tab, sc, w, m) in field_inputs.items():
         fw = grid_work(app, tab, sc)
@@ -439,15 +450,23 @@ def main():
         runs["field_fwd" if sc is None else "field_fwd_q", v] = (
             field_call(v, True), field_call(v, False), None,
             {"bytes": fw["bytes"] + wbytes(w) + n * m.out_dim * 4,
-             "flops": fw["flops"], "mlp_flops": n * mlp_flops(m)})
+             "flops": fw["flops"], "mlp_flops": n * mlp_flops(m)},
+            field_call(v, True, 1))
     for v in ("f32", "bf16", "int8", "fp8", "gia_f32", "gia_bf16",
               "gia_int8", "gia_fp8"):
         app, tab, sc, _, _ = field_inputs[v]
         fw = grid_work(app, tab, sc)
         x, gg, _ = tiles[app]
+        plan = encode_plan(gg, tab.dtype, x.shape[0])
         runs["encode_fwd", v] = (
             encode_call(v, True), encode_call(v, False), None,
-            {**fw, "bytes": fw["bytes"] + x.shape[0] * gg.out_dim * 4})
+            {**fw, "bytes": fw["bytes"] + x.shape[0] * gg.out_dim * 4,
+             # every corner of every level: the gather requests it issues
+             "gathers": x.shape[0] * gg.n_levels * (1 << gg.dim),
+             "plan": {k: plan[k] for k in ("group_levels",
+                                           "points_per_block", "n_groups",
+                                           "blocks", "store_bytes")}},
+            encode_call(v, True, 1))
     runs["mlp_fwd", None] = (
         lambda: mlp_ops.mlp(p0["mlp"], color_in, ccfg),
         lambda: apply_mlp(p0["mlp"], color_in, ccfg),
@@ -457,18 +476,27 @@ def main():
             @ p0["mlp"]["w_hidden"][1]) @ p0["mlp"]["w_hidden"][2])
         @ p0["mlp"]["w_out"],
         {"bytes": b * (ccfg.in_dim + ccfg.out_dim) * 4 + wbytes(p0["mlp"]),
-         "flops": 0, "mlp_flops": b * mlp_flops(ccfg)})
-    runs["composite_fwd", None] = (
-        lambda: rm_ops.composite(rgb, sigma, dts),
-        lambda: render.composite(rgb, sigma, dts),
-        None,
-        # rgb + sigma per sample, one (1, S) dts row, pixel + opacity;
-        # per sample: -sigma*dt, 2 exp, 1-alpha, csum, sub, mul, 4 fma
-        {"bytes": b * 4 * 4 + N_SAMPLES * 4 + TILE_PIXELS * 4 * 4,
-         "flops": b * 16, "mlp_flops": 0})
+         "flops": 0, "mlp_flops": b * mlp_flops(ccfg)},
+        lambda: mlp_ops.mlp(p0["mlp"], color_in[:1], ccfg))
+    # composite_fwd on the served layout (the packed field output, a (1, S)
+    # dts row) and on its strided path (separate rgb and sigma, (R, S) dts)
+    rgb_s, sigma_s = rgb.contiguous(), sigma.contiguous()
+    dts_s = dts.expand(TILE_PIXELS, N_SAMPLES).contiguous()
+    for v, (c, sg, dt) in {"packed": (rgb, sigma, dts),
+                           "strided": (rgb_s, sigma_s, dts_s)}.items():
+        runs["composite_fwd", v] = (
+            lambda c=c, sg=sg, dt=dt: rm_ops.composite(c, sg, dt),
+            lambda c=c, sg=sg, dt=dt: render.composite(c, sg, dt),
+            None,
+            # rgb + sigma per sample, the dts, pixel + opacity; per
+            # sample: -sigma*dt, 2 exp, 1-alpha, csum, sub, mul, 4 fma
+            {"bytes": b * 4 * 4 + dt.numel() * 4 + TILE_PIXELS * 4 * 4,
+             "flops": b * 16, "mlp_flops": 0},
+            lambda c=c, sg=sg, dt=dt: rm_ops.composite(c[:1], sg[:1],
+                                                       dt[:1]))
 
     results, outputs = {}, {}
-    for (name, v), (kern, plain, lib, w) in runs.items():
+    for (name, v), (kern, plain, lib, w, tiny) in runs.items():
         label = name if v is None else f"{name}[{v}]"
         got, ref = kern(), plain()
         torch.cuda.synchronize()
@@ -491,9 +519,10 @@ def main():
         t_ops = max(TF32_PASSES * w["mlp_flops"] / PEAK_TF32_FLOPS,
                     w["flops"] / PEAK_F32_FLOPS) * 1e3
         t_f32 = (w["flops"] + w["mlp_flops"]) / PEAK_F32_FLOPS * 1e3
+        ms = device_ms(kern, reps=20)
         results[name, v] = {
-            "max_abs_err": err, "tol": TOL,
-            "ms": device_ms(kern, reps=20),
+            "max_abs_err": err, "tol": TOL, "ms": ms,
+            "floor_ms": device_ms(tiny, reps=20),
             "host_ms_per_call": host_ms(kern),
             "plain_ms": device_ms(plain, reps=3),
             "bound_ms": max(t_bytes, t_ops),
@@ -502,6 +531,10 @@ def main():
             "library_ms": device_ms(lib, reps=20) if lib else None,
             "bytes": w["bytes"], "flops": w["flops"],
             "mlp_flops": w["mlp_flops"]}
+        if "gathers" in w:
+            results[name, v].update(gathers=w["gathers"],
+                                    gathers_per_s=w["gathers"] / ms * 1e3,
+                                    plan=w["plan"])
     emit({"phase": "kernels",
           "points": {app: t[0].shape[0] for app, t in tiles.items()},
           "rays": TILE_PIXELS,
@@ -824,18 +857,21 @@ def main():
                     "serve", launches, None),
         "composite_fwd": ("src/repro_torch/csrc/composite.cu",
                           "src/repro/kernels/ray_march/ray_march.py:53",
-                          "serve", launches, None)}
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+                          "serve", launches, "packed")}
+    keys = ("max_abs_err", "ms", "floor_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    grid_keys = ("gathers", "gathers_per_s", "plan")
     rows_out = []
     for n, (src, tpu, path, counts, main_v) in report.items():
         row = {"name": n, "route": "cuda", "source": src, "replaces": tpu,
                "launches": counts[n], "path": path,
                "launches_by_path": {p: c[n] for p, c in paths.items()},
-               **{k: results[n, main_v][k] for k in keys}}
+               **{k: results[n, main_v][k] for k in keys + grid_keys
+                  if k in results[n, main_v]}}
         if main_v is not None:
             row["variant"] = main_v
-            row["variants"] = {v: {k: r[k] for k in keys}
+            row["variants"] = {v: {k: r[k] for k in keys + grid_keys
+                                   if k in r}
                                for (kn, v), r in results.items() if kn == n}
         rows_out.append(row)
     emit({"kernels": rows_out, "script_s": time.perf_counter() - t_start})

@@ -18,9 +18,10 @@
 // (hashgrid.py:153-158). A dense table takes no multiply.
 //
 // LevelGather splits one level into fetch (indices, weights, loads) and
-// finish (the sums), so the fused field kernel can put the loads of two
-// levels in flight before it adds either; encode_one_level runs the two
-// back to back. The arithmetic is the same either way.
+// finish (the sums), so that a kernel can put the loads of several levels
+// in flight before it adds any of them up: two levels in the fused field
+// kernel (field.cu), a level group in the standalone encode (encode.cu).
+// The arithmetic is the same either way.
 #pragma once
 
 #include <cstdint>
@@ -184,15 +185,6 @@ struct LevelGather {
     }
   }
 };
-
-template <int DIM, int F, typename TableT>
-__device__ __forceinline__ void encode_one_level(
-    const float (&pt)[DIM], const TableT* __restrict__ table, int res,
-    bool hashed, uint32_t mask, float scale, float (&feat)[F]) {
-  LevelGather<DIM, F, TableT> gather;
-  gather.fetch(pt, table, res, hashed, mask);
-  gather.finish(scale, feat);
-}
 
 // The scale of `level`: read on the device from the scene's (L,) scales;
 // a dense (f32 or bf16) table has none.

@@ -31,7 +31,7 @@
 // nearby points share table rows in L1/L2, and each lane starts the loads
 // of all corners of two levels (one for 32-byte rows) before it adds any
 // of them up, to keep more gathers in flight against HBM latency. The encode
-// arithmetic is encode_one_level's (encode.cuh), unchanged.
+// arithmetic is LevelGather's (encode.cuh), unchanged.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>

@@ -31,6 +31,7 @@ from repro_torch.kernels.fused_mlp import ops as mlp_ops
 from repro_torch.kernels.hashgrid import ops as hops
 from repro_torch.kernels.hashgrid.ref import encode_ref
 from repro_torch.kernels.ray_march import ops as rm_ops
+from repro_torch.kernels.ray_march import ray_march as rm_ray_march
 from repro_torch.quant import QuantSpec, quantize_field
 from repro_torch.quant.calibrate import table_scales
 from repro_torch.quant.qtypes import quantize
@@ -235,6 +236,102 @@ def test_composite_kernel_matches_plain(dev, broadcast):
                                    dts.expand(r, s))
     torch.testing.assert_close(pix, rpix, atol=TOL, rtol=TOL)
     torch.testing.assert_close(opac, ropac, atol=TOL, rtol=TOL)
+
+
+def _composite_inputs(dev, r, s, layout, dts_rows, seed):
+    """rgb and sigma as separate tensors or as the columns of one packed
+    (R, S, 4) array, dts (R, S) or a broadcast (1, S) row; ray 0 is opaque
+    from its first sample, ray 1 empty."""
+    rng = np.random.default_rng(seed)
+    packed = np.concatenate([rng.uniform(size=(r, s, 3)),
+                             rng.exponential(3.0, size=(r, s, 1))], -1
+                            ).astype(np.float32)
+    packed[0, :, 3] = 1e4
+    if r > 1:
+        packed[1, :, 3] = 0.0
+    if layout == "packed":
+        packed = torch.from_numpy(packed).to(dev)
+        rgb, sigma = packed[..., :3], packed[..., 3]
+    else:
+        rgb, sigma = (torch.from_numpy(a.copy()).to(dev)
+                      for a in (packed[..., :3], packed[..., 3]))
+    dts = torch.from_numpy(rng.uniform(0.01, 0.2, (dts_rows or r, s)).astype(
+        np.float32)).to(dev)
+    return rgb, sigma, dts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 8, 16, 31, 32, 33, 64, 192])
+@pytest.mark.parametrize("r", [1, 333, 4096])
+@pytest.mark.parametrize("layout", ["packed", "separate"])
+@pytest.mark.parametrize("dts_rows", [None, 1])
+def test_composite_segments_match_plain(dev, s, r, layout, dts_rows):
+    """The warp-per-ray kernel over sample counts below, at and above its
+    32-lane segment (S < 32 puts several rays in a warp; S > 32 carries the
+    scan across chunks), ray counts off the rays per block, both input
+    layouts (the 16-byte packed path and the strided one) and both dts
+    shapes; an opaque ray's opacity stays finite and at most 1 + 1e-4."""
+    rgb, sigma, dts = _composite_inputs(dev, r, s, layout, dts_rows, r + s)
+    assert rm_ray_march.is_packed(rgb, sigma) == (layout == "packed")
+    before = tkernels.launch_counts()["composite_fwd"]
+    pix, opac = rm_ops.composite(rgb, sigma, dts)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts()["composite_fwd"] == before + 1
+    rpix, ropac = render.composite(rgb, sigma, dts.expand(r, s))
+    assert bool(torch.isfinite(pix).all()) and bool(torch.isfinite(opac).all())
+    torch.testing.assert_close(pix, rpix, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(opac, ropac, atol=TOL, rtol=TOL)
+    assert float(opac.max()) <= 1.0 + 1e-4
+    assert abs(float(opac[0]) - 1.0) < 1e-4
+    if r > 1:
+        assert float(opac[1]) == 0.0 and float(pix[1].abs().max()) == 0.0
+
+
+def _encode_inputs(dev, n, dim, n_features, n_levels, table, seed):
+    """A hash grid of ``n_levels`` levels of 2^14 rows (the first dense, the
+    finer hashed where L reaches them), U(-1, 1) tables as ``table``, n
+    points with edge coordinates."""
+    g = dataclasses.replace(
+        tenc.hashgrid_config(dim=dim, growth=1.25992 if dim == 2
+                             else 1.51572),
+        log2_table_size=14, n_levels=n_levels, n_features=n_features)
+    rng = np.random.default_rng(seed)
+    tables = torch.from_numpy(rng.uniform(
+        -1, 1, (n_levels, g.table_size, n_features)).astype(
+            np.float32)).to(dev)
+    scales = None
+    if table == "bf16":
+        tables = tables.to(torch.bfloat16)
+    elif table != "f32":
+        scales = table_scales(tables, QuantSpec(table))
+        tables = quantize(tables, scales, table)
+    pts = rng.uniform(size=(n, dim)).astype(np.float32)
+    pts[:1] = 1.0
+    pts[1:2] = 0.0
+    return g, tables, scales, torch.from_numpy(pts).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["f32", "bf16", "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("dim,n_features", [(3, 2), (3, 8), (2, 2), (2, 8)])
+@pytest.mark.parametrize("n_levels", [1, 6, 13, 16])
+@pytest.mark.parametrize("n", [1, 255, 257, 4099, 131072])
+def test_encode_level_groups_match_plain(dev, table, dim, n_features,
+                                         n_levels, n):
+    """The level-group encode over level counts that leave a ragged last
+    group (6 and 13; 13 levels of F = 2 are 8-byte, not 16-byte, aligned
+    rows), point counts off the 128-point tiles, and the group sizes the
+    plan picks for each table type at small and full tiles."""
+    g, tables, scales, pts = _encode_inputs(dev, n, dim, n_features,
+                                            n_levels, table,
+                                            n + n_levels + dim)
+    before = tkernels.launch_counts()["encode_fwd"]
+    got = hops.encode(pts, tables, g, table_scales=scales)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts()["encode_fwd"] == before + 1
+    assert got.shape == (n, n_levels * n_features)
+    torch.testing.assert_close(got, encode_ref(pts, tables, g, scales),
+                               atol=TOL, rtol=TOL)
 
 
 @pytest.mark.cuda

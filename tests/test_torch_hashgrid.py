@@ -21,7 +21,9 @@ from repro.kernels.hashgrid import ops as jhops
 from repro.quant import qtypes as jq
 from repro_torch import kernels as tkernels
 from repro_torch.core import encoding as tenc
+from repro_torch.core import fields as tfields
 from repro_torch.core.fields import leaf_from_numpy
+from repro_torch.kernels.hashgrid import hashgrid
 from repro_torch.kernels.hashgrid import ops as hops
 
 TOL = 1e-5
@@ -135,3 +137,64 @@ def test_encode_raises_off_cpu_and_cuda():
     with pytest.raises(ValueError):
         hops.encode(torch.empty((8, 3), device="meta"),
                     torch.empty((4, 256, 2), device="meta"), gt)
+
+
+_TABLE_DTYPES = [torch.float32, torch.bfloat16, torch.int8,
+                 torch.float8_e4m3fn]
+
+
+@pytest.mark.parametrize("app", ["nerf", "nsdf", "gia", "nvr"])
+@pytest.mark.parametrize("dtype", _TABLE_DTYPES)
+@pytest.mark.parametrize("n", [1, 4096, 131072])
+def test_encode_plan_fits_every_table1_grid(app, dtype, n):
+    """Each Table-I hash grid's level groups: every level in exactly one
+    group, in order; each group's reachable tables within the L2 share;
+    whole 16-byte stores; the corner rows within the register budget; and
+    enough blocks to fill the card at a full tile."""
+    cfg = tfields.make_field_config(app, "hash").grid
+    plan = hashgrid.encode_plan(cfg, dtype, n)
+    g, groups = plan["group_levels"], plan["groups"]
+    assert [l for a, b in groups for l in range(a, b)] == list(
+        range(cfg.n_levels))
+    assert all(b - a == g for a, b in groups[:-1])
+    assert 0 < groups[-1][1] - groups[-1][0] <= g
+    level_bytes = hashgrid.level_table_bytes(cfg, dtype)
+    assert plan["group_table_bytes"] == max(sum(level_bytes[a:b])
+                                            for a, b in groups)
+    assert plan["group_table_bytes"] <= hashgrid.L2_SHARE_BYTES
+    assert plan["store_bytes"] == g * cfg.n_features * 4
+    assert plan["store_bytes"] % 16 == 0
+    assert g * cfg.n_features * dtype.itemsize <= hashgrid.GROUP_ROW_BYTES
+    assert g <= hashgrid.MAX_GROUP
+    assert plan["blocks"] == -(-n // hashgrid.ENCODE_ROWS) * len(groups)
+    if n == 131072:
+        assert plan["blocks"] >= hashgrid.MIN_BLOCKS
+        # nerf's f32 levels are 4 MiB each: four to a 16 MiB group
+        assert g == (4 if dtype == torch.float32 else 8)
+
+
+def test_encode_plan_ragged_last_group():
+    """13 levels in groups of 4 (or of 2, at a small batch) leave one level
+    for the last group."""
+    gt = dataclasses.replace(tenc.hashgrid_config(), log2_table_size=14,
+                             n_levels=13)
+    plan = hashgrid.encode_plan(gt, torch.float32, 131072)
+    assert plan["group_levels"] == 4 and plan["n_groups"] == 4
+    assert plan["groups"][-1] == (12, 13)
+    small = hashgrid.encode_plan(gt, torch.float32, 4096)
+    assert small["group_levels"] == 2 and small["groups"][-1] == (12, 13)
+
+
+@pytest.mark.parametrize("change,error", [
+    ({"dim": 4}, ValueError), ({"n_features": 4}, ValueError),
+    ({"n_levels": 33}, ValueError), ({"n_levels": 0}, ValueError),
+    ({"log2_table_size": 32}, ValueError)])
+def test_encode_plan_raises_on_what_the_kernel_does_not_take(change, error):
+    gt = dataclasses.replace(tenc.hashgrid_config(), **change)
+    with pytest.raises(error):
+        hashgrid.encode_plan(gt, torch.float32, 100)
+
+
+def test_encode_plan_raises_on_other_table_types():
+    with pytest.raises(TypeError):
+        hashgrid.encode_plan(tenc.hashgrid_config(), torch.float16, 100)

@@ -43,6 +43,7 @@ from repro_torch.kernels.fused_mlp.fused_mlp import (MAX_SMEM_BYTES,
                                                      fused_mlp_cuda, mlp_plan)
 from repro_torch.kernels.hashgrid import ops as hops
 from repro_torch.kernels.ray_march import ops as rm_ops
+from repro_torch.kernels.ray_march import ray_march as rm_ray_march
 
 TOL = 1e-5
 
@@ -187,6 +188,63 @@ def test_composite_reads_packed_field_output():
                             torch.from_numpy(np.repeat(dts, 40, axis=0)))
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("s", [1, 8, 31, 33, 64, 192])
+@pytest.mark.parametrize("layout", ["separate", "packed"])
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_composite_plain_matches_jax_kernel_over_sample_counts(s, layout,
+                                                               broadcast):
+    """S below, at the edges of and above the kernel's 32-lane segments,
+    R = 333 (no multiple of the rays per block), an empty and an opaque
+    ray, and the two input layouts the wrapper tells apart: separate rgb
+    and sigma, or the columns of the field's packed (R, S, 4) output."""
+    r = 333
+    rgb, sigma, dts = _composite_inputs(r, s, seed=s, broadcast_dts=broadcast)
+    sigma[1, :] = 1e4                               # opaque from the start
+    trgb, tsigma = torch.from_numpy(rgb), torch.from_numpy(sigma)
+    if layout == "packed":
+        packed = torch.cat([trgb, tsigma[..., None]], dim=-1)
+        trgb, tsigma = packed[..., :3], packed[..., 3]
+        assert rm_ray_march.is_packed(trgb, tsigma)
+    pix, opac = rm_ops.composite(trgb, tsigma, torch.from_numpy(dts))
+    rpix, ropac = jrm_ops.composite(jnp.asarray(rgb), jnp.asarray(sigma),
+                                    jnp.asarray(dts))
+    assert pix.shape == (r, 3) and opac.shape == (r,)
+    assert np.isfinite(pix.numpy()).all() and np.isfinite(opac.numpy()).all()
+    np.testing.assert_allclose(pix.numpy(), np.asarray(rpix), atol=TOL)
+    np.testing.assert_allclose(opac.numpy(), np.asarray(ropac), atol=TOL)
+    assert float(opac[0]) == 0.0                          # empty ray
+    assert abs(float(opac[1]) - 1.0) < 1e-4               # opaque ray
+    assert float(opac.max()) <= 1.0 + 1e-4
+
+
+@pytest.mark.parametrize("s,lanes,rays", [(0, 1, 256), (1, 1, 256),
+                                          (2, 2, 128), (8, 8, 32),
+                                          (16, 16, 16), (17, 32, 8),
+                                          (31, 32, 8), (32, 32, 8),
+                                          (33, 32, 8), (192, 32, 8)])
+def test_composite_plan_gives_a_segment_per_ray(s, lanes, rays):
+    """A ray takes the next power of two of S lanes, at most a warp; the
+    rays of a warp and of a block follow."""
+    plan = rm_ray_march.composite_plan(s)
+    assert plan == {"lanes_per_ray": lanes, "rays_per_block": rays}
+    assert plan["rays_per_block"] * plan["lanes_per_ray"] == \
+        32 * rm_ray_march.WARPS_PER_BLOCK
+
+
+def test_composite_packed_layout_is_told_apart():
+    """The 16-byte-load path is taken only for the columns of one (R, S, 4)
+    f32 array on a 16-byte boundary."""
+    packed = torch.zeros((5, 7, 4))
+    assert rm_ray_march.is_packed(packed[..., :3], packed[..., 3])
+    assert not rm_ray_march.is_packed(torch.zeros((5, 7, 3)),
+                                      torch.zeros((5, 7)))
+    assert not rm_ray_march.is_packed(packed[..., :3], packed[..., 2])
+    wide = torch.zeros((5, 7, 5))                         # sample stride 5
+    assert not rm_ray_march.is_packed(wide[..., :3], wide[..., 3])
+    off = torch.zeros(5 * 7 * 4 + 1)[1:].view(5, 7, 4)    # 4 bytes off
+    assert not rm_ray_march.is_packed(off[..., :3], off[..., 3])
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
@@ -355,10 +413,16 @@ _HIDDEN_128 = MLPConfig(in_dim=32, hidden_dim=128, n_hidden=1, out_dim=3)
     ("field.cu", r"kFieldRows = (\d+) \* kMlpWarps;",
      tff.TILE_ROWS // tff.MLP_WARPS),
     ("field.cu", r"kFieldHidden = (\d+);",
-     field_plan(MLPConfig(in_dim=32))["hidden_padded"])])
+     field_plan(MLPConfig(in_dim=32))["hidden_padded"]),
+    ("composite.cu", r"kCompositeWarps = (\d+);",
+     rm_ray_march.WARPS_PER_BLOCK),
+    ("encode.cu", r"kEncodeRows = (\d+);", hashgrid.ENCODE_ROWS),
+    ("encode.cu", r"kMaxGroup = (\d+);", hashgrid.MAX_GROUP),
+    ("encode.cu", r"kGroupRowBytes = (\d+);", hashgrid.GROUP_ROW_BYTES),
+    ("encode.cuh", r"kMaxLevels = (\d+);", hashgrid.MAX_LEVELS)])
 def test_kernel_plans_mirror_the_cuda_sources(source, constant, mirror):
-    """The wrappers' shared-memory plans repeat constants of the CUDA
-    sources; each copy equals its source."""
+    """The wrappers' plans (shared memory, rays per block, level groups)
+    repeat constants of the CUDA sources; each copy equals its source."""
     m = re.search(constant, (build.CSRC / source).read_text())
     assert m is not None, constant
     assert int(m.group(1)) == mirror
@@ -377,3 +441,21 @@ def test_grid_kernel_cases_mirror_supported(source, case):
     assert {(2, 2), (2, 8), (3, 2), (3, 8)} <= pairs
     assert len(cases) == len(pairs) * len(TABLE_DTYPE_CODE)
     assert len(set(cases)) == len(cases)
+
+
+def test_encode_group_sizes_mirror_the_cuda_dispatch():
+    """Every level-group size the plan can pick is one the CUDA source
+    dispatches to, for every table type and (dim, F) pair."""
+    cases = {int(g) for g in re.findall(
+        r"REPRO_ENCODE_GROUP\((\d+)\)", (build.CSRC / "encode.cu").read_text())}
+    picked = set()
+    for dim, f in hashgrid.SUPPORTED:
+        for log2_T in (8, 14, 19):
+            gt = dataclasses.replace(tenc.hashgrid_config(dim=dim),
+                                     n_features=f, log2_table_size=log2_T)
+            for dtype in TABLE_DTYPE_CODE:
+                for n in (1, 4096, 131072):
+                    picked.add(hashgrid.encode_plan(gt, dtype, n)[
+                        "group_levels"])
+    assert picked <= cases
+    assert max(cases) == hashgrid.MAX_GROUP
