@@ -278,7 +278,7 @@ def main():
     from repro_torch.kernels.fused_mlp.fused_mlp import mlp_plan
     from repro_torch.kernels.fused_mlp import ops as mlp_ops
     from repro_torch.kernels.hashgrid import ops as hops
-    from repro_torch.kernels.hashgrid.hashgrid import encode_plan
+    from repro_torch.kernels.hashgrid.hashgrid import encode_plan, sm_count
     from repro_torch.kernels.hashgrid.ref import encode_ref
     from repro_torch.kernels.ray_march import ops as rm_ops
     from repro_torch.quant import QuantSpec, quantize_field
@@ -457,7 +457,8 @@ def main():
         app, tab, sc, _, _ = field_inputs[v]
         fw = grid_work(app, tab, sc)
         x, gg, _ = tiles[app]
-        plan = encode_plan(gg, tab.dtype, x.shape[0])
+        plan = encode_plan(gg, tab.dtype, x.shape[0],
+                           sm_count(x.device.index))
         runs["encode_fwd", v] = (
             encode_call(v, True), encode_call(v, False), None,
             {**fw, "bytes": fw["bytes"] + x.shape[0] * gg.out_dim * 4,
@@ -860,18 +861,15 @@ def main():
                           "serve", launches, "packed")}
     keys = ("max_abs_err", "ms", "floor_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    grid_keys = ("gathers", "gathers_per_s", "plan")
     rows_out = []
     for n, (src, tpu, path, counts, main_v) in report.items():
         row = {"name": n, "route": "cuda", "source": src, "replaces": tpu,
                "launches": counts[n], "path": path,
                "launches_by_path": {p: c[n] for p, c in paths.items()},
-               **{k: results[n, main_v][k] for k in keys + grid_keys
-                  if k in results[n, main_v]}}
+               **{k: results[n, main_v][k] for k in keys}}
         if main_v is not None:
             row["variant"] = main_v
-            row["variants"] = {v: {k: r[k] for k in keys + grid_keys
-                                   if k in r}
+            row["variants"] = {v: {k: r[k] for k in keys}
                                for (kn, v), r in results.items() if kn == n}
         rows_out.append(row)
     emit({"kernels": rows_out, "script_s": time.perf_counter() - t_start})

@@ -16,7 +16,7 @@ and a group of G levels, issues all the group's gathers before it adds any
 up, and writes each point's G*F features as whole 16-byte stores.
 :func:`encode_plan` picks G: the largest group whose tables fit
 :data:`L2_SHARE_BYTES` and whose rows fit the kernel's register budget,
-made smaller while the grid would leave SMs idle.
+made smaller while the grid would leave the card's SMs idle.
 """
 from __future__ import annotations
 
@@ -47,8 +47,8 @@ GROUP_ROW_BYTES = 32
 # third, so that the group's tables, the output its blocks write (16 MiB
 # at nerf's 131,072-point tile) and the points stay in L2 together.
 L2_SHARE_BYTES = 16 << 20
-# Blocks below which the grid leaves SMs idle: two per SM of an H100 SXM.
-MIN_BLOCKS = 2 * 132
+# Blocks per SM below which the grid leaves SMs idle
+BLOCKS_PER_SM = 2
 
 
 def level_meta(cfg: GridConfig) -> np.ndarray:
@@ -71,19 +71,25 @@ def level_table_bytes(cfg: GridConfig, table_dtype: torch.dtype) -> list:
             for l in range(cfg.n_levels)]
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``device_index``."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=256)
-def encode_plan(cfg: GridConfig, table_dtype: torch.dtype,
-                n_points: int) -> Dict:
+def encode_plan(cfg: GridConfig, table_dtype: torch.dtype, n_points: int,
+                n_sms: int) -> Dict:
     """The encode kernel's level groups for ``cfg``'s tables of
-    ``table_dtype`` and a batch of ``n_points``. Raises on what the kernel
-    does not take.
+    ``table_dtype`` and a batch of ``n_points`` on a card of ``n_sms`` SMs.
+    Raises on what the kernel does not take.
 
     G, the levels a block takes, is a power of two whose G*F floats are
     whole 16-byte stores and whose corner rows (G x F x itemsize bytes)
     fit the kernel's register budget; the largest such G whose every group
     of tables fits ``L2_SHARE_BYTES`` (the smallest if none does), halved
-    while the grid has fewer than ``MIN_BLOCKS`` blocks. The last group
-    holds what is left when G does not divide L."""
+    while the grid has fewer than ``BLOCKS_PER_SM`` blocks per SM. The last
+    group holds what is left when G does not divide L."""
     if (cfg.dim, cfg.n_features) not in SUPPORTED:
         raise ValueError(f"no grid kernel for dim={cfg.dim}, "
                          f"n_features={cfg.n_features}")
@@ -107,7 +113,8 @@ def encode_plan(cfg: GridConfig, table_dtype: torch.dtype,
     fits = [g for g in sizes if group_bytes(g) <= L2_SHARE_BYTES]
     i = sizes.index(max(fits) if fits else sizes[0])
     tiles = -(-n_points // ENCODE_ROWS)
-    while i > 0 and tiles * -(-n_levels // sizes[i]) < MIN_BLOCKS:
+    while (i > 0 and tiles * -(-n_levels // sizes[i])
+           < BLOCKS_PER_SM * n_sms):
         i -= 1
     g = sizes[i]
     groups = [(l, min(l + g, n_levels)) for l in range(0, n_levels, g)]
@@ -146,7 +153,7 @@ def hashgrid_encode_cuda(points: torch.Tensor, tables: torch.Tensor,
     check_tables(tables, table_scales, cfg)
     b = points.shape[0]
     check_kernel_input("points", points, (b, cfg.dim))
-    plan = encode_plan(cfg, tables.dtype, b)
+    plan = encode_plan(cfg, tables.dtype, b, sm_count(points.device.index))
     meta = level_meta(cfg)                  # host array, read by the launch
     out = torch.empty((b, cfg.out_dim), dtype=torch.float32,
                       device=points.device)

@@ -141,6 +141,8 @@ def test_encode_raises_off_cpu_and_cuda():
 
 _TABLE_DTYPES = [torch.float32, torch.bfloat16, torch.int8,
                  torch.float8_e4m3fn]
+# an H100 SXM's streaming multiprocessors
+_H100_SMS = 132
 
 
 @pytest.mark.parametrize("app", ["nerf", "nsdf", "gia", "nvr"])
@@ -152,7 +154,7 @@ def test_encode_plan_fits_every_table1_grid(app, dtype, n):
     whole 16-byte stores; the corner rows within the register budget; and
     enough blocks to fill the card at a full tile."""
     cfg = tfields.make_field_config(app, "hash").grid
-    plan = hashgrid.encode_plan(cfg, dtype, n)
+    plan = hashgrid.encode_plan(cfg, dtype, n, _H100_SMS)
     g, groups = plan["group_levels"], plan["groups"]
     assert [l for a, b in groups for l in range(a, b)] == list(
         range(cfg.n_levels))
@@ -168,7 +170,7 @@ def test_encode_plan_fits_every_table1_grid(app, dtype, n):
     assert g <= hashgrid.MAX_GROUP
     assert plan["blocks"] == -(-n // hashgrid.ENCODE_ROWS) * len(groups)
     if n == 131072:
-        assert plan["blocks"] >= hashgrid.MIN_BLOCKS
+        assert plan["blocks"] >= hashgrid.BLOCKS_PER_SM * _H100_SMS
         # nerf's f32 levels are 4 MiB each: four to a 16 MiB group
         assert g == (4 if dtype == torch.float32 else 8)
 
@@ -178,10 +180,10 @@ def test_encode_plan_ragged_last_group():
     for the last group."""
     gt = dataclasses.replace(tenc.hashgrid_config(), log2_table_size=14,
                              n_levels=13)
-    plan = hashgrid.encode_plan(gt, torch.float32, 131072)
+    plan = hashgrid.encode_plan(gt, torch.float32, 131072, _H100_SMS)
     assert plan["group_levels"] == 4 and plan["n_groups"] == 4
     assert plan["groups"][-1] == (12, 13)
-    small = hashgrid.encode_plan(gt, torch.float32, 4096)
+    small = hashgrid.encode_plan(gt, torch.float32, 4096, _H100_SMS)
     assert small["group_levels"] == 2 and small["groups"][-1] == (12, 13)
 
 
@@ -192,9 +194,10 @@ def test_encode_plan_ragged_last_group():
 def test_encode_plan_raises_on_what_the_kernel_does_not_take(change, error):
     gt = dataclasses.replace(tenc.hashgrid_config(), **change)
     with pytest.raises(error):
-        hashgrid.encode_plan(gt, torch.float32, 100)
+        hashgrid.encode_plan(gt, torch.float32, 100, _H100_SMS)
 
 
 def test_encode_plan_raises_on_other_table_types():
     with pytest.raises(TypeError):
-        hashgrid.encode_plan(tenc.hashgrid_config(), torch.float16, 100)
+        hashgrid.encode_plan(tenc.hashgrid_config(), torch.float16, 100,
+                             _H100_SMS)

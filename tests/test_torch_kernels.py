@@ -455,7 +455,7 @@ def test_encode_group_sizes_mirror_the_cuda_dispatch():
                                      n_features=f, log2_table_size=log2_T)
             for dtype in TABLE_DTYPE_CODE:
                 for n in (1, 4096, 131072):
-                    picked.add(hashgrid.encode_plan(gt, dtype, n)[
+                    picked.add(hashgrid.encode_plan(gt, dtype, n, 132)[
                         "group_levels"])
     assert picked <= cases
     assert max(cases) == hashgrid.MAX_GROUP
