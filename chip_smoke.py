@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's serving paths through ``RenderEngine`` at Table-I width
-and depth, and holds every CUDA kernel on them against its plain PyTorch
-version: ``nerf_hash`` (L=16 levels of 2^19 x 2 f32 tables, density MLP
+Drives the port's serving paths through ``RenderEngine`` and its training
+path through ``TrainEngine`` at Table-I width and depth, and holds every
+CUDA kernel on them against its plain PyTorch version: ``nerf_hash`` (L=16 levels of 2^19 x 2 f32 tables, density MLP
 32->64x3->16, colour MLP 32->64x4->3), ``gia_hash`` (2-D points, L=16
 levels of 2^24 x 2 tables, 2 GiB per scene in f32; MLP 32->64x4->3) and
 ``nsdf_hash`` (L=16 levels of 2^19 x 2; MLP 32->64x4->1, sphere-traced).
@@ -32,7 +32,12 @@ JSON line:
            layout) and on separate rgb, sigma and (R, S) dts (its strided
            path); each encode row adds its gather count (B x L x 2^d),
            gathers per second and the level-group plan (G, points per
-           block, groups, blocks)
+           block, groups, blocks); encode_bwd, the encode's table-gradient
+           scatter-add, at nerf's tile with f32 and bf16 tables and at
+           gia's, against its plain twin (index_add_ per level and corner)
+           by max error over the gradient's max abs value, with its atomic
+           adds (B x L x 2^d x F) and one index_add_ of the precomputed
+           rows as the PyTorch yardstick
   unfused  the unfused route, encode_fwd then mlp_fwd, for nerf's f32, int8
            and fp8 tables and gia's f32 and int8 ones, against the fused
            kernel (the paper's fused-vs-unfused comparison), with both
@@ -70,9 +75,32 @@ JSON line:
            (finite, non-zero, under 0.2)
   parity_nsdf  the nsdf frame against render_frame on the CPU, and its hit
            fraction, which must be neither 0 nor 1
+  train    after the serving phases, with their engines and gia's 2 GiB
+           stacks freed: train_field on each Table-I app (TrainEngine,
+           chunks of 8 steps, 4096 points or rays x 32 samples a step, nerf
+           32 steps, the others 16; nerf's and nvr's targets composited
+           with 64 samples): the first and last loss (the last must be
+           lower), ms per step, device memory allocated before and at the
+           peak (the initial params, kept for train_parity, count), and
+           each kernel's launches per step: field_fwd, encode_fwd (the
+           backward's recomputed features), encode_bwd (the table
+           gradient) and, for nerf, mlp_fwd must launch every step,
+           composite_fwd never
+  profile_train  nerf's and gia's device busy time, idle share and time
+           by kernel over 4 more training steps, from one CUDA-only trace
+  train_parity  nerf's and gia's first training step's gradient of every
+           leaf (its params and batch), the kernel route against the plain
+           versions on the card (the wrappers swapped for them; no kernel
+           may launch): max error over the leaf's max abs value, which must
+           not be 0
+  serve_trained  the trained nerf scene and its initial params in one
+           RenderEngine: a 32x32 frame of each from the training camera
+           against the analytic volume's pixels (gt_render_rays, 64
+           samples); the trained frame's MSE must be the lower (an
+           all-black frame's is printed beside them)
 
 then the ``{"kernels": [...]}`` line (every kernel, launches from the path
-that runs it and per path, ``floor_ms``, the rows of other table types,
+that runs it and per path, ``train`` among them, ``floor_ms``, the rows of other table types,
 apps and layouts under ``variants``), the card's name and power limit as
 nvidia-smi gives them, and ``{"ok": true, "device": {...}}`` last. Any
 failure exits non-zero before that line.
@@ -80,6 +108,7 @@ failure exits non-zero before that line.
 Run from the root of a checkout: ``python3 chip_smoke.py``. Needs one CUDA
 GPU and the CUDA toolkit (nvcc); imports nothing of JAX.
 """
+import contextlib
 import json
 import os
 import re
@@ -107,6 +136,23 @@ NSDF_POINTS = 131_072        # nsdf's kernel row: one nerf tile's points
 N_REQUESTS = 120
 PROFILE_REQUESTS = 20
 SEED = 0
+# encode_bwd against its twin: both sum each table row's terms in f32, the
+# kernel with atomics in an order that changes from run to run, so f32
+# gradients differ by the rounding of those sums: max error at most this
+# share of the gradient's max abs value; bf16 tables add one rounding of
+# sums that differ in their last bits, up to one bf16 ulp (2^-7 relative)
+GRAD_TOL = 1e-5
+GRAD_TOL_BF16 = 2.0 ** -7
+# one training step's gradients, kernels against plain versions on the
+# card: the kernels' 3xTF32 forward products (the exp and sigmoid heads
+# magnify them, as for TOL) feed the loss's cotangent, and every sum runs
+# in another order: max error over the leaf's max abs value
+TRAIN_PARITY_TOL = 1e-4
+TRAIN_STEPS = {"nerf": 32, "gia": 16, "nsdf": 16, "nvr": 16}
+TRAIN_BATCH = 4096           # points (gia, nsdf) or rays (nerf, nvr)
+TRAIN_CHUNK = 8
+GT_SAMPLES = 64
+PROFILE_STEPS = 4
 
 
 def fail(msg):
@@ -258,6 +304,60 @@ def touched_rows(points, cfg):
     return n
 
 
+def rel_err(got, ref):
+    """(max abs error, that over the reference's max abs value)."""
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    return err, (err / scale if scale else err)
+
+
+def table_grad_scatter(points, cfg, g):
+    """The encode backward's scatter, precomputed: the flat (L*T, F) table
+    row of every point, level and corner, and its w * g values (the
+    index_add_ yardstick's inputs)."""
+    import torch
+    from repro_torch.core import encoding as enc
+    rows, vals, nf = [], [], cfg.n_features
+    for level in range(cfg.n_levels):
+        cell, frac = enc.level_cell(points, cfg.level_resolution(level))
+        for bits in enc._corner_offsets(cfg.dim):
+            w = torch.ones_like(frac[:, 0])
+            for i in range(cfg.dim):
+                w = w * (frac[:, i] if bits[i] else 1.0 - frac[:, i])
+            rows.append(enc.level_corner_index(cell, bits, level, cfg)
+                        + level * cfg.table_size)
+            vals.append(w[:, None] * g[:, level * nf:(level + 1) * nf])
+    return torch.cat(rows), torch.cat(vals)
+
+
+def tree_items(tree, prefix=""):
+    """(path, leaf) of a param tree, in its order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+@contextlib.contextmanager
+def plain_wrappers():
+    """The field and MLP wrappers that ``apply_field`` calls, swapped for
+    their plain versions (autograd through plain PyTorch ops on the card)
+    inside the block and restored after: the plain side of train_parity."""
+    from repro_torch.core import fields
+    from repro_torch.kernels.fused_field.ref import field_ref
+    from repro_torch.kernels.fused_mlp.ref import mlp_ref
+    saved = fields.ff_ops.field, fields.mlp_ops.mlp
+
+    def field(points, tables, w, grid_cfg, mlp_cfg, table_scales=None):
+        return field_ref(points, tables, w, grid_cfg, mlp_cfg, table_scales)
+    fields.ff_ops.field, fields.mlp_ops.mlp = field, mlp_ref
+    try:
+        yield
+    finally:
+        fields.ff_ops.field, fields.mlp_ops.mlp = saved
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -278,11 +378,19 @@ def main():
     from repro_torch.kernels.fused_mlp.fused_mlp import mlp_plan
     from repro_torch.kernels.fused_mlp import ops as mlp_ops
     from repro_torch.kernels.hashgrid import ops as hops
-    from repro_torch.kernels.hashgrid.hashgrid import encode_plan, sm_count
+    from repro_torch.kernels.hashgrid import vjp as hvjp
+    from repro_torch.kernels.common import TABLE_DTYPE_CODE
+    from repro_torch.kernels.hashgrid.hashgrid import (ENCODE_BWD,
+                                                       encode_bwd_plan,
+                                                       encode_plan,
+                                                       level_meta, sm_count)
     from repro_torch.kernels.hashgrid.ref import encode_ref
     from repro_torch.kernels.ray_march import ops as rm_ops
     from repro_torch.quant import QuantSpec, quantize_field
+    from repro_torch.core import train as ctrain
     from repro_torch.serve import RenderEngine, RenderRequest
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import optim as toptim
     from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -325,6 +433,11 @@ def main():
              f"3-D and 2-D field kernels: {mma}")
     if not any(k.startswith("encode_fwd_kernel<Li2E") for k in mma):
         fail(f"build: no 2-D encode kernel in the library: {sorted(mma)}")
+    if not any(r[0].startswith("encode_bwd_kernel<Li3E") for r in ptxas) \
+            or not any(r[0].startswith("encode_bwd_kernel<Li2E")
+                       for r in ptxas):
+        fail("build: no 3-D and 2-D encode_bwd kernels in ptxas' report, so "
+             "their spills went unchecked")
 
     # ---------------------------------------------------------- kernels
     params = [fields.from_jax_params(np_params(cfg, SEED + s), cfg, dev)
@@ -536,6 +649,81 @@ def main():
             results[name, v].update(gathers=w["gathers"],
                                     gathers_per_s=w["gathers"] / ms * 1e3,
                                     plan=w["plan"])
+    # encode_bwd, the table gradient's scatter-add (the training path has
+    # no points' gradient), against its plain twin on a random cotangent
+    for v, (app, tab) in {"f32": ("nerf", p0["grid"]),
+                          "bf16": ("nerf", grid_bf16),
+                          "gia_f32": ("gia", g0["grid"])}.items():
+        x, gg, _ = tiles[app]
+        cot = torch.from_numpy(rng.uniform(
+            -1, 1, (x.shape[0], gg.out_dim)).astype(np.float32)).to(dev)
+
+        def kern(x=x, tab=tab, gg=gg, cot=cot, n=None):
+            return hops.encode_vjp(x[:n], tab, gg, cot[:n], False)[1]
+
+        def plain(x=x, tab=tab, gg=gg, cot=cot):
+            return hvjp.encode_bwd(x, tab, gg, cot, False)[1]
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        tol = GRAD_TOL if tab.dtype == torch.float32 else GRAD_TOL_BF16
+        if not bool(torch.isfinite(got).all()) or rel > tol:
+            fail(f"encode_bwd[{v}]: max error {err}, {rel} of the gradient's "
+                 f"max abs value, over {tol}")
+        del got, ref
+        rows, vals = table_grad_scatter(x, gg, cot)
+        acc = torch.zeros((gg.n_levels * gg.table_size, gg.n_features),
+                          dtype=torch.float32, device=dev)
+        corners = x.shape[0] * gg.n_levels * (1 << gg.dim)
+        atomics = corners * gg.n_features
+        # points and cotangent in, the gradient of the whole table out at
+        # the table's dtype; per corner d weight multiplies, F products and
+        # F atomic adds (f32 operations)
+        nbytes = (x.numel() + cot.numel()) * 4 + tab.numel() \
+            * tab.element_size()
+        flops = corners * (gg.dim + 2 * gg.n_features)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        ms = device_ms(kern, reps=20)
+        results["encode_bwd", v] = {
+            "max_abs_err": err, "rel_err": rel, "tol": tol, "ms": ms,
+            "floor_ms": device_ms(lambda: kern(n=1), reps=20),
+            "host_ms_per_call": host_ms(kern),
+            "plain_ms": device_ms(plain, reps=3),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": device_ms(lambda: acc.index_add_(0, rows, vals),
+                                    reps=20),
+            "bytes": nbytes, "flops": flops, "atomics": atomics,
+            "atomics_per_s": atomics / ms * 1e3,
+            "plan": encode_bwd_plan(gg, x.shape[0], sm_count(dev.index))}
+        if v == "f32":
+            # the accumulator's zero fill alone, and the scatter at each
+            # level group the kernel takes (the plan's among them): does a
+            # group's accumulator (G x 4 MiB) staying in L2 matter?
+            meta = level_meta(gg)
+
+            def at_group(group, x=x, tab=tab, gg=gg, cot=cot):
+                out = torch.zeros(tab.shape, dtype=torch.float32, device=dev)
+                ENCODE_BWD(dev, x.data_ptr(), tab.data_ptr(),
+                           TABLE_DTYPE_CODE[tab.dtype], cot.data_ptr(),
+                           meta.ctypes.data, gg.n_levels, gg.log2_table_size,
+                           gg.dim, gg.n_features, group, out.data_ptr(), 0,
+                           x.shape[0])
+                return out
+            twin = plain()
+            for group in (1, 2, 4, 8):
+                gerr = rel_err(at_group(group), twin)[1]
+                if gerr > GRAD_TOL:
+                    fail(f"encode_bwd[{v}] at G={group}: {gerr} of the "
+                         "gradient's max abs value")
+            del twin
+            results["encode_bwd", v].update(
+                group_ms={g_: device_ms(lambda g_=g_: at_group(g_), reps=20)
+                          for g_ in (1, 2, 4, 8)},
+                zero_fill_ms=device_ms(lambda: torch.zeros(
+                    tab.shape, dtype=torch.float32, device=dev), reps=20))
+        del rows, vals, acc, cot
     emit({"phase": "kernels",
           "points": {app: t[0].shape[0] for app, t in tiles.items()},
           "rays": TILE_PIXELS,
@@ -640,15 +828,14 @@ def main():
     # CPU + CUDA activity (the breakdown), and CUDA activity alone, whose
     # host overhead is smaller, so its idle share is nearer the unprofiled
     # stream's.
-    def profile_window(engine, window_reqs, acts):
+    def trace(run, acts, n, unit):
         """Device busy time, idle share, device events and time by kernel
-        of one traced window of ``window_reqs``."""
+        of one traced call of ``run``, which does ``n`` ``unit``s of work
+        (requests, training steps) and waits for the device."""
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            for r in window_reqs:
-                engine.submit(r)
-            engine.flush()
+            run()
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_kernel, spans = {}, []
         for ev in prof.events():
@@ -660,13 +847,21 @@ def main():
                               ev.time_range.end / 1e3))
         busy_ms = union_ms(spans)
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-        return {"requests": len(window_reqs), "wall_ms": wall_ms,
+        return {f"{unit}s": n, "wall_ms": wall_ms,
                 "device_busy_ms": busy_ms if spans else "not measured",
-                "device_busy_ms_per_request": busy_ms / len(window_reqs)
+                f"device_busy_ms_per_{unit}": busy_ms / n
                 if spans else "not measured",
                 "device_idle_share": (1 - busy_ms / wall_ms) if spans
                 else "not measured",
                 "device_events": len(spans), "top_device_ms": top}
+
+    def profile_window(engine, window_reqs, acts):
+        """``trace`` of one window of served requests."""
+        def run():
+            for r in window_reqs:
+                engine.submit(r)
+            engine.flush()
+        return trace(run, acts, len(window_reqs), "request")
 
     for window, acts in (("cpu+cuda", [ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]),
@@ -837,12 +1032,171 @@ def main():
           "hit_fraction_cpu": float((ref.sum(-1) > 0).mean()), **gpu})
     del nengine
 
+    # ------------------------------------------------------------ train
+    # Every app at Table-I width through train_field (TrainEngine), after
+    # the serving engines and gia's stacks are gone. Gradients flow through
+    # the field and MLP wrappers' autograd Functions: the kernels forward,
+    # encode_fwd and encode_bwd backward; the loss composites in plain ops.
+    del qengine, qscenes, qtab, grid_bf16, dmlp_bf16
+    torch.cuda.empty_cache()
+    train_launches, parity_rows = {}, {}
+    tpath = {"nerf": ("field_fwd", "mlp_fwd", "encode_fwd", "encode_bwd")}
+    for app in ("nerf", "gia", "nsdf", "nvr"):
+        tcfg = fields.make_field_config(app, "hash")
+        steps = TRAIN_STEPS[app]
+        rows = []
+        # the params train_field starts from with this seed
+        init = fields.init_field(tcfg, torch.Generator().manual_seed(SEED),
+                                 dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mem_before = torch.cuda.memory_allocated(dev)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        trained, _ = ctrain.train_field(
+            tcfg, steps=steps, batch_size=TRAIN_BATCH, seed=SEED,
+            chunk_steps=TRAIN_CHUNK, gt_samples=GT_SAMPLES, device=dev,
+            params=init, on_metrics=lambda i, r, st: rows.append(r))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+        for k, n in counts.items():
+            train_launches[k] = train_launches.get(k, 0) + n
+        per_step = {k: n / steps for k, n in counts.items()}
+        losses = [r["loss"] for r in rows]
+        line = {"phase": "train", "app": app, "config": tcfg.name,
+                "steps": steps, "batch": TRAIN_BATCH,
+                "points_per_step": TRAIN_BATCH * (N_SAMPLES if app in (
+                    "nerf", "nvr") else 1),
+                "chunk_steps": TRAIN_CHUNK, "loss_first": losses[0],
+                "loss_last": losses[-1], "loss_min": min(losses),
+                "psnr_last": rows[-1]["psnr"],
+                "ms_per_step": 1e3 * statistics.mean(
+                    r["dt"] for r in rows[TRAIN_CHUNK:]),
+                "ms_per_step_first_chunk": 1e3 * rows[0]["dt"],
+                "wall_s": wall_s,
+                "mem_before_bytes": mem_before,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                "table_bytes": tcfg.grid.params_bound() * 4,
+                "launches_per_step": per_step, **gpu}
+        emit(line)
+        need = tpath.get(app, ("field_fwd", "encode_fwd", "encode_bwd"))
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"train[{app}]: the loss did not fall: {losses}")
+        if min(per_step[k] for k in need) <= 0 \
+                or counts["composite_fwd"] != 0:
+            fail(f"train[{app}]: {need} must launch every step and "
+                 f"composite_fwd never: {counts}")
+
+        # --------------------------------------------------- profile_train
+        # CUDA-only trace of PROFILE_STEPS more steps of the trained state
+        # (a copy of its params, fresh Adam moments), batches made inside
+        if app in ("nerf", "gia"):
+            step = ctrain.make_field_train_step(tcfg)
+            pstate = {"params": {k: (v.clone() if torch.is_tensor(v) else
+                                     {kk: vv.clone() for kk, vv in v.items()})
+                                 for k, v in trained.items()}}
+            pstate["opt"] = toptim.adam_init(pstate["params"])
+            cam = scenes.default_camera()
+
+            def run_steps(n, first, tcfg=tcfg, step=step, pstate=pstate,
+                          cam=cam):
+                for i in range(first, first + n):
+                    pstate["params"], pstate["opt"], _ = step(
+                        pstate["params"], pstate["opt"], ctrain.make_batch(
+                            tcfg, ctrain.batch_generator(SEED, i, dev),
+                            TRAIN_BATCH, cam, gt_samples=GT_SAMPLES))
+                torch.cuda.synchronize()
+            run_steps(2, steps)                          # warm
+            emit({"phase": "profile_train", "app": app, "window": "cuda",
+                  **trace(lambda: run_steps(PROFILE_STEPS, steps + 2),
+                          [ProfilerActivity.CUDA], PROFILE_STEPS, "step"),
+                  **gpu})
+            del pstate, step, run_steps
+
+        # -------------------------------------------------- train_parity
+        # the first step's gradients: at the trained params nerf's are
+        # exactly 0 (its density has collapsed, PERF.md), so they would
+        # compare nothing
+        if app in ("nerf", "gia"):
+            batch = ctrain.make_batch(
+                tcfg, ctrain.batch_generator(SEED, 0, dev), TRAIN_BATCH,
+                scenes.default_camera(), gt_samples=GT_SAMPLES)
+
+            def loss_fn(p, b, tcfg=tcfg):
+                return ctrain.field_loss(p, tcfg, b)
+            K.reset_launch_counts()
+            loss_k, grads_k = tloop.value_and_grad(loss_fn, init, batch)
+            torch.cuda.synchronize()
+            kcounts = K.launch_counts()
+            with plain_wrappers():
+                K.reset_launch_counts()
+                loss_p, grads_p = tloop.value_and_grad(loss_fn, init, batch)
+                torch.cuda.synchronize()
+                pcounts = K.launch_counts()
+            if kcounts["encode_bwd"] != 1 or any(pcounts.values()):
+                fail(f"train_parity[{app}]: the kernel route must launch "
+                     f"encode_bwd once and the plain route no kernel: "
+                     f"{kcounts}, {pcounts}")
+            leaves = {}
+            plain_leaves = dict(tree_items(grads_p))
+            for path, gk in tree_items(grads_k):
+                err, rel = rel_err(gk, plain_leaves[path])
+                leaves[path] = {"max_abs_err": err, "rel_err": rel,
+                                "max_abs": float(plain_leaves[path].abs()
+                                                 .max())}
+            parity_rows[app] = {"loss_kernels": float(loss_k),
+                                "loss_plain": float(loss_p),
+                                "leaves": leaves}
+            worst = max(r["rel_err"] for r in leaves.values())
+            if not np.isfinite(worst) or worst > TRAIN_PARITY_TOL \
+                    or min(r["max_abs"] for r in leaves.values()) <= 0:
+                fail(f"train_parity[{app}]: a gradient is 0 or differs by "
+                     f"{worst} of its max abs value: {leaves}")
+            del grads_k, grads_p, plain_leaves, batch
+        if app == "nerf":
+            trained_nerf, init_nerf = trained, init
+        del trained, init
+        torch.cuda.empty_cache()
+    emit({"phase": "train_parity", "tol": TRAIN_PARITY_TOL,
+          "batch": TRAIN_BATCH, "apps": parity_rows, **gpu})
+
+    # ---------------------------------------------------- serve_trained
+    # The trained nerf scene and the params its training started from, in
+    # one engine; a frame of each from the training camera against the
+    # analytic volume, and, for the record, an all-black frame's MSE.
+    cam32 = scenes.default_camera(32, 32)
+    tengine = RenderEngine(settings, device=dev)
+    tengine.add_scene("trained", cfg, trained_nerf)
+    tengine.add_scene("untrained", cfg, init_nerf)
+    tengine.warmup()
+    K.reset_launch_counts()
+    frames = {n: tengine.render_frame(n, cam32)
+              for n in ("trained", "untrained")}
+    slaunches = K.launch_counts()
+    o, d = render.make_rays(cam32, torch.arange(32 * 32, device=dev))
+    gt = scenes.gt_render_rays(o, d, n_samples=GT_SAMPLES).reshape(
+        32, 32, 3).cpu().numpy()
+    mse = {n: float(((f - gt) ** 2).mean()) for n, f in frames.items()}
+    mse_black = float((gt ** 2).mean())
+    emit({"phase": "serve_trained", "frame": [32, 32], "mse_black": mse_black,
+          "gt_samples": GT_SAMPLES, "mse": mse,
+          "psnr": {n: ctrain.psnr(m) for n, m in mse.items()},
+          "launches": slaunches, **gpu})
+    if not all(np.isfinite(m) for m in mse.values()) \
+            or not mse["trained"] < mse["untrained"]:
+        fail(f"serve_trained: the trained frame's MSE is not below the "
+             f"untrained one's: {mse}")
+    if min(slaunches[k] for k in dense_path) <= 0:
+        fail(f"serve_trained: a serving kernel never launched: {slaunches}")
+    del tengine, trained_nerf, init_nerf
+
     # ----------------------------------------------------------- report
     # kernel -> (source, TPU kernel it replaces, path its launches are
     # read from, launches on that path, variant of the row's own numbers)
     paths = {"serve": launches, "serve_quant": qlaunches,
              "serve_gia": glaunches, "serve_nsdf": nlaunches,
-             "unfused": unfused_launches}
+             "unfused": unfused_launches, "train": train_launches}
     report = {
         "field_fwd": ("src/repro_torch/csrc/field.cu",
                       "src/repro/kernels/fused_field/fused_field.py:111",
@@ -853,6 +1207,10 @@ def main():
         "encode_fwd": ("src/repro_torch/csrc/encode.cu",
                        "src/repro/kernels/hashgrid/hashgrid.py:183",
                        "unfused", unfused_launches, "f32"),
+        # no TPU kernel: the JAX package's encode VJP is XLA
+        "encode_bwd": ("src/repro_torch/csrc/encode_bwd.cu",
+                       "src/repro/kernels/hashgrid/vjp.py:27",
+                       "train", train_launches, "f32"),
         "mlp_fwd": ("src/repro_torch/csrc/mlp.cu",
                     "src/repro/kernels/fused_mlp/fused_mlp.py:74",
                     "serve", launches, None),

@@ -103,7 +103,7 @@ def make_tile_fn(cfg: FieldConfig, settings: RenderSettings) -> Callable:
         return render.render_rays(
             lambda p, d: fields.apply_field(params, cfg, p, d), origins, dirs,
             near=settings.near, far=settings.far,
-            n_samples=settings.n_samples)
+            n_samples=settings.n_samples, use_kernel_composite=True)
     return tile
 
 

@@ -118,20 +118,27 @@ def normalize_to_unit(points: torch.Tensor, lo: float = -2.0,
 
 def render_rays(field_apply: Callable, origins: torch.Tensor,
                 dirs: torch.Tensor, *, near: float = 0.5, far: float = 4.5,
-                n_samples: int = 32, u: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                n_samples: int = 32, u: Optional[torch.Tensor] = None,
+                use_kernel_composite: bool = False) -> torch.Tensor:
     """Dense per-ray pipeline: sample -> field -> composite. (R,) rays ->
     pixels (R, 3).
 
     ``field_apply(points (N, 3), dirs (N, 3)) -> (N, 4) [rgb, sigma]``.
-    Compositing goes through the compositing kernel's wrapper, which reads
-    the rgb and sigma columns of the field output in place."""
+    ``u`` (R, S) is the stratified draw (None: each sample at the middle of
+    its stratum). ``use_kernel_composite`` is the JAX package's
+    ``use_pallas_composite``: the serving tiles composite with the
+    compositing kernel's wrapper, which reads the rgb and sigma columns of
+    the field output in place; by default (training, ground truth) this
+    module's plain, differentiable ``composite`` runs."""
     n_rays = origins.shape[0]
     pts, dts = sample_along_rays(origins, dirs, near, far, n_samples, u)
     flat_pts = normalize_to_unit(pts.reshape(-1, 3))
     flat_dirs = torch.repeat_interleave(dirs, n_samples, dim=0)
     out = field_apply(flat_pts, flat_dirs).reshape(n_rays, n_samples, 4)
     rgb, sigma = out[..., :3], out[..., 3]
+    if not use_kernel_composite:
+        pixel, _ = composite(rgb, sigma, dts.expand(sigma.shape))
+        return pixel
     # imported here: the wrapper's plain version is this module's composite
     from repro_torch.kernels.ray_march import ops as rm_ops
     pixel, _ = rm_ops.composite(rgb, sigma, dts)

@@ -126,6 +126,58 @@ __device__ __forceinline__ float row_value(const RowBits<kBytes>& r, int f) {
   }
 }
 
+// The cell of one point at one level, and from it each corner's table row
+// and d-linear weight. The forward (LevelGather) and the backward
+// (encode_bwd.cu) both address the table through it, so the backward adds
+// into exactly the rows the forward reads.
+template <int DIM>
+struct LevelCell {
+  float frac[DIM];   // from the unclipped floor
+  int cell[DIM];     // clipped to [0, res - 1]
+
+  __device__ __forceinline__ LevelCell(const float (&pt)[DIM], int res) {
+#pragma unroll
+    for (int i = 0; i < DIM; ++i) {
+      const float pos = pt[i] * (float)res;
+      const float c = floorf(pos);
+      frac[i] = pos - c;
+      cell[i] = min(max((int)c, 0), res - 1);
+    }
+  }
+
+  // Factor i of corner c's weight: frac or 1 - frac.
+  __device__ __forceinline__ float side_weight(int c, int i) const {
+    return ((c >> i) & 1) ? frac[i] : 1.f - frac[i];
+  }
+
+  // d-linear weight of corner c (bit i of c offsets coordinate i by one).
+  __device__ __forceinline__ float weight(int c) const {
+    float wc = 1.f;
+#pragma unroll
+    for (int i = 0; i < DIM; ++i) wc *= side_weight(c, i);
+    return wc;
+  }
+
+  // Table row of corner c: the spatial hash or the dense row-major index,
+  // masked into the table.
+  __device__ __forceinline__ uint32_t row(int c, int res, bool hashed,
+                                          uint32_t mask) const {
+    const uint32_t side = (uint32_t)(res + 1);
+    uint32_t idx = 0u, stride = 1u;
+#pragma unroll
+    for (int i = 0; i < DIM; ++i) {
+      const uint32_t coord = (uint32_t)(cell[i] + ((c >> i) & 1));
+      if (hashed) {
+        idx ^= coord * hash_prime(i);
+      } else {
+        idx += coord * stride;
+        stride *= side;
+      }
+    }
+    return idx & mask;
+  }
+};
+
 // The gathers of one point at one level, split in two so that a caller can
 // start the loads of several levels before it adds any of them up.
 template <int DIM, int F, typename TableT>
@@ -138,34 +190,11 @@ struct LevelGather {
   __device__ __forceinline__ void fetch(const float (&pt)[DIM],
                                         const TableT* __restrict__ table,
                                         int res, bool hashed, uint32_t mask) {
-    float frac[DIM];
-    int cell[DIM];
-#pragma unroll
-    for (int i = 0; i < DIM; ++i) {
-      const float pos = pt[i] * (float)res;
-      const float c = floorf(pos);
-      frac[i] = pos - c;
-      cell[i] = min(max((int)c, 0), res - 1);
-    }
-    const uint32_t side = (uint32_t)(res + 1);
+    const LevelCell<DIM> cell(pt, res);
 #pragma unroll
     for (int c = 0; c < kCorners; ++c) {
-      uint32_t idx = 0u, stride = 1u;
-      float wc = 1.f;
-#pragma unroll
-      for (int i = 0; i < DIM; ++i) {
-        const int bit = (c >> i) & 1;
-        const uint32_t coord = (uint32_t)(cell[i] + bit);
-        if (hashed) {
-          idx ^= coord * hash_prime(i);
-        } else {
-          idx += coord * stride;
-          stride *= side;
-        }
-        wc *= bit ? frac[i] : 1.f - frac[i];
-      }
-      w[c] = wc;
-      row[c].load(table + (size_t)(idx & mask) * F);
+      w[c] = cell.weight(c);
+      row[c].load(table + (size_t)cell.row(c, res, hashed, mask) * F);
     }
   }
 

@@ -1,13 +1,20 @@
-"""Serving cameras, the analytic ground truths of gia and nsdf, and a
-baked nsdf scene that sphere tracing converges on.
+"""Serving cameras, the analytic ground truths of the four apps, the
+training batch makers, and a baked nsdf scene that sphere tracing
+converges on.
 
-``gigapixel_image``, ``sdf_sphere``, ``sdf_torus`` and ``sdf_scene`` are the
-JAX package's ``data/scenes.py`` functions, in PyTorch.
+``gigapixel_image``, ``sdf_sphere``, ``sdf_torus``, ``sdf_scene``,
+``volume_field``, ``gt_render_rays``, ``gia_batch``, ``nsdf_batch`` and
+``nerf_ray_batch`` are the JAX package's ``data/scenes.py`` functions, in
+PyTorch. The batch makers draw from an explicit ``torch.Generator`` on the
+batch's device where the JAX package draws from a ``jax.random`` key: the
+two give other numbers from the same seed, so parity tests hand both
+packages the same numpy batches.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +65,98 @@ def sdf_scene(p: torch.Tensor) -> torch.Tensor:
     s = sdf_sphere(p - p.new_tensor([0.35, 0.0, 0.45]), 0.3)
     t = sdf_torus(p)
     return torch.minimum(s, t)
+
+
+# ------------------------------------------------------- NeRF / NVR volume
+_BLOBS = ((0.0, 0.0, 0.0, 4.0, 28.0),       # x, y, z, inv_radius, density
+          (0.55, 0.2, 0.1, 7.0, 40.0),
+          (-0.4, -0.35, 0.3, 6.0, 35.0),
+          (0.1, 0.5, -0.4, 8.0, 45.0))
+_COLORS = ((0.9, 0.3, 0.2),
+           (0.2, 0.8, 0.3),
+           (0.25, 0.35, 0.9),
+           (0.9, 0.8, 0.2))
+
+
+@functools.lru_cache(maxsize=None)
+def _volume_constants(device: torch.device
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The blobs and their colours as f32 tensors on ``device``, copied
+    there once."""
+    return (torch.tensor(_BLOBS, dtype=torch.float32, device=device),
+            torch.tensor(_COLORS, dtype=torch.float32, device=device))
+
+
+def volume_field(p: torch.Tensor, dirs: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Analytic (rgb, sigma) field of Gaussian blobs; p (B, 3) world
+    coords -> (B, 4). A mild specular term in ``dirs`` exercises the NeRF
+    colour MLP's direction input. The colour mix and the specular dot are
+    written as sums, so a card set to TF32 products does not round them."""
+    blobs, colors = _volume_constants(p.device)
+    d2 = ((p[:, None, :] - blobs[None, :, :3]) ** 2).sum(dim=-1)
+    g = torch.exp(-d2 * blobs[None, :, 3] ** 2)             # (B, K)
+    sigma = (g * blobs[None, :, 4]).sum(dim=-1, keepdim=True)
+    w = g / (g.sum(dim=-1, keepdim=True) + 1e-6)
+    rgb = (w[:, :, None] * colors[None]).sum(dim=1)          # (B, 3)
+    if dirs is not None:
+        dot = dirs[:, 0] * 0.577 + dirs[:, 1] * 0.577 + dirs[:, 2] * 0.577
+        spec = 0.15 * torch.clamp(dot, min=0.0)[:, None]
+        rgb = torch.clamp(rgb + spec, 0.0, 1.0)
+    return torch.cat([rgb, sigma], dim=-1)
+
+
+def gt_render_rays(origins: torch.Tensor, dirs: torch.Tensor, *,
+                   near: float = 0.5, far: float = 4.5, n_samples: int = 64,
+                   u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Ground-truth pixels (R, 3): the analytic volume composited with the
+    renderer the network uses (plain compositing). ``u`` (R, n_samples) is
+    the stratified draw, None for the middle of each stratum."""
+    def field(p_unit, d):
+        # the analytic field lives in world coords; undo the normalization
+        return volume_field(p_unit * 4.0 - 2.0, d)
+    return render.render_rays(field, origins, dirs, near=near, far=far,
+                              n_samples=n_samples, u=u)
+
+
+# ------------------------------------------------------------ batch makers
+def gia_batch(gen: torch.Generator, n: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """n pixel positions U[0, 1)^2 on the generator's device and their
+    colours: ((n, 2), (n, 3))."""
+    xy = torch.rand((n, 2), generator=gen, device=gen.device)
+    return xy, gigapixel_image(xy)
+
+
+def nsdf_batch(gen: torch.Generator, n: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A mix of uniform and near-surface samples (standard SDF training):
+    n // 2 points U[-1, 1)^3, the rest U[-1, 1)^3 plus N(0, 0.02^2) noise.
+    Returns the points in [0, 1]^3, as the network sees them, and
+    ``sdf_scene`` at them: ((n, 3), (n, 1))."""
+    dev = gen.device
+    p_uni = torch.rand((n // 2, 3), generator=gen, device=dev) * 2.0 - 1.0
+    p_srf = torch.rand((n - n // 2, 3), generator=gen, device=dev) * 2.0 - 1.0
+    p_srf = p_srf + 0.02 * torch.randn(p_srf.shape, generator=gen,
+                                       device=dev)
+    p = torch.cat([p_uni, p_srf], dim=0)
+    return (p + 1.0) / 2.0, sdf_scene(p)
+
+
+def nerf_ray_batch(gen: torch.Generator, cam: render.Camera, n_rays: int,
+                   gt_samples: int = 64
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Random pixels of ``cam`` with the analytic volume's pixels as
+    targets, on the generator's device: (origins (R, 3), dirs (R, 3),
+    target (R, 3)). The targets are composited with ``gt_samples``
+    stratified samples per ray."""
+    dev = gen.device
+    pix = torch.randint(0, cam.height * cam.width, (n_rays,), generator=gen,
+                        device=dev)
+    origins, dirs = render.make_rays(cam, pix)
+    u = torch.rand((n_rays, gt_samples), generator=gen, device=dev)
+    return origins, dirs, gt_render_rays(origins, dirs, n_samples=gt_samples,
+                                         u=u)
 
 
 # ------------------------------------------------------ baked nsdf scene

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper, one per TPU kernel of the JAX
 package, each with its wrapper (``ops.py``), its launch code and its plain
-PyTorch version (``ref.py``). The CUDA sources are in ``../csrc``."""
+PyTorch version (``ref.py``), plus the encode's backward scatter-add, which
+the JAX package computes in XLA (its plain twin is ``hashgrid/vjp.py``).
+The CUDA sources are in ``../csrc``."""
 from __future__ import annotations
 
 from typing import Dict
@@ -12,10 +14,10 @@ def kernels() -> Dict:
     from repro_torch.kernels.fused_field.fused_field import (FIELD_FWD,
                                                              FIELD_FWD_Q)
     from repro_torch.kernels.fused_mlp.fused_mlp import MLP_FWD
-    from repro_torch.kernels.hashgrid.hashgrid import ENCODE_FWD
+    from repro_torch.kernels.hashgrid.hashgrid import ENCODE_BWD, ENCODE_FWD
     from repro_torch.kernels.ray_march.ray_march import COMPOSITE_FWD
-    return {k.symbol: k for k in (FIELD_FWD, FIELD_FWD_Q, ENCODE_FWD, MLP_FWD,
-                                  COMPOSITE_FWD)}
+    return {k.symbol: k for k in (FIELD_FWD, FIELD_FWD_Q, ENCODE_FWD,
+                                  ENCODE_BWD, MLP_FWD, COMPOSITE_FWD)}
 
 
 def launch_counts() -> Dict[str, int]:

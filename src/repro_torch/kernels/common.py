@@ -1,7 +1,8 @@
 """Shared helpers of the kernel wrappers."""
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,3 +68,23 @@ def check_kernel_input(name: str, t: torch.Tensor, shape=None,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when autograd would record a call on ``tensors``: grad mode is
+    on and one of them requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+@contextlib.contextmanager
+def f32_matmuls():
+    """Matrix products in true f32 inside the block, whatever the caller
+    set: the backward passes' products (the JAX package's f32 XLA dots)
+    must not drop to TF32 on the card. The flag is restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -17,11 +17,17 @@ up, and writes each point's G*F features as whole 16-byte stores.
 :func:`encode_plan` picks G: the largest group whose tables fit
 :data:`L2_SHARE_BYTES` and whose rows fit the kernel's register budget,
 made smaller while the grid would leave the card's SMs idle.
+
+It also launches the encode's backward (``csrc/encode_bwd.cu``), the
+table gradient's atomic scatter-add, which has no TPU kernel to replace
+(the JAX package's VJP is XLA). Its level groups come from
+:func:`encode_bwd_plan`, which sizes a group's f32 gradient accumulator,
+not its tables, against a share of L2.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,14 +35,18 @@ import torch
 from repro_torch.core.encoding import GridConfig
 from repro_torch.kernels.build import I64, INT, PTR, CudaKernel
 from repro_torch.kernels.common import TABLE_DTYPE_CODE, check_kernel_input
+from repro_torch.kernels.hashgrid.vjp import check_grad_tables
 
 ENCODE_FWD = CudaKernel("encode_fwd", [PTR, PTR, PTR, INT, PTR, INT, INT, INT,
                                        INT, INT, PTR, I64])
+ENCODE_BWD = CudaKernel("encode_bwd", [PTR, PTR, INT, PTR, PTR, INT, INT, INT,
+                                       INT, INT, PTR, PTR, I64])
 # (dim, n_features) pairs the grid kernels are instantiated for: 3-D points
 # (nerf, nvr, nsdf) and 2-D ones (gia), hash or dense levels (F = 2) and
 # tiled ones (F = 8)
 SUPPORTED = {(3, 2), (3, 8), (2, 2), (2, 8)}
-# csrc/encode.cuh kMaxLevels; csrc/encode.cu kEncodeRows (points per block),
+# csrc/encode.cuh kMaxLevels; csrc/encode.cu kEncodeRows (points per block;
+# csrc/encode_bwd.cu kEncodeBwdRows too),
 # kMaxGroup (levels a group may take) and kGroupRowBytes (G x F x itemsize,
 # the bytes of one corner's rows a thread holds across its group)
 MAX_LEVELS = 32
@@ -49,6 +59,14 @@ GROUP_ROW_BYTES = 32
 L2_SHARE_BYTES = 16 << 20
 # Blocks per SM below which the grid leaves SMs idle
 BLOCKS_PER_SM = 2
+# csrc/encode_bwd.cu kMaxGroupFloats: cotangents a backward thread holds
+# across its level group (G x F)
+MAX_GROUP_FLOATS = 16
+# The share of L2 one level group's f32 gradient accumulator may take in
+# the backward, whose atomic adds resolve in L2: at nerf's 131,072-point
+# tile on an H100, groups of 4 and 8 MiB of accumulator ran alike and 16
+# and 32 MiB 8% and 23% slower (PERF.md, run X).
+BWD_L2_SHARE_BYTES = 8 << 20
 
 
 def level_meta(cfg: GridConfig) -> np.ndarray:
@@ -106,21 +124,59 @@ def encode_plan(cfg: GridConfig, table_dtype: torch.dtype, n_points: int,
     row_bytes = f * table_dtype.itemsize
     sizes = [g for g in (1, 2, 4, 8) if g <= MAX_GROUP and (g * f) % 4 == 0
              and g * row_bytes <= GROUP_ROW_BYTES]
-
-    def group_bytes(g):
-        return max(sum(level_bytes[l:l + g]) for l in range(0, n_levels, g))
-
-    fits = [g for g in sizes if group_bytes(g) <= L2_SHARE_BYTES]
-    i = sizes.index(max(fits) if fits else sizes[0])
-    tiles = -(-n_points // ENCODE_ROWS)
-    while (i > 0 and tiles * -(-n_levels // sizes[i])
-           < BLOCKS_PER_SM * n_sms):
-        i -= 1
-    g = sizes[i]
+    g = _pick_group(sizes, level_bytes, L2_SHARE_BYTES, n_points, n_sms)
     groups = [(l, min(l + g, n_levels)) for l in range(0, n_levels, g)]
+    tiles = -(-n_points // ENCODE_ROWS)
     return {"group_levels": g, "n_groups": len(groups), "groups": groups,
             "points_per_block": ENCODE_ROWS, "blocks": tiles * len(groups),
-            "store_bytes": g * f * 4, "group_table_bytes": group_bytes(g)}
+            "store_bytes": g * f * 4,
+            "group_table_bytes": _group_bytes(level_bytes, g)}
+
+
+def _group_bytes(level_bytes: list, g: int) -> int:
+    """The most bytes one group of g consecutive levels reaches."""
+    return max(sum(level_bytes[l:l + g])
+               for l in range(0, len(level_bytes), g))
+
+
+def _pick_group(sizes: list, level_bytes: list, share: int, n_points: int,
+                n_sms: int) -> int:
+    """The largest of ``sizes`` (ascending) whose every group's bytes fit
+    ``share`` (the smallest if none does), then smaller while the grid of
+    (point tiles, groups) has fewer than BLOCKS_PER_SM blocks per SM."""
+    fits = [g for g in sizes if _group_bytes(level_bytes, g) <= share]
+    i = sizes.index(max(fits) if fits else sizes[0])
+    tiles = -(-n_points // ENCODE_ROWS)
+    while (i > 0 and tiles * -(-len(level_bytes) // sizes[i])
+           < BLOCKS_PER_SM * n_sms):
+        i -= 1
+    return sizes[i]
+
+
+@functools.lru_cache(maxsize=256)
+def encode_bwd_plan(cfg: GridConfig, n_points: int, n_sms: int) -> Dict:
+    """The encode backward's level groups for ``cfg`` and a batch of
+    ``n_points`` on a card of ``n_sms`` SMs (the table dtype does not
+    matter: the accumulator is f32). Raises on what the kernel does not
+    take.
+
+    G is a power of two with G*F <= MAX_GROUP_FLOATS: the largest whose
+    every group's f32 accumulator rows (each level's reachable rows) fit
+    ``BWD_L2_SHARE_BYTES``, halved while the grid has fewer than
+    ``BLOCKS_PER_SM`` blocks per SM, as the forward's plan does."""
+    if (cfg.dim, cfg.n_features) not in SUPPORTED:
+        raise ValueError(f"no grid kernel for dim={cfg.dim}, "
+                         f"n_features={cfg.n_features}")
+    if not 1 <= cfg.n_levels <= MAX_LEVELS:
+        raise ValueError(f"the grid kernels take 1 to {MAX_LEVELS} levels, "
+                         f"not {cfg.n_levels}")
+    level_bytes = level_table_bytes(cfg, torch.float32)
+    sizes = [g for g in (1, 2, 4, 8) if g * cfg.n_features <= MAX_GROUP_FLOATS]
+    g = _pick_group(sizes, level_bytes, BWD_L2_SHARE_BYTES, n_points, n_sms)
+    n_groups = -(-cfg.n_levels // g)
+    return {"group_levels": g, "n_groups": n_groups,
+            "blocks": -(-n_points // ENCODE_ROWS) * n_groups,
+            "group_accumulator_bytes": _group_bytes(level_bytes, g)}
 
 
 def check_tables(tables: torch.Tensor, table_scales: Optional[torch.Tensor],
@@ -163,3 +219,38 @@ def hashgrid_encode_cuda(points: torch.Tensor, tables: torch.Tensor,
                cfg.n_levels, cfg.log2_table_size, cfg.dim, cfg.n_features,
                plan["group_levels"], out.data_ptr(), b)
     return out
+
+
+
+def hashgrid_encode_bwd_cuda(points: torch.Tensor, tables: torch.Tensor,
+                             cfg: GridConfig, g: torch.Tensor,
+                             need_points: bool
+                             ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The encode's VJP on the card: cotangent g (B, L*F) -> (d_points
+    (B, d) f32, or None unless ``need_points``, d_tables of the tables'
+    shape and dtype). The table gradient is an atomic scatter-add into an
+    f32 accumulator (``csrc/encode_bwd.cu``), level groups from
+    :func:`encode_bwd_plan`, cast once to the tables' dtype; the atomics
+    sum in an order that varies from run to run. f32 or bf16 tables only:
+    int8 and fp8 tables have no gradient."""
+    check_grad_tables(tables)
+    check_tables(tables, None, cfg)
+    b = points.shape[0]
+    check_kernel_input("points", points, (b, cfg.dim))
+    g = g.contiguous()
+    check_kernel_input("g", g, (b, cfg.out_dim))
+    if g.data_ptr() % 16:                 # the kernel's 16-byte loads
+        g = g.clone()
+    plan = encode_bwd_plan(cfg, b, sm_count(points.device.index))
+    meta = level_meta(cfg)                  # host array, read by the launch
+    d_tables = torch.zeros(tables.shape, dtype=torch.float32,
+                           device=points.device)
+    part = (torch.empty((plan["n_groups"], b, cfg.dim), dtype=torch.float32,
+                        device=points.device) if need_points else None)
+    ENCODE_BWD(points.device, points.data_ptr(), tables.data_ptr(),
+               TABLE_DTYPE_CODE[tables.dtype], g.data_ptr(), meta.ctypes.data,
+               cfg.n_levels, cfg.log2_table_size, cfg.dim, cfg.n_features,
+               plan["group_levels"], d_tables.data_ptr(),
+               0 if part is None else part.data_ptr(), b)
+    d_points = None if part is None else part.sum(dim=0)
+    return d_points, d_tables.to(tables.dtype)

@@ -1,22 +1,62 @@
 """Public wrapper of the standalone grid encode, the JAX package's
-``kernels/hashgrid/ops.encode``: the CUDA kernel for CUDA tensors, the
-plain version for CPU tensors.
+``kernels/hashgrid/ops.encode``: the CUDA kernels for CUDA tensors, the
+plain versions for CPU tensors.
 
-It is forward only. The JAX wrapper's dense route has a VJP (the table
-scatter-add of ``vjp.encode_bwd``), which belongs to the training slice of
-the port; until then a call that would need a gradient raises rather than
-return one that is silently wrong.
+It is differentiable for f32 and bf16 tables, as the JAX wrapper's dense
+route is: a ``torch.autograd.Function`` whose forward is the encode
+(``encode_fwd``) and whose backward is the table scatter-add
+(``encode_bwd``, ``csrc/encode_bwd.cu``; its plain twin is ``vjp.py``).
+int8 and fp8 tables (with ``table_scales``) are inference only, as in the
+JAX package, whose quantized route has no VJP: a call that would need a
+gradient raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.encoding import GridConfig
-from repro_torch.kernels.common import check_table_scales, on_cpu
-from repro_torch.kernels.hashgrid.hashgrid import hashgrid_encode_cuda
+from repro_torch.kernels.common import check_table_scales, needs_grad, on_cpu
+from repro_torch.kernels.hashgrid import vjp
+from repro_torch.kernels.hashgrid.hashgrid import (hashgrid_encode_bwd_cuda,
+                                                   hashgrid_encode_cuda)
 from repro_torch.kernels.hashgrid.ref import encode_ref
+
+
+def encode_forward(points: torch.Tensor, tables: torch.Tensor,
+                   cfg: GridConfig) -> torch.Tensor:
+    """The encode of dense tables, outside autograd: ``encode_fwd`` on
+    CUDA, the plain version on the CPU."""
+    if on_cpu(points, tables):
+        return encode_ref(points, tables, cfg)
+    return hashgrid_encode_cuda(points, tables, cfg)
+
+
+def encode_vjp(points: torch.Tensor, tables: torch.Tensor, cfg: GridConfig,
+               g: torch.Tensor, need_points: bool
+               ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The encode's VJP: cotangent g (B, L*F) -> (d_points or None,
+    d_tables). ``encode_bwd`` on CUDA, the plain twin on the CPU."""
+    if on_cpu(points, tables, g):
+        return vjp.encode_bwd(points, tables, cfg, g, need_points)
+    return hashgrid_encode_bwd_cuda(points, tables, cfg, g, need_points)
+
+
+class _Encode(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, points, tables, cfg):
+        ctx.save_for_backward(points, tables)
+        ctx.cfg = cfg
+        return encode_forward(points, tables, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        points, tables = ctx.saved_tensors
+        need_points, need_tables = ctx.needs_input_grad[:2]
+        d_points, d_tables = encode_vjp(points, tables, ctx.cfg, g,
+                                        need_points)
+        return d_points, d_tables if need_tables else None, None
 
 
 def encode(points: torch.Tensor, tables: torch.Tensor, cfg: GridConfig, *,
@@ -24,12 +64,13 @@ def encode(points: torch.Tensor, tables: torch.Tensor, cfg: GridConfig, *,
     """points (B, d) in [0, 1] -> (B, L*F) f32. ``table_scales`` (L, 1, 1)
     f32 goes with int8/fp8 tables and with nothing else."""
     check_table_scales(tables, table_scales)
-    if torch.is_grad_enabled() and (points.requires_grad
-                                    or tables.requires_grad):
+    if table_scales is None:
+        return _Encode.apply(points, tables, cfg)
+    if needs_grad(points, tables, table_scales):
         raise NotImplementedError(
-            "encode has no backward in the port yet (the JAX package's "
-            "vjp.encode_bwd is part of the training slice)")
-    extra = () if table_scales is None else (table_scales,)
-    if on_cpu(points, tables, *extra):
+            "quantized (int8/fp8) tables are inference only: the encode has "
+            "no gradient for them, as the JAX package's quantized route has "
+            "no VJP")
+    if on_cpu(points, tables, table_scales):
         return encode_ref(points, tables, cfg, table_scales)
     return hashgrid_encode_cuda(points, tables, cfg, table_scales)

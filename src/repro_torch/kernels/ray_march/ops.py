@@ -1,12 +1,18 @@
 """Public wrapper of the compositing kernel: the CUDA kernel for CUDA
-tensors, the plain version for CPU tensors."""
+tensors, the plain version for CPU tensors.
+
+It has no backward, as the JAX package's Pallas composite has none: a call
+that would need a gradient raises on every device. Training composites
+with the plain, differentiable ``core.render.composite``, as the JAX
+package's training route composites in XLA
+(``render_rays(use_kernel_composite=False)``)."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.common import on_cpu
+from repro_torch.kernels.common import needs_grad, on_cpu
 from repro_torch.kernels.ray_march.ray_march import composite_cuda
 from repro_torch.kernels.ray_march.ref import composite_ref
 
@@ -17,6 +23,12 @@ def composite(rgb: torch.Tensor, sigma: torch.Tensor, dts: torch.Tensor
 
     Deterministic sampling gives a broadcast (1, S) dts. It is expanded to
     (R, S) as a stride-0 view, which the kernel reads in place."""
+    if needs_grad(rgb, sigma, dts):
+        raise NotImplementedError(
+            "the compositing kernel has no backward (nor has the JAX "
+            "package's Pallas composite): composite with "
+            "core.render.composite where a gradient is needed, as "
+            "render_rays(use_kernel_composite=False) does")
     dts = dts.expand(sigma.shape)
     if on_cpu(rgb, sigma, dts):
         return composite_ref(rgb, sigma, dts)

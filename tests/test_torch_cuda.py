@@ -23,12 +23,14 @@ import torch
 from repro_torch import kernels as tkernels
 from repro_torch.core import encoding as tenc
 from repro_torch.core import fields, pipeline, render
+from repro_torch.core import train as ttrain
 from repro_torch.core.mlp import MLPConfig, apply_mlp
 from repro_torch.data import scenes
 from repro_torch.kernels.fused_field import ops as ff_ops
 from repro_torch.kernels.fused_field.ref import field_ref
 from repro_torch.kernels.fused_mlp import ops as mlp_ops
 from repro_torch.kernels.hashgrid import ops as hops
+from repro_torch.kernels.hashgrid import vjp as hvjp
 from repro_torch.kernels.hashgrid.ref import encode_ref
 from repro_torch.kernels.ray_march import ops as rm_ops
 from repro_torch.kernels.ray_march import ray_march as rm_ray_march
@@ -38,6 +40,11 @@ from repro_torch.quant.qtypes import quantize
 from repro_torch.serve import RenderEngine
 
 TOL = 1e-4
+# The encode backward against its twin (index_add_) on the card: both sum
+# each table row's terms in f32, the kernel with atomics in an order that
+# changes from run to run, so they differ by f32 rounding of sums of up to
+# a few hundred terms: max error at most this share of the leaf's max abs.
+GRAD_TOL = 1e-5
 
 
 @pytest.fixture
@@ -551,3 +558,150 @@ def test_app_engine_on_card_matches_cpu_render_frame(dev, app, table):
     if app == "nsdf":
         hit = got.sum(-1) > 0
         assert 0 < hit.sum() < hit.size
+
+
+def _rel_err(got, ref):
+    """Max abs error over the reference's max abs (0 for an all-zero
+    reference that is matched exactly)."""
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    return err / scale if scale else err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["f32", "bf16"])
+@pytest.mark.parametrize("dim,n_features", [(3, 2), (3, 8), (2, 2), (2, 8)])
+@pytest.mark.parametrize("n_levels", [1, 6, 16])
+@pytest.mark.parametrize("n", [1, 4099, 131072])
+def test_encode_bwd_matches_twin(dev, table, dim, n_features, n_levels, n):
+    """The encode's scatter-add (encode_bwd) against its plain twin on the
+    card: the table gradient (bf16 tables: accumulated in f32, cast once)
+    and the points' gradient, over ragged level groups (6 levels), tiles
+    of one point and Table-I nerf's 131,072, and points at 0 and 1."""
+    g, tables, _, pts = _encode_inputs(dev, n, dim, n_features, n_levels,
+                                       table, 7 * n + n_levels + dim)
+    cot = torch.from_numpy(np.random.default_rng(n).uniform(
+        -1, 1, (n, g.out_dim)).astype(np.float32)).to(dev)
+    before = tkernels.launch_counts()["encode_bwd"]
+    d_pts, d_tab = hops.encode_vjp(pts, tables, g, cot, True)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts()["encode_bwd"] == before + 1
+    r_pts, r_tab = hvjp.encode_bwd(pts, tables, g, cot)
+    assert d_tab.dtype == tables.dtype and d_tab.shape == tables.shape
+    assert _rel_err(d_pts, r_pts) <= GRAD_TOL
+    if table == "f32":
+        assert _rel_err(d_tab, r_tab) <= GRAD_TOL
+    else:   # one bf16 rounding of f32 sums that differ in the last bits
+        assert _rel_err(d_tab, r_tab) <= 2 ** -7
+    none_pts, again = hops.encode_vjp(pts, tables, g, cot, False)
+    assert none_pts is None
+    assert _rel_err(again, r_tab) <= (GRAD_TOL if table == "f32" else 2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [3, 2])
+def test_encode_bwd_atomics_in_one_cell(dev, dim):
+    """Worst contention: 131,072 points in one cell of every level, so each
+    of the 2^d corner rows of a level takes 131,072 atomic adds. Against an
+    f64 sum: f32 sums of that many positive terms stay within 1e-4 of the
+    leaf's max (about sqrt(K) * 6e-8 for a random order), the twin too."""
+    n = 131072
+    g, tables, _, _ = _encode_inputs(dev, 1, dim, 2, 16, "f32", dim)
+    rng = np.random.default_rng(dim)
+    pts = torch.from_numpy((0.5 + 1e-4 * rng.uniform(size=(n, dim))).astype(
+        np.float32)).to(dev)
+    cot = torch.from_numpy(rng.uniform(0, 1, (n, g.out_dim)).astype(
+        np.float32)).to(dev)
+    _, d_tab = hops.encode_vjp(pts, tables, g, cot, False)
+    ref64 = torch.zeros(tables.shape, dtype=torch.float64, device=dev)
+    for level in range(g.n_levels):
+        cell, frac = tenc.level_cell(pts, g.level_resolution(level))
+        for bits in tenc._corner_offsets(dim):
+            w = torch.ones_like(frac[:, 0], dtype=torch.float64)
+            for i in range(dim):
+                w = w * (frac[:, i] if bits[i] else 1.0 - frac[:, i])
+            ref64[level].index_add_(
+                0, tenc.level_corner_index(cell, bits, level, g),
+                w[:, None] * cot[:, 2 * level:2 * level + 2].double())
+    _, twin = hvjp.encode_bwd(pts, tables, g, cot, False)
+    assert _rel_err(d_tab, ref64) <= 1e-4
+    assert _rel_err(twin, ref64) <= 1e-4
+
+
+def _small_field(app):
+    cfg = fields.make_field_config(app, "hash")
+    return cfg.with_grid(dataclasses.replace(cfg.grid, log2_table_size=14,
+                                             n_levels=4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_hidden", [1, 3])
+@pytest.mark.parametrize("n", [300, 20000])
+def test_autograd_functions_on_card_match_cpu(dev, n_hidden, n):
+    """The field, MLP and encode Functions' gradients on the card (kernels
+    forward and backward) against the same Functions on the CPU (plain
+    versions), every input requiring a gradient, points included."""
+    g = dataclasses.replace(tenc.hashgrid_config(), log2_table_size=14,
+                            n_levels=4)
+    m = MLPConfig(in_dim=g.out_dim, n_hidden=n_hidden, out_dim=16)
+    rng = np.random.default_rng(n + n_hidden)
+    tables = rng.uniform(-1, 1, (4, g.table_size, 2)).astype(np.float32)
+    pts = rng.uniform(size=(n, 3)).astype(np.float32)
+    pts[:2] = [[1, 1, 1], [0, 0, 0]]
+    w = {k: v.numpy() for k, v in _mlp_params(m, n, "cpu").items()}
+    cot = rng.uniform(-1, 1, (n, 16)).astype(np.float32)
+    x = rng.uniform(-1, 1, (n, g.out_dim)).astype(np.float32)
+
+    def grads(device):
+        t = {k: torch.from_numpy(v).to(device).requires_grad_(True)
+             for k, v in dict(w, tables=tables, pts=pts, x=x).items()}
+        weights = {k: t[k] for k in w}
+        out = {"field": ff_ops.field(t["pts"], t["tables"], weights, g, m),
+               "mlp": mlp_ops.mlp(weights, t["x"], m),
+               "encode": hops.encode(t["pts"], t["tables"], g)}
+        res = {}
+        for name, y in out.items():
+            c = torch.from_numpy(cot[:, :y.shape[1]]).to(device)
+            leaves = [k for k in t if k in
+                      {"field": [*w, "tables", "pts"], "mlp": [*w, "x"],
+                       "encode": ["tables", "pts"]}[name]]
+            gs = torch.autograd.grad(y, [t[k] for k in leaves], c)
+            res.update({(name, k): v.cpu() for k, v in zip(leaves, gs)})
+        return res
+
+    got, ref = grads(dev), grads("cpu")
+    assert got.keys() == ref.keys()
+    for key in ref:
+        assert _rel_err(got[key], ref[key]) <= GRAD_TOL, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["nerf", "gia", "nsdf", "nvr"])
+def test_train_steps_on_card_match_cpu(dev, app):
+    """Three training steps on the card (kernels) and on the CPU (plain
+    versions) from the same params on the same batches: the losses agree
+    to 1e-4 of their size (the kernels' 3xTF32 forward, f32 sums in
+    another order; Adam then turns a near-zero gradient's rounding into a
+    step of lr, which the loss averages out), and the card's run launches
+    each kernel of its path and never the compositing kernel."""
+    cfg = _small_field(app)
+    init = fields.init_field(cfg, torch.Generator().manual_seed(1), "cpu")
+    batches = [ttrain.make_batch(cfg, ttrain.batch_generator(1, i, "cpu"),
+                                 64) for i in range(3)]
+
+    def run(device):
+        return ttrain.train_field(
+            cfg, steps=3, log_every=1, params=init, device=device,
+            batch_fn=lambda i: {k: v.to(device) for k, v in
+                                batches[i].items()})[1]
+
+    tkernels.reset_launch_counts()
+    got = run(dev)
+    counts = tkernels.launch_counts()
+    ref = run("cpu")
+    for (_, a), (_, b) in zip(got, ref):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    for k in ["field_fwd", "encode_fwd", "encode_bwd"] + (
+            ["mlp_fwd"] if app == "nerf" else []):
+        assert counts[k] == 3, (k, counts)
+    assert counts["composite_fwd"] == 0

@@ -121,15 +121,19 @@ def test_encode_rejects_scale_drift():
 
 @pytest.mark.parametrize("which", ["points", "tables"])
 def test_encode_refuses_gradients(which):
-    """The encode's VJP is the training slice's; until then a call that
-    would need one raises instead of returning a wrong gradient."""
-    _, gt, tables, _, pts = _inputs(None)
-    p, t = torch.from_numpy(pts), _t(tables)
-    (p if which == "points" else t).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        hops.encode(p, t, gt)
+    """Quantized tables are inference only, as in the JAX package, whose
+    quantized route has no VJP: a call that would need a gradient, of the
+    points or of the table side (its f32 scales: int8 codes take none),
+    raises instead of returning a wrong one; dense tables differentiate
+    (tests/test_torch_grad.py)."""
+    _, gt, tables, scales, pts = _inputs("int8")
+    p, t, s = torch.from_numpy(pts), _t(tables), _t(scales)
+    (p if which == "points" else s).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="inference only"):
+        hops.encode(p, t, gt, table_scales=s)
     with torch.no_grad():
-        assert hops.encode(p, t, gt).shape == (pts.shape[0], gt.out_dim)
+        assert hops.encode(p, t, gt, table_scales=s).shape == (
+            pts.shape[0], gt.out_dim)
 
 
 def test_encode_raises_off_cpu_and_cuda():
@@ -201,3 +205,26 @@ def test_encode_plan_raises_on_other_table_types():
     with pytest.raises(TypeError):
         hashgrid.encode_plan(tenc.hashgrid_config(), torch.float16, 100,
                              _H100_SMS)
+
+
+@pytest.mark.parametrize("app,n,group", [
+    ("nerf", 131072, 2), ("nvr", 131072, 2), ("nsdf", 4096, 1),
+    ("gia", 4096, 1), ("nerf", 1, 1)])
+def test_encode_bwd_plan_sizes_the_accumulator_against_l2(app, n, group):
+    """The backward's level groups at Table-I width: the largest G whose
+    groups' f32 accumulator rows fit BWD_L2_SHARE_BYTES (nerf: two hashed
+    levels of 2^19 x 2, 8 MiB), made smaller while the grid leaves SMs of
+    an H100 idle (4096 points: 32 tiles)."""
+    g = tfields.make_field_config(app, "hash").grid
+    plan = hashgrid.encode_bwd_plan(g, n, _H100_SMS)
+    assert plan["group_levels"] == group
+    assert plan["n_groups"] == -(-g.n_levels // group)
+    assert plan["group_accumulator_bytes"] <= hashgrid.BWD_L2_SHARE_BYTES \
+        or group == 1
+    if n == 131072:
+        bigger = hashgrid._group_bytes(hashgrid.level_table_bytes(
+            g, torch.float32), 2 * group)
+        assert bigger > hashgrid.BWD_L2_SHARE_BYTES
+    with pytest.raises(ValueError):
+        hashgrid.encode_bwd_plan(dataclasses.replace(g, n_features=4), n,
+                                 _H100_SMS)

@@ -275,7 +275,7 @@ def test_build_raises_without_nvcc(monkeypatch):
 
 def test_kernel_registry_lists_the_slice():
     assert set(tkernels.kernels()) == {"field_fwd", "field_fwd_q",
-                                       "encode_fwd", "mlp_fwd",
+                                       "encode_fwd", "encode_bwd", "mlp_fwd",
                                        "composite_fwd"}
     tkernels.reset_launch_counts()
     assert set(tkernels.launch_counts().values()) == {0}
@@ -419,7 +419,9 @@ _HIDDEN_128 = MLPConfig(in_dim=32, hidden_dim=128, n_hidden=1, out_dim=3)
     ("encode.cu", r"kEncodeRows = (\d+);", hashgrid.ENCODE_ROWS),
     ("encode.cu", r"kMaxGroup = (\d+);", hashgrid.MAX_GROUP),
     ("encode.cu", r"kGroupRowBytes = (\d+);", hashgrid.GROUP_ROW_BYTES),
-    ("encode.cuh", r"kMaxLevels = (\d+);", hashgrid.MAX_LEVELS)])
+    ("encode.cuh", r"kMaxLevels = (\d+);", hashgrid.MAX_LEVELS),
+    ("encode_bwd.cu", r"kEncodeBwdRows = (\d+);", hashgrid.ENCODE_ROWS),
+    ("encode_bwd.cu", r"kMaxGroupFloats = (\d+);", hashgrid.MAX_GROUP_FLOATS)])
 def test_kernel_plans_mirror_the_cuda_sources(source, constant, mirror):
     """The wrappers' plans (shared memory, rays per block, level groups)
     repeat constants of the CUDA sources; each copy equals its source."""
@@ -459,3 +461,25 @@ def test_encode_group_sizes_mirror_the_cuda_dispatch():
                         "group_levels"])
     assert picked <= cases
     assert max(cases) == hashgrid.MAX_GROUP
+
+
+def test_encode_bwd_takes_every_group_the_plan_picks():
+    """Every (dim, F) pair of SUPPORTED is instantiated for f32 and bf16
+    tables, and every level group the backward's plan picks holds at most
+    kMaxGroupFloats cotangents per thread, a group size the CUDA source
+    dispatches to."""
+    src = (build.CSRC / "encode_bwd.cu").read_text()
+    cases = re.findall(r"REPRO_ENCODE_BWD_CASE\((\d+), (\d+), (\w+), [\w:]+\)",
+                       src)
+    assert {(int(d), int(f)) for d, f, _ in cases} == hashgrid.SUPPORTED
+    assert {c for _, _, c in cases} == {"kTableF32", "kTableBf16"}
+    assert len(cases) == 2 * len(hashgrid.SUPPORTED)
+    groups = {int(g) for g in re.findall(r"REPRO_ENCODE_BWD_GROUP\((\d+)\)",
+                                         src)}
+    for dim, f in hashgrid.SUPPORTED:
+        for log2_T in (8, 14, 19, 24):
+            gt = dataclasses.replace(tenc.hashgrid_config(dim=dim),
+                                     n_features=f, log2_table_size=log2_T)
+            for n in (1, 4096, 131072):
+                g = hashgrid.encode_bwd_plan(gt, n, 132)["group_levels"]
+                assert g in groups and g * f <= hashgrid.MAX_GROUP_FLOATS
