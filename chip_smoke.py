@@ -53,6 +53,19 @@ JSON line:
            with CUDA activity alone
   parity   a 32x32 frame from the engine on the card against the port's
            render_frame on the CPU (plain versions), same params
+  serve_occ  the two nerf scenes, each with the analytic volume's 64^3
+           occupancy grid, served culled at a quarter of the dense sample
+           count (``RenderSettings(occupancy=True, sample_budget=32768)``):
+           as serve, plus the live-sample share, dropped samples and the
+           dense stream's numbers beside them; field_fwd, mlp_fwd and
+           composite_fwd must launch
+  profile_occ  one CUDA-only window of 20 culled requests, and the culled
+           branch's own ops (mask, argsort compaction, gathers; the scatter
+           back) on one request's tile, timed alone with CUDA events
+  parity_occ  an all-occupied grid at the full budget: the culled frame
+           equals the dense frame bit for bit; the culled 32x32 frame
+           against render_frame on the CPU; the card's grid words equal the
+           CPU's built from the same densities
   serve_quant  scene 0 quantized on the card twice, QuantSpec("int8") and
            QuantSpec("fp8_e4m3", mlp_qtype="int8"), and with its tables cast
            to bf16, one bucket each; 120 requests alternating between them
@@ -98,6 +111,23 @@ JSON line:
            against the analytic volume's pixels (gt_render_rays, 64
            samples); the trained frame's MSE must be the lower (an
            all-black frame's is printed beside them)
+  train_runtime  nerf: the first step's loss and gradients with
+           grad_accum=2 against one pass (ACCUM_TOL), then 16 steps each
+           with grad_accum=2, top-k (5%) and int8 compression of the table
+           gradient (the loss must fall; kept + efb_new == g + efb_old on
+           the next step's gradient, exactly for top-k, COMP_TOL for int8),
+           then 32 steps with a 64^3 occupancy grid: its occupied share at
+           each refresh, and the last refresh against the plain versions'
+           recomputation on the same params and previous grid
+  resume   nerf: two uninterrupted 48-step runs (their loss difference is
+           the card's run-to-run noise); a run stopped at step 16 whose
+           checkpoint restores bit for bit, resumed to 48; a child process
+           SIGKILLed after its first commit (no temporary directory left,
+           latest_step the last commit), resumed to 48; every resumed loss
+           within max(4 x the noise, 1e-5 of the loss) of the first run's;
+           the checkpoint's bytes and the seconds each save blocked; then
+           gia's 6 GiB train state saved and restored once when the disk
+           has room for it
 
 then the ``{"kernels": [...]}`` line (every kernel, launches from the path
 that runs it and per path, ``train`` among them, ``floor_ms``, the rows of other table types,
@@ -109,9 +139,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Needs one CUDA
 GPU and the CUDA toolkit (nvcc); imports nothing of JAX.
 """
 import contextlib
+import dataclasses
 import json
 import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -153,6 +186,32 @@ TRAIN_BATCH = 4096           # points (gia, nsdf) or rays (nerf, nvr)
 TRAIN_CHUNK = 8
 GT_SAMPLES = 64
 PROFILE_STEPS = 4
+OCC_RES = 64                 # occupancy grid cells per side
+OCC_BUDGET = TILE_PIXELS * N_SAMPLES // 4   # culled field evaluations
+OCC_THRESHOLD = 0.01         # train_field's default occupancy threshold
+# the last occupancy refresh in training against the plain versions': the
+# densities within TOL of their size (exp of 3xTF32 products), and the
+# same bits but for cells within OCC_EPS of the threshold
+OCC_EPS = 1e-3
+RUNTIME_STEPS = 16           # steps of each compressed and accumulated run
+RUNTIME_OCC_STEPS = 32       # four chunks: a build and three refreshes
+TOPK_FRAC = 0.05
+# grad_accum=2 against one pass on the card: f32 sums and atomics in
+# another order; max error over the leaf's max abs value (and the loss's)
+ACCUM_TOL = 1e-5
+# int8's kept + efb_new against g + efb_old: one f32 rounding of acc - deq
+# and one of the sum, against the tensor's max abs value
+COMP_TOL = 1e-6
+RESUME_STEPS = 48            # the uninterrupted runs
+RESUME_STOP = 16             # the stopped run's steps
+KILL_EVERY = 16              # the killed child saves every 16 steps
+KILL_TIMEOUT_S = 300
+# a resumed run's loss against an uninterrupted one's: at most this many
+# times the largest difference between two uninterrupted runs (one draw
+# of the atomics' rounding against another's maximum), or this share of
+# the loss, whichever is larger
+RESUME_NOISE_FACTOR = 4.0
+RESUME_FLOOR = 1e-5
 
 
 def fail(msg):
@@ -358,6 +417,198 @@ def plain_wrappers():
         fields.ff_ops.field, fields.mlp_ops.mlp = saved
 
 
+# the kill-and-resume child: trains nerf with checkpoints until killed
+KILL_CHILD = """
+import sys
+sys.path.insert(0, {src!r})
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.core import fields, train
+cfg = fields.make_field_config("nerf", "hash")
+train.train_field(cfg, steps=100000, batch_size={batch}, seed={seed},
+                  chunk_steps={chunk}, ckpt_dir={ckpt!r}, ckpt_every={every},
+                  gt_samples={gt}, device="cuda")
+"""
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def resume_phase(cfg, gcfg, dev, clone_tree, nerf_init, nerf_batch,
+                 nerf_loss, gpu):
+    """The ``resume`` phase: (its JSON line, the kernels' launches in it).
+
+    nerf at Table-I width, the checkpoint store and TrainEngine's resume:
+    two uninterrupted runs of RESUME_STEPS (their per-step loss difference
+    is the card's run-to-run noise: encode_bwd's atomics sum in a varying
+    order); a run stopped at RESUME_STOP whose checkpoint restores the
+    state bit for bit, then resumed; a child process SIGKILLed after its
+    first commit, then resumed. Each resumed loss must be within
+    max(RESUME_NOISE_FACTOR x the noise, RESUME_FLOOR x the loss) of the
+    uninterrupted run's. Then gia's 6 GiB train state (tables, Adam's mu
+    and nu) saved and restored once, when the disk has room."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.checkpoint import store as ckpt_store
+    from repro_torch.core import fields
+    from repro_torch.core import train as ctrain
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import optim as toptim
+
+    root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    common = dict(batch_size=TRAIN_BATCH, seed=SEED, chunk_steps=TRAIN_CHUNK,
+                  gt_samples=GT_SAMPLES, device=dev)
+
+    def losses(steps, **kw):
+        rows = []
+        ctrain.train_field(cfg, steps=steps, on_metrics=lambda i, r, st:
+                           rows.append((i, r["loss"])), **common, **kw)
+        return rows
+
+    K.reset_launch_counts()
+    a, b = losses(RESUME_STEPS), losses(RESUME_STEPS)
+    noise = [abs(x - y) for (_, x), (_, y) in zip(a, b)]
+
+    def check(resumed, what):
+        """Each resumed step's loss against run a's, within the bound."""
+        worst = 0.0
+        for i, x in resumed:
+            y = a[i][1]
+            bound = max(RESUME_NOISE_FACTOR * max(noise), RESUME_FLOOR * abs(y))
+            worst = max(worst, abs(x - y) / bound)
+            if abs(x - y) > bound:
+                fail(f"resume: {what} step {i} loss {x} vs uninterrupted {y}: "
+                     f"over the bound {bound}")
+        return worst
+
+    # (1) stop at RESUME_STOP through TrainEngine (its checkpointer's
+    # blocking times), the state at the last step kept on the side
+    d1 = os.path.join(root, "stop")
+    saved = {}
+
+    def grab(i, r, st):
+        if i == RESUME_STOP - 1:
+            saved.update({k: (v.clone() if torch.is_tensor(v) else v)
+                          for k, v in ckpt_store._flatten(st)})
+    eng = tloop.TrainEngine(
+        tloop.EngineConfig(steps=RESUME_STOP, chunk_steps=TRAIN_CHUNK,
+                           ckpt_dir=d1, ckpt_every=TRAIN_CHUNK),
+        tloop.make_scanned_step(nerf_loss, toptim.AdamConfig()),
+        batch_fn=nerf_batch)
+    eng.run(tloop.init_train_state(nerf_init()), on_metrics=grab)
+    blocked = list(eng.checkpointer.blocked_s)
+    t0 = time.perf_counter()
+    restored = dict(ckpt_store._flatten(ckpt_store.restore(
+        d1, tloop.init_train_state(nerf_init()), step=RESUME_STOP - 1)))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if restored.keys() != saved.keys() or not all(
+            torch.equal(restored[k], v) if torch.is_tensor(v)
+            else restored[k] == v for k, v in saved.items()):
+        fail("resume: the restored state is not the saved one bit for bit")
+    ckpt_bytes = dir_bytes(os.path.join(d1, f"step_{RESUME_STOP - 1:08d}"))
+    del saved, restored
+    r1 = losses(RESUME_STEPS, ckpt_dir=d1, ckpt_every=TRAIN_CHUNK)
+    if [i for i, _ in r1] != list(range(RESUME_STOP, RESUME_STEPS)):
+        fail(f"resume: the resumed run ran steps {[i for i, _ in r1]}")
+    worst1 = check(r1, "stopped-and-resumed")
+
+    # (2) a child process killed (SIGKILL) after its first commit
+    d2 = os.path.join(root, "kill")
+    child = subprocess.Popen([sys.executable, "-c", KILL_CHILD.format(
+        src=SRC, batch=TRAIN_BATCH, seed=SEED, chunk=TRAIN_CHUNK, ckpt=d2,
+        every=KILL_EVERY, gt=GT_SAMPLES)])
+    t0 = time.perf_counter()
+    try:
+        while ckpt_store.latest_step(d2) is None:
+            if child.poll() is not None:
+                fail(f"resume: the child exited ({child.returncode}) before "
+                     "its first commit")
+            if time.perf_counter() - t0 > KILL_TIMEOUT_S:
+                fail("resume: the child made no commit in "
+                     f"{KILL_TIMEOUT_S} s")
+            time.sleep(0.005)
+        first_commit_s = time.perf_counter() - t0
+        os.kill(child.pid, signal.SIGKILL)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+    committed = sorted(int(p.split("_")[1]) for p in os.listdir(d2)
+                       if p.startswith("step_") and os.path.exists(
+                           os.path.join(d2, p, ckpt_store.MANIFEST)))
+    temps = [p for p in os.listdir(d2) if p.startswith(".tmp_step_")]
+    last = ckpt_store.latest_step(d2)
+    if temps or last != committed[-1] or last >= RESUME_STEPS - 1:
+        fail(f"resume: after the kill: temp directories {temps}, "
+             f"latest_step {last}, committed {committed}")
+    r2 = losses(RESUME_STEPS, ckpt_dir=d2, ckpt_every=KILL_EVERY)
+    if [i for i, _ in r2] != list(range(last + 1, RESUME_STEPS)):
+        fail(f"resume: the run resumed after the kill ran steps "
+             f"{[i for i, _ in r2]}")
+    worst2 = check(r2, "killed-and-resumed")
+    launches = K.launch_counts()
+
+    # (3) gia's train state at Table-I width: 2 GiB tables and Adam's
+    # moments, after one step so the moments are not zero
+    gia = {"state_bytes": None}
+    gstate = tloop.init_train_state(fields.init_field(
+        gcfg, torch.Generator().manual_seed(SEED), dev))
+    gstate, _ = tloop.make_scanned_step(
+        lambda p, bb: ctrain.field_loss(p, gcfg, bb), toptim.AdamConfig())(
+        gstate, 0, ctrain.make_batch(gcfg, ctrain.batch_generator(
+            SEED, 0, dev), TRAIN_BATCH))
+    nbytes = sum(v.numel() * v.element_size()
+                 for _, v in ckpt_store._flatten(gstate)
+                 if torch.is_tensor(v))
+    free = shutil.disk_usage(root).free
+    gia.update(state_bytes=nbytes, disk_free_bytes=free)
+    if free < 2 * nbytes:
+        gia["skipped"] = "not enough free disk for a second copy"
+    else:
+        d3 = os.path.join(root, "gia")
+        ck = ckpt_store.AsyncCheckpointer(d3, keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(gstate, 0)
+        ck.wait()
+        gia.update(save_blocked_s=ck.blocked_s[0],
+                   save_total_s=time.perf_counter() - t0,
+                   checkpoint_bytes=dir_bytes(d3))
+        t0 = time.perf_counter()
+        got = ckpt_store.restore(d3, gstate)
+        torch.cuda.synchronize()
+        gia["restore_s"] = time.perf_counter() - t0
+        same = all(torch.equal(x, y) if torch.is_tensor(x) else x == y
+                   for (_, x), (_, y) in zip(ckpt_store._flatten(got),
+                                             ckpt_store._flatten(gstate)))
+        if not same:
+            fail("resume: gia's restored state is not the saved one")
+        gia["restored_equal"] = True
+        del got
+    del gstate
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"phase": "resume", "config": cfg.name, "steps": RESUME_STEPS,
+            "stop_at": RESUME_STOP, "chunk_steps": TRAIN_CHUNK,
+            "noise_max": max(noise), "noise_by_step": noise,
+            "bound": {"noise_factor": RESUME_NOISE_FACTOR,
+                      "floor": RESUME_FLOOR},
+            "stopped": {"worst_over_bound": worst1,
+                        "checkpoint_bytes": ckpt_bytes,
+                        "save_blocked_s": blocked, "restore_s": restore_s,
+                        "restored_equal": True},
+            "killed": {"first_commit_s": first_commit_s,
+                       "committed": committed, "resumed_from": last + 1,
+                       "worst_over_bound": worst2, "temp_dirs": temps},
+            "gia_state": gia, "launches": launches, **gpu}, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -387,7 +638,10 @@ def main():
     from repro_torch.kernels.hashgrid.ref import encode_ref
     from repro_torch.kernels.ray_march import ops as rm_ops
     from repro_torch.quant import QuantSpec, quantize_field
+    from repro_torch.checkpoint import store as ckpt_store
+    from repro_torch.core import occupancy as occ_mod
     from repro_torch.core import train as ctrain
+    from repro_torch.train import compression as tcomp
     from repro_torch.serve import RenderEngine, RenderRequest
     from repro_torch.train import loop as tloop
     from repro_torch.train import optim as toptim
@@ -821,6 +1075,7 @@ def main():
     if min(launches[k] for k in dense_path) <= 0:
         fail(f"serve: a kernel of the path never launched: {launches}")
     emit(line)
+    dense_line = line
 
     # ---------------------------------------------------------- profile
     # Device busy time, idle share and time by kernel, each from one trace
@@ -828,10 +1083,11 @@ def main():
     # CPU + CUDA activity (the breakdown), and CUDA activity alone, whose
     # host overhead is smaller, so its idle share is nearer the unprofiled
     # stream's.
-    def trace(run, acts, n, unit):
+    def trace(run, acts, n, unit, top=10):
         """Device busy time, idle share, device events and time by kernel
-        of one traced call of ``run``, which does ``n`` ``unit``s of work
-        (requests, training steps) and waits for the device."""
+        (the ``top`` longest) of one traced call of ``run``, which does
+        ``n`` ``unit``s of work (requests, training steps) and waits for
+        the device."""
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -846,7 +1102,7 @@ def main():
                 spans.append((ev.time_range.start / 1e3,
                               ev.time_range.end / 1e3))
         busy_ms = union_ms(spans)
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
         return {f"{unit}s": n, "wall_ms": wall_ms,
                 "device_busy_ms": busy_ms if spans else "not measured",
                 f"device_busy_ms_per_{unit}": busy_ms / n
@@ -855,13 +1111,13 @@ def main():
                 else "not measured",
                 "device_events": len(spans), "top_device_ms": top}
 
-    def profile_window(engine, window_reqs, acts):
+    def profile_window(engine, window_reqs, acts, top=10):
         """``trace`` of one window of served requests."""
         def run():
             for r in window_reqs:
                 engine.submit(r)
             engine.flush()
-        return trace(run, acts, len(window_reqs), "request")
+        return trace(run, acts, len(window_reqs), "request", top)
 
     for window, acts in (("cpu+cuda", [ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]),
@@ -881,6 +1137,105 @@ def main():
     emit({"phase": "parity", "frame": [32, 32], "max_abs_err": perr,
           "tol": PARITY_TOL, "mean_rgb": float(dense_frame.mean()), **gpu})
     del engine
+
+    # -------------------------------------------------------- serve_occ
+    # The same two Table-I scenes, each with the analytic volume's 64^3
+    # occupancy grid, served culled at a quarter of the dense sample count
+    # (the JAX occupancy test's budget): the field runs on at most
+    # OCC_BUDGET samples a request.
+    def volume_sigma(p):
+        return scenes.volume_field(p * 4.0 - 2.0)[:, 3]
+    t0 = time.perf_counter()
+    grid = occ_mod.build_occupancy_from_fn(volume_sigma, res=OCC_RES,
+                                           device=dev)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    occ_settings = dataclasses.replace(settings, occupancy=True,
+                                       sample_budget=OCC_BUDGET)
+    oengine = RenderEngine(occ_settings, device=dev)
+    for s_ in range(2):
+        oengine.add_scene(f"scene{s_}", cfg, occ_mod.attach(
+            fields.from_jax_params(np_params(cfg, SEED + s_), cfg, dev),
+            grid))
+    oreqs, olaunches, line = serve(oengine, ["scene0", "scene1"],
+                                   "serve_occ")
+    if min(olaunches[k] for k in dense_path) <= 0:
+        fail(f"serve_occ: a kernel of the culled path never launched: "
+             f"{olaunches}")
+    st = oengine.stats()
+    line.update(
+        sample_budget=OCC_BUDGET, grid_res=OCC_RES, grid_build_s=grid_s,
+        grid_occupied_fraction=occ_mod.occupied_fraction(grid),
+        effective_mpix_per_s=st["effective_mpix_per_s"],
+        live_sample_frac=st["live_sample_frac"],
+        samples_total=st["samples_total"],
+        samples_dropped=st["samples_dropped"],
+        dense={k: dense_line[k] for k in ("p50_ms", "p90_ms", "mpix_per_s",
+                                          "launches")})
+    emit(line)
+
+    # ------------------------------------------------------ profile_occ
+    # One CUDA-only trace of 20 culled requests, and the culled branch's
+    # own ops outside the field (the live mask, the argsort compaction,
+    # the gathers of the budget's points, the scatter back) on one
+    # request's tile, timed alone with CUDA events.
+    prof = profile_window(oengine, oreqs[:PROFILE_REQUESTS],
+                          [ProfilerActivity.CUDA], top=20)
+    o_, d_ = render.make_rays(cams[0], torch.from_numpy(oreqs[0].pixel_ids)
+                              .to(dev))
+    o_pts, o_dts = render.sample_along_rays(o_, d_, 0.5, 4.5, N_SAMPLES)
+    o_flat = render.normalize_to_unit(o_pts.reshape(-1, 3))
+    o_dirs = torch.repeat_interleave(d_, N_SAMPLES, dim=0)
+    o_live, o_sel = render.compact_samples(grid, o_flat, o_dts, N_SAMPLES,
+                                           OCC_BUDGET, 1e-3)
+    o_out = torch.zeros((OCC_BUDGET, 4), device=dev)
+
+    def compaction():
+        live, sel = render.compact_samples(grid, o_flat, o_dts, N_SAMPLES,
+                                           OCC_BUDGET, 1e-3)
+        return o_flat[sel], o_dirs[sel], live, sel
+
+    # few calls queued behind the spin: the compaction is ~45 launches, and
+    # 20 calls' enqueue can outlast the spin, which times the host instead
+    emit({"phase": "profile_occ", "window": "cuda", **prof,
+          "compaction_ms": device_ms(compaction, reps=4),
+          "scatter_ms": device_ms(lambda: render.scatter_samples(
+              o_out, o_sel, o_live), reps=20),
+          "tile_live_samples": int(o_live.sum()), **gpu})
+
+    # ------------------------------------------------------- parity_occ
+    # (1) an all-occupied grid at the full budget: the culled frame equals
+    # the dense frame on the card, bit for bit; (2) the quarter-budget
+    # culled frame on the card against render_frame on the CPU; (3) the
+    # card's grid words equal the CPU's built from the same densities.
+    aengine = RenderEngine(dataclasses.replace(settings, occupancy=True),
+                           device=dev)
+    aengine.add_scene("scene0", cfg, occ_mod.attach(
+        p0, occ_mod.all_occupied(OCC_RES, dev)))
+    all_frame = aengine.render_frame("scene0", pcam)
+    if not np.array_equal(all_frame, dense_frame):
+        fail(f"parity_occ: the all-occupied culled frame differs from the "
+             f"dense frame by {float(np.abs(all_frame - dense_frame).max())}")
+    del aengine
+    occ_frame = oengine.render_frame("scene0", pcam)
+    cpu_grid = fields.to_device(grid, torch.device("cpu"))
+    ref = pipeline.render_frame(occ_mod.attach(cpu_params, cpu_grid), cfg,
+                                pcam, occ_settings, device="cpu").numpy()
+    oerr = float(np.abs(occ_frame - ref).max())
+    if not np.isfinite(occ_frame).all() or oerr > PARITY_TOL:
+        fail(f"parity_occ: culled engine vs CPU render_frame max abs error "
+             f"{oerr}")
+    same_sigma = occ_mod.build_occupancy_from_fn(
+        lambda p: cpu_grid["sigma"], res=OCC_RES, device="cpu")
+    if not torch.equal(grid["bits"].cpu(), same_sigma["bits"]):
+        fail("parity_occ: the card's occupancy words differ from the CPU's "
+             "on the same densities")
+    emit({"phase": "parity_occ", "frame": [32, 32],
+          "all_occupied_equals_dense": True, "max_abs_err": oerr,
+          "tol": PARITY_TOL, "bits_equal_cpu": True,
+          "max_abs_diff_to_dense": float(np.abs(occ_frame - dense_frame)
+                                         .max()), **gpu})
+    del oengine, cpu_grid
 
     # ------------------------------------------------------ serve_quant
     # Scene 0 quantized on the card two ways, and with its tables cast to
@@ -1039,7 +1394,7 @@ def main():
     # encode_fwd and encode_bwd backward; the loss composites in plain ops.
     del qengine, qscenes, qtab, grid_bf16, dmlp_bf16
     torch.cuda.empty_cache()
-    train_launches, parity_rows = {}, {}
+    train_launches, parity_rows, train_ms = {}, {}, {}
     tpath = {"nerf": ("field_fwd", "mlp_fwd", "encode_fwd", "encode_bwd")}
     for app in ("nerf", "gia", "nsdf", "nvr"):
         tcfg = fields.make_field_config(app, "hash")
@@ -1080,6 +1435,7 @@ def main():
                 "table_bytes": tcfg.grid.params_bound() * 4,
                 "launches_per_step": per_step, **gpu}
         emit(line)
+        train_ms[app] = line["ms_per_step"]
         need = tpath.get(app, ("field_fwd", "encode_fwd", "encode_bwd"))
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             fail(f"train[{app}]: the loss did not fall: {losses}")
@@ -1191,12 +1547,182 @@ def main():
         fail(f"serve_trained: a serving kernel never launched: {slaunches}")
     del tengine, trained_nerf, init_nerf
 
+    # ---------------------------------------------------- train_runtime
+    # nerf at Table-I width through the rest of the training runtime:
+    # gradient accumulation, error-feedback compression of the table
+    # gradient, and an occupancy grid kept off the chunk ends.
+    cam_t = scenes.default_camera()
+
+    def nerf_batch(step):
+        return ctrain.make_batch(cfg, ctrain.batch_generator(SEED, step, dev),
+                                 TRAIN_BATCH, cam_t, gt_samples=GT_SAMPLES)
+
+    def nerf_loss(p, b):
+        return ctrain.field_loss(p, cfg, b)
+
+    def nerf_init():
+        return fields.init_field(cfg, torch.Generator().manual_seed(SEED),
+                                 dev)
+
+    def clone_tree(tree):
+        return {k: (clone_tree(v) if isinstance(v, dict) else v.clone())
+                for k, v in tree.items()}
+
+    runtime = {}
+    K.reset_launch_counts()
+    init = nerf_init()
+    batch0 = nerf_batch(0)
+    l1, g1 = tloop.value_and_grad(nerf_loss, init, batch0)
+    l2, g2 = tloop.accumulated_value_and_grad(nerf_loss, init, batch0, 2)
+    accum = {"loss_1": float(l1), "loss_2": float(l2),
+             "loss_rel_err": abs(float(l2) - float(l1)) / abs(float(l1)),
+             "leaves": {path: rel_err(b_, dict(tree_items(g1))[path])[1]
+                        for path, b_ in tree_items(g2)}}
+    if accum["loss_rel_err"] > ACCUM_TOL \
+            or max(accum["leaves"].values()) > ACCUM_TOL:
+        fail(f"train_runtime: grad_accum=2 differs from one pass: {accum}")
+    rows = []
+    ctrain.train_field(cfg, steps=RUNTIME_STEPS, batch_size=TRAIN_BATCH,
+                       seed=SEED, chunk_steps=TRAIN_CHUNK, grad_accum=2,
+                       gt_samples=GT_SAMPLES, device=dev, params=init,
+                       on_metrics=lambda i, r, st: rows.append(r))
+    accum.update(steps=RUNTIME_STEPS, loss_first=rows[0]["loss"],
+                 loss_last=rows[-1]["loss"], ms_per_step=1e3 * statistics.mean(
+                     r["dt"] for r in rows[TRAIN_CHUNK:]))
+    runtime["grad_accum"] = accum
+    del g1, g2, init
+    for scheme in ("topk", "int8"):
+        rows, last = [], {}
+
+        # the state after the first step: nerf's density collapses within
+        # tens of steps, and with it every later gradient
+        def grab(i, r, st, rows=rows, last=last):
+            rows.append(r)
+            if i == 0:
+                last.update(params=clone_tree(st["params"]),
+                            efb=st["efb"]["grid"].clone())
+        ctrain.train_field(cfg, steps=RUNTIME_STEPS, batch_size=TRAIN_BATCH,
+                           seed=SEED, chunk_steps=TRAIN_CHUNK,
+                           compression=scheme, compression_topk=TOPK_FRAC,
+                           gt_samples=GT_SAMPLES, device=dev,
+                           on_metrics=grab)
+        losses = [r["loss"] for r in rows]
+        # the invariant on step 1's table gradient with the feedback step 0
+        # left: what was not sent is kept, nothing is lost
+        _, g = tloop.value_and_grad(nerf_loss, last["params"], nerf_batch(1))
+        acc = g["grid"] + last["efb"]
+        kept, efb_new = (tcomp.compress_topk(g["grid"], last["efb"],
+                                             TOPK_FRAC) if scheme == "topk"
+                         else tcomp.compress_int8(g["grid"], last["efb"]))
+        inv_err = rel_err(kept + efb_new, acc)[1]
+        row = {"loss_first": losses[0], "loss_last": losses[-1],
+               "ms_per_step": 1e3 * statistics.mean(
+                   r["dt"] for r in rows[TRAIN_CHUNK:]),
+               "ms_per_step_uncompressed": train_ms["nerf"],
+               "sent_nonzero_frac": float((kept != 0).float().mean()),
+               "grad_max_abs": float(g["grid"].abs().max()),
+               "efb_old_max_abs": float(last["efb"].abs().max()),
+               "efb_max_abs": float(efb_new.abs().max()),
+               "invariant_rel_err": inv_err,
+               "invariant_tol": 0.0 if scheme == "topk" else COMP_TOL}
+        runtime[scheme] = row
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"train_runtime[{scheme}]: the loss did not fall: {losses}")
+        if inv_err > row["invariant_tol"] or not row["efb_old_max_abs"] > 0:
+            fail(f"train_runtime[{scheme}]: kept + efb_new differs from g + "
+                 f"efb_old by {inv_err} of its max")
+        del last, g, acc, kept, efb_new
+    # occupancy: every grid the run builds or refreshes, and the params of
+    # the chunk end it came from; the last refresh recomputed with the
+    # plain versions (the field wrappers swapped for them) on the same
+    # params and previous grid
+    refreshes = []
+    real_build, real_update = occ_mod.build_occupancy, \
+        occ_mod.update_occupancy
+
+    def rec_build(params, c, **kw):
+        g_ = real_build(params, c, **kw)
+        refreshes.append((None, clone_tree(params), g_))
+        return g_
+
+    def rec_update(prev, params, c, **kw):
+        g_ = real_update(prev, params, c, **kw)
+        refreshes.append((prev, clone_tree(params), g_))
+        return g_
+    occ_mod.build_occupancy, occ_mod.update_occupancy = rec_build, rec_update
+    try:
+        rows = []
+        trained_occ, _ = ctrain.train_field(
+            cfg, steps=RUNTIME_OCC_STEPS, batch_size=TRAIN_BATCH, seed=SEED,
+            chunk_steps=TRAIN_CHUNK, gt_samples=GT_SAMPLES, device=dev,
+            occupancy_res=OCC_RES, on_metrics=lambda i, r, st: rows.append(r))
+    finally:
+        occ_mod.build_occupancy, occ_mod.update_occupancy = real_build, \
+            real_update
+    prev, last_params, last_grid = refreshes[-1]
+    if not torch.equal(trained_occ["occupancy"]["bits"], last_grid["bits"]):
+        fail("train_runtime: the attached grid is not the last refresh's")
+    centers = occ_mod.cell_centers(OCC_RES, dev)
+    fresh = occ_mod.field_sigma(last_params, cfg, centers)
+    runtime_launches = K.launch_counts()
+    with plain_wrappers():
+        plain_grid = occ_mod.update_occupancy(prev, last_params, cfg)
+        fresh_ref = occ_mod.field_sigma(last_params, cfg, centers)
+    if K.launch_counts() != runtime_launches:
+        fail("train_runtime: the plain grid launched a kernel")
+    # the refresh's own field evaluation (field_fwd's density pass), which
+    # the EMA's max may hide once the density falls
+    fresh_err = float(((fresh - fresh_ref).abs() / fresh_ref.abs().clamp(
+        min=1e-30)).max())
+    if fresh_err > TOL:
+        fail(f"train_runtime: field_fwd's densities at the cell centres "
+             f"differ from the plain versions' by {fresh_err} relative")
+    sig, sig_ref = last_grid["sigma"], plain_grid["sigma"]
+    sig_err = float(((sig - sig_ref).abs() / sig_ref.abs().clamp(
+        min=1e-30)).max())
+    near = (sig_ref - OCC_THRESHOLD).abs() <= OCC_EPS * OCC_THRESHOLD
+    differ = occ_mod.unpack_bits(last_grid["bits"]) \
+        != occ_mod.unpack_bits(plain_grid["bits"])
+    if sig_err > TOL or bool((differ & ~near).any()):
+        fail(f"train_runtime: the last refresh differs from the plain "
+             f"versions': sigma {sig_err} relative, {int(differ.sum())} "
+             f"cells ({int((differ & ~near).sum())} away from the "
+             f"threshold)")
+    runtime["occupancy"] = {
+        "steps": RUNTIME_OCC_STEPS, "res": OCC_RES,
+        "threshold": OCC_THRESHOLD, "refresh_steps": [
+            TRAIN_CHUNK * (i + 1) - 1 for i in range(len(refreshes))],
+        "occupied_fraction": [occ_mod.occupied_fraction(r[2])
+                              for r in refreshes],
+        "sigma_max": [float(r[2]["sigma"].max()) for r in refreshes],
+        "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
+        "fresh_sigma_max": float(fresh_ref.max()),
+        "fresh_vs_plain_sigma_rel_err": fresh_err,
+        "last_refresh_vs_plain_sigma_rel_err": sig_err, "tol": TOL,
+        "cells_differing": int(differ.sum()),
+        "cells_near_threshold": int(near.sum()), "eps": OCC_EPS}
+    del refreshes, prev, last_params, last_grid, plain_grid, trained_occ, \
+        fresh, fresh_ref
+    emit({"phase": "train_runtime", "config": cfg.name, "batch": TRAIN_BATCH,
+          "topk_frac": TOPK_FRAC, "accum_tol": ACCUM_TOL, **runtime,
+          "launches": runtime_launches, **gpu})
+    if min(runtime_launches[k] for k in tpath["nerf"]) <= 0:
+        fail(f"train_runtime: a kernel of the training path never launched: "
+             f"{runtime_launches}")
+
+    # ----------------------------------------------------------- resume
+    resume_line, resume_launches = resume_phase(
+        cfg, gcfg, dev, clone_tree, nerf_init, nerf_batch, nerf_loss, gpu)
+    emit(resume_line)
+
     # ----------------------------------------------------------- report
     # kernel -> (source, TPU kernel it replaces, path its launches are
     # read from, launches on that path, variant of the row's own numbers)
     paths = {"serve": launches, "serve_quant": qlaunches,
              "serve_gia": glaunches, "serve_nsdf": nlaunches,
-             "unfused": unfused_launches, "train": train_launches}
+             "unfused": unfused_launches, "train": train_launches,
+             "serve_occ": olaunches, "train_runtime": runtime_launches,
+             "resume": resume_launches}
     report = {
         "field_fwd": ("src/repro_torch/csrc/field.cu",
                       "src/repro/kernels/fused_field/fused_field.py:111",

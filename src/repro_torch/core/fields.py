@@ -170,15 +170,42 @@ def leaf_from_numpy(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.asarray(arr, dtype=np.float32).copy())
 
 
+def _occupancy_from_numpy(occ: Mapping, device: torch.device) -> Dict:
+    """A JAX occupancy grid (``bits`` uint32 words, ``sigma`` f32) as the
+    port's: the same 32 bits per word as int32 (``core/occupancy.py``)."""
+    if not isinstance(occ, Mapping) or set(occ) != {"bits", "sigma"}:
+        raise ValueError("params/occupancy: a grid is a dict of 'bits' and "
+                         f"'sigma', got {type(occ).__name__} "
+                         f"{sorted(occ) if isinstance(occ, Mapping) else ''}")
+    sigma = np.asarray(occ["sigma"], np.float32)
+    bits = np.asarray(occ["bits"])
+    res = round(sigma.size ** (1.0 / 3.0))
+    if sigma.shape != (res ** 3,) or res % 4 or bits.shape != (
+            res ** 3 // 32,) or bits.dtype.itemsize != 4 \
+            or bits.dtype.kind not in "ui":
+        raise ValueError(f"params/occupancy: sigma {sigma.shape} and bits "
+                         f"{bits.shape} {bits.dtype} are not a grid of "
+                         "res^3 cells (res % 4 == 0) and res^3 / 32 "
+                         "32-bit words")
+    return {"bits": torch.from_numpy(bits.view(np.int32).copy()).to(device),
+            "sigma": torch.from_numpy(sigma.copy()).to(device)}
+
+
 def from_jax_params(np_params: Mapping, cfg: FieldConfig,
                     device: DeviceLike = None) -> Dict:
     """The JAX package's unboxed param tree, with every leaf as a numpy
     array, as the port's tensors on ``device``: int8 and fp8-e4m3 codes
     and bf16 leaves keep their dtype, every other leaf becomes f32, and
     the quantization scale leaves come along where ``cfg.quant`` says they
-    exist. Raises, naming its path, on a missing leaf, a leaf ``cfg`` does
+    exist; an attached occupancy grid (``core/occupancy.py``) comes along
+    too. Raises, naming its path, on a missing leaf, a leaf ``cfg`` does
     not give, or a shape it does not give."""
     dev = resolve_device(device)
+    if "occupancy" in np_params:
+        rest = {k: v for k, v in np_params.items() if k != "occupancy"}
+        return {**from_jax_params(rest, cfg, dev),
+                "occupancy": _occupancy_from_numpy(np_params["occupancy"],
+                                                   dev)}
 
     def conv(tree, shapes, path):
         if isinstance(shapes, dict):

@@ -6,6 +6,8 @@ scenes, so one tile function serves every viewpoint, resolution and scene
 of a bucket. Per app, a tile is:
 
 - nerf, nvr: rays ray-marched with ``n_samples`` samples each, composited;
+  with ``occupancy`` the march is culled on the scene's
+  ``params['occupancy']`` grid under a static sample budget;
 - gia: the field at each pixel's (x, y) in the unit square;
 - nsdf: rays sphere-traced through the signed-distance field for
   ``sphere_steps`` steps, then shaded with a central-difference normal.
@@ -31,6 +33,22 @@ class RenderSettings:
     near: float = 0.5
     far: float = 4.5
     sphere_steps: int = 48        # sphere-tracing iterations (nsdf)
+    # Occupancy-culled sampling (nerf, nvr): march through
+    # ``render.render_rays``' compaction on ``params['occupancy']``.
+    # ``sample_budget`` is the field-evaluation budget of a full tile of
+    # ``tile_pixels`` rays (None: tile_pixels * n_samples, the dense cost,
+    # and culling is exact); a tile of fewer pixels scales it.
+    occupancy: bool = False
+    sample_budget: Optional[int] = None
+    early_term_eps: float = 1e-3  # a sample dies once T_est < eps
+
+    def tile_budget(self, n_pixels: int) -> Optional[int]:
+        """The static budget of a tile of ``n_pixels`` rays."""
+        if not self.occupancy:
+            return None
+        if self.sample_budget is None:
+            return n_pixels * self.n_samples
+        return max(1, self.sample_budget * n_pixels // self.tile_pixels)
 
 
 # ------------------------------------------------------------- NSDF shading
@@ -88,22 +106,61 @@ def pixel_coords(cam: render.Camera, pixel_ids: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- tile step
-def make_tile_fn(cfg: FieldConfig, settings: RenderSettings) -> Callable:
-    """(params, cam, pixel_ids (P,)) -> rgb (P, 3): one schedulable tile."""
+def make_tile_fn(cfg: FieldConfig, settings: RenderSettings,
+                 with_aux: bool = False) -> Callable:
+    """(params, cam, pixel_ids (P,)) -> rgb (P, 3): one schedulable tile.
+
+    With ``settings.occupancy`` the ray apps march culled on
+    ``params['occupancy']`` under ``settings.tile_budget(P)``; a ray app
+    without that leaf raises. ``with_aux=True`` also returns a (1, 3) f32
+    ``[n_live, n_total, n_dropped]`` row of sample counts, made on the
+    device (the dense path and the other apps: all live).
+    ``tile(..., n_valid=n)`` counts only the first ``n`` pixels, the valid
+    ones of a padded request."""
     if cfg.app not in APPS:
         raise ValueError(f"unknown app {cfg.app!r} (apps: {APPS})")
 
-    def tile(params, cam: render.Camera, pixel_ids: torch.Tensor):
+    def tile(params, cam: render.Camera, pixel_ids: torch.Tensor,
+             n_valid: Optional[int] = None):
+        n = pixel_ids.shape[0] if n_valid is None else n_valid
+
+        def dense(rgb, samples_per_pixel=1):
+            if not with_aux:
+                return rgb
+            row = torch.full((1, 3), float(n * samples_per_pixel),
+                             dtype=torch.float32, device=pixel_ids.device)
+            row[0, 2] = 0.0
+            return rgb, row
+
         if cfg.app == "gia":
-            return fields.apply_field(params, cfg,
-                                      pixel_coords(cam, pixel_ids))
+            return dense(fields.apply_field(params, cfg,
+                                            pixel_coords(cam, pixel_ids)))
         origins, dirs = render.make_rays(cam, pixel_ids)
         if cfg.app == "nsdf":
-            return shade_nsdf(params, cfg, origins, dirs, settings)
-        return render.render_rays(
-            lambda p, d: fields.apply_field(params, cfg, p, d), origins, dirs,
-            near=settings.near, far=settings.far,
-            n_samples=settings.n_samples, use_kernel_composite=True)
+            return dense(shade_nsdf(params, cfg, origins, dirs, settings))
+        kw = dict(near=settings.near, far=settings.far,
+                  n_samples=settings.n_samples, use_kernel_composite=True)
+
+        def field(p, d):
+            return fields.apply_field(params, cfg, p, d)
+        if not settings.occupancy:
+            return dense(render.render_rays(field, origins, dirs, **kw),
+                         settings.n_samples)
+        if "occupancy" not in params:
+            raise ValueError(
+                "RenderSettings.occupancy=True but the scene params have no "
+                "'occupancy' leaf: build one with "
+                "core.occupancy.build_occupancy and attach()")
+        rgb, aux = render.render_rays(
+            field, origins, dirs, occupancy=params["occupancy"],
+            sample_budget=settings.tile_budget(pixel_ids.shape[0]),
+            early_term_eps=settings.early_term_eps, return_aux=True, **kw)
+        if not with_aux:
+            return rgb
+        live = aux["live_per_ray"][:n].sum().float()
+        return rgb, torch.stack([
+            live, torch.full_like(live, float(n * settings.n_samples)),
+            aux["dropped_per_ray"][:n].sum().float()])[None, :]
     return tile
 
 
@@ -126,13 +183,16 @@ def select_scene(stacked_params: Mapping, scene_id: int) -> Dict:
             for k, v in stacked_params.items()}
 
 
-def make_multi_scene_tile_fn(cfg: FieldConfig, settings: RenderSettings
-                             ) -> Callable:
-    """(stacked_params, scene_id, cam, pixel_ids) -> rgb (P, 3)."""
-    tile = make_tile_fn(cfg, settings)
+def make_multi_scene_tile_fn(cfg: FieldConfig, settings: RenderSettings,
+                             with_aux: bool = False) -> Callable:
+    """(stacked_params, scene_id, cam, pixel_ids[, n_valid]) -> rgb (P, 3)
+    (and the sample-count row with ``with_aux``, as :func:`make_tile_fn`)."""
+    tile = make_tile_fn(cfg, settings, with_aux=with_aux)
 
-    def mtile(stacked_params, scene_id: int, cam, pixel_ids):
-        return tile(select_scene(stacked_params, scene_id), cam, pixel_ids)
+    def mtile(stacked_params, scene_id: int, cam, pixel_ids,
+              n_valid: Optional[int] = None):
+        return tile(select_scene(stacked_params, scene_id), cam, pixel_ids,
+                    n_valid)
     return mtile
 
 

@@ -26,7 +26,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.core import fields, render
+from repro_torch.core import fields, occupancy, render
 from repro_torch.core.fields import FieldConfig
 from repro_torch.data import scenes
 from repro_torch.device import DeviceLike, resolve_device
@@ -119,10 +119,15 @@ def train_field(cfg: FieldConfig, steps: int = 200, batch_size: int = 2048,
                 opt_cfg: Optional[optim.AdamConfig] = None,
                 callback: Optional[Callable] = None, *,
                 chunk_steps: int = 16, grad_accum: int = 1,
-                ckpt_dir=None, compression: Optional[str] = None,
+                ckpt_dir=None, ckpt_every: int = 50,
+                compression: Optional[str] = None,
+                compression_topk: float = 0.05,
                 mesh=None, on_metrics: Optional[Callable] = None,
                 n_samples: Optional[int] = None, gt_samples: int = 64,
                 occupancy_res: Optional[int] = None,
+                occupancy_every: int = 1,
+                occupancy_threshold: float = 0.01,
+                occupancy_decay: float = 0.95,
                 params: Optional[Dict] = None,
                 batch_fn: Optional[Callable] = None,
                 device: DeviceLike = None):
@@ -135,21 +140,48 @@ def train_field(cfg: FieldConfig, steps: int = 200, batch_size: int = 2048,
 
     ``params`` starts from a given tree (copied; default: ``init_field``
     from ``seed``); ``batch_fn(step) -> batch`` replaces the seeded batch
-    makers, so a test can feed the JAX package's batches. Gradient
-    accumulation, compression, checkpoints, a mesh and occupancy grids are
-    not ported yet and raise."""
-    if occupancy_res is not None:
-        raise NotImplementedError(
-            "occupancy grids are not ported to repro_torch yet")
+    makers, so a test can feed the JAX package's batches. ``grad_accum``,
+    ``compression`` ("topk" at ``compression_topk``, or "int8", on the
+    table gradient) and ``ckpt_dir`` (resume from its newest checkpoint,
+    save every ``ckpt_every`` steps at chunk ends and at the last step)
+    are the engine's. A data-parallel ``mesh`` is not ported yet and
+    raises.
+
+    ``occupancy_res`` (nerf, nvr) keeps an occupancy grid off the
+    engine's chunk ends, as the JAX package does: built at the first chunk
+    end, refreshed by ``update_occupancy`` (``occupancy_decay``,
+    ``occupancy_threshold``) at every ``occupancy_every``-th chunk end
+    after it, and attached to the returned params as ``'occupancy'``. It
+    stays out of the optimizer state and the checkpoint."""
+    if occupancy_res is not None and cfg.app not in ("nerf", "nvr"):
+        raise ValueError("occupancy_res is only meaningful for the ray "
+                         f"apps (nerf, nvr), not app={cfg.app!r}")
     opt_cfg = opt_cfg or optim.AdamConfig(lr=1e-2)
     step_fn = loop.make_scanned_step(
         lambda p, b: field_loss(p, cfg, b, n_samples=n_samples), opt_cfg,
-        grad_accum=grad_accum, compression=compression, mesh=mesh)
+        grad_accum=grad_accum, compression=compression,
+        compression_topk=compression_topk, mesh=mesh)
     ecfg = loop.EngineConfig(steps=steps, chunk_steps=chunk_steps,
-                             ckpt_dir=ckpt_dir)
+                             ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
     params, batch_fn = _start(cfg, seed, params, device, batch_size,
                               gt_samples, batch_fn)
-    engine = loop.TrainEngine(ecfg, step_fn, batch_fn=batch_fn)
+    occ_box = {"occ": None, "chunks": 0}
+
+    def refresh_occupancy(end, st):
+        occ_box["chunks"] += 1
+        if occ_box["occ"] is None:
+            occ_box["occ"] = occupancy.build_occupancy(
+                st["params"], cfg, res=occupancy_res,
+                threshold=occupancy_threshold)
+        elif occ_box["chunks"] % occupancy_every == 0:
+            occ_box["occ"] = occupancy.update_occupancy(
+                occ_box["occ"], st["params"], cfg, decay=occupancy_decay,
+                threshold=occupancy_threshold)
+
+    engine = loop.TrainEngine(
+        ecfg, step_fn, batch_fn=batch_fn,
+        on_chunk_end=refresh_occupancy if occupancy_res is not None
+        else None)
     history = []
 
     def _on_metrics(i, row, st):
@@ -160,8 +192,11 @@ def train_field(cfg: FieldConfig, steps: int = 200, batch_size: int = 2048,
         if on_metrics:
             on_metrics(i, row, st)
 
-    state, _ = engine.run(loop.init_train_state(params),
-                          on_metrics=_on_metrics)
+    state, _ = engine.run(
+        loop.init_train_state(params, compression=compression),
+        on_metrics=_on_metrics)
+    if occ_box["occ"] is not None:
+        return occupancy.attach(state["params"], occ_box["occ"]), history
     return state["params"], history
 
 

@@ -142,7 +142,10 @@ def absmax_scale(x: torch.Tensor, qtype: str, *, axis=None,
             [x.shape[d] for d in kept] + [-1])
         m = percentile_lastdim(flat, percentile,
                                fuse_hi=not kept).reshape(keep_shape)
-    return torch.clamp(m, min=_EPS) / qmax(qtype)
+    m = torch.clamp(m, min=_EPS)
+    # a CUDA divide by a Python number multiplies by its reciprocal; a
+    # tensor divisor rounds the quotient on the card as on the CPU
+    return m / torch.full_like(m, qmax(qtype))
 
 
 # ------------------------------------------------------------------ codecs

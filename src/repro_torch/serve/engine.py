@@ -1,8 +1,8 @@
 """RenderEngine: batched multi-scene serving on one device.
 
-  * **Shape buckets.** Requests are grouped by
-    ``(app, encoding, tile_pixels, n_samples, dtype, cfg)``; scenes of one
-    bucket share one tile function and one stack of parameters.
+  * **Shape buckets.** Requests are grouped by ``(app, encoding,
+    tile_pixels, n_samples, dtype, cfg, occupancy, sample_budget)``; scenes
+    of one bucket share one tile function and one stack of parameters.
   * **Megabatch pad + mask.** Every request is padded to the bucket's fixed
     ``tile_pixels``; a mask zeroes the pad lanes and the host slices the
     valid prefix off the result.
@@ -13,6 +13,13 @@
     after them and returns a :class:`Ticket` without waiting for the
     device. It blocks only while more than ``max_inflight`` megabatches are
     outstanding. ``Ticket.result`` is the one sync point.
+  * **Occupancy-culled sampling.** With ``settings.occupancy`` the ray
+    apps march culled (``core/occupancy.py``): their scenes carry an
+    ``occupancy`` grid (stacked like the tables), the bucket key adds
+    ``(occupancy, sample_budget)``, each request's ``[n_live, n_total,
+    n_dropped]`` sample counts over its valid pixels come to pinned host
+    memory with its pixels, under the same event, and ``stats()`` reports
+    the live-sample fraction and the dropped samples.
   * **Observability.** The engine owns a metrics ``Registry``: per-bucket
     ``submit``/``dispatch``/``block``/``slice`` phase histograms and the
     submit-to-retire latency histogram that ``stats()``'s p50/p99 read
@@ -50,6 +57,9 @@ class BucketKey:
     n_samples: int
     dtype: str
     cfg: FieldConfig
+    # the compaction's budget changes the work: budgets never share
+    occupancy: bool = False
+    sample_budget: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +79,13 @@ def _leaves(tree) -> List[torch.Tensor]:
     return out
 
 
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of the device tensor ``t``, queued on the current
+    stream: nothing waits for it here."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+        t, non_blocking=True)
+
+
 class Ticket:
     """Handle for an in-flight request; ``result()`` waits for it and
     returns the valid (n, 3) rgb rows as numpy.
@@ -80,9 +97,11 @@ class Ticket:
 
     def __init__(self, engine: "RenderEngine", host_out: torch.Tensor,
                  event: Optional[torch.cuda.Event], n_valid: int,
-                 t_submit: float, warmup: bool, bucket_idx: int = 0):
+                 t_submit: float, warmup: bool, bucket_idx: int = 0,
+                 host_aux: Optional[torch.Tensor] = None):
         self._engine = engine
         self._host_out = host_out          # filled once `event` completes
+        self._host_aux = host_aux          # (1, 3) sample counts, likewise
         self._event = event                # None on the CPU: already done
         self._n = n_valid
         self._t_submit = t_submit
@@ -110,6 +129,8 @@ class Ticket:
                                            t_block0, t_done)
                 self._engine._record_phase(self._bidx, "slice",
                                            t_done, t_slice)
+                if self._host_aux is not None:
+                    self._engine._record_aux(self._host_aux.numpy()[0])
             self._res = res
             self._done = True
         return self._res
@@ -147,6 +168,8 @@ class RenderEngine:
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
         self._warmup_s = 0.0
+        # culled sampling: [live, total, dropped] samples over the stream
+        self._samples = np.zeros(3, np.float64)
 
     # ------------------------------------------------------------- scenes
     def add_scene(self, name: str, cfg: FieldConfig, params) -> BucketKey:
@@ -170,12 +193,19 @@ class RenderEngine:
                 f"scene {name!r}: cfg.quant declares table_qtype="
                 f"{cfg.quant.table_qtype!r} but params have no "
                 "'grid_scale' leaf: run repro_torch.quant.quantize_field")
+        if (self.settings.occupancy and cfg.app in ("nerf", "nvr")
+                and "occupancy" not in params):
+            raise ValueError(
+                f"engine settings have occupancy=True but scene {name!r} "
+                "has no 'occupancy' leaf: build one with "
+                "core.occupancy.build_occupancy and attach()")
         params = fields.to_device(params, self.device)
         dtype = ",".join(str(l.dtype) for l in _leaves(params))
         key = BucketKey(app=cfg.app, encoding=cfg.grid.kind,
                         tile_pixels=self.settings.tile_pixels,
                         n_samples=self.settings.n_samples, dtype=dtype,
-                        cfg=cfg)
+                        cfg=cfg, occupancy=self.settings.occupancy,
+                        sample_budget=self.settings.sample_budget)
         bucket = self._buckets.get(key)
         if bucket is None:
             bucket = self._buckets[key] = _Bucket(cfg, key,
@@ -201,12 +231,14 @@ class RenderEngine:
     def _get_fn(self, key: BucketKey):
         bucket = self._buckets[key]
         if bucket.fn is None:
-            mtile = pipeline.make_multi_scene_tile_fn(bucket.cfg,
-                                                      self.settings)
+            with_aux = self.settings.occupancy
+            mtile = pipeline.make_multi_scene_tile_fn(
+                bucket.cfg, self.settings, with_aux=with_aux)
 
-            def fn(stacked, scene_id, cam, pixel_ids, mask):
-                rgb = mtile(stacked, scene_id, cam, pixel_ids)
-                return torch.where(mask[:, None], rgb, 0.0)
+            def fn(stacked, scene_id, cam, pixel_ids, mask, n_valid):
+                out = mtile(stacked, scene_id, cam, pixel_ids, n_valid)
+                rgb, aux = out if with_aux else (out, None)
+                return torch.where(mask[:, None], rgb, 0.0), aux
             bucket.fn = fn
         return bucket.fn
 
@@ -252,23 +284,22 @@ class RenderEngine:
             self._t_first = t0
         ids_dev = padded.to(self.device, non_blocking=True)
         mask = torch.arange(tp, device=self.device) < n
-        rgb = fn(stacked, sid, req.camera, ids_dev, mask)
+        rgb, aux = fn(stacked, sid, req.camera, ids_dev, mask, n)
         event = None
         if cuda:
-            host_out = torch.empty(rgb.shape, dtype=rgb.dtype,
-                                   pin_memory=True)
-            host_out.copy_(rgb, non_blocking=True)
+            host_out = _pinned_copy(rgb)
+            host_aux = None if aux is None else _pinned_copy(aux)
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
         else:
-            host_out = rgb
+            host_out, host_aux = rgb, aux
         t_dispatched = time.perf_counter()
         if not _warmup:
             # host-side phase timings only: nothing here waits on the device
             self._record_phase(bucket.idx, "submit", t_prep0, t0)
             self._record_phase(bucket.idx, "dispatch", t0, t_dispatched)
         ticket = Ticket(self, host_out, event, n, t0, warmup=_warmup,
-                        bucket_idx=bucket.idx)
+                        bucket_idx=bucket.idx, host_aux=host_aux)
         self._inflight.append(ticket)
         # retire already-finished work first so its recorded latency is
         # the device completion, not however long the caller sat on it
@@ -309,6 +340,9 @@ class RenderEngine:
         self.obs.histogram(
             f"serve.{phase}_s.bucket{bucket_idx}").record(t1 - t0)
 
+    def _record_aux(self, row: np.ndarray):
+        self._samples += row
+
     def exact_percentiles(self, *ps: float) -> List[float]:
         """Exact order-statistic latencies (seconds): the oracle the
         histogram-derived p50/p99 in ``stats()`` are tested against."""
@@ -328,6 +362,9 @@ class RenderEngine:
                 if self._t_first is not None and self._t_last is not None
                 else 0.0)
         n_req = len(self._lat)
+        live, total, dropped = self._samples
+        # effective Mpix/s is the served rate: culling serves more pixels
+        # in the same wall time; live_sample_frac says where it came from
         mpix = (self._pixels / wall / 1e6) if wall > 0 else float("nan")
         return {
             "device": str(self.device),
@@ -335,6 +372,11 @@ class RenderEngine:
             "p50_ms": p50_s * 1e3,
             "p99_ms": p99_s * 1e3,
             "mpix_per_s": mpix,
+            "effective_mpix_per_s": mpix,
+            "live_sample_frac": (live / total) if total > 0
+            else float("nan"),
+            "samples_total": total,
+            "samples_dropped": dropped,
             "requests_per_s": (n_req / wall) if wall > 0 else float("nan"),
             "wall_s": wall,
             "pixels": self._pixels,
@@ -343,6 +385,7 @@ class RenderEngine:
                 f"{k.app}/{k.encoding}/tp{k.tile_pixels}/s{k.n_samples}"
                 f"/{k.dtype}/T{k.cfg.grid.log2_table_size}"
                 f"L{k.cfg.grid.n_levels}"
+                + (f"/occ-bgt{k.sample_budget}" if k.occupancy else "")
                 + (f"/q-{k.cfg.quant.tag}" if k.cfg.quant else "")
                 + f"#{b.idx}": {"n_scenes": len(b.order)}
                 for k, b in self._buckets.items()},

@@ -15,9 +15,23 @@ Batches come from ``batch_fn(step)``, a pure function of the global step
 (``core.train`` seeds a generator from the run's seed and the step), so
 a run's batches do not depend on its chunking.
 
-Not ported yet, and refused: gradient accumulation and gradient
-compression (``train/compression.py``), checkpoint save and resume
-(``checkpoint/store.py``), and the data-parallel mesh.
+``make_scanned_step(grad_accum=k)`` splits every batch leaf along axis 0
+into k micro-batches and averages their losses and gradients (summed in
+micro-batch order, then divided by k, the JAX formula);
+``compression=`` ("topk" or "int8", ``train/compression.py``) compresses
+the ``compress_keys`` gradients with error feedback kept in
+``state["efb"]``, after the gradient and before Adam.
+
+With ``EngineConfig.ckpt_dir`` the engine resumes from the newest
+checkpoint there (``checkpoint/store.py``, the JAX package's format) at
+``latest_step + 1``, re-entering the same chunk grid, and saves at a chunk
+end once ``ckpt_every`` steps have passed since the last save, and at the
+last step, keeping ``ckpt_keep``. Since batches are a pure function of the
+step, a resumed run replays the uninterrupted one: bit for bit on the CPU.
+On the card ``encode_bwd`` sums with atomics in a varying order, so two
+runs, resumed or not, differ by that rounding.
+
+Not ported yet, and refused: the data-parallel mesh.
 """
 from __future__ import annotations
 
@@ -27,6 +41,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.checkpoint import store
+from repro_torch.train import compression as compression_mod
 from repro_torch.train import optim
 
 
@@ -35,12 +51,11 @@ class EngineConfig:
     """Loop-shape knobs; everything task-specific lives in the step fn."""
     steps: int
     chunk_steps: int = 16          # chunk ends on this grid
-    ckpt_dir: Optional[str] = None     # not ported: raises
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50           # min steps between saves (chunk-end snapped)
+    ckpt_keep: int = 3
 
     def __post_init__(self):
-        if self.ckpt_dir is not None:
-            raise NotImplementedError(
-                "checkpointing (ckpt_dir) is not ported to repro_torch yet")
         if self.chunk_steps < 1:
             raise ValueError(f"chunk_steps must be >= 1, got "
                              f"{self.chunk_steps}")
@@ -73,41 +88,92 @@ def value_and_grad(loss_fn: Callable, params, batch
     return loss.detach(), optim.tree_map(lambda v: by_id[id(v)], views)
 
 
+@dataclasses.dataclass(frozen=True)
+class _CompressionKnobs:
+    """The attribute subset ``compression.apply_inline`` reads."""
+    compression: str
+    compression_topk: float
+
+
+def accumulated_value_and_grad(loss_fn: Callable, params, batch,
+                               grad_accum: int) -> Tuple[torch.Tensor, Dict]:
+    """(loss, grads) averaged over ``grad_accum`` equal micro-batches, each
+    batch leaf split along axis 0: summed in micro-batch order, then
+    divided by ``grad_accum``, as the JAX package's scan does."""
+    sizes = {k: v.shape[0] for k, v in batch.items()}
+    if any(n % grad_accum for n in sizes.values()):
+        raise ValueError(f"grad_accum={grad_accum} does not divide the "
+                         f"batch: leading sizes {sizes}")
+    parts = {k: v.chunk(grad_accum) for k, v in batch.items()}
+    loss = grads = None
+    for i in range(grad_accum):
+        l_i, g_i = value_and_grad(loss_fn, params,
+                                  {k: p[i] for k, p in parts.items()})
+        if grads is None:
+            loss, grads = l_i, g_i
+        else:
+            loss = loss + l_i
+            grads = optim.tree_map(torch.add, grads, g_i)
+    # a device divisor: a CUDA divide by a Python number multiplies by its
+    # reciprocal, which is not the JAX package's division for every k
+    k = torch.full((), float(grad_accum), device=loss.device)
+    return loss / k, optim.tree_map(lambda g: g / k, grads)
+
+
 def make_scanned_step(loss_fn: Callable, opt_cfg: optim.AdamConfig, *,
                       grad_accum: int = 1,
                       compression: Optional[str] = None,
+                      compression_topk: float = 0.05,
+                      compress_keys: Tuple[str, ...] = ("grid",),
                       mesh=None) -> Callable:
     """An engine step ``(state, step, batch) -> (state, metrics)`` from a
-    ``loss_fn(params, batch)``: the loss and its gradients, then Adam.
-    Metrics hold loss, lr and the PSNR of an MSE loss."""
-    if grad_accum != 1:
-        raise NotImplementedError(
-            "gradient accumulation is not ported to repro_torch yet")
-    if compression is not None:
-        raise NotImplementedError(
-            "gradient compression is not ported to repro_torch yet")
+    ``loss_fn(params, batch)``: the loss and its gradients (over
+    ``grad_accum`` micro-batches), the ``compress_keys`` gradients
+    compressed when ``compression`` is set (``state["efb"]`` holds the
+    error feedback: make the state with :func:`init_train_state`), then
+    Adam. Metrics hold loss, lr and the PSNR of an MSE loss."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel training (mesh) is not ported to repro_torch yet")
+    knobs = (None if compression is None
+             else _CompressionKnobs(compression, compression_topk))
 
     def step_fn(state, step, batch):
         del step                         # batches are keyed upstream
-        loss, grads = value_and_grad(loss_fn, state["params"], batch)
+        params = state["params"]
+        if grad_accum > 1:
+            loss, grads = accumulated_value_and_grad(loss_fn, params, batch,
+                                                     grad_accum)
+        else:
+            loss, grads = value_and_grad(loss_fn, params, batch)
+        new_state = dict(state)
+        if knobs is not None:
+            sub, cstate = compression_mod.apply_inline(
+                {k: grads[k] for k in compress_keys}, {"efb": state["efb"]},
+                knobs)
+            grads = {**grads, **sub}
+            new_state["efb"] = cstate["efb"]
         params, opt, metrics = optim.adam_update(grads, state["opt"],
-                                                 state["params"], opt_cfg)
+                                                 params, opt_cfg)
         metrics["loss"] = loss
         metrics["psnr"] = -10.0 * torch.log10(torch.clamp(loss, min=1e-12))
-        return {"params": params, "opt": opt}, metrics
+        new_state["params"], new_state["opt"] = params, opt
+        return new_state, metrics
 
     return step_fn
 
 
-def init_train_state(params, compression: Optional[str] = None) -> Dict:
-    """Fresh engine state for :func:`make_scanned_step` tasks."""
+def init_train_state(params, compression: Optional[str] = None,
+                     compress_keys: Tuple[str, ...] = ("grid",)) -> Dict:
+    """Fresh engine state for :func:`make_scanned_step` tasks; with
+    ``compression``, zero error feedback for each ``compress_keys`` leaf."""
+    state = {"params": params, "opt": optim.adam_init(params)}
     if compression is not None:
-        raise NotImplementedError(
-            "gradient compression is not ported to repro_torch yet")
-    return {"params": params, "opt": optim.adam_init(params)}
+        state["efb"] = {k: torch.zeros_like(params[k])
+                        for k in compress_keys}
+    return state
 
 
 class TrainEngine:
@@ -122,13 +188,34 @@ class TrainEngine:
         self.step_fn = step_fn
         self.batch_fn = batch_fn
         self.on_chunk_end = on_chunk_end
+        # the last run's checkpointer (None without ckpt_dir): its
+        # ``blocked_s`` holds the seconds each save held the step thread
+        self.checkpointer: Optional[store.AsyncCheckpointer] = None
 
     def run(self, state, *, on_metrics: Optional[Callable] = None
             ) -> Tuple[Any, List[Dict[str, float]]]:
-        """Run the loop from ``state``; returns ``(final_state, history)``,
-        one ``{'step', 'loss', 'psnr', 'lr', 'dt', ...}`` row per step."""
+        """Run (or, with a checkpoint in ``ckpt_dir``, resume) the loop
+        from ``state``; returns ``(final_state, history)``, one ``{'step',
+        'loss', 'psnr', 'lr', 'dt', ...}`` row per step run in this call."""
+        cfg = self.cfg
+        start, ckpt = 0, None
+        if cfg.ckpt_dir is not None:
+            ckpt = self.checkpointer = store.AsyncCheckpointer(
+                cfg.ckpt_dir, keep=cfg.ckpt_keep)
+            last = store.latest_step(cfg.ckpt_dir)
+            if last is not None:
+                state = store.restore(cfg.ckpt_dir, state, step=last)
+                start = last + 1
+        try:
+            return self._run(state, start, ckpt, on_metrics)
+        finally:
+            if ckpt is not None:
+                ckpt.wait()
+
+    def _run(self, state, start, ckpt, on_metrics):
         history: List[Dict[str, float]] = []
-        for s0, n in chunk_plan(0, self.cfg.steps, self.cfg.chunk_steps):
+        last_saved = start - 1
+        for s0, n in chunk_plan(start, self.cfg.steps, self.cfg.chunk_steps):
             t0 = time.perf_counter()
             rows = []
             for i in range(n):
@@ -151,6 +238,12 @@ class TrainEngine:
                 history.append(row)
                 if on_metrics is not None:
                     on_metrics(s0 + i, row, state)
+            end = s0 + n - 1
+            if ckpt is not None and (end == self.cfg.steps - 1
+                                     or end - last_saved
+                                     >= self.cfg.ckpt_every):
+                ckpt.save(state, end)   # host snapshot before the next step
+                last_saved = end
             if self.on_chunk_end is not None:
-                self.on_chunk_end(s0 + n - 1, state)
+                self.on_chunk_end(end, state)
         return state, history

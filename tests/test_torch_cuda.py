@@ -22,7 +22,8 @@ import torch
 
 from repro_torch import kernels as tkernels
 from repro_torch.core import encoding as tenc
-from repro_torch.core import fields, pipeline, render
+from repro_torch.checkpoint import store as ckpt_store
+from repro_torch.core import fields, occupancy, pipeline, render
 from repro_torch.core import train as ttrain
 from repro_torch.core.mlp import MLPConfig, apply_mlp
 from repro_torch.data import scenes
@@ -38,6 +39,9 @@ from repro_torch.quant import QuantSpec, quantize_field
 from repro_torch.quant.calibrate import table_scales
 from repro_torch.quant.qtypes import quantize
 from repro_torch.serve import RenderEngine
+from repro_torch.train import compression
+from repro_torch.train import loop as tloop
+from repro_torch.train import optim as toptim
 
 TOL = 1e-4
 # The encode backward against its twin (index_add_) on the card: both sum
@@ -705,3 +709,218 @@ def test_train_steps_on_card_match_cpu(dev, app):
             ["mlp_fwd"] if app == "nerf" else []):
         assert counts[k] == 3, (k, counts)
     assert counts["composite_fwd"] == 0
+
+
+# ------------------------------------------- occupancy, compression, resume
+def _occ_scene(app, seed=3):
+    """A small field with U(-1, 1) tables on the CPU."""
+    cfg = _small_field(app)
+    params = fields.init_field(cfg, torch.Generator().manual_seed(seed),
+                               "cpu")
+    rng = np.random.default_rng(seed)
+    params["grid"] = torch.from_numpy(rng.uniform(
+        -1, 1, tuple(params["grid"].shape)).astype(np.float32))
+    return cfg, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [4, 12, 64])
+def test_occupancy_grid_on_card_matches_cpu(dev, res):
+    """pack_bits, unpack_bits, cell_centers, query and query_sigma on the
+    card against the CPU, bit for bit, and a grid built on the card from
+    the same densities has the CPU's words."""
+    rng = np.random.default_rng(res)
+    sigma = rng.exponential(1.0, res ** 3).astype(np.float32)
+    pts = rng.random((5000, 3)).astype(np.float32)
+    grids = {d: occupancy.build_occupancy_from_fn(
+        lambda p, d=d: torch.from_numpy(sigma).to(d), res=res,
+        threshold=1.0, device=d) for d in (dev, "cpu")}
+    assert torch.equal(grids[dev]["bits"].cpu(), grids["cpu"]["bits"])
+    assert torch.equal(occupancy.unpack_bits(grids[dev]["bits"]).cpu(),
+                       torch.from_numpy(sigma > 1.0))
+    assert torch.equal(occupancy.cell_centers(res, dev).cpu(),
+                       occupancy.cell_centers(res))
+    for fn in (occupancy.query, occupancy.query_sigma):
+        assert torch.equal(
+            fn(grids[dev], torch.from_numpy(pts).to(dev)).cpu(),
+            fn(grids["cpu"], torch.from_numpy(pts)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["nerf", "nvr"])
+@pytest.mark.parametrize("tile", [4096, 333])
+def test_culled_tile_on_card_equals_dense_bitwise(dev, app, tile):
+    """All-occupied grid, full budget: the culled tile on the card equals
+    the dense tile on the card bit for bit. The field kernels' output per
+    point does not depend on where the point sits in the batch: the field
+    of the points in the culled route's (sample-major) order equals the
+    dense output permuted, bit for bit."""
+    cfg, params = _occ_scene(app)
+    params = fields.to_device(params, dev)
+    cam = scenes.orbit_camera(64, 64, 0.7)
+    ids = torch.arange(tile, device=dev) % (64 * 64)
+    dense = pipeline.RenderSettings(tile_pixels=tile, n_samples=32)
+    culled = dataclasses.replace(dense, occupancy=True)
+    p_occ = occupancy.attach(params, occupancy.all_occupied(8, dev))
+    tkernels.reset_launch_counts()
+    rgb_c, row = pipeline.make_tile_fn(cfg, culled, with_aux=True)(
+        p_occ, cam, ids)
+    counts = tkernels.launch_counts()
+    rgb_d = pipeline.make_tile_fn(cfg, dense)(params, cam, ids)
+    assert torch.equal(rgb_c, rgb_d)
+    assert row.cpu().tolist() == [[tile * 32.0, tile * 32.0, 0.0]]
+    assert counts["field_fwd"] == 1 and counts["composite_fwd"] == 1
+    assert counts["mlp_fwd"] == (1 if app == "nerf" else 0)
+    origins, dirs = render.make_rays(cam, ids)
+    pts, _ = render.sample_along_rays(origins, dirs, 0.5, 4.5, 32)
+    flat = render.normalize_to_unit(pts.reshape(-1, 3))
+    d = torch.repeat_interleave(dirs, 32, dim=0)
+    perm = torch.from_numpy(np.random.default_rng(tile).permutation(
+        flat.shape[0])).to(dev)
+    out = fields.apply_field(params, cfg, flat, d)
+    assert torch.equal(fields.apply_field(params, cfg, flat[perm], d[perm]),
+                       out[perm])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget_div", [1, 4, 64])
+def test_culled_engine_on_card_matches_cpu(dev, budget_div):
+    """An oracle grid (the analytic volume's densities) at full, quarter
+    and 1/64 budget: the engine's culled frame on the card against
+    render_frame on the CPU within 1e-4, the same sample counts, and the
+    culled path launches the field, MLP and compositing kernels."""
+    cfg, params = _occ_scene("nerf")
+    grid = occupancy.build_occupancy_from_fn(
+        lambda p: scenes.volume_field(p * 4.0 - 2.0)[:, 3], res=32,
+        device="cpu")
+    p_occ = occupancy.attach(params, grid)
+    settings = pipeline.RenderSettings(
+        tile_pixels=1024, n_samples=32, occupancy=True,
+        sample_budget=1024 * 32 // budget_div)
+    cam = scenes.default_camera(32, 32)
+    eng = RenderEngine(settings, device=dev)
+    eng.add_scene("s", cfg, p_occ)
+    eng.warmup()
+    tkernels.reset_launch_counts()
+    got = eng.render_frame("s", cam)
+    counts = tkernels.launch_counts()
+    ref = pipeline.render_frame(p_occ, cfg, cam, settings, device="cpu")
+    np.testing.assert_allclose(got, ref.numpy(), rtol=TOL, atol=TOL)
+    for k in ("field_fwd", "mlp_fwd", "composite_fwd"):
+        assert counts[k] == 1, counts
+    o, d = render.make_rays(cam, torch.arange(1024))
+    _, aux = render.render_rays(
+        lambda p, dd: fields.apply_field(params, cfg, p, dd), o, d,
+        n_samples=32, occupancy=grid, sample_budget=settings.sample_budget,
+        return_aux=True)
+    st = eng.stats()
+    assert st["samples_total"] == 1024 * 32
+    assert st["live_sample_frac"] == int(aux["n_live"]) / (1024 * 32)
+    assert st["samples_dropped"] == int(aux["n_dropped"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["topk", "int8"])
+@pytest.mark.parametrize("shape", [(300,), (16, 4096, 2), (4, 1 << 19, 2)])
+def test_compression_on_card_matches_cpu(dev, scheme, shape):
+    """compress_topk and compress_int8 on the card against the CPU, bit
+    for bit (the scale divides by a tensor, so it rounds as on the CPU),
+    and top-k's kept + efb_new == g + efb_old exactly on the card."""
+    rng = np.random.default_rng(len(shape))
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    e = torch.from_numpy((rng.normal(size=shape) * 0.1).astype(np.float32))
+    fn = (lambda a, b: compression.compress_topk(a, b, 0.05)) \
+        if scheme == "topk" else compression.compress_int8
+    got = fn(g.to(dev), e.to(dev))
+    ref = fn(g, e)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+    if scheme == "topk":
+        assert torch.equal(got[0] + got[1], g.to(dev) + e.to(dev))
+
+
+@pytest.mark.cuda
+def test_async_checkpointer_snapshots_card_state_before_update(dev, tmp_path):
+    """The state is updated in place on the card right after save returns:
+    the checkpoint holds the values at the call, bit for bit, and the
+    restored tensors land on the card."""
+    rng = np.random.default_rng(0)
+    state = {"params": {"grid": torch.from_numpy(rng.normal(
+        size=(16, 1 << 19, 2)).astype(np.float32)).to(dev)},
+        "opt": toptim.AdamState(step=3, mu={"grid": torch.zeros(
+            16, 1 << 19, 2, device=dev)}, nu={"grid": torch.ones(
+                16, 1 << 19, 2, device=dev)})}
+    before = state["params"]["grid"].clone()
+    ck = ckpt_store.AsyncCheckpointer(tmp_path)
+    for i in range(3):
+        ck.save(state, i)
+        state["params"]["grid"].mul_(2.0).add_(1.0)
+        state["opt"].nu["grid"].add_(1.0)
+        ck.wait()
+        got = ckpt_store.restore(tmp_path, state, step=i)
+        assert got["params"]["grid"].device == before.device
+        assert torch.equal(got["params"]["grid"], before)
+        assert bool((got["opt"].nu["grid"] == 1.0 + i).all())
+        assert got["opt"].step == 3
+        before = state["params"]["grid"].clone()
+
+
+@pytest.mark.cuda
+def test_grad_accum_on_card_matches_single_pass(dev):
+    """grad_accum=2 against 1 on the card, before Adam: the loss within
+    1e-6 of its size, every gradient leaf within 1e-5 of its max (f32 sums
+    in another order, atomics in another order)."""
+    cfg, _ = _occ_scene("nerf")
+    params = fields.init_field(cfg, torch.Generator().manual_seed(0), dev)
+    batch = ttrain.make_batch(cfg, ttrain.batch_generator(0, 0, dev), 256)
+
+    def loss_fn(p, b):
+        return ttrain.field_loss(p, cfg, b)
+    l1, g1 = tloop.value_and_grad(loss_fn, params, batch)
+    l2, g2 = tloop.accumulated_value_and_grad(loss_fn, params, batch, 2)
+    assert abs(float(l2) - float(l1)) <= 1e-6 * abs(float(l1))
+    for a, b in zip(toptim.tree_leaves(g1), toptim.tree_leaves(g2)):
+        assert _rel_err(b, a) <= GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_resumed_card_run_within_bound(dev, tmp_path):
+    """nerf (small grid) on the card: stopped at step 6 and resumed to 12.
+    The checkpoint restores the state at step 5 bit for bit. The resumed
+    run's losses differ from an uninterrupted run's by at most 4x what two
+    uninterrupted runs differ by (encode_bwd's atomics sum in a varying
+    order, so runs are not bitwise equal), with a floor of 1e-5 of the
+    loss: the largest of one draw of that difference against another's."""
+    cfg, _ = _occ_scene("nerf")
+    kw = dict(steps=12, batch_size=256, seed=0, chunk_steps=3,
+              ckpt_every=3, device=dev, log_every=1)
+
+    def losses(**extra):
+        rows = []
+        ttrain.train_field(cfg, on_metrics=lambda i, r, st: rows.append(
+            (i, r["loss"])), **{**kw, **extra})
+        return rows
+    a, b = losses(), losses()
+    saved = {}
+
+    def grab(i, r, st):
+        if i == 5:
+            saved.update({k: (v.clone() if torch.is_tensor(v) else v)
+                          for k, v in ckpt_store._flatten(st)})
+    ck = str(tmp_path / "ck")
+    ttrain.train_field(cfg, on_metrics=grab, ckpt_dir=ck,
+                       **{**kw, "steps": 6})
+    target = tloop.init_train_state(fields.init_field(
+        cfg, torch.Generator().manual_seed(0), dev))
+    restored = dict(ckpt_store._flatten(ckpt_store.restore(ck, target,
+                                                           step=5)))
+    assert restored.keys() == saved.keys()
+    for k, v in saved.items():
+        assert (torch.equal(restored[k], v) if torch.is_tensor(v)
+                else restored[k] == v), k
+    r = losses(ckpt_dir=ck)
+    assert [i for i, _ in r] == list(range(6, 12))
+    noise = max(abs(x - y) for (_, x), (_, y) in zip(a, b))
+    for (i, x), (j, y) in zip(r, a[6:]):
+        assert i == j and abs(x - y) <= max(4 * noise, 1e-5 * abs(y)), (
+            i, x, y, noise)
