@@ -32,7 +32,12 @@ JSON line:
            layout) and on separate rgb, sigma and (R, S) dts (its strided
            path); each encode row adds its gather count (B x L x 2^d),
            gathers per second and the level-group plan (G, points per
-           block, groups, blocks); encode_bwd, the encode's table-gradient
+           block, groups, blocks); encode_fwd, field_fwd and mlp_fwd (the
+           unfused route's head on the encode's features) on Table I's
+           dense (L=8, F=2) and tiled (L=2, F=8) grids, nerf's (2^19 rows,
+           density MLP 16->64x3->16) on nerf's tile and gia's (2^24 rows,
+           1 GiB each, MLP 16->64x4->3) on gia's; encode_bwd, the
+           encode's table-gradient
            scatter-add, at nerf's tile with f32 and bf16 tables and at
            gia's, against its plain twin (index_add_ per level and corner)
            by max error over the gradient's max abs value, with its atomic
@@ -53,6 +58,24 @@ JSON line:
            with CUDA activity alone
   parity   a 32x32 frame from the engine on the card against the port's
            render_frame on the CPU (plain versions), same params
+  unfused_serve  the two serve scenes through an engine on the unfused
+           route (``RenderSettings(fused=False)``), the same 120 requests:
+           encode_fwd once and mlp_fwd twice a request, field_fwd never;
+           p50 and Mpix/s beside the fused stream's; its 32x32 frame against
+           the fused engine's (TOL) and the CPU's (PARITY_TOL); then 8 steps
+           of ``train_field(fused=False)`` on nerf (the loss must fall) and
+           the first step's gradients against the fused route's
+           (TRAIN_PARITY_TOL)
+  trace    the serve engine with the process tracer off (no event) and on,
+           async (4 events a request), 8 rounds of 20 requests each, in
+           turns (off, on, on, off, ...): the median p50 with it on within
+           the off rounds' spread (or 20% of their median); the host cost
+           of one tracer event; annotate's calls a request and their cost;
+           one torch.profiler window (CPU + CUDA) that must show the
+           encode_mlp, mlp, raymarch and composite ranges, with the device
+           time under each; a training run's engine snapshot, validated
+           against the checked-in schema, with train.steps, train.step_s,
+           health.step_s.host0 and health.silent_hosts
   serve_occ  the two nerf scenes, each with the analytic volume's 64^3
            occupancy grid, served culled at a quarter of the dense sample
            count (``RenderSettings(occupancy=True, sample_budget=32768)``):
@@ -122,12 +145,30 @@ JSON line:
   resume   nerf: two uninterrupted 48-step runs (their loss difference is
            the card's run-to-run noise); a run stopped at step 16 whose
            checkpoint restores bit for bit, resumed to 48; a child process
-           SIGKILLed after its first commit (no temporary directory left,
-           latest_step the last commit), resumed to 48; every resumed loss
+           SIGKILLed after its first commit (every step directory
+           committed, latest_step the last commit, a temporary directory
+           only for a save the kill cut short), resumed to 48; every
+           resumed loss
            within max(4 x the noise, 1e-5 of the loss) of the first run's;
            the checkpoint's bytes and the seconds each save blocked; then
            gia's 6 GiB train state saved and restored once when the disk
            has room for it
+  launch   ``python -m repro_torch.launch.serve`` in a child process, three
+           times: at its defaults (gia, hash, 2^14 tables, 150 steps, 2
+           scenes, 8 requests), ``--app nerf --occupancy --trace-sync`` and
+           ``--app nsdf --quant int8``, each with ``--trace-out`` and
+           ``--metrics-out``: exit code 0, every stdout line one JSON
+           object, ``served`` with 8 requests and finite p50 and Mpix/s, one
+           tile function per bucket, the snapshot valid against the schema,
+           the trace a valid Chrome trace whose serve.submit, dispatch,
+           block and slice events number what the histograms count; wall
+           seconds and p50 of each
+  launch_apps  ``serve_render`` in this process for each app and encoding
+           (12 runs) at Table-I width (``log2_table_size=None``), 2 scenes
+           of 16 training steps each, 8 requests: scene 0's first and last
+           loss (it must fall), p50, Mpix/s, and the launches of
+           field_fwd, encode_fwd and encode_bwd (> 0), mlp_fwd (> 0 for
+           nerf) and composite_fwd (> 0 for nerf and nvr)
 
 then the ``{"kernels": [...]}`` line (every kernel, launches from the path
 that runs it and per path, ``train`` among them, ``floor_ms``, the rows of other table types,
@@ -140,6 +181,7 @@ GPU and the CUDA toolkit (nvcc); imports nothing of JAX.
 """
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -212,6 +254,21 @@ KILL_TIMEOUT_S = 300
 # the loss, whichever is larger
 RESUME_NOISE_FACTOR = 4.0
 RESUME_FLOOR = 1e-5
+# the grids of Table I besides the hash grid: dense (L=8, F=2) and tiled
+# (L=2, F=8); their MLPs take L*F = 16 inputs
+GRID_VARIANTS = ("dense", "tiled")
+UNFUSED_TRAIN_STEPS = 8      # train_field(fused=False) on nerf
+LAUNCH_REQUESTS = 8          # the launcher's default stream
+LAUNCH_APPS_STEPS = 16       # training steps per scene in launch_apps
+LAUNCH_TIMEOUT_S = 300
+TRACE_ROUNDS = 8             # rounds of the tracer off and on, in turns
+# the tracer on must keep p50 within the host's spread with it off: the
+# range of the off rounds' p50s, or this share of their median if larger
+TRACE_P50_SLACK = 0.2
+# the phases obs.trace.annotate names in torch.profiler traces
+PHASES = ("encode", "mlp", "encode_mlp", "raymarch", "compact", "composite",
+          "host")
+SERVE_PHASES = ("submit", "dispatch", "block", "slice")
 
 
 def fail(msg):
@@ -389,6 +446,43 @@ def table_grad_scatter(points, cfg, g):
     return torch.cat(rows), torch.cat(vals)
 
 
+def device_work(ev):
+    """True for a profiler event that is device work (a kernel, a copy, a
+    memset), not the device-side mirror of an ``obs.trace.annotate``
+    range, which spans the work inside it and the gaps between."""
+    import torch
+    return (ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and ev.name not in PHASES)
+
+
+def phase_device_ms(prof):
+    """{phase: {ranges, device_ms, gpu_span_ms}} of one trace's
+    ``annotate`` ranges: ``ranges`` and ``device_ms`` (the device time of
+    the work the profiler links to them) count the outermost range of each
+    name (a composite range inside a composite range counts once);
+    ``gpu_span_ms`` is the union of the ranges' device-side mirrors, each
+    from its first kernel's start to its last kernel's end."""
+    import torch
+    out, spans = {}, {}
+    for ev in prof.events():
+        if ev.name not in PHASES:
+            continue
+        row = out.setdefault(ev.name, {"ranges": 0, "device_ms": 0.0})
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            spans.setdefault(ev.name, []).append(
+                (ev.time_range.start / 1e3, ev.time_range.end / 1e3))
+            continue
+        parent = ev.cpu_parent
+        if parent is not None and parent.name == ev.name:
+            continue
+        row["ranges"] += 1
+        row["device_ms"] += ev.device_time_total / 1e3
+    for name, row in out.items():
+        row["gpu_span_ms"] = union_ms(spans.get(name, []))
+    return out
+
+
 def tree_items(tree, prefix=""):
     """(path, leaf) of a param tree, in its order."""
     for k, v in tree.items():
@@ -429,6 +523,44 @@ train.train_field(cfg, steps=100000, batch_size={batch}, seed={seed},
                   chunk_steps={chunk}, ckpt_dir={ckpt!r}, ckpt_every={every},
                   gt_samples={gt}, device="cuda")
 """
+
+
+# the launcher's child: runs the module as ``python -m`` does, then writes
+# its kernels' launch counts to a file
+LAUNCH_CHILD = """
+import json, runpy, sys
+sys.path.insert(0, {src!r})
+sys.argv = ["repro_torch.launch.serve"] + {argv!r}
+try:
+    runpy.run_module("repro_torch.launch.serve", run_name="__main__",
+                     alter_sys=True)
+finally:
+    from repro_torch import kernels
+    with open({launches!r}, "w") as f:
+        json.dump(kernels.launch_counts(), f)
+"""
+
+
+def annotate_calls(run):
+    """Calls of ``obs.trace.annotate`` that ``run()`` makes, counted
+    through every module of the port that imported it."""
+    from repro_torch.obs import trace as ttrace
+    real, n = ttrace.annotate, [0]
+
+    def counting(name):
+        n[0] += 1
+        return real(name)
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("repro_torch.")
+            and getattr(m, "annotate", None) is real]
+    for m in mods:
+        m.annotate = counting
+    try:
+        run()
+    finally:
+        for m in mods:
+            m.annotate = real
+    return n[0]
 
 
 def dir_bytes(path):
@@ -539,14 +671,23 @@ def resume_phase(cfg, gcfg, dev, clone_tree, nerf_init, nerf_batch,
         if child.poll() is None:
             child.kill()
         child.wait()
-    committed = sorted(int(p.split("_")[1]) for p in os.listdir(d2)
-                       if p.startswith("step_") and os.path.exists(
-                           os.path.join(d2, p, ckpt_store.MANIFEST)))
+    step_dirs = [p for p in os.listdir(d2) if p.startswith("step_")]
+    committed = sorted(int(p.split("_")[1]) for p in step_dirs
+                       if os.path.exists(os.path.join(d2, p,
+                                                      ckpt_store.MANIFEST)))
+    # a kill during a save leaves that save's temporary directory (the
+    # store commits by renaming it; latest_step never reads it): one may
+    # be left, for a step after the last commit only
     temps = [p for p in os.listdir(d2) if p.startswith(".tmp_step_")]
+    temp_steps = [int(re.match(r"\.tmp_step_(\d+)_", p).group(1))
+                  for p in temps]
     last = ckpt_store.latest_step(d2)
-    if temps or last != committed[-1] or last >= RESUME_STEPS - 1:
-        fail(f"resume: after the kill: temp directories {temps}, "
-             f"latest_step {last}, committed {committed}")
+    if len(committed) != len(step_dirs) or last != committed[-1] \
+            or last >= RESUME_STEPS - 1 \
+            or any(t <= last for t in temp_steps):
+        fail(f"resume: after the kill: step directories {step_dirs}, "
+             f"committed {committed}, latest_step {last}, temporary "
+             f"directories {temps}")
     r2 = losses(RESUME_STEPS, ckpt_dir=d2, ckpt_every=KILL_EVERY)
     if [i for i, _ in r2] != list(range(last + 1, RESUME_STEPS)):
         fail(f"resume: the run resumed after the kill ran steps "
@@ -605,7 +746,8 @@ def resume_phase(cfg, gcfg, dev, clone_tree, nerf_init, nerf_batch,
                         "restored_equal": True},
             "killed": {"first_commit_s": first_commit_s,
                        "committed": committed, "resumed_from": last + 1,
-                       "worst_over_bound": worst2, "temp_dirs": temps},
+                       "worst_over_bound": worst2,
+                       "temp_dirs_of_steps": temp_steps},
             "gia_state": gia, "launches": launches, **gpu}, launches
 
 
@@ -645,6 +787,10 @@ def main():
     from repro_torch.serve import RenderEngine, RenderRequest
     from repro_torch.train import loop as tloop
     from repro_torch.train import optim as toptim
+    from repro_torch.launch import serve as lserve
+    from repro_torch.obs import export as texport
+    from repro_torch.obs import metrics as tmetrics
+    from repro_torch.obs import trace as ttrace
     from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -756,6 +902,17 @@ def main():
              "gia": (gia_pts, gcfg.grid, touched_rows(gia_pts, gcfg.grid)),
              "nsdf": (nsdf_pts, ncfg.grid, touched_rows(nsdf_pts,
                                                         ncfg.grid))}
+    # the dense and tiled grids at Table-I width on the same tiles: nerf's
+    # (3-D, 2^19 rows, density MLP 16->64x3->16) and gia's (2-D, 2^24 rows:
+    # 1 GiB of f32 tables each, MLP 16->64x4->3); U(-1, 1) tables
+    grid_scenes = {}
+    for i, kind in enumerate(GRID_VARIANTS):
+        for app, x in (("nerf", flat_pts), ("gia", gia_pts)):
+            c = fields.make_field_config(app, kind)
+            v = f"{app}_{kind}"
+            grid_scenes[v] = (c, fields.from_jax_params(
+                np_params(c, SEED + 40 + 2 * i + (app == "gia")), c, dev))
+            tiles[v] = (x, c.grid, touched_rows(x, c.grid))
 
     def grid_work(app, tables, scales):
         """Bytes and f32 flops of the encode of this tile: points in, the
@@ -790,6 +947,9 @@ def main():
                     gqtab["gia_fp8"]["grid_scale"], g0["mlp"], gcfg.mlp),
         "nsdf_f32": ("nsdf", nsdf_rand["grid"], None, nsdf_rand["mlp"],
                      ncfg.mlp)}
+    for v, (c, gp) in grid_scenes.items():
+        head = "density_mlp" if c.app == "nerf" else "mlp"
+        field_inputs[v] = (v, gp["grid"], None, gp[head], getattr(c, head))
 
     def field_call(v, kernel, n=None):
         app, tab, sc, w, m = field_inputs[v]
@@ -820,7 +980,7 @@ def main():
              "flops": fw["flops"], "mlp_flops": n * mlp_flops(m)},
             field_call(v, True, 1))
     for v in ("f32", "bf16", "int8", "fp8", "gia_f32", "gia_bf16",
-              "gia_int8", "gia_fp8"):
+              "gia_int8", "gia_fp8", *grid_scenes):
         app, tab, sc, _, _ = field_inputs[v]
         fw = grid_work(app, tab, sc)
         x, gg, _ = tiles[app]
@@ -835,17 +995,27 @@ def main():
                                            "points_per_block", "n_groups",
                                            "blocks", "store_bytes")}},
             encode_call(v, True, 1))
-    runs["mlp_fwd", None] = (
-        lambda: mlp_ops.mlp(p0["mlp"], color_in, ccfg),
-        lambda: apply_mlp(p0["mlp"], color_in, ccfg),
-        # yardstick: the cuBLAS matmul + relu chain at the same shapes
-        lambda: torch.relu(torch.relu(torch.relu(torch.relu(
-            color_in @ p0["mlp"]["w_in"]) @ p0["mlp"]["w_hidden"][0])
-            @ p0["mlp"]["w_hidden"][1]) @ p0["mlp"]["w_hidden"][2])
-        @ p0["mlp"]["w_out"],
-        {"bytes": b * (ccfg.in_dim + ccfg.out_dim) * 4 + wbytes(p0["mlp"]),
-         "flops": 0, "mlp_flops": b * mlp_flops(ccfg)},
-        lambda: mlp_ops.mlp(p0["mlp"], color_in[:1], ccfg))
+    def matmul_chain(w, x, m):
+        """The yardstick: the cuBLAS matmul + relu chain at the MLP's
+        shapes."""
+        h = torch.relu(x @ w["w_in"])
+        for i in range(m.n_hidden - 1):
+            h = torch.relu(h @ w["w_hidden"][i])
+        return h @ w["w_out"]
+
+    def mlp_run(w, x, m):
+        return (lambda: mlp_ops.mlp(w, x, m), lambda: apply_mlp(w, x, m),
+                lambda: matmul_chain(w, x, m),
+                {"bytes": x.shape[0] * (m.in_dim + m.out_dim) * 4 + wbytes(w),
+                 "flops": 0, "mlp_flops": x.shape[0] * mlp_flops(m)},
+                lambda: mlp_ops.mlp(w, x[:1], m))
+    runs["mlp_fwd", None] = mlp_run(p0["mlp"], color_in, ccfg)
+    # the unfused route's grid heads on the dense and tiled grids: the MLP
+    # on the encode's (B, 16) features
+    for v in grid_scenes:
+        _, tab, _, w, m = field_inputs[v]
+        x, gg, _ = tiles[v]
+        runs["mlp_fwd", v] = mlp_run(w, encode_ref(x, tab, gg), m)
     # composite_fwd on the served layout (the packed field output, a (1, S)
     # dts row) and on its strided path (separate rgb and sigma, (R, S) dts)
     rgb_s, sigma_s = rgb.contiguous(), sigma.contiguous()
@@ -1020,25 +1190,28 @@ def main():
           "mlp": {"nerf": "32->64x3->16", "gia": "32->64x4->3"},
           "launches": unfused_launches, "results": unfused_rows, **gpu})
     gia_q0 = gqtab["gia_int8"]
-    del runs, outputs, unfused_out, field_inputs, tiles, gqtab, nsdf_rand
+    del runs, outputs, unfused_out, field_inputs, tiles, gqtab, nsdf_rand, \
+        grid_scenes
 
     # ------------------------------------------------------------ serve
     settings = pipeline.RenderSettings(tile_pixels=TILE_PIXELS,
                                        n_samples=N_SAMPLES)
     cams = [scenes.orbit_camera(FRAME, FRAME, a) for a in (0.0, 2.1, 4.2)]
 
-    def serve(engine, scene_names, phase, cams=cams):
-        """120 random-pixel requests, scene_names and cameras in turn, with
-        the launch counts of exactly this stream and the peak device memory
-        allocated while it runs (every live tensor counts)."""
+    def serve(engine, scene_names, phase, cams=cams, reqs=None):
+        """120 random-pixel requests, scene_names and cameras in turn (or
+        the given ``reqs``), with the launch counts of exactly this stream
+        and the peak device memory allocated while it runs (every live
+        tensor counts)."""
         torch.cuda.reset_peak_memory_stats(dev)
         warm_s = engine.warmup()
-        reqs = []
-        for i in range(N_REQUESTS):
-            c = cams[i % len(cams)]
-            reqs.append(RenderRequest(
-                scene_names[i % len(scene_names)], c,
-                rng.integers(0, c.height * c.width, TILE_PIXELS)))
+        if reqs is None:
+            reqs = []
+            for i in range(N_REQUESTS):
+                c = cams[i % len(cams)]
+                reqs.append(RenderRequest(
+                    scene_names[i % len(scene_names)], c,
+                    rng.integers(0, c.height * c.width, TILE_PIXELS)))
         K.reset_launch_counts()
         tickets = [engine.submit(r) for r in reqs]
         engine.flush()
@@ -1095,7 +1268,7 @@ def main():
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_kernel, spans = {}, []
         for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if device_work(ev):
                 key = re.sub(r"\(.*", "", ev.name)[-70:]
                 dur = (ev.time_range.end - ev.time_range.start) / 1e3
                 by_kernel[key] = by_kernel.get(key, 0.0) + dur
@@ -1136,6 +1309,179 @@ def main():
         fail(f"parity: engine vs CPU render_frame max abs error {perr}")
     emit({"phase": "parity", "frame": [32, 32], "max_abs_err": perr,
           "tol": PARITY_TOL, "mean_rgb": float(dense_frame.mean()), **gpu})
+
+    # ---------------------------------------------------- unfused_serve
+    # The two serve scenes on the unfused route (``RenderSettings(fused=
+    # False)``: encode_fwd writes the features to device memory, mlp_fwd
+    # reads them back, once per head), over the same 120 requests: the
+    # paper's fused-against-unfused comparison at the engine level; then
+    # nerf trained on that route.
+    usettings = dataclasses.replace(settings, fused=False)
+    uengine = RenderEngine(usettings, device=dev)
+    for s_ in range(2):
+        uengine.add_scene(f"scene{s_}", cfg, fields.from_jax_params(
+            np_params(cfg, SEED + s_), cfg, dev))
+    _, ulaunches, line = serve(uengine, ["scene0", "scene1"],
+                               "unfused_serve", reqs=reqs)
+    want = {"encode_fwd": N_REQUESTS, "mlp_fwd": 2 * N_REQUESTS,
+            "field_fwd": 0, "field_fwd_q": 0, "composite_fwd": N_REQUESTS}
+    if any(ulaunches[k] != n for k, n in want.items()):
+        fail(f"unfused_serve: launches {ulaunches}, want {want}")
+    ufr = uengine.render_frame("scene0", pcam)
+    uerr = float(np.abs(ufr - dense_frame).max())
+    if not np.isfinite(ufr).all() or float(np.max(
+            np.abs(ufr - dense_frame) - TOL * np.abs(dense_frame))) > TOL:
+        fail(f"unfused_serve: the frame differs from the fused engine's by "
+             f"{uerr}")
+    uref = pipeline.render_frame(cpu_params, cfg, pcam, usettings,
+                                 device="cpu").numpy()
+    ucpu = float(np.abs(ufr - uref).max())
+    if ucpu > PARITY_TOL:
+        fail(f"unfused_serve: engine vs CPU render_frame max abs error "
+             f"{ucpu}")
+    del uengine
+    uinit = fields.init_field(cfg, torch.Generator().manual_seed(SEED), dev)
+    urows = []
+    K.reset_launch_counts()
+    ctrain.train_field(cfg, steps=UNFUSED_TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                       seed=SEED, chunk_steps=TRAIN_CHUNK, fused=False,
+                       gt_samples=GT_SAMPLES, device=dev, params=uinit,
+                       on_metrics=lambda i, r, st: urows.append(r))
+    torch.cuda.synchronize()
+    utrain = K.launch_counts()
+    ulosses = [r["loss"] for r in urows]
+    if not all(np.isfinite(ulosses)) or not ulosses[-1] < ulosses[0]:
+        fail(f"unfused_serve: the unfused route's loss did not fall: "
+             f"{ulosses}")
+    if utrain["field_fwd"] != 0 or min(
+            utrain[k] for k in ("encode_fwd", "mlp_fwd", "encode_bwd")) <= 0:
+        fail(f"unfused_serve: training launched {utrain}")
+    ubatch = ctrain.make_batch(cfg, ctrain.batch_generator(SEED, 0, dev),
+                               TRAIN_BATCH, scenes.default_camera(),
+                               gt_samples=GT_SAMPLES)
+    grads = {f: tloop.value_and_grad(
+        lambda p, b_, f=f: ctrain.field_loss(p, cfg, b_, fused=f), uinit,
+        ubatch)[1] for f in (True, False)}
+    fused_leaves = dict(tree_items(grads[True]))
+    ugrad = {path: rel_err(gu, fused_leaves[path])[1]
+             for path, gu in tree_items(grads[False])}
+    if max(ugrad.values()) > TRAIN_PARITY_TOL or min(
+            float(v.abs().max()) for v in fused_leaves.values()) <= 0:
+        fail(f"unfused_serve: the unfused route's first gradients differ "
+             f"from the fused route's: {ugrad}")
+    del uinit, grads, fused_leaves, ubatch
+    ulaunches = {k: ulaunches[k] + utrain[k] for k in ulaunches}
+    line.update(
+        fused={k: dense_line[k] for k in ("p50_ms", "p90_ms", "mpix_per_s",
+                                          "launches")},
+        frame_max_abs_diff_to_fused=uerr, frame_max_abs_err_cpu=ucpu,
+        tol=TOL, parity_tol=PARITY_TOL,
+        train={"steps": UNFUSED_TRAIN_STEPS, "loss_first": ulosses[0],
+               "loss_last": ulosses[-1], "ms_per_step": 1e3 * statistics.mean(
+                   r["dt"] for r in urows),
+               "launches": utrain, "grad_rel_err_vs_fused": ugrad,
+               "grad_tol": TRAIN_PARITY_TOL})
+    emit(line)
+
+    # ------------------------------------------------------------ trace
+    # The process tracer and the profiler ranges on the serve engine:
+    # rounds of PROFILE_REQUESTS requests with the tracer off (no event)
+    # and on, async (4 events a request), in turns; the calls to annotate
+    # a request makes and their host cost; one torch.profiler window
+    # (CPU + CUDA) with the phases as ranges and the device time under
+    # each; a training run's engine snapshot.
+    window = reqs[:PROFILE_REQUESTS]
+
+    def run_window():
+        tickets = [engine.submit(r) for r in window]
+        engine.flush()
+        return 1e3 * statistics.median(t.latency_s for t in tickets)
+
+    p50s, counts_on = {"off": [], "on": []}, []
+    try:
+        for i in range(TRACE_ROUNDS):        # off, on, on, off, off, on, ...
+            for mode in ("off", "on") if i % 2 == 0 else ("on", "off"):
+                ttrace.TRACER.clear()
+                if mode == "on":
+                    ttrace.TRACER.enable()
+                p50s[mode].append(run_window())
+                ttrace.TRACER.disable()
+                names = [e["name"] for e in ttrace.TRACER.events()]
+                if mode == "off" and names:
+                    fail(f"trace: the disabled tracer recorded {len(names)} "
+                         "events")
+                if mode == "on":
+                    counts_on.append({n: names.count(n) for n in set(names)})
+    finally:
+        ttrace.TRACER.disable()
+        ttrace.TRACER.clear()
+    want = {f"serve.{ph}": len(window) for ph in SERVE_PHASES}
+    if any(c != want for c in counts_on):
+        fail(f"trace: events per round {counts_on}, want {want}")
+    off_med = statistics.median(p50s["off"])
+    bound = max(max(p50s["off"]) - min(p50s["off"]),
+                TRACE_P50_SLACK * off_med)
+    if abs(statistics.median(p50s["on"]) - off_med) > bound:
+        fail(f"trace: p50 with the tracer on {p50s['on']} is not within "
+             f"{bound} ms of off {p50s['off']}")
+    if ttrace.annotate("a") is not ttrace.annotate("b"):
+        fail("trace: annotate is not the shared null context without a "
+             "profiler")
+    calls = annotate_calls(run_window) / len(window)
+    t0 = time.perf_counter()
+    for _ in range(100_000):
+        with ttrace.annotate("encode"):
+            pass
+    annotate_us = (time.perf_counter() - t0) / 100_000 * 1e6
+    scratch_tracer = ttrace.Tracer()
+    scratch_tracer.enable()
+    t0 = time.perf_counter()
+    for _ in range(10_000):
+        scratch_tracer.add_event("serve.submit", t0, t0, cat="serve",
+                                 bucket=0, scene="scene0")
+    add_event_us = (time.perf_counter() - t0) / 10_000 * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_window()
+    phases = phase_device_ms(prof)
+    missing = {"encode_mlp", "mlp", "raymarch", "composite"} - {
+        k for k, row in phases.items() if row["ranges"]}
+    if missing:
+        fail(f"trace: no {sorted(missing)} ranges in the profiler trace: "
+             f"{phases}")
+    reg = tmetrics.Registry()
+    ctrain.train_field(cfg, steps=2 * TRAIN_CHUNK, batch_size=TRAIN_BATCH,
+                       seed=SEED, chunk_steps=TRAIN_CHUNK,
+                       gt_samples=GT_SAMPLES, device=dev,
+                       metrics_registry=reg)
+    snap = reg.snapshot()
+    texport.validate_snapshot(snap)
+    host = "host0"
+    if snap["counters"].get("train.steps") != 2 * TRAIN_CHUNK \
+            or snap["histograms"].get("train.step_s", {}).get("count") != 2 \
+            or snap["histograms"].get(f"health.step_s.{host}", {}).get(
+                "count") != 2 \
+            or snap["gauges"].get("health.silent_hosts") != 0:
+        fail(f"trace: the training engine's snapshot {snap}")
+    emit({"phase": "trace", "requests_per_round": len(window),
+          "rounds": TRACE_ROUNDS, "p50_ms_off": p50s["off"],
+          "p50_ms_on": p50s["on"], "p50_bound_ms": bound,
+          "events_per_round_on": counts_on[0],
+          "annotate_calls_per_request": calls,
+          "annotate_us_per_call": annotate_us,
+          "annotate_host_ms_per_request": calls * annotate_us / 1e3,
+          "tracer_add_event_us": add_event_us,
+          "tracer_host_ms_per_request": len(SERVE_PHASES) * add_event_us
+          / 1e3,
+          "profiler_phases": {k: {m: v if v > 0 or m == "ranges"
+                                  else "not measured"
+                                  for m, v in row.items()}
+                              for k, row in phases.items()},
+          "train_snapshot": {"counters": snap["counters"],
+                             "gauges": snap["gauges"],
+                             "histograms": sorted(snap["histograms"])},
+          **gpu})
     del engine
 
     # -------------------------------------------------------- serve_occ
@@ -1715,6 +2061,158 @@ def main():
         cfg, gcfg, dev, clone_tree, nerf_init, nerf_batch, nerf_loss, gpu)
     emit(resume_line)
 
+    # ----------------------------------------------------------- launch
+    # The launcher as a user starts it, ``python -m
+    # repro_torch.launch.serve``, in a child process three times: at its
+    # defaults (gia, hash, 2^14 tables, 150 steps, 2 scenes, 8 requests),
+    # nerf culled with synced spans, nsdf with int8 tables; each traced
+    # and with a metrics snapshot. The child writes its kernels' launch
+    # counts to a file at exit.
+    launch_dir = os.path.join(ROOT, "build", "chip_smoke_launch")
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    os.makedirs(launch_dir)
+    launch_runs = {"defaults": [],
+                   "nerf_occupancy": ["--app", "nerf", "--occupancy",
+                                      "--trace-sync"],
+                   "nsdf_int8": ["--app", "nsdf", "--quant", "int8"]}
+    launch_launches = dict.fromkeys(K.launch_counts(), 0)
+    launch_rows = {}
+    for name, flags in launch_runs.items():
+        files = {k: os.path.join(launch_dir, f"{name}_{k}.json")
+                 for k in ("trace", "metrics", "launches")}
+        argv = flags + ["--trace-out", files["trace"], "--metrics-out",
+                        files["metrics"]]
+        t0 = time.perf_counter()
+        try:
+            out = subprocess.run(
+                [sys.executable, "-c", LAUNCH_CHILD.format(
+                    src=SRC, argv=argv, launches=files["launches"])],
+                capture_output=True, text=True, timeout=LAUNCH_TIMEOUT_S,
+                cwd=launch_dir)
+        except subprocess.TimeoutExpired:
+            fail(f"launch[{name}]: no exit within {LAUNCH_TIMEOUT_S} s")
+        wall_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"launch[{name}]: exit code {out.returncode}: "
+                 f"{out.stderr[-3000:]}")
+        recs = []
+        for text in out.stdout.splitlines():
+            try:
+                rec = json.loads(text)
+            except json.JSONDecodeError:
+                rec = None
+            if not isinstance(rec, dict):
+                fail(f"launch[{name}]: a stdout line is not one JSON "
+                     f"object: {text!r}")
+            recs.append(rec)
+        events = {r["event"]: r for r in recs}
+        served = events.get("served", {})
+        if served.get("n_requests") != LAUNCH_REQUESTS or not all(
+                np.isfinite(served.get(k, float("nan")))
+                for k in ("p50_ms", "mpix_per_s")):
+            fail(f"launch[{name}]: served {served}")
+        with open(files["metrics"]) as f:
+            snap = json.load(f)
+        texport.validate_snapshot(snap)
+        with open(files["trace"]) as f:
+            trace_obj = json.load(f)
+        texport.validate_chrome_trace(trace_obj)
+        names = [e["name"] for e in trace_obj["traceEvents"]]
+        buckets = {k.rsplit(".bucket", 1)[1] for k in snap["histograms"]
+                   if ".bucket" in k}
+        for ph in SERVE_PHASES:
+            n_hist = sum(h["count"] for k, h in snap["histograms"].items()
+                         if k.startswith(f"serve.{ph}_s.bucket"))
+            if names.count(f"serve.{ph}") != n_hist or n_hist == 0:
+                fail(f"launch[{name}]: {names.count(f'serve.{ph}')} "
+                     f"serve.{ph} events, {n_hist} in the histograms")
+        if "bucket_leak" in events or served["compiles"] != len(buckets):
+            fail(f"launch[{name}]: {served['compiles']} tile functions for "
+                 f"{len(buckets)} buckets")
+        with open(files["launches"]) as f:
+            counts = json.load(f)
+        for k, n in counts.items():
+            launch_launches[k] += n
+        trained = [r for r in recs if r["event"] == "scene_trained"]
+        launch_rows[name] = {
+            "argv": flags, "wall_s": wall_s, "p50_ms": served["p50_ms"],
+            "p99_ms": served["p99_ms"], "mpix_per_s": served["mpix_per_s"],
+            "compiles": served["compiles"], "buckets": len(buckets),
+            "events": [r["event"] for r in recs],
+            "trace_events": len(names), "loss_scene0": [
+                trained[0]["loss_first"], trained[0]["loss_last"]],
+            "launches": counts}
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    if min(launch_launches[k] for k in ("field_fwd", "field_fwd_q",
+                                        "encode_fwd", "encode_bwd",
+                                        "mlp_fwd", "composite_fwd")) <= 0:
+        fail(f"launch: a kernel never launched: {launch_launches}")
+    emit({"phase": "launch", "runs": launch_rows,
+          "launches": launch_launches, **gpu})
+
+    # ------------------------------------------------------ launch_apps
+    # serve_render in this process for every app and encoding at Table-I
+    # width (log2_table_size=None: nerf, nvr, nsdf at 2^19 rows, gia at
+    # 2^24), 2 scenes of LAUNCH_APPS_STEPS training steps each, 8
+    # requests; the first and last loss of scene 0 are read off the
+    # training history.
+    histories = []
+    real_train = ctrain.train_field
+
+    def recording_train(*a, **kw):
+        trained, hist = real_train(*a, **kw)
+        histories.append(hist)
+        return trained, hist
+    apps_launches = dict.fromkeys(K.launch_counts(), 0)
+    app_rows = {}
+    logs = io.StringIO()
+    ctrain.train_field, lserve._LOG.stream = recording_train, logs
+    try:
+        for app in ("nerf", "nvr", "gia", "nsdf"):
+            for kind in ("hash", "dense", "tiled"):
+                histories.clear()
+                K.reset_launch_counts()
+                t0 = time.perf_counter()
+                st = lserve.serve_render(
+                    app, kind, train_steps=LAUNCH_APPS_STEPS,
+                    n_requests=LAUNCH_REQUESTS, seed=SEED, device=dev,
+                    log2_table_size=None)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                counts = K.launch_counts()
+                for k, n in counts.items():
+                    apps_launches[k] += n
+                losses = [l_ for _, l_ in histories[0]]
+                need = ["field_fwd", "encode_fwd", "encode_bwd"] + (
+                    ["mlp_fwd"] if app == "nerf" else []) + (
+                    ["composite_fwd"] if app in ("nerf", "nvr") else [])
+                v = f"{app}_{kind}"
+                app_rows[v] = {
+                    "loss_first": losses[0], "loss_last": losses[-1],
+                    "p50_ms": st["p50_ms"], "mpix_per_s": st["mpix_per_s"],
+                    "requests": st["n_requests"], "wall_s": wall_s,
+                    "table_bytes": fields.make_field_config(
+                        app, kind).grid.params_bound() * 4,
+                    "launches": {k: counts[k] for k in (
+                        "field_fwd", "encode_fwd", "encode_bwd", "mlp_fwd",
+                        "composite_fwd")}}
+                if not all(np.isfinite(losses)) \
+                        or not losses[-1] < losses[0]:
+                    fail(f"launch_apps[{v}]: the loss did not fall: "
+                         f"{losses}")
+                if st["n_requests"] != LAUNCH_REQUESTS or not np.isfinite(
+                        st["p50_ms"]) or not np.isfinite(st["mpix_per_s"]):
+                    fail(f"launch_apps[{v}]: served {st}")
+                if min(counts[k] for k in need) <= 0:
+                    fail(f"launch_apps[{v}]: {need} must launch: {counts}")
+                del st
+                torch.cuda.empty_cache()
+    finally:
+        ctrain.train_field, lserve._LOG.stream = real_train, None
+    emit({"phase": "launch_apps", "scenes": 2,
+          "train_steps": LAUNCH_APPS_STEPS, "requests": LAUNCH_REQUESTS,
+          "runs": app_rows, "launches": apps_launches, **gpu})
+
     # ----------------------------------------------------------- report
     # kernel -> (source, TPU kernel it replaces, path its launches are
     # read from, launches on that path, variant of the row's own numbers)
@@ -1722,7 +2220,8 @@ def main():
              "serve_gia": glaunches, "serve_nsdf": nlaunches,
              "unfused": unfused_launches, "train": train_launches,
              "serve_occ": olaunches, "train_runtime": runtime_launches,
-             "resume": resume_launches}
+             "resume": resume_launches, "unfused_serve": ulaunches,
+             "launch": launch_launches, "launch_apps": apps_launches}
     report = {
         "field_fwd": ("src/repro_torch/csrc/field.cu",
                       "src/repro/kernels/fused_field/fused_field.py:111",
@@ -1753,8 +2252,10 @@ def main():
                **{k: results[n, main_v][k] for k in keys}}
         if main_v is not None:
             row["variant"] = main_v
-            row["variants"] = {v: {k: r[k] for k in keys}
-                               for (kn, v), r in results.items() if kn == n}
+        variants = {v: r for (kn, v), r in results.items() if kn == n}
+        if len(variants) > 1:         # mlp_fwd's own row: the colour MLP
+            row["variants"] = {v or "colour": {k: r[k] for k in keys}
+                               for v, r in variants.items()}
         rows_out.append(row)
     emit({"kernels": rows_out, "script_s": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -9,9 +9,11 @@ the 12 configurations of Table I.
 wrapper (``kernels/fused_field``) and NeRF's colour MLP through the fused
 MLP kernel's wrapper (``kernels/fused_mlp``): the CUDA kernels for CUDA
 tensors, their plain versions (the core library's encode and MLP) for CPU
-tensors. A quantized scene (``repro_torch.quant``) carries its per-level
-table scales in a ``grid_scale`` leaf, which goes into the field kernel,
-and its MLP weights are dequantized on entry.
+tensors. ``fused=False`` runs the encode kernel and then the MLP kernel
+instead, the features going through device memory. A quantized scene
+(``repro_torch.quant``) carries its per-level table scales in a
+``grid_scale`` leaf, which goes into the field kernel, and its MLP weights
+are dequantized on entry.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.core.mlp import MLPConfig, init_mlp
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.fused_field import ops as ff_ops
 from repro_torch.kernels.fused_mlp import ops as mlp_ops
+from repro_torch.kernels.hashgrid import ops as hashgrid_ops
 from repro_torch.quant.api import maybe_dequant_mlp
 from repro_torch.quant.calibrate import MLP_WEIGHT_KEYS
 from repro_torch.quant.qtypes import QuantSpec
@@ -228,23 +231,39 @@ def from_jax_params(np_params: Mapping, cfg: FieldConfig,
 
 
 def apply_field(params: Dict, cfg: FieldConfig, points: torch.Tensor,
-                dirs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                dirs: Optional[torch.Tensor] = None,
+                fused: bool = True) -> torch.Tensor:
     """Evaluate the field at points (B, d) [+ dirs (B, 3) for nerf].
+
+    ``fused=False`` is the unfused route, the paper's GPU baseline (Fig.
+    7): the encode (``hashgrid/ops.encode``, the ``encode_fwd`` kernel)
+    writes the (B, L*F) features to device memory, then the MLP
+    (``fused_mlp/ops.mlp``, the ``mlp_fwd`` kernel) reads them back, one
+    launch per head (nerf: the density MLP, then the colour MLP). The
+    wrappers carry the phases (``encode_mlp`` fused; ``encode``, ``mlp``
+    unfused) and are differentiable, so the route trains.
 
     Returns: nerf/nvr -> (B, 4) [rgb, sigma]; gia -> (B, 3); nsdf -> (B, 1).
     """
     tscale = params.get("grid_scale")
+
+    def grid_mlp(mlp_params, mlp_cfg):
+        if fused:
+            return ff_ops.field(points, params["grid"], mlp_params, cfg.grid,
+                                mlp_cfg, table_scales=tscale)
+        feats = hashgrid_ops.encode(points, params["grid"], cfg.grid,
+                                    table_scales=tscale)
+        return mlp_ops.mlp(maybe_dequant_mlp(mlp_params), feats, mlp_cfg)
+
     if cfg.app == "nerf":
-        dfeat = ff_ops.field(points, params["grid"], params["density_mlp"],
-                             cfg.grid, cfg.density_mlp, table_scales=tscale)
+        dfeat = grid_mlp(params["density_mlp"], cfg.density_mlp)
         sigma = torch.exp(dfeat[:, :1])        # instant-NGP exp activation
         color_in = torch.cat([enc.sh_encode(dirs), dfeat], dim=-1)
         rgb = torch.sigmoid(mlp_ops.mlp(maybe_dequant_mlp(params["mlp"]),
                                         color_in, cfg.mlp))
         return torch.cat([rgb, sigma], dim=-1)
 
-    out = ff_ops.field(points, params["grid"], params["mlp"], cfg.grid,
-                       cfg.mlp, table_scales=tscale)
+    out = grid_mlp(params["mlp"], cfg.mlp)
     if cfg.app == "gia":
         return torch.sigmoid(out)
     if cfg.app == "nvr":

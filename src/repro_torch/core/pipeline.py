@@ -22,6 +22,7 @@ import torch
 from repro_torch.core import fields, render
 from repro_torch.core.fields import FieldConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs.trace import annotate
 
 APPS = ("nerf", "nvr", "gia", "nsdf")
 
@@ -33,6 +34,9 @@ class RenderSettings:
     near: float = 0.5
     far: float = 4.5
     sphere_steps: int = 48        # sphere-tracing iterations (nsdf)
+    # False: the unfused route (``fields.apply_field(fused=False)``), the
+    # encode's features through device memory, then the MLP
+    fused: bool = True
     # Occupancy-culled sampling (nerf, nvr): march through
     # ``render.render_rays``' compaction on ``params['occupancy']``.
     # ``sample_budget`` is the field-evaluation budget of a full tile of
@@ -79,7 +83,8 @@ def shade_nsdf(params, cfg: FieldConfig, origins: torch.Tensor,
     """Sphere-trace the field, then Lambert-shade the hits with the normal
     from central differences (eps 2e-3); misses are black. (R, 3)."""
     def sdf_world(p):
-        return fields.apply_field(params, cfg, (p + 1.0) / 2.0)
+        return fields.apply_field(params, cfg, (p + 1.0) / 2.0,
+                                  fused=settings.fused)
     p, hit = sphere_trace(sdf_world, origins, dirs, settings.sphere_steps)
     eps = 2e-3
     g = [(sdf_world(_offset(p, i, eps)) - sdf_world(_offset(p, i, -eps)))[:, 0]
@@ -134,15 +139,17 @@ def make_tile_fn(cfg: FieldConfig, settings: RenderSettings,
 
         if cfg.app == "gia":
             return dense(fields.apply_field(params, cfg,
-                                            pixel_coords(cam, pixel_ids)))
-        origins, dirs = render.make_rays(cam, pixel_ids)
+                                            pixel_coords(cam, pixel_ids),
+                                            fused=settings.fused))
+        with annotate("raymarch"):
+            origins, dirs = render.make_rays(cam, pixel_ids)
         if cfg.app == "nsdf":
             return dense(shade_nsdf(params, cfg, origins, dirs, settings))
         kw = dict(near=settings.near, far=settings.far,
                   n_samples=settings.n_samples, use_kernel_composite=True)
 
         def field(p, d):
-            return fields.apply_field(params, cfg, p, d)
+            return fields.apply_field(params, cfg, p, d, fused=settings.fused)
         if not settings.occupancy:
             return dense(render.render_rays(field, origins, dirs, **kw),
                          settings.n_samples)

@@ -24,6 +24,8 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import annotate
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Camera:
@@ -203,9 +205,12 @@ def render_rays(field_apply: Callable, origins: torch.Tensor,
     which the serve engine sums over a request's valid pixels."""
     n_rays = origins.shape[0]
     dev = origins.device
-    pts, dts = sample_along_rays(origins, dirs, near, far, n_samples, u)
-    flat_pts = normalize_to_unit(pts.reshape(-1, 3))
-    flat_dirs = torch.repeat_interleave(dirs, n_samples, dim=0)
+    # phases: raymarch = sampling bookkeeping, compact = the cull mask,
+    # the budget's selection and the scatter back, composite = integration
+    with annotate("raymarch"):
+        pts, dts = sample_along_rays(origins, dirs, near, far, n_samples, u)
+        flat_pts = normalize_to_unit(pts.reshape(-1, 3))
+        flat_dirs = torch.repeat_interleave(dirs, n_samples, dim=0)
     n_total = n_rays * n_samples
     if occupancy is None:
         out = field_apply(flat_pts, flat_dirs).reshape(n_rays, n_samples, 4)
@@ -222,10 +227,12 @@ def render_rays(field_apply: Callable, origins: torch.Tensor,
     else:
         budget = (n_total if sample_budget is None
                   else max(1, min(int(sample_budget), n_total)))
-        live, sel = compact_samples(occupancy, flat_pts, dts, n_samples,
-                                    budget, early_term_eps)
-        out = scatter_samples(field_apply(flat_pts[sel], flat_dirs[sel]),
-                              sel, live)
+        with annotate("compact"):
+            live, sel = compact_samples(occupancy, flat_pts, dts, n_samples,
+                                        budget, early_term_eps)
+        out_sel = field_apply(flat_pts[sel], flat_dirs[sel])
+        with annotate("compact"):
+            out = scatter_samples(out_sel, sel, live)
         if return_aux:
             evaluated = torch.zeros(n_total, dtype=torch.bool, device=dev)
             evaluated[sel] = True
@@ -236,10 +243,11 @@ def render_rays(field_apply: Callable, origins: torch.Tensor,
                    "live_per_ray": live.sum(-1, dtype=torch.int32),
                    "dropped_per_ray": dropped.sum(-1, dtype=torch.int32)}
     rgb, sigma = out[..., :3], out[..., 3]
-    if not use_kernel_composite:
-        pixel, _ = composite(rgb, sigma, dts.expand(sigma.shape))
-    else:
-        # imported here: the wrapper's plain version is this module's
-        from repro_torch.kernels.ray_march import ops as rm_ops
-        pixel, _ = rm_ops.composite(rgb, sigma, dts)
+    with annotate("composite"):
+        if not use_kernel_composite:
+            pixel, _ = composite(rgb, sigma, dts.expand(sigma.shape))
+        else:
+            # imported here: the wrapper's plain version is this module's
+            from repro_torch.kernels.ray_march import ops as rm_ops
+            pixel, _ = rm_ops.composite(rgb, sigma, dts)
     return (pixel, aux) if return_aux else pixel

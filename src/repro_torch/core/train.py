@@ -37,28 +37,31 @@ DATA_STREAM = 1 << 62
 
 
 def field_loss(params, cfg: FieldConfig, batch: Dict,
-               n_samples: Optional[int] = None) -> torch.Tensor:
+               n_samples: Optional[int] = None,
+               fused: bool = True) -> torch.Tensor:
     """MSE of the field (gia, nsdf) or its rendered pixels (nerf, nvr)
     against the batch's target. ``n_samples`` sets the ray apps'
-    compositing depth (default 32)."""
+    compositing depth (default 32); ``fused=False`` evaluates the field on
+    the unfused route (``fields.apply_field``)."""
     if cfg.app in ("gia", "nsdf"):
-        pred = fields.apply_field(params, cfg, batch["points"])
+        pred = fields.apply_field(params, cfg, batch["points"], fused=fused)
         return torch.mean((pred - batch["target"]) ** 2)
     pred = render.render_rays(
-        lambda p, d: fields.apply_field(params, cfg, p, d),
+        lambda p, d: fields.apply_field(params, cfg, p, d, fused=fused),
         batch["origins"], batch["dirs"], n_samples=n_samples or 32)
     return torch.mean((pred - batch["target"]) ** 2)
 
 
 def make_field_train_step(cfg: FieldConfig,
                           opt_cfg: Optional[optim.AdamConfig] = None,
-                          n_samples: Optional[int] = None) -> Callable:
+                          n_samples: Optional[int] = None,
+                          fused: bool = True) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     the loss, its gradients and one Adam update (in place)."""
     opt_cfg = opt_cfg or optim.AdamConfig(lr=1e-2)
 
     def loss_fn(p, b):
-        return field_loss(p, cfg, b, n_samples=n_samples)
+        return field_loss(p, cfg, b, n_samples=n_samples, fused=fused)
 
     def step(params, opt_state, batch):
         loss, grads = loop.value_and_grad(loss_fn, params, batch)
@@ -115,7 +118,7 @@ def _start(cfg: FieldConfig, seed: int, params, device: DeviceLike,
 
 
 def train_field(cfg: FieldConfig, steps: int = 200, batch_size: int = 2048,
-                seed: int = 0, log_every: int = 50,
+                seed: int = 0, fused: bool = True, log_every: int = 50,
                 opt_cfg: Optional[optim.AdamConfig] = None,
                 callback: Optional[Callable] = None, *,
                 chunk_steps: int = 16, grad_accum: int = 1,
@@ -130,13 +133,17 @@ def train_field(cfg: FieldConfig, steps: int = 200, batch_size: int = 2048,
                 occupancy_decay: float = 0.95,
                 params: Optional[Dict] = None,
                 batch_fn: Optional[Callable] = None,
-                device: DeviceLike = None):
+                device: DeviceLike = None,
+                metrics_registry=None):
     """Field training against the analytic scene on the engine
     (``train/loop.py``), on ``device`` (CUDA unless the caller names
-    another). Returns ``(params, history)``, history holding ``(step,
-    loss)`` at ``log_every`` boundaries and the final step;
-    ``callback(step, loss, params)`` fires at the same points with the
-    chunk-end params, ``on_metrics(step, row, state)`` at every step.
+    another); ``fused=False`` trains on the unfused route. Returns
+    ``(params, history)``, history holding ``(step, loss)`` at
+    ``log_every`` boundaries and the final step; ``callback(step, loss,
+    params)`` fires at the same points with the chunk-end params,
+    ``on_metrics(step, row, state)`` at every step. ``metrics_registry``
+    is the engine's registry (``train.*`` and ``health.*`` metrics;
+    default: a fresh one).
 
     ``params`` starts from a given tree (copied; default: ``init_field``
     from ``seed``); ``batch_fn(step) -> batch`` replaces the seeded batch
@@ -158,8 +165,8 @@ def train_field(cfg: FieldConfig, steps: int = 200, batch_size: int = 2048,
                          f"apps (nerf, nvr), not app={cfg.app!r}")
     opt_cfg = opt_cfg or optim.AdamConfig(lr=1e-2)
     step_fn = loop.make_scanned_step(
-        lambda p, b: field_loss(p, cfg, b, n_samples=n_samples), opt_cfg,
-        grad_accum=grad_accum, compression=compression,
+        lambda p, b: field_loss(p, cfg, b, n_samples=n_samples, fused=fused),
+        opt_cfg, grad_accum=grad_accum, compression=compression,
         compression_topk=compression_topk, mesh=mesh)
     ecfg = loop.EngineConfig(steps=steps, chunk_steps=chunk_steps,
                              ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
@@ -181,7 +188,7 @@ def train_field(cfg: FieldConfig, steps: int = 200, batch_size: int = 2048,
     engine = loop.TrainEngine(
         ecfg, step_fn, batch_fn=batch_fn,
         on_chunk_end=refresh_occupancy if occupancy_res is not None
-        else None)
+        else None, metrics_registry=metrics_registry)
     history = []
 
     def _on_metrics(i, row, st):
@@ -202,7 +209,7 @@ def train_field(cfg: FieldConfig, steps: int = 200, batch_size: int = 2048,
 
 def train_field_reference(cfg: FieldConfig, steps: int = 200,
                           batch_size: int = 2048, seed: int = 0,
-                          log_every: int = 50,
+                          fused: bool = True, log_every: int = 50,
                           opt_cfg: Optional[optim.AdamConfig] = None,
                           n_samples: Optional[int] = None,
                           gt_samples: int = 64,
@@ -215,7 +222,8 @@ def train_field_reference(cfg: FieldConfig, steps: int = 200,
     params, batch_fn = _start(cfg, seed, params, device, batch_size,
                               gt_samples, batch_fn)
     opt_state = optim.adam_init(params)
-    step_fn = make_field_train_step(cfg, opt_cfg, n_samples=n_samples)
+    step_fn = make_field_train_step(cfg, opt_cfg, n_samples=n_samples,
+                                    fused=fused)
     history = []
     for i in range(steps):
         params, opt_state, metrics = step_fn(params, opt_state, batch_fn(i))

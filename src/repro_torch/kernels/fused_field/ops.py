@@ -31,6 +31,7 @@ from repro_torch.kernels.fused_field.ref import field_ref
 from repro_torch.kernels.fused_mlp.ops import weight_dict
 from repro_torch.kernels.fused_mlp.vjp import mlp_bwd
 from repro_torch.kernels.hashgrid.ops import encode_forward, encode_vjp
+from repro_torch.obs.trace import annotate
 from repro_torch.quant.api import maybe_dequant_mlp
 
 
@@ -68,24 +69,26 @@ def field(points: torch.Tensor, tables: torch.Tensor,
           mlp_params: Dict[str, torch.Tensor], grid_cfg: GridConfig,
           mlp_cfg: MLPConfig, *, table_scales: Optional[torch.Tensor] = None
           ) -> torch.Tensor:
-    """points (B, d) in [0, 1] -> (B, mlp out_dim) f32."""
-    check_table_scales(tables, table_scales)
-    quantized = (table_scales is not None
-                 or any(k.endswith("_scale") for k in mlp_params))
-    if not quantized:
-        return _Field.apply(points, tables, mlp_params["w_in"],
-                            mlp_params.get("w_hidden"), mlp_params["w_out"],
-                            grid_cfg, mlp_cfg)
-    if needs_grad(points, tables, table_scales, *mlp_params.values()):
-        raise NotImplementedError(
-            "quantized tables or weights are inference only: the field has "
-            "no gradient for them, as the JAX package's quantized route "
-            "bypasses its VJP")
-    weights = maybe_dequant_mlp(mlp_params)
-    extra = () if table_scales is None else (table_scales,)
-    if on_cpu(points, tables, *extra, *weights.values()):
-        return field_ref(points, tables, weights, grid_cfg, mlp_cfg,
-                         table_scales)
-    return fused_field_cuda(points, tables, weights["w_in"],
-                            weights.get("w_hidden"), weights["w_out"],
-                            grid_cfg, mlp_cfg, table_scales)
+    """points (B, d) in [0, 1] -> (B, mlp out_dim) f32, under the
+    ``encode_mlp`` phase (one kernel covers both phases)."""
+    with annotate("encode_mlp"):
+        check_table_scales(tables, table_scales)
+        quantized = (table_scales is not None
+                     or any(k.endswith("_scale") for k in mlp_params))
+        if not quantized:
+            return _Field.apply(points, tables, mlp_params["w_in"],
+                                mlp_params.get("w_hidden"),
+                                mlp_params["w_out"], grid_cfg, mlp_cfg)
+        if needs_grad(points, tables, table_scales, *mlp_params.values()):
+            raise NotImplementedError(
+                "quantized tables or weights are inference only: the field "
+                "has no gradient for them, as the JAX package's quantized "
+                "route bypasses its VJP")
+        weights = maybe_dequant_mlp(mlp_params)
+        extra = () if table_scales is None else (table_scales,)
+        if on_cpu(points, tables, *extra, *weights.values()):
+            return field_ref(points, tables, weights, grid_cfg, mlp_cfg,
+                             table_scales)
+        return fused_field_cuda(points, tables, weights["w_in"],
+                                weights.get("w_hidden"), weights["w_out"],
+                                grid_cfg, mlp_cfg, table_scales)

@@ -16,6 +16,7 @@ from repro_torch.kernels.common import on_cpu
 from repro_torch.kernels.fused_mlp.fused_mlp import fused_mlp_cuda
 from repro_torch.kernels.fused_mlp.ref import mlp_ref
 from repro_torch.kernels.fused_mlp.vjp import mlp_bwd
+from repro_torch.obs.trace import annotate
 
 
 def weight_dict(w_in, w_hidden, w_out) -> Dict[str, torch.Tensor]:
@@ -45,6 +46,7 @@ class _MLP(torch.autograd.Function):
 
 def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
         cfg: MLPConfig) -> torch.Tensor:
-    """(B, in_dim) -> (B, out_dim) f32."""
-    return _MLP.apply(x, params["w_in"], params.get("w_hidden"),
-                      params["w_out"], cfg)
+    """(B, in_dim) -> (B, out_dim) f32, under the ``mlp`` phase."""
+    with annotate("mlp"):
+        return _MLP.apply(x, params["w_in"], params.get("w_hidden"),
+                          params["w_out"], cfg)

@@ -22,6 +22,7 @@ from repro_torch.kernels.hashgrid import vjp
 from repro_torch.kernels.hashgrid.hashgrid import (hashgrid_encode_bwd_cuda,
                                                    hashgrid_encode_cuda)
 from repro_torch.kernels.hashgrid.ref import encode_ref
+from repro_torch.obs.trace import annotate
 
 
 def encode_forward(points: torch.Tensor, tables: torch.Tensor,
@@ -62,15 +63,17 @@ class _Encode(torch.autograd.Function):
 def encode(points: torch.Tensor, tables: torch.Tensor, cfg: GridConfig, *,
            table_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """points (B, d) in [0, 1] -> (B, L*F) f32. ``table_scales`` (L, 1, 1)
-    f32 goes with int8/fp8 tables and with nothing else."""
-    check_table_scales(tables, table_scales)
-    if table_scales is None:
-        return _Encode.apply(points, tables, cfg)
-    if needs_grad(points, tables, table_scales):
-        raise NotImplementedError(
-            "quantized (int8/fp8) tables are inference only: the encode has "
-            "no gradient for them, as the JAX package's quantized route has "
-            "no VJP")
-    if on_cpu(points, tables, table_scales):
-        return encode_ref(points, tables, cfg, table_scales)
-    return hashgrid_encode_cuda(points, tables, cfg, table_scales)
+    f32 goes with int8/fp8 tables and with nothing else. Runs under the
+    ``encode`` phase."""
+    with annotate("encode"):
+        check_table_scales(tables, table_scales)
+        if table_scales is None:
+            return _Encode.apply(points, tables, cfg)
+        if needs_grad(points, tables, table_scales):
+            raise NotImplementedError(
+                "quantized (int8/fp8) tables are inference only: the encode "
+                "has no gradient for them, as the JAX package's quantized "
+                "route has no VJP")
+        if on_cpu(points, tables, table_scales):
+            return encode_ref(points, tables, cfg, table_scales)
+        return hashgrid_encode_cuda(points, tables, cfg, table_scales)

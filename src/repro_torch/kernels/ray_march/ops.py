@@ -15,6 +15,7 @@ import torch
 from repro_torch.kernels.common import needs_grad, on_cpu
 from repro_torch.kernels.ray_march.ray_march import composite_cuda
 from repro_torch.kernels.ray_march.ref import composite_ref
+from repro_torch.obs.trace import annotate
 
 
 def composite(rgb: torch.Tensor, sigma: torch.Tensor, dts: torch.Tensor
@@ -30,6 +31,7 @@ def composite(rgb: torch.Tensor, sigma: torch.Tensor, dts: torch.Tensor
             "core.render.composite where a gradient is needed, as "
             "render_rays(use_kernel_composite=False) does")
     dts = dts.expand(sigma.shape)
-    if on_cpu(rgb, sigma, dts):
-        return composite_ref(rgb, sigma, dts)
-    return composite_cuda(rgb, sigma, dts)
+    with annotate("composite"):
+        if on_cpu(rgb, sigma, dts):
+            return composite_ref(rgb, sigma, dts)
+        return composite_cuda(rgb, sigma, dts)

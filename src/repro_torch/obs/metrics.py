@@ -10,8 +10,10 @@ memory. The estimate of any percentile is off from the exact order
 statistic by at most one bucket width (``bucket_growth``, ~10% relative
 with the default 24 buckets/decade).
 
-Subsystems that must not share state across instances (one RenderEngine
-per test) embed their own ``Registry()``.
+``REGISTRY`` is the process-global default (ad-hoc counters, health
+gauges); subsystems that must not share state across instances (one
+RenderEngine per test, one TrainEngine per run) embed their own
+``Registry()``.
 """
 from __future__ import annotations
 
@@ -214,3 +216,10 @@ class Registry:
             self._counters.clear()
             self._gauges.clear()
             self._histograms.clear()
+
+
+REGISTRY = Registry()
+
+
+def get_registry() -> Registry:
+    return REGISTRY

@@ -20,10 +20,15 @@
     n_dropped]`` sample counts over its valid pixels come to pinned host
     memory with its pixels, under the same event, and ``stats()`` reports
     the live-sample fraction and the dropped samples.
-  * **Observability.** The engine owns a metrics ``Registry``: per-bucket
-    ``submit``/``dispatch``/``block``/``slice`` phase histograms and the
-    submit-to-retire latency histogram that ``stats()``'s p50/p99 read
-    (warmup excluded).
+  * **Observability.** The engine owns a metrics ``Registry`` (its own, or
+    the caller's ``metrics_registry``): per-bucket ``submit``/``dispatch``/
+    ``block``/``slice`` phase histograms, a ``serve.compiles`` counter of
+    the tile functions built (one per bucket; ``stats()``'s
+    ``n_traces_total``), and the submit-to-retire latency histogram that
+    ``stats()``'s p50/p99 read (warmup excluded). While the process tracer
+    (``obs.trace.TRACER``) is enabled the same phases become
+    ``serve.<phase>`` Chrome-trace events; disabled (the default) the
+    submit path reads the clock as it always does and adds no device sync.
 
 Register all scenes, then ``warmup()`` (loads the kernels and warms the
 allocators, outside the latency statistics), then submit requests.
@@ -43,6 +48,7 @@ from repro_torch.core.fields import FieldConfig
 from repro_torch.core.pipeline import RenderSettings
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import TRACER
 from repro_torch.quant.api import is_quantized_field
 
 
@@ -145,6 +151,7 @@ class _Bucket:
         self.params: Dict[str, dict] = {}
         self.stacked = None                  # cached stack of params
         self.fn = None                       # cached tile function
+        self.n_traces = 0                    # tile functions built
 
 
 class RenderEngine:
@@ -152,13 +159,14 @@ class RenderEngine:
     device (CUDA unless the caller names another)."""
 
     def __init__(self, settings: Optional[RenderSettings] = None,
-                 max_inflight: int = 2, device: DeviceLike = None):
+                 max_inflight: int = 2, device: DeviceLike = None,
+                 metrics_registry: Optional[obs_metrics.Registry] = None):
         self.settings = settings or RenderSettings()
         self.device = resolve_device(device)
         self.max_inflight = max(1, max_inflight)
         # per-engine registry: engines in one process must not mix
         # latency histograms
-        self.obs = obs_metrics.Registry()
+        self.obs = metrics_registry or obs_metrics.Registry()
         self._lat_hist = self.obs.histogram("serve.latency_s")
         self._buckets: Dict[BucketKey, _Bucket] = {}
         self._scene_bucket: Dict[str, BucketKey] = {}
@@ -240,6 +248,8 @@ class RenderEngine:
                 rgb, aux = out if with_aux else (out, None)
                 return torch.where(mask[:, None], rgb, 0.0), aux
             bucket.fn = fn
+            bucket.n_traces += 1
+            self.obs.counter("serve.compiles").inc()
         return bucket.fn
 
     def warmup(self) -> float:
@@ -296,7 +306,8 @@ class RenderEngine:
         t_dispatched = time.perf_counter()
         if not _warmup:
             # host-side phase timings only: nothing here waits on the device
-            self._record_phase(bucket.idx, "submit", t_prep0, t0)
+            self._record_phase(bucket.idx, "submit", t_prep0, t0,
+                               scene=req.scene)
             self._record_phase(bucket.idx, "dispatch", t0, t_dispatched)
         ticket = Ticket(self, host_out, event, n, t0, warmup=_warmup,
                         bucket_idx=bucket.idx, host_aux=host_aux)
@@ -336,9 +347,12 @@ class RenderEngine:
         self._t_last = t_done
 
     def _record_phase(self, bucket_idx: int, phase: str,
-                      t0: float, t1: float):
+                      t0: float, t1: float, **span_args):
         self.obs.histogram(
             f"serve.{phase}_s.bucket{bucket_idx}").record(t1 - t0)
+        if TRACER.enabled:
+            TRACER.add_event(f"serve.{phase}", t0, t1, cat="serve",
+                             bucket=bucket_idx, **span_args)
 
     def _record_aux(self, row: np.ndarray):
         self._samples += row
@@ -381,6 +395,8 @@ class RenderEngine:
             "wall_s": wall,
             "pixels": self._pixels,
             "warmup_s": self._warmup_s,
+            "n_traces_total": sum(b.n_traces
+                                  for b in self._buckets.values()),
             "buckets": {
                 f"{k.app}/{k.encoding}/tp{k.tile_pixels}/s{k.n_samples}"
                 f"/{k.dtype}/T{k.cfg.grid.log2_table_size}"

@@ -31,7 +31,20 @@ step, a resumed run replays the uninterrupted one: bit for bit on the CPU.
 On the card ``encode_bwd`` sums with atomics in a varying order, so two
 runs, resumed or not, differ by that rounding.
 
-Not ported yet, and refused: the data-parallel mesh.
+Observability and health, as in the JAX engine: the engine owns a metrics
+``Registry`` (its own, or the caller's ``metrics_registry``); each chunk,
+after its one host read, records a ``train.chunk`` event while the
+process tracer is enabled, a ``train.step_s`` histogram sample and the
+``train.steps`` counter, logs a ``chunk`` row at debug level (``train``
+logger), then beats the ``HeartbeatMonitor``, records the step time with
+the ``StragglerDetector`` (whose per-host histograms are the registry's
+``health.step_s.<host>``) and polls the ``FailurePolicy``, which sets the
+``health.silent_hosts`` gauge. A ``FailureEvent`` is appended to
+``engine.events`` and handed to ``on_event`` (default: logged as a
+``failure_event`` warning).
+
+Not ported yet, and refused: the data-parallel mesh, and with it the
+elastic re-mesh a ``FailureEvent`` would call for.
 """
 from __future__ import annotations
 
@@ -42,8 +55,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.checkpoint import store
+from repro_torch.obs import log as obs_log
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import TRACER
+from repro_torch.runtime.health import (FailurePolicy, HeartbeatMonitor,
+                                        StragglerDetector)
 from repro_torch.train import compression as compression_mod
 from repro_torch.train import optim
+
+_LOG = obs_log.get_logger("train")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +74,8 @@ class EngineConfig:
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 50           # min steps between saves (chunk-end snapped)
     ckpt_keep: int = 3
+    heartbeat_timeout_s: float = 600.0
+    host: Optional[str] = None     # health-hook host label
 
     def __post_init__(self):
         if self.chunk_steps < 1:
@@ -183,11 +205,30 @@ class TrainEngine:
 
     def __init__(self, cfg: EngineConfig, step_fn: Callable, *,
                  batch_fn: Callable,
-                 on_chunk_end: Optional[Callable] = None):
+                 monitor: Optional[HeartbeatMonitor] = None,
+                 detector: Optional[StragglerDetector] = None,
+                 policy: Optional[FailurePolicy] = None,
+                 on_event: Optional[Callable] = None,
+                 on_chunk_end: Optional[Callable] = None,
+                 metrics_registry: Optional[obs_metrics.Registry] = None):
         self.cfg = cfg
         self.step_fn = step_fn
         self.batch_fn = batch_fn
+        # per-engine registry; the default straggler detector keeps its
+        # per-host step-time histograms in it (health.step_s.<host>)
+        self.obs = metrics_registry or obs_metrics.Registry()
+        self.monitor = monitor or HeartbeatMonitor(
+            timeout_s=cfg.heartbeat_timeout_s)
+        self.detector = detector or StragglerDetector(registry=self.obs)
+        self.policy = policy or FailurePolicy(self.monitor, self.detector,
+                                              registry=self.obs)
+        self.on_event = on_event if on_event is not None else (
+            lambda ev: _LOG.warning("failure_event", kind=ev.kind,
+                                    hosts=list(ev.hosts), step=ev.step,
+                                    hint="elastic re-meshing is not ported"))
         self.on_chunk_end = on_chunk_end
+        self.host = cfg.host or f"host{_process_index()}"
+        self.events: List = []
         # the last run's checkpointer (None without ckpt_dir): its
         # ``blocked_s`` holds the seconds each save held the step thread
         self.checkpointer: Optional[store.AsyncCheckpointer] = None
@@ -206,6 +247,7 @@ class TrainEngine:
             if last is not None:
                 state = store.restore(cfg.ckpt_dir, state, step=last)
                 start = last + 1
+                _LOG.info("resumed", step=last, ckpt_dir=str(cfg.ckpt_dir))
         try:
             return self._run(state, start, ckpt, on_metrics)
         finally:
@@ -215,6 +257,8 @@ class TrainEngine:
     def _run(self, state, start, ckpt, on_metrics):
         history: List[Dict[str, float]] = []
         last_saved = start - 1
+        step_hist = self.obs.histogram("train.step_s")
+        steps_ctr = self.obs.counter("train.steps")
         for s0, n in chunk_plan(start, self.cfg.steps, self.cfg.chunk_steps):
             t0 = time.perf_counter()
             rows = []
@@ -229,6 +273,17 @@ class TrainEngine:
             values = torch.stack([torch.stack([r[k].float() for r in rows])
                                   for k in on_device]).cpu().tolist()
             dt = time.perf_counter() - t0
+            # the read above is the chunk's sync point, so the event and
+            # the histogram cover device completion with no wait of their own
+            if TRACER.enabled:
+                TRACER.add_event("train.chunk", t0, t0 + dt, cat="train",
+                                 start=s0, n_steps=n, host=self.host)
+            step_hist.record(dt / n)
+            steps_ctr.inc(n)
+            self.monitor.beat(self.host)
+            self.detector.record(self.host, dt / n)
+            _LOG.debug("chunk", start=s0, n_steps=n,
+                       step_ms=round(dt / n * 1e3, 3))
             for i, metrics in enumerate(rows):
                 row = {k: float(v) for k, v in metrics.items()
                        if k not in on_device}
@@ -246,4 +301,16 @@ class TrainEngine:
                 last_saved = end
             if self.on_chunk_end is not None:
                 self.on_chunk_end(end, state)
+            ev = self.policy.poll(end)
+            if ev is not None:
+                self.events.append(ev)
+                self.on_event(ev)
         return state, history
+
+
+def _process_index() -> int:
+    """This process's rank in the default process group (0 without one):
+    the JAX engine's ``jax.process_index()``."""
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0

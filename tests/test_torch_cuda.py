@@ -924,3 +924,142 @@ def test_resumed_card_run_within_bound(dev, tmp_path):
     for (i, x), (j, y) in zip(r, a[6:]):
         assert i == j and abs(x - y) <= max(4 * noise, 1e-5 * abs(y)), (
             i, x, y, noise)
+
+
+# ------------------------------------- the unfused route, obs, the launcher
+def _enc_field(app, encoding):
+    """Table I's ``app`` x ``encoding`` at 2^14 rows, every level kept."""
+    cfg = fields.make_field_config(app, encoding)
+    return cfg.with_grid(dataclasses.replace(cfg.grid, log2_table_size=14))
+
+
+def _u11_params(cfg, seed):
+    params = fields.init_field(cfg, torch.Generator().manual_seed(seed),
+                               "cpu")
+    rng = np.random.default_rng(seed)
+    params["grid"] = torch.from_numpy(rng.uniform(
+        -1, 1, tuple(params["grid"].shape)).astype(np.float32))
+    return params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int8"])
+@pytest.mark.parametrize("encoding", ["hash", "dense", "tiled"])
+@pytest.mark.parametrize("app", ["nerf", "nvr", "gia", "nsdf"])
+def test_unfused_field_on_card_matches_cpu(dev, app, encoding, quant):
+    """``apply_field(fused=False)`` on the card (``encode_fwd``, then
+    ``mlp_fwd`` per head, no ``field_fwd``) against the CPU's plain
+    versions, and against the fused route on the card, at TOL."""
+    cfg = _enc_field(app, encoding)
+    params = _u11_params(cfg, 5)
+    if quant:
+        spec = QuantSpec(quant)
+        cfg, params = cfg.with_quant(spec), quantize_field(params, spec)
+    rng = np.random.default_rng(6)
+    pts = torch.from_numpy(rng.random((5000, cfg.grid.dim),
+                                      dtype=np.float32))
+    d = torch.from_numpy(rng.normal(size=(5000, 3)).astype(np.float32))
+    d = d / d.norm(dim=-1, keepdim=True) if app == "nerf" else None
+    dp = fields.to_device(params, dev)
+
+    def on_card(fused):
+        return fields.apply_field(dp, cfg, pts.to(dev),
+                                  None if d is None else d.to(dev),
+                                  fused=fused)
+    tkernels.reset_launch_counts()
+    got = on_card(False)
+    torch.cuda.synchronize()
+    counts = tkernels.launch_counts()
+    assert counts["encode_fwd"] == 1 and counts["field_fwd"] == 0 \
+        and counts["field_fwd_q"] == 0
+    assert counts["mlp_fwd"] == (2 if app == "nerf" else 1)
+    ref = fields.apply_field(params, cfg, pts, d, fused=False)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(got.cpu().numpy(), on_card(True).cpu()
+                               .numpy(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["nerf", "gia"])
+def test_unfused_train_steps_on_card_match_cpu(dev, app):
+    """Three steps of ``train_field(fused=False)`` on the card and on the
+    CPU: the losses agree to 1e-4 of their size; the card's run launches
+    ``encode_fwd`` and ``encode_bwd`` once a step, ``mlp_fwd`` once a head
+    and step, and never ``field_fwd``."""
+    cfg = _enc_field(app, "tiled")
+    init = fields.init_field(cfg, torch.Generator().manual_seed(2), "cpu")
+    batches = [ttrain.make_batch(cfg, ttrain.batch_generator(2, i, "cpu"),
+                                 64) for i in range(3)]
+
+    def run(device):
+        return ttrain.train_field(
+            cfg, steps=3, log_every=1, params=init, device=device,
+            fused=False, batch_fn=lambda i: {k: v.to(device) for k, v in
+                                             batches[i].items()})[1]
+    tkernels.reset_launch_counts()
+    got = run(dev)
+    counts = tkernels.launch_counts()
+    for (_, a), (_, b) in zip(got, run("cpu")):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    assert counts["field_fwd"] == 0 and counts["encode_bwd"] == 3
+    assert counts["encode_fwd"] == 3
+    assert counts["mlp_fwd"] == 3 * (2 if app == "nerf" else 1)
+
+
+@pytest.mark.cuda
+def test_profiler_sees_the_phases_on_card(dev):
+    """A served nerf tile under torch.profiler (CPU and CUDA activity):
+    ``encode_mlp``, ``mlp``, ``raymarch`` and ``composite`` ranges, and the
+    kernels' device events beneath them."""
+    from repro_torch.obs.trace import annotate
+    cfg = _enc_field("nerf", "hash")
+    params = fields.to_device(_u11_params(cfg, 7), dev)
+    tile = pipeline.make_tile_fn(cfg, pipeline.RenderSettings(
+        tile_pixels=256, n_samples=8))
+    cam = scenes.orbit_camera(16, 16, 0.0)
+    ids = torch.arange(256, device=dev)
+    tile(params, cam, ids)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tile(params, cam, ids)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    assert {"encode_mlp", "mlp", "raymarch", "composite"} <= names
+    assert any("field_fwd" in n for n in names)
+    assert annotate("x") is annotate("y")
+
+
+@pytest.mark.cuda
+def test_synced_span_waits_for_the_device(dev):
+    """A synced span bound to a card tensor closes after the work queued
+    before it is done; an async one closes without waiting."""
+    from repro_torch.obs.trace import Tracer
+    for sync in (True, False):
+        tr = Tracer()
+        tr.enable(sync=sync)
+        torch.cuda.synchronize()
+        with tr.span("s") as sp:
+            torch.cuda._sleep(50_000_000)       # tens of ms of spinning
+            after = torch.cuda.Event()
+            sp.bind(torch.ones(1, device=dev))
+            after.record()
+        assert after.query() == sync
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoding", ["hash", "dense", "tiled"])
+def test_launcher_serves_on_card(dev, encoding):
+    """``serve_render`` on the card at a tiny size: every request served,
+    one tile function per bucket, the field kernels launched."""
+    from repro_torch.launch.serve import serve_render
+    tkernels.reset_launch_counts()
+    st = serve_render("nvr", encoding, train_steps=2, n_requests=3,
+                      tile_pixels=256, height=16, width=16, device="cuda")
+    counts = tkernels.launch_counts()
+    assert st["n_requests"] == 3 and st["n_traces_total"] == 1
+    assert np.isfinite(st["p50_ms"])
+    for k in ("field_fwd", "encode_fwd", "encode_bwd", "composite_fwd"):
+        assert counts[k] > 0, (k, counts)
