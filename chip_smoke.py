@@ -76,6 +76,15 @@ JSON line:
            time under each; a training run's engine snapshot, validated
            against the checked-in schema, with train.steps, train.step_s,
            health.step_s.host0 and health.silent_hosts
+  serve_shard  the serve phase's scenes and 120 requests through a
+           RenderEngine on a mesh of 4 pixel shards (4 cards where there
+           are 4, else the one card 4 times): field_fwd, mlp_fwd and
+           composite_fwd 4 times a request; p50, p90 and Mpix/s beside the
+           serve phase's; the 32x32 frame within 1e-6 of the unsharded
+           engine's and PARITY_TOL of the CPU render; the gather's device
+           time; one gia f32 Table-I scene on the mesh, each shard on the
+           stack's device reading the stack's own 2 GiB tables (the same
+           data_ptr), its frame within 1e-6 of the unsharded tile's
   serve_occ  the two nerf scenes, each with the analytic volume's 64^3
            occupancy grid, served culled at a quarter of the dense sample
            count (``RenderSettings(occupancy=True, sample_budget=32768)``):
@@ -89,6 +98,11 @@ JSON line:
            equals the dense frame bit for bit; the culled 32x32 frame
            against render_frame on the CPU; the card's grid words equal the
            CPU's built from the same densities
+  serve_shard_occ  serve_occ's culled scenes and requests on the 4-shard
+           mesh, 8,192 of the 32,768 samples a shard: the summed live share
+           and dropped samples beside serve_occ's, the shards' own rows of
+           the first requests; an all-occupied culled frame on the mesh
+           equal bit for bit to serve_shard's dense frame
   serve_quant  scene 0 quantized on the card twice, QuantSpec("int8") and
            QuantSpec("fp8_e4m3", mlp_qtype="int8"), and with its tables cast
            to bf16, one bucket each; 120 requests alternating between them
@@ -153,10 +167,26 @@ JSON line:
            the checkpoint's bytes and the seconds each save blocked; then
            gia's 6 GiB train state saved and restored once when the disk
            has room for it
-  launch   ``python -m repro_torch.launch.serve`` in a child process, three
+  train_dp  nerf data-parallel over the mesh of the sharded phases (4
+           shards: 4 cards where there are 4, else the one card 4 times):
+           the first step's loss and gradients against the unsharded step
+           (TRAIN_PARITY_TOL), 16 steps of ``train_field(mesh=)`` whose
+           loss must fall, ms per step beside the unsharded run's, each
+           training kernel 4 times a step, peak memory
+  elastic  nerf on that mesh, saving every 8 steps: two uninterrupted
+           48-step runs (the noise); a run whose second host (shards 2
+           and 3) stops beating, so the health stack's FailurePolicy emits
+           a FailureEvent at the step-15 chunk end, which stops it;
+           ``remesh_plan(2, 4, 1)`` == (2, 1, 2); ``recover`` onto 2 shards
+           restores the step-15 state bit for bit; it goes on with
+           grad_accum=2 to step 48, every loss within the resume phase's
+           bound of the uninterrupted run's
+  launch   ``python -m repro_torch.launch.serve`` in a child process, four
            times: at its defaults (gia, hash, 2^14 tables, 150 steps, 2
-           scenes, 8 requests), ``--app nerf --occupancy --trace-sync`` and
-           ``--app nsdf --quant int8``, each with ``--trace-out`` and
+           scenes, 8 requests), ``--app nerf --occupancy --trace-sync``,
+           ``--app nsdf --quant int8`` and ``--shard`` (its 1 x 1 local
+           mesh; it must serve as many requests as the defaults), each
+           with ``--trace-out`` and
            ``--metrics-out``: exit code 0, every stdout line one JSON
            object, ``served`` with 8 requests and finite p50 and Mpix/s, one
            tile function per bucket, the snapshot valid against the schema,
@@ -269,6 +299,15 @@ TRACE_P50_SLACK = 0.2
 PHASES = ("encode", "mlp", "encode_mlp", "raymarch", "compact", "composite",
           "host")
 SERVE_PHASES = ("submit", "dispatch", "block", "slice")
+# the sharded phases: the pixel or batch shards of their mesh; the sharded
+# frame against the unsharded one (the JAX engine test's bar: the same
+# kernels on each ray, point and row, whatever the tile's size)
+SHARDS = 4
+SHARD_TOL = 1e-6
+DP_STEPS = 16                # train_field(mesh=) on nerf
+ELASTIC_STEPS = 48           # the elastic phase's uninterrupted runs
+ELASTIC_SAVE = 8             # its checkpoints' interval
+ELASTIC_LOST = 15            # the chunk end where the lost host shows
 
 
 def fail(msg):
@@ -749,6 +788,378 @@ def resume_phase(cfg, gcfg, dev, clone_tree, nerf_init, nerf_batch,
                        "worst_over_bound": worst2,
                        "temp_dirs_of_steps": temp_steps},
             "gia_state": gia, "launches": launches, **gpu}, launches
+
+
+def card_mesh(n=None):
+    """The mesh of the sharded phases: SHARDS shards, over that many
+    cards where there are as many, else the one card repeated (its shards
+    then run one after another on it, as the JAX package's tests run
+    shards on forced host devices)."""
+    import torch
+    from repro_torch.launch.mesh import Mesh, make_local_mesh
+    n = n or SHARDS
+    if torch.cuda.device_count() >= n:
+        return make_local_mesh(n)
+    return Mesh([torch.device("cuda", 0)] * n, ("data",))
+
+
+def mesh_info(mesh):
+    return {"shape": mesh.shape, "devices": [str(d) for d in mesh.devices]}
+
+
+def serve_shard_phase(serve, mesh, settings, cfg, scene_params, reqs,
+                      dense_line, pcam, dense_frame, cpu_frame, gcfg, gia_p,
+                      dev, gpu):
+    """The ``serve_shard`` phase: (its JSON line, the kernels' launches in
+    its stream, its 32x32 frame).
+
+    The serve phase's two nerf scenes and 120 requests through a
+    RenderEngine on ``mesh``: each kernel of the path launches once per
+    shard a request; p50, p90 and Mpix/s beside the unsharded stream's;
+    the 32x32 frame within SHARD_TOL of the unsharded engine's and
+    PARITY_TOL of the CPU render; the gather's device time; then one gia
+    f32 Table-I scene served on the mesh, every shard's replica of its
+    2 GiB tables at the stack's own address where the shard runs on the
+    stack's device (no copy), its frame within SHARD_TOL of the
+    unsharded tile on the card."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import pipeline
+    from repro_torch.launch.mesh import shard_devices
+    from repro_torch.serve import RenderEngine, sharding
+
+    shards = sharding.pixel_shard_count(mesh)
+    engine = RenderEngine(settings, mesh=mesh, device=dev)
+    for s, p in enumerate(scene_params):
+        engine.add_scene(f"scene{s}", cfg, p)
+    _, launches, line = serve(engine, ["scene0", "scene1"], "serve_shard",
+                              reqs=reqs)
+    want = {k: shards * len(reqs) for k in ("field_fwd", "mlp_fwd",
+                                            "composite_fwd")}
+    if any(launches[k] != n for k, n in want.items()):
+        fail(f"serve_shard: launches {launches}, want {want}")
+    frame = engine.render_frame("scene0", pcam)
+    to_dense = float(np.abs(frame - dense_frame).max())
+    to_cpu = float(np.abs(frame - cpu_frame).max())
+    if not np.isfinite(frame).all() or to_dense > SHARD_TOL \
+            or to_cpu > PARITY_TOL:
+        fail(f"serve_shard: the sharded frame differs from the unsharded "
+             f"engine's by {to_dense} (tol {SHARD_TOL}) and from the CPU "
+             f"render by {to_cpu} (tol {PARITY_TOL})")
+    # the gather alone: the shards' pieces of one tile's pixels copied to
+    # the first device and joined in shard order
+    per = settings.tile_pixels // shards
+    pieces = [torch.rand((per, 3), device=d) for d in
+              shard_devices(mesh)]
+    first = mesh.devices[0]
+    gather_ms = device_ms(lambda: torch.cat([p.to(first) for p in pieces]),
+                          reps=20)
+    del engine, pieces
+
+    # gia: one Table-I f32 scene (2 GiB of tables) on the mesh
+    gengine = RenderEngine(settings, mesh=mesh, device=dev)
+    key = gengine.add_scene("gia0", gcfg, gia_p)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    gengine.warmup()
+    stacked = gengine._get_stacked(key)
+    fn = gengine._buckets[key].fn
+    torch.cuda.synchronize()
+    stack_bytes = stacked["grid"].numel() * stacked["grid"].element_size()
+    extra = torch.cuda.memory_allocated(dev) - mem0 - stack_bytes
+    shared = {str(d): fn.replicas[d]["grid"].data_ptr()
+              == stacked["grid"].data_ptr() for d in fn.devices}
+    if any(not shared[str(d)] for d in fn.devices if d == dev):
+        fail(f"serve_shard: a shard on the stack's device reads a copy of "
+             f"gia's tables: {shared}")
+    gframe = gengine.render_frame("gia0", pcam)
+    gref = pipeline.render_frame(gia_p, gcfg, pcam, settings,
+                                 device=dev).cpu().numpy()
+    gerr = float(np.abs(gframe - gref).max())
+    if not np.isfinite(gframe).all() or gerr > SHARD_TOL:
+        fail(f"serve_shard: the sharded gia frame differs from the "
+             f"unsharded tile's by {gerr}")
+    del gengine, stacked, fn
+    line.update(
+        mesh=mesh_info(mesh), shards=shards,
+        launches_per_request={k: launches[k] / len(reqs) for k in want},
+        unsharded={k: dense_line[k] for k in ("p50_ms", "p90_ms",
+                                              "mpix_per_s", "launches")},
+        frame_max_abs_diff_to_unsharded=to_dense, frame_max_abs_err_cpu=to_cpu,
+        tol=SHARD_TOL, parity_tol=PARITY_TOL, gather_ms=gather_ms,
+        gia={"replica_shares_stack": shared,
+             "stack_bytes": stack_bytes,
+             "allocated_beyond_the_stack_bytes": extra,
+             "frame_max_abs_diff_to_unsharded": gerr})
+    return line, launches, frame
+
+
+def serve_shard_occ_phase(serve, mesh, occ_settings, cfg, scene_params,
+                          oreqs, occ_line, shard_frame, p0, grid, pcam, dev,
+                          gpu):
+    """The ``serve_shard_occ`` phase: (its JSON line, the launches in its
+    stream).
+
+    serve_occ's two culled nerf scenes and requests on ``mesh``, each
+    shard with a share of the budget (OCC_BUDGET / shards): the summed
+    live share and dropped samples beside the unsharded stream's, the
+    per-shard rows of the first requests; then an all-occupied grid at
+    the full budget: the culled sharded frame equals the dense sharded
+    frame bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import occupancy as occ_mod
+    from repro_torch.serve import RenderEngine, sharding
+
+    shards = sharding.pixel_shard_count(mesh)
+    engine = RenderEngine(occ_settings, mesh=mesh, device=dev)
+    keys = [engine.add_scene(f"scene{s}", cfg, p)
+            for s, p in enumerate(scene_params)]
+    _, launches, line = serve(engine, ["scene0", "scene1"],
+                              "serve_shard_occ", reqs=oreqs)
+    want = {k: shards * len(oreqs) for k in ("field_fwd", "mlp_fwd",
+                                             "composite_fwd")}
+    if any(launches[k] != n for k, n in want.items()):
+        fail(f"serve_shard_occ: launches {launches}, want {want}")
+    st = engine.stats()
+    # the shards' own rows for the first requests, through the bucket's
+    # sharded tile function
+    fn, stacked = engine._buckets[keys[0]].fn, engine._get_stacked(keys[0])
+    rows = torch.zeros((shards, 3), dtype=torch.float64)
+    for r in oreqs[:PROFILE_REQUESTS]:
+        if r.scene != "scene0":
+            continue
+        ids = torch.from_numpy(np.asarray(r.pixel_ids, np.int64)).to(dev)
+        mask = torch.ones(ids.shape[0], dtype=torch.bool, device=dev)
+        rows += fn(stacked, 0, r.camera, ids, mask, ids.shape[0])[1].cpu()
+    del engine, fn, stacked
+    aengine = RenderEngine(dataclasses.replace(occ_settings,
+                                               sample_budget=None),
+                           mesh=mesh, device=dev)
+    aengine.add_scene("scene0", cfg, occ_mod.attach(
+        p0, occ_mod.all_occupied(OCC_RES, dev)))
+    all_frame = aengine.render_frame("scene0", pcam)
+    if not np.array_equal(all_frame, shard_frame):
+        fail(f"serve_shard_occ: the all-occupied culled frame differs from "
+             f"the dense sharded frame by "
+             f"{float(np.abs(all_frame - shard_frame).max())}")
+    del aengine
+    line.update(
+        mesh=mesh_info(mesh), shards=shards, sample_budget=OCC_BUDGET,
+        shard_budget=occ_settings.tile_budget(
+            occ_settings.tile_pixels // shards),
+        live_sample_frac=st["live_sample_frac"],
+        samples_total=st["samples_total"],
+        samples_dropped=st["samples_dropped"],
+        effective_mpix_per_s=st["effective_mpix_per_s"],
+        launches_per_request={k: launches[k] / len(oreqs) for k in want},
+        shard_rows_scene0_first_requests=rows.tolist(),
+        all_occupied_equals_dense_sharded=True,
+        unsharded={k: occ_line[k] for k in (
+            "p50_ms", "p90_ms", "mpix_per_s", "live_sample_frac",
+            "samples_total", "samples_dropped")})
+    return line, launches
+
+
+def train_dp_phase(mesh, cfg, dev, nerf_init, nerf_batch, nerf_loss,
+                   unsharded_ms, gpu):
+    """The ``train_dp`` phase: (its JSON line, the launches in it).
+
+    nerf at Table-I width, TRAIN_BATCH rays x 32 samples a step, data
+    parallel over ``mesh``: the first step's loss and gradients against
+    the unsharded step's (TRAIN_PARITY_TOL of each leaf's max), then
+    DP_STEPS steps of train_field(mesh=) whose loss must fall, ms per
+    step beside the unsharded run's, launches per step (each kernel of
+    the training path once per shard a step) and the peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import train as ctrain
+    from repro_torch.serve import sharding
+    from repro_torch.train import loop as tloop
+
+    shards = sharding.pixel_shard_count(mesh)
+    init = nerf_init()
+    batch = nerf_batch(0)
+    l1, g1 = tloop.value_and_grad(nerf_loss, init, batch)
+    ln, gn = tloop.data_parallel_grad_fn(nerf_loss, mesh)(init, batch)
+    plain = dict(tree_items(g1))
+    leaves = {path: rel_err(g, plain[path])[1] for path, g in tree_items(gn)}
+    loss_rel = abs(float(ln) - float(l1)) / abs(float(l1))
+    if loss_rel > TRAIN_PARITY_TOL or max(leaves.values()) \
+            > TRAIN_PARITY_TOL or min(float(v.abs().max())
+                                      for v in plain.values()) <= 0:
+        fail(f"train_dp: the sharded first step differs from the unsharded "
+             f"one: loss {loss_rel}, leaves {leaves}")
+    del g1, gn, plain, batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem_before = torch.cuda.memory_allocated(dev)
+    rows = []
+    K.reset_launch_counts()       # the DP path's run alone from here
+    ctrain.train_field(cfg, steps=DP_STEPS, batch_size=TRAIN_BATCH,
+                       seed=SEED, chunk_steps=TRAIN_CHUNK,
+                       gt_samples=GT_SAMPLES, device=dev, mesh=mesh,
+                       params=init, on_metrics=lambda i, r, st: rows.append(r))
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    per_step = {k: launches[k] / DP_STEPS for k in launches}
+    losses = [r["loss"] for r in rows]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train_dp: the loss did not fall: {losses}")
+    path = ("field_fwd", "mlp_fwd", "encode_fwd", "encode_bwd")
+    if any(per_step[k] != shards for k in path) \
+            or per_step["composite_fwd"] != 0:
+        fail(f"train_dp: {path} must launch {shards} times a step and "
+             f"composite_fwd never: {per_step}")
+    line = {"phase": "train_dp", "config": cfg.name, "mesh": mesh_info(mesh),
+            "shards": shards, "batch": TRAIN_BATCH,
+            "rays_per_shard": TRAIN_BATCH // shards, "steps": DP_STEPS,
+            "first_step": {"loss_rel_err": loss_rel, "leaves": leaves,
+                           "tol": TRAIN_PARITY_TOL},
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "ms_per_step": 1e3 * float(np.mean(
+                [r["dt"] for r in rows[TRAIN_CHUNK:]])),
+            "ms_per_step_unsharded": unsharded_ms,
+            "launches_per_step": per_step,
+            "mem_before_bytes": mem_before,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev), **gpu}
+    del init
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+class _HostLost(Exception):
+    """Raised by the elastic phase's failure handler to stop the run."""
+
+
+def elastic_phase(mesh, cfg, dev, nerf_init, nerf_batch, nerf_loss, gpu):
+    """The ``elastic`` phase: (its JSON line, the launches in it).
+
+    nerf on ``mesh`` (4 shards, two hosts of two), checkpoints every
+    ELASTIC_SAVE steps: two uninterrupted ELASTIC_STEPS runs give the
+    card's run-to-run noise; in a third run the second host beats at the
+    first chunk end only, so at the step-ELASTIC_LOST chunk end the
+    health stack's FailurePolicy emits a FailureEvent, which stops it; remesh_plan(2, 4, 1) must be (2, 1, 2);
+    ``recover`` restores the newest checkpoint onto the 2-shard mesh, bit
+    for bit the saved state, and the run goes on with grad_accum=2 (the
+    same global batch) to ELASTIC_STEPS, every resumed loss within the
+    resume phase's bound of the first uninterrupted run's."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.checkpoint import store as ckpt_store
+    from repro_torch.core import train as ctrain
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime.health import HeartbeatMonitor
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import optim as toptim
+
+    root = os.path.join(ROOT, "build", "chip_smoke_elastic")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    opt = toptim.AdamConfig(lr=1e-2)      # train_field's
+    K.reset_launch_counts()
+
+    def losses():
+        rows = []
+        ctrain.train_field(cfg, steps=ELASTIC_STEPS, batch_size=TRAIN_BATCH,
+                           seed=SEED, chunk_steps=TRAIN_CHUNK,
+                           gt_samples=GT_SAMPLES, device=dev, mesh=mesh,
+                           on_metrics=lambda i, r, st: rows.append(r["loss"]))
+        return rows
+    a, b = losses(), losses()
+    noise = max(abs(x - y) for x, y in zip(a, b))
+
+    clock = [0.0]
+    mon = HeartbeatMonitor(timeout_s=5.0, clock=lambda: clock[0])
+
+    def beat(end, state):        # host0 drives the engine; host1 goes quiet
+        clock[0] += 10.0
+        mon.beat("host0")
+        if end < ELASTIC_LOST:
+            mon.beat("host1")
+    events, saved = [], {}
+
+    def lost(ev):
+        events.append(ev)
+        raise _HostLost
+
+    def grab(i, row, state):
+        if i == ELASTIC_LOST:
+            saved.update({k: (v.clone() if torch.is_tensor(v) else v)
+                          for k, v in ckpt_store._flatten(state)})
+    d = os.path.join(root, "ckpt")
+    engine = tloop.TrainEngine(
+        tloop.EngineConfig(steps=ELASTIC_STEPS, chunk_steps=TRAIN_CHUNK,
+                           ckpt_dir=d, ckpt_every=ELASTIC_SAVE,
+                           host="host0"),
+        tloop.make_scanned_step(nerf_loss, opt, mesh=mesh),
+        batch_fn=nerf_batch, monitor=mon, on_chunk_end=beat, on_event=lost)
+    try:
+        engine.run(tloop.init_train_state(nerf_init()), on_metrics=grab)
+        fail("elastic: the run ended without a FailureEvent")
+    except _HostLost:
+        pass
+    ev = events[0] if events else None
+    if ev is None or (ev.kind, ev.hosts, ev.step) != (
+            "dead", ("host1",), ELASTIC_LOST) \
+            or ckpt_store.latest_step(d) != ELASTIC_LOST:
+        fail(f"elastic: events {events}, latest checkpoint "
+             f"{ckpt_store.latest_step(d)}")
+    plan = elastic.remesh_plan(2, 4, 1)
+    if (plan.data, plan.model, plan.microbatch_multiplier) != (2, 1, 2):
+        fail(f"elastic: remesh_plan(2, 4, 1) gave {plan}")
+    t0 = time.perf_counter()
+    mesh2, step_fn, state, step = elastic.recover(
+        d, tloop.init_train_state(nerf_init()), plan,
+        devices=mesh.devices,
+        make_step=lambda m, rules: tloop.make_scanned_step(
+            nerf_loss, opt, grad_accum=plan.microbatch_multiplier, mesh=m,
+            rules=rules))
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    restored = dict(ckpt_store._flatten(state))
+    if step != ELASTIC_LOST or restored.keys() != saved.keys() or not all(
+            torch.equal(restored[k], v) if torch.is_tensor(v)
+            else restored[k] == v for k, v in saved.items()):
+        fail("elastic: the recovered state is not the saved one bit for bit")
+    del saved, restored
+    resumed = []
+    tloop.TrainEngine(
+        tloop.EngineConfig(steps=ELASTIC_STEPS, chunk_steps=TRAIN_CHUNK,
+                           ckpt_dir=d, ckpt_every=ELASTIC_SAVE),
+        step_fn, batch_fn=nerf_batch).run(
+        state, on_metrics=lambda i, r, st: resumed.append((i, r["loss"])))
+    if [i for i, _ in resumed] != list(range(ELASTIC_LOST + 1,
+                                             ELASTIC_STEPS)):
+        fail(f"elastic: the recovered run ran steps "
+             f"{[i for i, _ in resumed]}")
+    worst = 0.0
+    for i, x in resumed:
+        bound = max(RESUME_NOISE_FACTOR * noise, RESUME_FLOOR * abs(a[i]))
+        worst = max(worst, abs(x - a[i]) / bound)
+        if abs(x - a[i]) > bound:
+            fail(f"elastic: step {i} loss {x} vs uninterrupted {a[i]}: "
+                 f"over the bound {bound}")
+    launches = K.launch_counts()
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"phase": "elastic", "config": cfg.name,
+            "mesh": mesh_info(mesh), "recovered_mesh": mesh_info(mesh2),
+            "steps": ELASTIC_STEPS, "save_every": ELASTIC_SAVE,
+            "event": {"kind": ev.kind, "hosts": list(ev.hosts),
+                      "step": ev.step},
+            "plan": {"data": plan.data, "model": plan.model,
+                     "microbatch_multiplier": plan.microbatch_multiplier},
+            "recovered_step": step, "recover_s": recover_s,
+            "restored_equal": True, "noise_max": noise,
+            "bound": {"noise_factor": RESUME_NOISE_FACTOR,
+                      "floor": RESUME_FLOOR},
+            "worst_over_bound": worst, "resumed_from": ELASTIC_LOST + 1,
+            "launches": launches, **gpu}, launches
 
 
 def main():
@@ -1304,6 +1715,7 @@ def main():
     cpu_params = fields.from_jax_params(np_params(cfg, SEED), cfg, "cpu")
     ref = pipeline.render_frame(cpu_params, cfg, pcam, settings,
                                 device="cpu").numpy()
+    cpu_frame = ref
     perr = float(np.abs(dense_frame - ref).max())
     if not np.isfinite(dense_frame).all() or perr > PARITY_TOL:
         fail(f"parity: engine vs CPU render_frame max abs error {perr}")
@@ -1424,6 +1836,23 @@ def main():
     if abs(statistics.median(p50s["on"]) - off_med) > bound:
         fail(f"trace: p50 with the tracer on {p50s['on']} is not within "
              f"{bound} ms of off {p50s['off']}")
+    # the tracer's host time where the engine calls it: add_event timed in
+    # one more window with the tracer on (its 4 events a request)
+    spent, real_add = [0.0], ttrace.TRACER.add_event
+
+    def timed_add(*args, **kwargs):
+        t_add = time.perf_counter()
+        real_add(*args, **kwargs)
+        spent[0] += time.perf_counter() - t_add
+    ttrace.TRACER.add_event = timed_add      # shadows the method
+    ttrace.TRACER.enable()
+    try:
+        run_window()
+    finally:
+        ttrace.TRACER.disable()
+        del ttrace.TRACER.add_event
+        ttrace.TRACER.clear()
+    in_situ_ms = 1e3 * spent[0] / len(window)
     if ttrace.annotate("a") is not ttrace.annotate("b"):
         fail("trace: annotate is not the shared null context without a "
              "profiler")
@@ -1474,6 +1903,7 @@ def main():
           "tracer_add_event_us": add_event_us,
           "tracer_host_ms_per_request": len(SERVE_PHASES) * add_event_us
           / 1e3,
+          "tracer_in_engine_ms_per_request": in_situ_ms,
           "profiler_phases": {k: {m: v if v > 0 or m == "ranges"
                                   else "not measured"
                                   for m, v in row.items()}
@@ -1483,6 +1913,17 @@ def main():
                              "histograms": sorted(snap["histograms"])},
           **gpu})
     del engine
+
+    # ------------------------------------------------------ serve_shard
+    # The serve phase's scenes and requests split over SHARDS pixel shards
+    # (serve/sharding.py), then one gia scene on the same mesh.
+    mesh = card_mesh()
+    line, sh_launches, shard_frame = serve_shard_phase(
+        serve, mesh, settings, cfg,
+        [fields.from_jax_params(np_params(cfg, SEED + s_), cfg, dev)
+         for s_ in range(2)], reqs, dense_line, pcam, dense_frame, cpu_frame,
+        gcfg, gia_params[0], dev, gpu)
+    emit(line)
 
     # -------------------------------------------------------- serve_occ
     # The same two Table-I scenes, each with the analytic volume's 64^3
@@ -1519,6 +1960,7 @@ def main():
         dense={k: dense_line[k] for k in ("p50_ms", "p90_ms", "mpix_per_s",
                                           "launches")})
     emit(line)
+    occ_line = line
 
     # ------------------------------------------------------ profile_occ
     # One CUDA-only trace of 20 culled requests, and the culled branch's
@@ -1581,7 +2023,16 @@ def main():
           "tol": PARITY_TOL, "bits_equal_cpu": True,
           "max_abs_diff_to_dense": float(np.abs(occ_frame - dense_frame)
                                          .max()), **gpu})
-    del oengine, cpu_grid
+
+    # -------------------------------------------------- serve_shard_occ
+    line, sho_launches = serve_shard_occ_phase(
+        serve, mesh, occ_settings, cfg,
+        [occ_mod.attach(fields.from_jax_params(np_params(cfg, SEED + s_), cfg,
+                                               dev), grid)
+         for s_ in range(2)], oreqs, occ_line, shard_frame, p0, grid, pcam,
+        dev, gpu)
+    emit(line)
+    del oengine, cpu_grid, shard_frame
 
     # ------------------------------------------------------ serve_quant
     # Scene 0 quantized on the card two ways, and with its tables cast to
@@ -2061,6 +2512,16 @@ def main():
         cfg, gcfg, dev, clone_tree, nerf_init, nerf_batch, nerf_loss, gpu)
     emit(resume_line)
 
+    # --------------------------------------------------------- train_dp
+    line, dp_launches = train_dp_phase(mesh, cfg, dev, nerf_init, nerf_batch,
+                                       nerf_loss, train_ms["nerf"], gpu)
+    emit(line)
+
+    # ---------------------------------------------------------- elastic
+    line, el_launches = elastic_phase(mesh, cfg, dev, nerf_init, nerf_batch,
+                                      nerf_loss, gpu)
+    emit(line)
+
     # ----------------------------------------------------------- launch
     # The launcher as a user starts it, ``python -m
     # repro_torch.launch.serve``, in a child process three times: at its
@@ -2074,7 +2535,8 @@ def main():
     launch_runs = {"defaults": [],
                    "nerf_occupancy": ["--app", "nerf", "--occupancy",
                                       "--trace-sync"],
-                   "nsdf_int8": ["--app", "nsdf", "--quant", "int8"]}
+                   "nsdf_int8": ["--app", "nsdf", "--quant", "int8"],
+                   "defaults_shard": ["--shard"]}
     launch_launches = dict.fromkeys(K.launch_counts(), 0)
     launch_rows = {}
     for name, flags in launch_runs.items():
@@ -2135,7 +2597,8 @@ def main():
             launch_launches[k] += n
         trained = [r for r in recs if r["event"] == "scene_trained"]
         launch_rows[name] = {
-            "argv": flags, "wall_s": wall_s, "p50_ms": served["p50_ms"],
+            "argv": flags, "wall_s": wall_s,
+            "requests": served["n_requests"], "p50_ms": served["p50_ms"],
             "p99_ms": served["p99_ms"], "mpix_per_s": served["mpix_per_s"],
             "compiles": served["compiles"], "buckets": len(buckets),
             "events": [r["event"] for r in recs],
@@ -2143,6 +2606,10 @@ def main():
                 trained[0]["loss_first"], trained[0]["loss_last"]],
             "launches": counts}
     shutil.rmtree(launch_dir, ignore_errors=True)
+    if launch_rows["defaults_shard"]["requests"] \
+            != launch_rows["defaults"]["requests"]:
+        fail(f"launch: --shard served {launch_rows['defaults_shard']} "
+             f"requests, the defaults {launch_rows['defaults']}")
     if min(launch_launches[k] for k in ("field_fwd", "field_fwd_q",
                                         "encode_fwd", "encode_bwd",
                                         "mlp_fwd", "composite_fwd")) <= 0:
@@ -2221,7 +2688,9 @@ def main():
              "unfused": unfused_launches, "train": train_launches,
              "serve_occ": olaunches, "train_runtime": runtime_launches,
              "resume": resume_launches, "unfused_serve": ulaunches,
-             "launch": launch_launches, "launch_apps": apps_launches}
+             "launch": launch_launches, "launch_apps": apps_launches,
+             "serve_shard": sh_launches, "serve_shard_occ": sho_launches,
+             "train_dp": dp_launches, "elastic": el_launches}
     report = {
         "field_fwd": ("src/repro_torch/csrc/field.cu",
                       "src/repro/kernels/fused_field/fused_field.py:111",

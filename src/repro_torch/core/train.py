@@ -98,11 +98,23 @@ def make_batch(cfg: FieldConfig, gen: torch.Generator, batch_size: int,
     return {"origins": origins, "dirs": dirs, "target": target}
 
 
-def _start(cfg: FieldConfig, seed: int, params, device: DeviceLike,
+def _device(device: DeviceLike, mesh) -> torch.device:
+    """Where a run's params and batches live: ``device`` (CUDA unless
+    named), or with a mesh its first device, which ``device`` must then be
+    if given."""
+    if mesh is None:
+        return resolve_device(device)
+    first = mesh.devices[0]
+    if device is not None and resolve_device(device) != first:
+        raise ValueError(f"device {device} is not the mesh's first device "
+                         f"{first}")
+    return first
+
+
+def _start(cfg: FieldConfig, seed: int, params, dev: torch.device,
            batch_size: int, gt_samples: int,
            batch_fn: Optional[Callable]):
     """(initial params on the device, the step's batch function)."""
-    dev = resolve_device(device)
     if params is None:
         params = fields.init_field(cfg, torch.Generator().manual_seed(seed),
                                    device=dev)
@@ -125,7 +137,8 @@ def train_field(cfg: FieldConfig, steps: int = 200, batch_size: int = 2048,
                 ckpt_dir=None, ckpt_every: int = 50,
                 compression: Optional[str] = None,
                 compression_topk: float = 0.05,
-                mesh=None, on_metrics: Optional[Callable] = None,
+                mesh=None, rules=None,
+                on_metrics: Optional[Callable] = None,
                 n_samples: Optional[int] = None, gt_samples: int = 64,
                 occupancy_res: Optional[int] = None,
                 occupancy_every: int = 1,
@@ -151,8 +164,13 @@ def train_field(cfg: FieldConfig, steps: int = 200, batch_size: int = 2048,
     ``compression`` ("topk" at ``compression_topk``, or "int8", on the
     table gradient) and ``ckpt_dir`` (resume from its newest checkpoint,
     save every ``ckpt_every`` steps at chunk ends and at the last step)
-    are the engine's. A data-parallel ``mesh`` is not ported yet and
-    raises.
+    are the engine's, and so is ``mesh`` (with ``rules``): each step's
+    batch splits over the mesh's ``field_batch`` shards, each shard's
+    gradient runs on its device, and their mean updates the params
+    (``train/loop.data_parallel_grad_fn``). With a mesh the params and
+    batches live on its first device (``device``, if given, must be it),
+    and the batches follow the RNG contract unchanged, so a data-parallel
+    run sees the unsharded run's global batches.
 
     ``occupancy_res`` (nerf, nvr) keeps an occupancy grid off the
     engine's chunk ends, as the JAX package does: built at the first chunk
@@ -167,11 +185,11 @@ def train_field(cfg: FieldConfig, steps: int = 200, batch_size: int = 2048,
     step_fn = loop.make_scanned_step(
         lambda p, b: field_loss(p, cfg, b, n_samples=n_samples, fused=fused),
         opt_cfg, grad_accum=grad_accum, compression=compression,
-        compression_topk=compression_topk, mesh=mesh)
+        compression_topk=compression_topk, mesh=mesh, rules=rules)
     ecfg = loop.EngineConfig(steps=steps, chunk_steps=chunk_steps,
                              ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
-    params, batch_fn = _start(cfg, seed, params, device, batch_size,
-                              gt_samples, batch_fn)
+    params, batch_fn = _start(cfg, seed, params, _device(device, mesh),
+                              batch_size, gt_samples, batch_fn)
     occ_box = {"occ": None, "chunks": 0}
 
     def refresh_occupancy(end, st):
@@ -219,8 +237,8 @@ def train_field_reference(cfg: FieldConfig, steps: int = 200,
     """The per-step loop without the engine, its parity oracle: one host
     read of the loss per logged step, the same RNG contract, so the loss
     histories agree."""
-    params, batch_fn = _start(cfg, seed, params, device, batch_size,
-                              gt_samples, batch_fn)
+    params, batch_fn = _start(cfg, seed, params, resolve_device(device),
+                              batch_size, gt_samples, batch_fn)
     opt_state = optim.adam_init(params)
     step_fn = make_field_train_step(cfg, opt_cfg, n_samples=n_samples,
                                     fused=fused)

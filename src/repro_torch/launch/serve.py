@@ -18,9 +18,14 @@ the same keys (JSON lines, ``obs/log.py``). It differs in four places:
     14 (default) is the JAX launcher's laptop table, ``None`` keeps the
     Table-I size.
   * No ``--use-pallas``: there is no XLA route to choose against.
-  * ``--shard`` and ``--mode lm`` raise ``NotImplementedError`` (the
-    pixel-parallel split and the LM stack are not ported yet); ``--arch``
-    and ``--reduced`` stay, so that the flag sets match.
+  * ``--mode lm`` raises ``NotImplementedError`` (the LM stack is not
+    ported yet); ``--arch`` and ``--reduced`` stay, so that the flag sets
+    match.
+
+``--shard`` serves through a mesh of the visible devices
+(``launch.mesh.make_local_mesh()``, 1 x 1 as in the JAX launcher: the
+pixel-parallel split of ``serve/sharding.py`` with one shard), which
+starts at the ``--device`` card, so that it holds the engine's device.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.obs import log as obs_log
 from repro_torch.obs.trace import TRACER
 
@@ -71,10 +77,6 @@ def serve_render(app: str = "gia", encoding: str = "hash",
     if occupancy and app not in ("nerf", "nvr"):
         raise ValueError(f"--occupancy needs a ray-marched app (nerf/nvr),"
                          f" got {app!r}")
-    if shard:
-        raise NotImplementedError(
-            "--shard (the pixel-parallel split over devices) is not ported "
-            "to repro_torch yet (ROADMAP A11)")
     dev = resolve_device(device)
     cfg = fields.make_field_config(app, encoding)
     if log2_table_size is not None:
@@ -88,7 +90,8 @@ def serve_render(app: str = "gia", encoding: str = "hash",
     settings = pipeline.RenderSettings(tile_pixels=tile_pixels,
                                        occupancy=occupancy,
                                        sample_budget=sample_budget)
-    engine = RenderEngine(settings, device=dev)
+    mesh = make_local_mesh(device=dev) if shard else None
+    engine = RenderEngine(settings, mesh=mesh, device=dev)
     for s in range(n_scenes):
         _LOG.info("train_scene", scene=s, config=cfg.name,
                   steps=train_steps)
@@ -170,8 +173,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--scenes", type=int, default=2)
     ap.add_argument("--cameras", type=int, default=3)
     ap.add_argument("--shard", action="store_true",
-                    help="pixel-parallel split over devices (not ported: "
-                         "raises)")
+                    help="pixel-parallel split over the local devices' mesh")
     ap.add_argument("--occupancy", action="store_true",
                     help="occupancy-culled sampling (ray apps)")
     ap.add_argument("--sample-budget", type=int, default=None,

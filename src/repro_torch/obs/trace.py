@@ -39,6 +39,10 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 _NULL_CONTEXT = contextlib.nullcontext()
+# the process id each event carries, read once (and again in a forked
+# child): os.getpid() is a system call on every event otherwise
+_PID = [os.getpid()]
+os.register_at_fork(after_in_child=lambda: _PID.__setitem__(0, os.getpid()))
 
 
 def annotate(name: str):
@@ -157,7 +161,7 @@ class Tracer:
         self.sync = False
         self.max_events = max_events
         self.dropped = 0
-        self._events: List[Dict] = []
+        self._events: List[tuple] = []
         self._epoch = time.perf_counter()
         self._lock = threading.Lock()
         self._local = threading.local()
@@ -195,26 +199,28 @@ class Tracer:
                   cat: str = "host", **args):
         """Record a complete event from explicit ``perf_counter`` stamps
         (the hot-path API: callers time with their own counters and only
-        call this when ``enabled``)."""
+        call this when ``enabled``). It keeps the raw stamps in a tuple;
+        ``events()`` builds the Chrome-trace records."""
         if not self.enabled:
             return
         with self._lock:
             if len(self._events) >= self.max_events:
                 self.dropped += 1
                 return
-            self._events.append({
-                "name": name, "cat": cat, "ph": "X",
-                "ts": (t0 - self._epoch) * 1e6,
-                "dur": max(0.0, (t1 - t0) * 1e6),
-                "pid": os.getpid(),
-                "tid": threading.get_ident() % (1 << 31),
-                "args": args,
-            })
+            self._events.append((name, cat, t0, t1, _PID[0],
+                                 threading.get_ident(), args))
 
     # ------------------------------------------------------------- export
     def events(self) -> List[Dict]:
+        """The recorded events as Chrome-trace "X" records, ``ts`` from
+        the epoch of the last ``clear()``."""
         with self._lock:
-            return list(self._events)
+            raw, epoch = list(self._events), self._epoch
+        return [{"name": name, "cat": cat, "ph": "X",
+                 "ts": (t0 - epoch) * 1e6,
+                 "dur": max(0.0, (t1 - t0) * 1e6),
+                 "pid": pid, "tid": tid % (1 << 31), "args": args}
+                for name, cat, t0, t1, pid, tid, args in raw]
 
     def export(self, path) -> Dict:
         """Write Chrome-trace JSON; returns the trace object."""

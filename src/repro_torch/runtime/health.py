@@ -1,8 +1,8 @@
 """Fleet-health machinery: heartbeats, straggler detection, failure policy.
 
 A copy of the JAX package's ``runtime/health.py`` (which is
-framework-free), so that the port imports nothing of that package; the
-re-mesh it hands off to (``runtime/elastic.py``) is not ported yet.
+framework-free), so that the port imports nothing of that package; a
+``FailureEvent`` hands off to the re-mesh of ``runtime/elastic.py``.
 
 On a real fleet these hooks attach to the cluster scheduler; here they are
 unit-tested against simulated clocks and step times, beside the JAX

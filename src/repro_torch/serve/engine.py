@@ -1,4 +1,4 @@
-"""RenderEngine: batched multi-scene serving on one device.
+"""RenderEngine: batched multi-scene serving on one device or a mesh.
 
   * **Shape buckets.** Requests are grouped by ``(app, encoding,
     tile_pixels, n_samples, dtype, cfg, occupancy, sample_budget)``; scenes
@@ -29,6 +29,13 @@
     (``obs.trace.TRACER``) is enabled the same phases become
     ``serve.<phase>`` Chrome-trace events; disabled (the default) the
     submit path reads the clock as it always does and adds no device sync.
+  * **Pixel-parallel sharding.** With ``mesh`` (a
+    ``launch.mesh.Mesh`` that holds the engine's device) each tile splits
+    over the mesh's ``field_batch`` shards (``serve/sharding.py``): every
+    shard renders its piece on its device from a replica of the stack,
+    and the pixels come together on the mesh's first device, where the
+    request's event is recorded, so ``Ticket.result`` waits for every
+    shard. ``stats()`` sums the shards' sample rows.
 
 Register all scenes, then ``warmup()`` (loads the kernels and warms the
 allocators, outside the latency statistics), then submit requests.
@@ -50,6 +57,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import TRACER
 from repro_torch.quant.api import is_quantized_field
+from repro_torch.serve import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +115,7 @@ class Ticket:
                  host_aux: Optional[torch.Tensor] = None):
         self._engine = engine
         self._host_out = host_out          # filled once `event` completes
-        self._host_aux = host_aux          # (1, 3) sample counts, likewise
+        self._host_aux = host_aux          # (shards, 3) sample rows, likewise
         self._event = event                # None on the CPU: already done
         self._n = n_valid
         self._t_submit = t_submit
@@ -136,7 +144,8 @@ class Ticket:
                 self._engine._record_phase(self._bidx, "slice",
                                            t_done, t_slice)
                 if self._host_aux is not None:
-                    self._engine._record_aux(self._host_aux.numpy()[0])
+                    self._engine._record_aux(self._host_aux.numpy().astype(
+                        np.float64).sum(axis=0))
             self._res = res
             self._done = True
         return self._res
@@ -151,19 +160,35 @@ class _Bucket:
         self.params: Dict[str, dict] = {}
         self.stacked = None                  # cached stack of params
         self.fn = None                       # cached tile function
+        self.with_aux = False                # fn returns (rgb, sample rows)
         self.n_traces = 0                    # tile functions built
 
 
 class RenderEngine:
     """Shape-bucketed, multi-scene, asynchronous render server on one
-    device (CUDA unless the caller names another)."""
+    device (CUDA unless the caller names another), its tiles split over
+    ``mesh``'s pixel shards when one is given (``rules``: the partitioning
+    rules; default ``common.partitioning.DEFAULT_RULES``)."""
 
     def __init__(self, settings: Optional[RenderSettings] = None,
-                 max_inflight: int = 2, device: DeviceLike = None,
+                 mesh=None, rules=None, max_inflight: int = 2,
+                 device: DeviceLike = None,
                  metrics_registry: Optional[obs_metrics.Registry] = None):
         self.settings = settings or RenderSettings()
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = rules
         self.max_inflight = max(1, max_inflight)
+        if mesh is not None:
+            if self.device not in mesh.devices:
+                raise ValueError(f"the engine's device {self.device} is not "
+                                 f"in the mesh {mesh}")
+            shards = sharding.pixel_shard_count(mesh, rules)
+            if self.settings.tile_pixels % shards != 0:
+                raise ValueError(
+                    f"tile_pixels={self.settings.tile_pixels} not divisible"
+                    f" by the mesh's {shards} pixel shards")
+            sharding.check_sample_budget(self.settings, shards)
         # per-engine registry: engines in one process must not mix
         # latency histograms
         self.obs = metrics_registry or obs_metrics.Registry()
@@ -243,11 +268,17 @@ class RenderEngine:
             mtile = pipeline.make_multi_scene_tile_fn(
                 bucket.cfg, self.settings, with_aux=with_aux)
 
-            def fn(stacked, scene_id, cam, pixel_ids, mask, n_valid):
+            def fn(stacked, scene_id, cam, pixel_ids, mask, n_valid=None):
                 out = mtile(stacked, scene_id, cam, pixel_ids, n_valid)
-                rgb, aux = out if with_aux else (out, None)
-                return torch.where(mask[:, None], rgb, 0.0), aux
-            bucket.fn = fn
+                if with_aux:
+                    rgb, aux = out
+                    return torch.where(mask[:, None], rgb, 0.0), aux
+                return torch.where(mask[:, None], out, 0.0)
+
+            if self.mesh is not None:
+                fn = sharding.shard_tile_fn(fn, self.mesh, self.rules,
+                                            with_aux=with_aux)
+            bucket.fn, bucket.with_aux = fn, with_aux
             bucket.n_traces += 1
             self.obs.counter("serve.compiles").inc()
         return bucket.fn
@@ -294,13 +325,15 @@ class RenderEngine:
             self._t_first = t0
         ids_dev = padded.to(self.device, non_blocking=True)
         mask = torch.arange(tp, device=self.device) < n
-        rgb, aux = fn(stacked, sid, req.camera, ids_dev, mask, n)
+        out = fn(stacked, sid, req.camera, ids_dev, mask, n)
+        rgb, aux = out if bucket.with_aux else (out, None)
         event = None
         if cuda:
             host_out = _pinned_copy(rgb)
             host_aux = None if aux is None else _pinned_copy(aux)
+            # on the device the shards' pixels came together on
             event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+            event.record(torch.cuda.current_stream(rgb.device))
         else:
             host_out, host_aux = rgb, aux
         t_dispatched = time.perf_counter()

@@ -43,8 +43,15 @@ the ``StragglerDetector`` (whose per-host histograms are the registry's
 ``engine.events`` and handed to ``on_event`` (default: logged as a
 ``failure_event`` warning).
 
-Not ported yet, and refused: the data-parallel mesh, and with it the
-elastic re-mesh a ``FailureEvent`` would call for.
+Data parallelism, as in the JAX engine: ``make_scanned_step(mesh=)``
+takes its loss and gradients from :func:`data_parallel_grad_fn`, which
+splits every batch leaf over the mesh axes the rules bind to
+``field_batch``, runs each shard's loss and gradients on its device from
+the same params and averages them on the params' device (the JAX
+package's ``pmean``); with ``grad_accum`` each micro-batch is split so,
+and compression runs after the average. After a ``FailureEvent``,
+``runtime/elastic.py`` plans the smaller mesh, restores the newest
+checkpoint onto it and rebuilds the step.
 """
 from __future__ import annotations
 
@@ -55,6 +62,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.checkpoint import store
+from repro_torch.common import partitioning
+from repro_torch.launch.mesh import replicate, shard_devices, shard_rows
 from repro_torch.obs import log as obs_log
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import TRACER
@@ -118,10 +127,17 @@ class _CompressionKnobs:
 
 
 def accumulated_value_and_grad(loss_fn: Callable, params, batch,
-                               grad_accum: int) -> Tuple[torch.Tensor, Dict]:
+                               grad_accum: int,
+                               grad_fn: Optional[Callable] = None
+                               ) -> Tuple[torch.Tensor, Dict]:
     """(loss, grads) averaged over ``grad_accum`` equal micro-batches, each
     batch leaf split along axis 0: summed in micro-batch order, then
-    divided by ``grad_accum``, as the JAX package's scan does."""
+    divided by ``grad_accum``, as the JAX package's scan does. Each
+    micro-batch goes through ``grad_fn(params, micro_batch)`` (default:
+    :func:`value_and_grad` of ``loss_fn``)."""
+    if grad_fn is None:
+        def grad_fn(p, b):
+            return value_and_grad(loss_fn, p, b)
     sizes = {k: v.shape[0] for k, v in batch.items()}
     if any(n % grad_accum for n in sizes.values()):
         raise ValueError(f"grad_accum={grad_accum} does not divide the "
@@ -129,8 +145,7 @@ def accumulated_value_and_grad(loss_fn: Callable, params, batch,
     parts = {k: v.chunk(grad_accum) for k, v in batch.items()}
     loss = grads = None
     for i in range(grad_accum):
-        l_i, g_i = value_and_grad(loss_fn, params,
-                                  {k: p[i] for k, p in parts.items()})
+        l_i, g_i = grad_fn(params, {k: p[i] for k, p in parts.items()})
         if grads is None:
             loss, grads = l_i, g_i
         else:
@@ -142,23 +157,67 @@ def accumulated_value_and_grad(loss_fn: Callable, params, batch,
     return loss / k, optim.tree_map(lambda g: g / k, grads)
 
 
+def data_parallel_grad_fn(loss_fn: Callable, mesh=None,
+                          rules: Optional[partitioning.LogicalRules] = None,
+                          batch_axis: str = "field_batch") -> Callable:
+    """``(params, batch) -> (loss, grads)``, data-parallel over ``mesh``.
+
+    Every batch leaf splits along axis 0 into equal contiguous pieces, one
+    per shard of the mesh axes that ``rules`` bind to ``batch_axis``, in
+    shard order (``launch.mesh.shard_devices``); the params replicate
+    (the same tensors on their own device, copies elsewhere). Each shard's
+    loss and gradients are its piece's mean; the result is their mean over
+    the shards (summed in shard order, divided by a device scalar, as the
+    micro-batches of :func:`accumulated_value_and_grad` are), which equals
+    the unsharded global-batch gradient for equal shards, on the params'
+    device. Without a mesh, or with one shard, it is
+    :func:`value_and_grad` of ``loss_fn`` on the params' device."""
+    def base(params, batch):
+        return value_and_grad(loss_fn, params, batch)
+    devices = (shard_devices(mesh, rules, batch_axis) if mesh is not None
+               else None)
+    if devices is None or len(devices) == 1:
+        return base
+
+    def sharded(params, batch):
+        home = optim.tree_leaves(params)[0].device
+        pers = {k: shard_rows(v.shape[0], len(devices))
+                for k, v in batch.items()}
+        loss = grads = None
+        for i, dev in enumerate(devices):
+            piece = {k: v[i * pers[k]:(i + 1) * pers[k]].to(dev)
+                     for k, v in batch.items()}
+            l_i, g_i = base(replicate(params, dev), piece)
+            l_i = l_i.to(home)
+            g_i = optim.tree_map(lambda g: g.to(home), g_i)
+            if grads is None:
+                loss, grads = l_i, g_i
+            else:
+                loss = loss + l_i
+                grads = optim.tree_map(torch.add, grads, g_i)
+        k = torch.full((), float(len(devices)), device=home)
+        return loss / k, optim.tree_map(lambda g: g / k, grads)
+    return sharded
+
+
 def make_scanned_step(loss_fn: Callable, opt_cfg: optim.AdamConfig, *,
                       grad_accum: int = 1,
                       compression: Optional[str] = None,
                       compression_topk: float = 0.05,
                       compress_keys: Tuple[str, ...] = ("grid",),
-                      mesh=None) -> Callable:
+                      mesh=None, rules=None,
+                      batch_axis: str = "field_batch") -> Callable:
     """An engine step ``(state, step, batch) -> (state, metrics)`` from a
     ``loss_fn(params, batch)``: the loss and its gradients (over
-    ``grad_accum`` micro-batches), the ``compress_keys`` gradients
-    compressed when ``compression`` is set (``state["efb"]`` holds the
-    error feedback: make the state with :func:`init_train_state`), then
-    Adam. Metrics hold loss, lr and the PSNR of an MSE loss."""
+    ``grad_accum`` micro-batches, each data-parallel over ``mesh``'s
+    ``batch_axis`` shards: :func:`data_parallel_grad_fn`), the
+    ``compress_keys`` gradients compressed when ``compression`` is set
+    (``state["efb"]`` holds the error feedback: make the state with
+    :func:`init_train_state`), then Adam. Metrics hold loss, lr and the
+    PSNR of an MSE loss."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training (mesh) is not ported to repro_torch yet")
+    grad_fn = data_parallel_grad_fn(loss_fn, mesh, rules, batch_axis)
     knobs = (None if compression is None
              else _CompressionKnobs(compression, compression_topk))
 
@@ -167,9 +226,9 @@ def make_scanned_step(loss_fn: Callable, opt_cfg: optim.AdamConfig, *,
         params = state["params"]
         if grad_accum > 1:
             loss, grads = accumulated_value_and_grad(loss_fn, params, batch,
-                                                     grad_accum)
+                                                     grad_accum, grad_fn)
         else:
-            loss, grads = value_and_grad(loss_fn, params, batch)
+            loss, grads = grad_fn(params, batch)
         new_state = dict(state)
         if knobs is not None:
             sub, cstate = compression_mod.apply_inline(
@@ -225,7 +284,7 @@ class TrainEngine:
         self.on_event = on_event if on_event is not None else (
             lambda ev: _LOG.warning("failure_event", kind=ev.kind,
                                     hosts=list(ev.hosts), step=ev.step,
-                                    hint="elastic re-meshing is not ported"))
+                                    hint="see runtime/elastic.py"))
         self.on_chunk_end = on_chunk_end
         self.host = cfg.host or f"host{_process_index()}"
         self.events: List = []

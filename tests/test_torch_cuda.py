@@ -1063,3 +1063,100 @@ def test_launcher_serves_on_card(dev, encoding):
     assert np.isfinite(st["p50_ms"])
     for k in ("field_fwd", "encode_fwd", "encode_bwd", "composite_fwd"):
         assert counts[k] > 0, (k, counts)
+
+
+def _card_mesh(dev, n=4):
+    """n shards on the card: the one card repeated (the JAX tests' forced
+    host devices), or n cards where there are that many."""
+    from repro_torch.launch.mesh import Mesh, make_local_mesh
+    if torch.cuda.device_count() >= n:
+        return make_local_mesh(n)
+    return Mesh([torch.device("cuda", 0)] * n, ("data",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("occ", [False, True])
+def test_sharded_engine_on_card_matches_unsharded(dev, occ):
+    """A 32x32 nerf frame through the 4-shard engine on the card against
+    the same sharded engine on the CPU (1e-4, with the same sample
+    counts when culled at a quarter budget) and, where no shard drops a
+    sample, the unsharded card engine (1e-6); each kernel of the path
+    launches once per shard a tile."""
+    from repro_torch.launch.mesh import Mesh
+    cfg, params = _occ_scene("nerf")
+    settings = pipeline.RenderSettings(tile_pixels=1024, n_samples=32)
+    if occ:
+        params = occupancy.attach(params, occupancy.build_occupancy_from_fn(
+            lambda p: scenes.volume_field(p * 4.0 - 2.0)[:, 3], res=32,
+            device="cpu"))
+        settings = dataclasses.replace(settings, occupancy=True,
+                                       sample_budget=1024 * 32 // 4)
+    cam = scenes.default_camera(32, 32)
+    frames, stats = {}, {}
+    cpu_mesh = Mesh([torch.device("cpu")] * 4, ("data",))
+    for name, mesh, where in (("plain", None, torch.device("cuda", 0)),
+                              ("sharded", _card_mesh(dev),
+                               torch.device("cuda", 0)),
+                              ("cpu", cpu_mesh, torch.device("cpu"))):
+        eng = RenderEngine(settings, mesh=mesh, device=where)
+        eng.add_scene("s", cfg, params)
+        eng.warmup()
+        tkernels.reset_launch_counts()
+        frames[name] = eng.render_frame("s", cam)
+        counts = tkernels.launch_counts()
+        shards = {"plain": 1, "sharded": 4, "cpu": 0}[name]
+        for k in ("field_fwd", "mlp_fwd", "composite_fwd"):
+            assert counts[k] == shards, (name, counts)
+        stats[name] = eng.stats()
+    np.testing.assert_allclose(frames["sharded"], frames["cpu"], rtol=TOL,
+                               atol=TOL)
+    if occ:
+        for k in ("samples_total", "samples_dropped", "live_sample_frac"):
+            assert stats["sharded"][k] == stats["cpu"][k], k
+        assert stats["sharded"]["samples_total"] == 1024 * 32
+    if not occ or stats["sharded"]["samples_dropped"] == 0:
+        np.testing.assert_allclose(frames["sharded"], frames["plain"],
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_sharded_replicas_share_the_cards_storage(dev):
+    """On a mesh that repeats the card, every shard reads the stack's own
+    tables: one data_ptr, no copy per shard."""
+    from repro_torch.launch.mesh import Mesh
+    cfg, params = _occ_scene("gia")
+    mesh = Mesh([torch.device("cuda", 0)] * 4, ("data",))
+    eng = RenderEngine(pipeline.RenderSettings(tile_pixels=256), mesh=mesh,
+                       device=torch.device("cuda", 0))
+    key = eng.add_scene("s", cfg, params)
+    eng.warmup()
+    fn = eng._buckets[key].fn
+    stacked = eng._get_stacked(key)
+    assert list(fn.replicas) == [torch.device("cuda", 0)]
+    assert fn.replicas[torch.device("cuda", 0)]["grid"].data_ptr() \
+        == stacked["grid"].data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["nerf", "gia"])
+def test_data_parallel_first_step_grads_on_card(dev, app):
+    """The first step's loss and gradients on a 4-shard mesh on the card
+    against one pass on the card: the loss within 1e-6 of its size, every
+    leaf within 1e-5 of its max (f32 sums and atomics in another order);
+    each shard launches the field kernel and encode_bwd once."""
+    cfg, _ = _occ_scene(app)
+    params = fields.init_field(cfg, torch.Generator().manual_seed(0), dev)
+    batch = ttrain.make_batch(cfg, ttrain.batch_generator(0, 0, dev), 256)
+
+    def loss_fn(p, b):
+        return ttrain.field_loss(p, cfg, b)
+    l1, g1 = tloop.value_and_grad(loss_fn, params, batch)
+    tkernels.reset_launch_counts()
+    l4, g4 = tloop.data_parallel_grad_fn(loss_fn, _card_mesh(dev))(params,
+                                                                   batch)
+    counts = tkernels.launch_counts()
+    assert counts["field_fwd"] == 4 and counts["encode_bwd"] == 4, counts
+    assert abs(float(l4) - float(l1)) <= 1e-6 * abs(float(l1))
+    for a, b in zip(toptim.tree_leaves(g1), toptim.tree_leaves(g4)):
+        assert b.device == a.device
+        assert _rel_err(b, a) <= GRAD_TOL

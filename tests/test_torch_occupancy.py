@@ -2,8 +2,8 @@
 culled branch of ``render.render_rays``, the tile functions, the engine,
 ``train_field(occupancy_res=)``) against the JAX package's, on the CPU:
 mirrors of every test in ``tests/test_occupancy.py`` but the mesh check
-(``serve/sharding.py`` is not ported yet), plus the two packages side by
-side.
+(``check_sample_budget``: ``tests/test_torch_sharding.py``), plus the two
+packages side by side.
 
 Bars: grids bit for bit on the same sigma (the port's int32 words are the
 JAX package's uint32 bits); the EMA bit for bit on the same old and fresh

@@ -248,18 +248,18 @@ def test_engine_reports_every_step_once_per_chunk():
 
 @pytest.mark.parametrize("kw", [
     dict(grad_accum=2), dict(compression="topk"), dict(ckpt_dir="x"),
-    dict(mesh=object()), dict(occupancy_res=16)])
+    dict(mesh="cpu x 4"), dict(occupancy_res=16)])
 def test_train_field_refuses_what_is_not_ported(kw, tmp_path):
-    """Only the data-parallel mesh (A11) is refused as not ported;
-    occupancy grids are refused for the apps that do not ray-march, as in
-    the JAX package; the rest run."""
+    """Nothing is refused as not ported: the data-parallel mesh (A11)
+    runs too; occupancy grids are refused for the apps that do not
+    ray-march, as in the JAX package; the rest run."""
+    from repro_torch.launch.mesh import Mesh
     _, ct, _, _ = jax_start("gia", 8)
     if "ckpt_dir" in kw:
         kw = {"ckpt_dir": str(tmp_path / kw["ckpt_dir"])}
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ttrain.train_field(ct, steps=1, batch_size=8, device="cpu", **kw)
-    elif "occupancy_res" in kw:
+        kw = {"mesh": Mesh(["cpu"] * 4, ("data",))}
+    if "occupancy_res" in kw:
         with pytest.raises(ValueError, match="ray"):
             ttrain.train_field(ct, steps=1, batch_size=8, device="cpu", **kw)
     else:
