@@ -16,6 +16,17 @@ JSON line:
            sm_90a); ptxas' registers and spills per kernel, the tensor-core
            instructions (HMMA) in each kernel's SASS (cuobjdump), and the
            shared memory per block of the MLP and field kernels' plans
+  analysis  the port's linter (``python -m repro_torch.analysis
+           src/repro_torch --json``) in a child: 0 errors; then the Hopper
+           budget (``repro_torch.analysis.budget``) of every kernel
+           instantiation of the 12 Table-I configs x f32/bf16/int8/fp8
+           tables (encode plans at this card's SM count), and every encode
+           and encode_bwd instantiation in the library, against CUDA's own
+           numbers (``repro_torch.kernels.info``): shared memory per block,
+           threads, registers (ptxas' log against the kernel's attributes)
+           and blocks per SM (``budget.blocks_per_sm`` of ptxas' registers
+           against cudaOccupancyMaxActiveBlocksPerMultiprocessor); the
+           encode kernels must reach the plans' 2 blocks per SM
   kernels  each kernel against its plain version on the inputs of one real
            engine tile (nerf: 4096 pixels x 32 samples; gia: 4096 pixels):
            max error against the stated tolerance, device time per call
@@ -199,6 +210,12 @@ JSON line:
            loss (it must fall), p50, Mpix/s, and the launches of
            field_fwd, encode_fwd and encode_bwd (> 0), mlp_fwd (> 0 for
            nerf) and composite_fwd (> 0 for nerf and nvr)
+  examples  the twins of the JAX examples (``examples/torch/``), each in
+           a child at its defaults on the card: quickstart's and
+           train_nerf's PSNR within 1.0 dB of the JAX example's (measured
+           on the CPU by ``tools/jax_example_psnr.py``), serve_render's
+           ``served`` event (p50, Mpix/s); the kernels each twin runs must
+           launch (counts written by the child at exit)
 
 then the ``{"kernels": [...]}`` line (every kernel, launches from the path
 that runs it and per path, ``train`` among them, ``floor_ms``, the rows of other table types,
@@ -1162,6 +1179,206 @@ def elastic_phase(mesh, cfg, dev, nerf_init, nerf_batch, nerf_loss, gpu):
             "launches": launches, **gpu}, launches
 
 
+# the analysis phase: the linter's child, and the template arguments of
+# each kernel instantiation as ptxas names them (``kernel_name``)
+ANALYSIS_TIMEOUT_S = 300
+PTXAS_TYPE = {0: "f", 1: "a", 2: "13__nv_fp8_e4m3", 3: "13__nv_bfloat16"}
+ENCODE_PTXAS = re.compile(r"(encode_fwd|encode_bwd)_kernel<Li(\d+)ELi(\d+)E"
+                          r"(f|a|13__nv_fp8_e4m3|13__nv_bfloat16)Li(\d+)>")
+
+
+def ptxas_name(instance):
+    """The ptxas report's name (``kernel_name``) of a kernel instantiation
+    as ``analysis.budget`` names it (``KernelEstimate.instance``)."""
+    kind, args = instance[0], instance[1:]
+    if kind in ("encode_fwd", "encode_bwd"):
+        dim, f, code, g = args
+        return f"{kind}_kernel<Li{dim}ELi{f}E{PTXAS_TYPE[code]}Li{g}>"
+    if kind == "field_fwd":
+        dim, f, code = args[:3]
+        return f"field_fwd_kernel<Li{dim}ELi{f}E{PTXAS_TYPE[code]}>"
+    if kind == "mlp_fwd":
+        return f"mlp_fwd_kernel<Li{64 if args[1] <= 64 else 128}>"
+    return f"composite_fwd_kernel<Lb{args[0]}>"
+
+
+def analysis_phase(ptxas, dev, gpu):
+    """The port's linter in a child (``python -m repro_torch.analysis
+    src/repro_torch --json``: 0 errors), then ``analysis.budget``'s numbers
+    for every kernel instantiation of the 12 Table-I configs x 4 table
+    dtypes (the encode plans at this card's SM count), and every encode
+    and encode_bwd instantiation in the library besides, against CUDA's:
+    shared memory per block (the plan's against the launcher's dynamic
+    bytes plus the kernel's static ones), threads, registers (ptxas' log
+    against the loaded kernel's attributes) and blocks per SM
+    (``budget.blocks_per_sm`` of ptxas' registers against
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); the encode
+    kernels must reach the plans' BLOCKS_PER_SM. Returns the phase line."""
+    from repro_torch.analysis import budget
+    from repro_torch.kernels import info as kinfo
+    from repro_torch.kernels.hashgrid import hashgrid
+    from repro_torch.kernels.hashgrid.hashgrid import sm_count
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis",
+             os.path.join(SRC, "repro_torch"), "--json"],
+            capture_output=True, text=True, timeout=ANALYSIS_TIMEOUT_S,
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": SRC})
+    except subprocess.TimeoutExpired:
+        fail(f"analysis: the linter ran past {ANALYSIS_TIMEOUT_S} s")
+    lint_s = time.perf_counter() - t0
+    try:
+        rep = json.loads(out.stdout)
+    except json.JSONDecodeError:
+        rep = None
+    if out.returncode != 0 or not rep or rep["summary"]["errors"]:
+        fail(f"analysis: the linter exited {out.returncode}: "
+             f"{out.stdout[-3000:]} {out.stderr[-3000:]}")
+    n_sms = sm_count(dev.index)
+    regs = {name: r for name, r, _ in ptxas}
+    # instance -> (threads, plan shared memory, the estimates' configs)
+    wanted = {}
+    for est in budget.table1_estimates(n_sms):
+        if est.verdict not in ("fits", "degraded"):
+            fail(f"analysis: {est.where} is {est.verdict}")
+        wanted.setdefault(est.instance, {
+            "kernel": est.kernel, "threads": est.threads,
+            "smem": est.smem_bytes, "configs": []})["configs"].append(
+                est.where)
+    for name in regs:
+        m = ENCODE_PTXAS.fullmatch(name)
+        if m:
+            code = {v: k for k, v in PTXAS_TYPE.items()}[m.group(4)]
+            inst = (m.group(1), int(m.group(2)), int(m.group(3)), code,
+                    int(m.group(5)))
+            wanted.setdefault(inst, {"kernel": m.group(1), "threads":
+                                     hashgrid.ENCODE_ROWS, "smem": 0,
+                                     "configs": []})
+    rows, bad = [], []
+    for inst, w in sorted(wanted.items(), key=lambda kv: str(kv[0])):
+        name = ptxas_name(inst)
+        cuda = kinfo.kernel_info(inst, dev.index)
+        r = regs.get(name)
+        est_blocks = None if r is None else budget.blocks_per_sm(
+            r, w["threads"], w["smem"])
+        row = {"instance": list(inst), "kernel": name,
+               "configs": len(w["configs"]), "threads": w["threads"],
+               "smem_plan": w["smem"],
+               "smem_cuda": cuda["dynamic_smem"] + cuda["static_smem"],
+               "registers_ptxas": r, "registers_cuda": cuda["registers"],
+               "local_bytes": cuda["local_bytes"],
+               "blocks_per_sm_est": est_blocks,
+               "blocks_per_sm_cuda": cuda["blocks_per_sm"]}
+        rows.append(row)
+        if (r is None or row["smem_plan"] != row["smem_cuda"]
+                or w["threads"] != cuda["threads"]
+                or r != cuda["registers"]
+                or est_blocks != cuda["blocks_per_sm"]
+                or (w["kernel"].startswith("encode")
+                    and est_blocks < hashgrid.BLOCKS_PER_SM)):
+            bad.append(row)
+    if bad:
+        fail(f"analysis: the budget and CUDA disagree: {bad}")
+    return {"phase": "analysis", "seconds": time.perf_counter() - t0,
+            "lint_s": lint_s, "lint_summary": rep["summary"],
+            "lint_warnings": [f["path"] for f in rep["findings"]
+                              if f["severity"] == "warning"
+                              and not f["suppressed"]],
+            "sm_count": n_sms, "instantiations": len(rows), "rows": rows,
+            **gpu}
+
+
+# the examples phase: each twin of examples/torch/ in a child at its
+# defaults, which writes its kernels' launch counts to a file at exit
+EXAMPLE_CHILD = """
+import json, runpy, sys
+sys.argv = [{script!r}]
+try:
+    runpy.run_path({script!r}, run_name="__main__")
+finally:
+    sys.path.insert(0, {src!r})
+    from repro_torch import kernels
+    with open({launches!r}, "w") as f:
+        json.dump(kernels.launch_counts(), f)
+"""
+EXAMPLE_TIMEOUT_S = 300
+# The JAX examples' PSNRs at their defaults (seed 0) and with training seed
+# 1, on the CPU: tools/jax_example_psnr.py --example <name> --seed 0|1.
+# The twins' random numbers are PyTorch's, so a twin lands within the JAX
+# seeds' spread (0.3 and 0.0 dB), bounded here at PSNR_BOUND_DB.
+# train_nerf's frame is all black in both packages (nerf's density
+# collapses at lr 1e-2: a black frame's PSNR, 16.9 dB).
+JAX_EXAMPLE_PSNR = {"quickstart": (27.7, 27.4), "train_nerf": (16.9, 16.9)}
+PSNR_BOUND_DB = 1.0
+PSNR_LINE = re.compile(r"(?:reconstruction|novel-view) PSNR[^:]*: "
+                       r"(-?[0-9.]+) dB")
+
+
+def examples_phase(kernel_names, gpu):
+    """Each twin (``examples/torch/``) in a child at its defaults on the
+    card: quickstart and train_nerf's PSNR within PSNR_BOUND_DB of the JAX
+    example's (seed 0), serve_render's ``served`` event; the kernels each
+    must launch. Returns (phase line, launches summed over the twins)."""
+    import numpy as np
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_examples")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    need = {"quickstart": ("field_fwd", "encode_fwd", "encode_bwd"),
+            "train_nerf": ("field_fwd", "mlp_fwd", "encode_fwd",
+                           "encode_bwd", "composite_fwd"),
+            "serve_render": ("field_fwd", "encode_fwd", "encode_bwd")}
+    total = dict.fromkeys(kernel_names, 0)
+    runs = {}
+    t_phase = time.perf_counter()
+    for name, must in need.items():
+        script = os.path.join(ROOT, "examples", "torch", f"{name}.py")
+        launches = os.path.join(out_dir, f"{name}_launches.json")
+        t0 = time.perf_counter()
+        try:
+            out = subprocess.run(
+                [sys.executable, "-c", EXAMPLE_CHILD.format(
+                    script=script, src=SRC, launches=launches)],
+                capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S,
+                cwd=out_dir)
+        except subprocess.TimeoutExpired:
+            fail(f"examples[{name}]: no exit within {EXAMPLE_TIMEOUT_S} s")
+        wall_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"examples[{name}]: exit code {out.returncode}: "
+                 f"{out.stderr[-3000:]}")
+        with open(launches) as f:
+            counts = json.load(f)
+        for k, n in counts.items():
+            total[k] += n
+        if min(counts[k] for k in must) <= 0:
+            fail(f"examples[{name}]: {must} must launch: {counts}")
+        row = {"wall_s": wall_s, "launches": counts}
+        if name in JAX_EXAMPLE_PSNR:
+            found = PSNR_LINE.findall(out.stdout)
+            if len(found) != 1:
+                fail(f"examples[{name}]: no PSNR line: {out.stdout[-2000:]}")
+            jax0, jax1 = JAX_EXAMPLE_PSNR[name]
+            row.update(psnr_db=float(found[0]), jax_psnr_db=[jax0, jax1],
+                       bound_db=PSNR_BOUND_DB)
+            if not abs(row["psnr_db"] - jax0) <= PSNR_BOUND_DB:
+                fail(f"examples[{name}]: PSNR {row['psnr_db']} dB, the JAX "
+                     f"example's {jax0} dB (bound {PSNR_BOUND_DB})")
+        else:
+            served = [json.loads(l) for l in out.stdout.splitlines()
+                      if l.startswith("{") and '"served"' in l]
+            if len(served) != 1 or not all(
+                    np.isfinite(served[0].get(k, np.nan))
+                    for k in ("p50_ms", "mpix_per_s")):
+                fail(f"examples[{name}]: served {served}")
+            row.update({k: served[0][k] for k in (
+                "n_requests", "p50_ms", "p99_ms", "mpix_per_s", "compiles")})
+        runs[name] = row
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return ({"phase": "examples", "seconds": time.perf_counter() - t_phase,
+             "runs": runs, "launches": total, **gpu}, total)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1249,6 +1466,9 @@ def main():
                        for r in ptxas):
         fail("build: no 3-D and 2-D encode_bwd kernels in ptxas' report, so "
              "their spills went unchecked")
+
+    # --------------------------------------------------------- analysis
+    emit(analysis_phase(ptxas, dev, gpu))
 
     # ---------------------------------------------------------- kernels
     params = [fields.from_jax_params(np_params(cfg, SEED + s), cfg, dev)
@@ -2680,6 +2900,11 @@ def main():
           "train_steps": LAUNCH_APPS_STEPS, "requests": LAUNCH_REQUESTS,
           "runs": app_rows, "launches": apps_launches, **gpu})
 
+    # --------------------------------------------------------- examples
+    # the twins of the JAX examples as a user runs them, each in a child
+    line, ex_launches = examples_phase(K.launch_counts(), gpu)
+    emit(line)
+
     # ----------------------------------------------------------- report
     # kernel -> (source, TPU kernel it replaces, path its launches are
     # read from, launches on that path, variant of the row's own numbers)
@@ -2690,7 +2915,8 @@ def main():
              "resume": resume_launches, "unfused_serve": ulaunches,
              "launch": launch_launches, "launch_apps": apps_launches,
              "serve_shard": sh_launches, "serve_shard_occ": sho_launches,
-             "train_dp": dp_launches, "elastic": el_launches}
+             "train_dp": dp_launches, "elastic": el_launches,
+             "examples": ex_launches}
     report = {
         "field_fwd": ("src/repro_torch/csrc/field.cu",
                       "src/repro/kernels/fused_field/fused_field.py:111",

@@ -4,8 +4,9 @@ It sits beside the JAX package ``repro`` and keeps its layout: ``core/``
 (encodings, MLPs, fields, rendering, the frame pipeline, training),
 ``kernels/`` (each TPU kernel's hand-written CUDA counterpart, its wrapper
 and its plain PyTorch version, and the encode's backward), ``csrc/`` (the
-CUDA sources), ``data/``, ``obs/``, ``serve/`` and ``train/`` (the
-optimizer and the training engine). It imports ``torch`` and ``numpy``,
+CUDA sources), ``data/``, ``obs/``, ``serve/``, ``train/`` (the
+optimizer and the training engine) and ``analysis/`` (its linter:
+``python -m repro_torch.analysis``). It imports ``torch`` and ``numpy``,
 never ``jax`` and nothing of ``repro``.
 
 Entry points (``init_field``, ``render_frame``, ``RenderEngine``,

@@ -270,6 +270,7 @@ class AsyncCheckpointer:
         self.wait()                      # at most one outstanding save
         host_tree, event = self._snapshot(tree)
 
+        # repro: sync-boundary the writer thread waits for the snapshot copy
         def work():
             try:
                 if event is not None:

@@ -35,6 +35,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "info.cuh"
+
 namespace repro {
 
 constexpr int kCompositeWarps = 8;          // warps per block
@@ -141,4 +143,14 @@ extern "C" int composite_fwd(const float* rgb, long long rgb_ray,
         rgb, rgb_ray, rgb_sample, sigma, sig_ray, sig_sample, dts, dt_ray,
         dt_sample, pixel, opacity, n_rays, n_samples, w);
   return cudaGetLastError();
+}
+
+// The resources of the composite_fwd instantiation for the packed (1) or
+// strided (0) layout (info.cuh); returns the CUDA error (0 on success).
+extern "C" int composite_fwd_info(int packed, int device, int* out) {
+  using namespace repro;
+  const void* kernel =
+      packed ? reinterpret_cast<const void*>(composite_fwd_kernel<true>)
+             : reinterpret_cast<const void*>(composite_fwd_kernel<false>);
+  return kernel_info(kernel, 32 * kCompositeWarps, 0, 0, device, out);
 }

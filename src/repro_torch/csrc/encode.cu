@@ -38,6 +38,7 @@
 #include <cuda_runtime.h>
 
 #include "encode.cuh"
+#include "info.cuh"
 
 namespace repro {
 
@@ -178,22 +179,45 @@ extern "C" int encode_fwd(const float* points, const void* tables,
     return launch_encode<D, FF, T>(points, tables, scales, meta, n_levels,     \
                                    log2_table_size, group_levels, out,         \
                                    n_points, s);
-  REPRO_ENCODE_CASE(3, 2, kTableF32, float)
-  REPRO_ENCODE_CASE(3, 8, kTableF32, float)
-  REPRO_ENCODE_CASE(3, 2, kTableInt8, int8_t)
-  REPRO_ENCODE_CASE(3, 8, kTableInt8, int8_t)
-  REPRO_ENCODE_CASE(3, 2, kTableFp8E4M3, __nv_fp8_e4m3)
-  REPRO_ENCODE_CASE(3, 8, kTableFp8E4M3, __nv_fp8_e4m3)
-  REPRO_ENCODE_CASE(3, 2, kTableBf16, __nv_bfloat16)
-  REPRO_ENCODE_CASE(3, 8, kTableBf16, __nv_bfloat16)
-  REPRO_ENCODE_CASE(2, 2, kTableF32, float)
-  REPRO_ENCODE_CASE(2, 8, kTableF32, float)
-  REPRO_ENCODE_CASE(2, 2, kTableInt8, int8_t)
-  REPRO_ENCODE_CASE(2, 8, kTableInt8, int8_t)
-  REPRO_ENCODE_CASE(2, 2, kTableFp8E4M3, __nv_fp8_e4m3)
-  REPRO_ENCODE_CASE(2, 8, kTableFp8E4M3, __nv_fp8_e4m3)
-  REPRO_ENCODE_CASE(2, 2, kTableBf16, __nv_bfloat16)
-  REPRO_ENCODE_CASE(2, 8, kTableBf16, __nv_bfloat16)
+  REPRO_GRID_CASES(REPRO_ENCODE_CASE)
 #undef REPRO_ENCODE_CASE
+  return cudaErrorInvalidValue;
+}
+
+namespace repro {
+
+template <int DIM, int F, typename TableT>
+cudaError_t encode_info(int group, int device, int* out) {
+  switch (group) {
+#define REPRO_ENCODE_INFO(GG)                                                  \
+  case GG:                                                                     \
+    if constexpr (takes_group<F, TableT>(GG))                                  \
+      return kernel_info(                                                      \
+          reinterpret_cast<const void*>(encode_fwd_kernel<DIM, F, TableT, GG>), \
+          kEncodeRows, 0, 0, device, out);                                     \
+    return cudaErrorInvalidValue;
+    REPRO_ENCODE_INFO(1)
+    REPRO_ENCODE_INFO(2)
+    REPRO_ENCODE_INFO(4)
+    REPRO_ENCODE_INFO(8)
+#undef REPRO_ENCODE_INFO
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace repro
+
+// The resources of the encode_fwd instantiation a launch with these
+// arguments takes (info.cuh: out holds kInfoFields ints); returns the CUDA
+// error (0 on success).
+extern "C" int encode_fwd_info(int dim, int n_features, int table_dtype,
+                               int group_levels, int device, int* out) {
+  using namespace repro;
+#define REPRO_ENCODE_INFO_CASE(D, FF, CODE, T)                                 \
+  if (dim == D && n_features == FF && table_dtype == CODE)                     \
+    return encode_info<D, FF, T>(group_levels, device, out);
+  REPRO_GRID_CASES(REPRO_ENCODE_INFO_CASE)
+#undef REPRO_ENCODE_INFO_CASE
   return cudaErrorInvalidValue;
 }

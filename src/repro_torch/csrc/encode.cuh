@@ -44,6 +44,31 @@ enum TableDtype {
   kTableBf16 = 3
 };
 
+// The (dim, F, table dtype code, table type) cases the grid kernels are
+// instantiated for, each as X(DIM, F, CODE, TableT): 3-D and 2-D points,
+// hash or dense levels (F = 2) and tiled ones (F = 8), every table type
+// (REPRO_GRID_CASES), or the trainable f32 and bf16 tables only
+// (REPRO_GRID_TRAIN_CASES: the encode's backward).
+#define REPRO_GRID_TRAIN_CASES(X)                                              \
+  X(3, 2, kTableF32, float)                                                    \
+  X(3, 8, kTableF32, float)                                                    \
+  X(3, 2, kTableBf16, __nv_bfloat16)                                           \
+  X(3, 8, kTableBf16, __nv_bfloat16)                                           \
+  X(2, 2, kTableF32, float)                                                    \
+  X(2, 8, kTableF32, float)                                                    \
+  X(2, 2, kTableBf16, __nv_bfloat16)                                           \
+  X(2, 8, kTableBf16, __nv_bfloat16)
+#define REPRO_GRID_CASES(X)                                                    \
+  REPRO_GRID_TRAIN_CASES(X)                                                    \
+  X(3, 2, kTableInt8, int8_t)                                                  \
+  X(3, 8, kTableInt8, int8_t)                                                  \
+  X(3, 2, kTableFp8E4M3, __nv_fp8_e4m3)                                        \
+  X(3, 8, kTableFp8E4M3, __nv_fp8_e4m3)                                        \
+  X(2, 2, kTableInt8, int8_t)                                                  \
+  X(2, 8, kTableInt8, int8_t)                                                  \
+  X(2, 2, kTableFp8E4M3, __nv_fp8_e4m3)                                        \
+  X(2, 8, kTableFp8E4M3, __nv_fp8_e4m3)
+
 // Per-level resolution and hashed flag, built on the host and passed by
 // value as a kernel parameter.
 struct LevelMeta {

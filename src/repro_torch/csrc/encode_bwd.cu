@@ -48,6 +48,7 @@
 #include <cuda_runtime.h>
 
 #include "encode.cuh"
+#include "info.cuh"
 
 namespace repro {
 
@@ -208,14 +209,44 @@ extern "C" int encode_bwd(const float* points, const void* tables,
     return launch_encode_bwd<D, FF, T>(points, tables, g, meta, n_levels,      \
                                        log2_table_size, group_levels,          \
                                        d_tables, d_points_part, n_points, s);
-  REPRO_ENCODE_BWD_CASE(3, 2, kTableF32, float)
-  REPRO_ENCODE_BWD_CASE(3, 8, kTableF32, float)
-  REPRO_ENCODE_BWD_CASE(3, 2, kTableBf16, __nv_bfloat16)
-  REPRO_ENCODE_BWD_CASE(3, 8, kTableBf16, __nv_bfloat16)
-  REPRO_ENCODE_BWD_CASE(2, 2, kTableF32, float)
-  REPRO_ENCODE_BWD_CASE(2, 8, kTableF32, float)
-  REPRO_ENCODE_BWD_CASE(2, 2, kTableBf16, __nv_bfloat16)
-  REPRO_ENCODE_BWD_CASE(2, 8, kTableBf16, __nv_bfloat16)
+  REPRO_GRID_TRAIN_CASES(REPRO_ENCODE_BWD_CASE)
 #undef REPRO_ENCODE_BWD_CASE
+  return cudaErrorInvalidValue;
+}
+
+namespace repro {
+
+template <int DIM, int F, typename TableT>
+cudaError_t encode_bwd_info(int group, int device, int* out) {
+  switch (group) {
+#define REPRO_ENCODE_BWD_INFO(GG)                                              \
+  case GG:                                                                     \
+    if constexpr (GG * F <= kMaxGroupFloats)                                   \
+      return kernel_info(                                                      \
+          reinterpret_cast<const void*>(encode_bwd_kernel<DIM, F, TableT, GG>), \
+          kEncodeBwdRows, 0, 0, device, out);                                  \
+    return cudaErrorInvalidValue;
+    REPRO_ENCODE_BWD_INFO(1)
+    REPRO_ENCODE_BWD_INFO(2)
+    REPRO_ENCODE_BWD_INFO(4)
+    REPRO_ENCODE_BWD_INFO(8)
+#undef REPRO_ENCODE_BWD_INFO
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace repro
+
+// The resources of the encode_bwd instantiation a launch with these
+// arguments takes (info.cuh); returns the CUDA error (0 on success).
+extern "C" int encode_bwd_info(int dim, int n_features, int table_dtype,
+                               int group_levels, int device, int* out) {
+  using namespace repro;
+#define REPRO_ENCODE_BWD_INFO_CASE(D, FF, CODE, T)                             \
+  if (dim == D && n_features == FF && table_dtype == CODE)                     \
+    return encode_bwd_info<D, FF, T>(group_levels, device, out);
+  REPRO_GRID_TRAIN_CASES(REPRO_ENCODE_BWD_INFO_CASE)
+#undef REPRO_ENCODE_BWD_INFO_CASE
   return cudaErrorInvalidValue;
 }

@@ -38,6 +38,7 @@
 #include <cuda_runtime.h>
 
 #include "encode.cuh"
+#include "info.cuh"
 #include "mlp.cuh"
 
 namespace repro {
@@ -226,22 +227,7 @@ int field_entry(const float* points, const void* tables, const float* scales,
     return launch_field<D, FF, T>(points, tables, scales, meta, n_levels,      \
                                   log2_table_size, w, d, out, n_points,        \
                                   device, s);
-  REPRO_FIELD_CASE(3, 2, kTableF32, float)
-  REPRO_FIELD_CASE(3, 8, kTableF32, float)
-  REPRO_FIELD_CASE(3, 2, kTableBf16, __nv_bfloat16)
-  REPRO_FIELD_CASE(3, 8, kTableBf16, __nv_bfloat16)
-  REPRO_FIELD_CASE(3, 2, kTableInt8, int8_t)
-  REPRO_FIELD_CASE(3, 8, kTableInt8, int8_t)
-  REPRO_FIELD_CASE(3, 2, kTableFp8E4M3, __nv_fp8_e4m3)
-  REPRO_FIELD_CASE(3, 8, kTableFp8E4M3, __nv_fp8_e4m3)
-  REPRO_FIELD_CASE(2, 2, kTableF32, float)
-  REPRO_FIELD_CASE(2, 8, kTableF32, float)
-  REPRO_FIELD_CASE(2, 2, kTableBf16, __nv_bfloat16)
-  REPRO_FIELD_CASE(2, 8, kTableBf16, __nv_bfloat16)
-  REPRO_FIELD_CASE(2, 2, kTableInt8, int8_t)
-  REPRO_FIELD_CASE(2, 8, kTableInt8, int8_t)
-  REPRO_FIELD_CASE(2, 2, kTableFp8E4M3, __nv_fp8_e4m3)
-  REPRO_FIELD_CASE(2, 8, kTableFp8E4M3, __nv_fp8_e4m3)
+  REPRO_GRID_CASES(REPRO_FIELD_CASE)
 #undef REPRO_FIELD_CASE
   return cudaErrorInvalidValue;
 }
@@ -298,4 +284,26 @@ extern "C" int field_fwd_q(const float* points, const void* tables,
 
 extern "C" const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The resources of the field_fwd / field_fwd_q instantiation a launch with
+// these arguments takes, at the MLP dimensions' shared memory (info.cuh);
+// returns the CUDA error (0 on success).
+extern "C" int field_fwd_info(int dim, int n_features, int table_dtype,
+                              int din, int hidden, int n_hidden, int dout,
+                              int device, int* out) {
+  using namespace repro;
+  const MlpDims d{din, hidden, n_hidden, dout};
+  if (din < 1 || dout < 1 || n_hidden < 1 || hidden < 8 ||
+      hidden > kFieldHidden || hidden % 8 != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = field_smem_bytes(d);
+#define REPRO_FIELD_INFO_CASE(D, FF, CODE, T)                                  \
+  if (dim == D && n_features == FF && table_dtype == CODE)                     \
+    return kernel_info(                                                        \
+        reinterpret_cast<const void*>(field_fwd_kernel<D, FF, T>),             \
+        kFieldThreads, smem, (int)kMaxSmemBytes, device, out);
+  REPRO_GRID_CASES(REPRO_FIELD_INFO_CASE)
+#undef REPRO_FIELD_INFO_CASE
+  return cudaErrorInvalidValue;
 }

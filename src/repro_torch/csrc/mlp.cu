@@ -19,6 +19,7 @@
 
 #include <cuda_runtime.h>
 
+#include "info.cuh"
 #include "mlp.cuh"
 
 namespace repro {
@@ -117,4 +118,25 @@ extern "C" int mlp_fwd(const float* x, const void* w_in, const void* w_hidden,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return hidden <= 64 ? launch_mlp<64>(x, w, d, out, n_rows, device, s)
                       : launch_mlp<128>(x, w, d, out, n_rows, device, s);
+}
+
+// The resources of the mlp_fwd instantiation a launch with these MLP
+// dimensions takes, at their shared memory (info.cuh); returns the CUDA
+// error (0 on success).
+extern "C" int mlp_fwd_info(int din, int hidden, int n_hidden, int dout,
+                            int device, int* out) {
+  using namespace repro;
+  if (din < 1 || dout < 1 || n_hidden < 1 || hidden < 8 || hidden > 128 ||
+      hidden % 8 != 0)
+    return cudaErrorInvalidValue;
+  const MlpDims d{din, hidden, n_hidden, dout};
+  if (hidden <= 64)
+    return kernel_info(reinterpret_cast<const void*>(mlp_fwd_kernel<64>),
+                       32 * mlp_warps<64>(),
+                       (size_t)weight_frags(d, 64) * sizeof(float4),
+                       (int)kMaxSmemBytes, device, out);
+  return kernel_info(reinterpret_cast<const void*>(mlp_fwd_kernel<128>),
+                     32 * mlp_warps<128>(),
+                     (size_t)weight_frags(d, 128) * sizeof(float4),
+                     (int)kMaxSmemBytes, device, out);
 }

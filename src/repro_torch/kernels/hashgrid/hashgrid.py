@@ -129,7 +129,7 @@ def encode_plan(cfg: GridConfig, table_dtype: torch.dtype, n_points: int,
     tiles = -(-n_points // ENCODE_ROWS)
     return {"group_levels": g, "n_groups": len(groups), "groups": groups,
             "points_per_block": ENCODE_ROWS, "blocks": tiles * len(groups),
-            "store_bytes": g * f * 4,
+            "store_bytes": g * f * 4, "group_sizes": sizes,
             "group_table_bytes": _group_bytes(level_bytes, g)}
 
 
@@ -176,6 +176,7 @@ def encode_bwd_plan(cfg: GridConfig, n_points: int, n_sms: int) -> Dict:
     n_groups = -(-cfg.n_levels // g)
     return {"group_levels": g, "n_groups": n_groups,
             "blocks": -(-n_points // ENCODE_ROWS) * n_groups,
+            "group_sizes": sizes,
             "group_accumulator_bytes": _group_bytes(level_bytes, g)}
 
 

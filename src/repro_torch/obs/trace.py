@@ -68,6 +68,7 @@ def _cuda_tensors(value) -> Iterator[torch.Tensor]:
             yield from _cuda_tensors(v)
 
 
+# repro: sync-boundary a synced span's wait on its bound value's streams
 def _wait_for(value) -> None:
     """Wait for the device work queued so far on the current stream of
     each CUDA device ``value``'s tensors lie on: a CUDA event recorded

@@ -1160,3 +1160,28 @@ def test_data_parallel_first_step_grads_on_card(dev, app):
     for a, b in zip(toptim.tree_leaves(g1), toptim.tree_leaves(g4)):
         assert b.device == a.device
         assert _rel_err(b, a) <= GRAD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["nerf", "nvr", "gia", "nsdf"])
+def test_budget_matches_cuda(dev, app):
+    """analysis/budget.py against CUDA for every kernel the app's hash
+    config launches with f32 and int8 tables (the encode plans at this
+    card's SM count): threads and shared memory per block, no local
+    memory, and blocks_per_sm of the loaded kernel's registers against
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    from repro_torch.analysis import budget
+    from repro_torch.kernels import info
+    from repro_torch.kernels.hashgrid.hashgrid import sm_count
+    index = torch.cuda.current_device()
+    for dtype in (torch.float32, torch.int8):
+        for est in budget.estimate_config(app, "hash", dtype,
+                                          sm_count(index)):
+            cuda = info.kernel_info(est.instance, index)
+            assert cuda["threads"] == est.threads, est.where
+            assert (cuda["dynamic_smem"] + cuda["static_smem"]
+                    == est.smem_bytes), est.where
+            assert cuda["local_bytes"] == 0, est.where
+            assert budget.blocks_per_sm(
+                cuda["registers"], est.threads, est.smem_bytes) == cuda[
+                "blocks_per_sm"], est.where

@@ -430,14 +430,36 @@ def test_kernel_plans_mirror_the_cuda_sources(source, constant, mirror):
     assert int(m.group(1)) == mirror
 
 
+def _case_list(header: str, name: str):
+    """The X(dim, F, code, T) entries of the case list ``name`` that
+    ``encode.cuh`` defines, with the lists it includes."""
+    body = re.search(r"#define " + name + r"\(X\)((?:[^\n]*\\\n)*[^\n]*)",
+                     header).group(1)
+    out = re.findall(r"\bX\((\d+), (\d+), (\w+), [\w:]+\)", body)
+    for inner in re.findall(r"(REPRO_GRID_\w*CASES)\(X\)", body):
+        out += _case_list(header, inner)
+    return out
+
+
+def _grid_cases(source: str, case: str):
+    """The (dim, F, table code) cases ``source`` dispatches through its
+    ``case`` macro: written out, or expanded from a case list of
+    ``encode.cuh`` (``REPRO_GRID_CASES(case)``)."""
+    src = (build.CSRC / source).read_text()
+    cases = re.findall(case + r"\((\d+), (\d+), (\w+), [\w:]+\)", src)
+    header = (build.CSRC / "encode.cuh").read_text()
+    for name in re.findall(r"(REPRO_GRID_\w*CASES)\(" + case + r"\)", src):
+        cases += _case_list(header, name)
+    return cases
+
+
 @pytest.mark.parametrize("source,case", [("field.cu", "REPRO_FIELD_CASE"),
                                          ("encode.cu", "REPRO_ENCODE_CASE")])
 def test_grid_kernel_cases_mirror_supported(source, case):
     """The wrappers' ``hashgrid.SUPPORTED`` (dim, n_features) pairs are
     exactly those the CUDA sources instantiate, and each pair for every
     table type of ``TABLE_DTYPE_CODE``."""
-    cases = re.findall(case + r"\((\d+), (\d+), (\w+), [\w:]+\)",
-                       (build.CSRC / source).read_text())
+    cases = _grid_cases(source, case)
     pairs = {(int(d), int(f)) for d, f, _ in cases}
     assert pairs == hashgrid.SUPPORTED
     assert {(2, 2), (2, 8), (3, 2), (3, 8)} <= pairs
@@ -469,8 +491,7 @@ def test_encode_bwd_takes_every_group_the_plan_picks():
     kMaxGroupFloats cotangents per thread, a group size the CUDA source
     dispatches to."""
     src = (build.CSRC / "encode_bwd.cu").read_text()
-    cases = re.findall(r"REPRO_ENCODE_BWD_CASE\((\d+), (\d+), (\w+), [\w:]+\)",
-                       src)
+    cases = _grid_cases("encode_bwd.cu", "REPRO_ENCODE_BWD_CASE")
     assert {(int(d), int(f)) for d, f, _ in cases} == hashgrid.SUPPORTED
     assert {c for _, _, c in cases} == {"kTableF32", "kTableBf16"}
     assert len(cases) == 2 * len(hashgrid.SUPPORTED)
