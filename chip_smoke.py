@@ -27,7 +27,31 @@ JSON line:
            and blocks per SM (``budget.blocks_per_sm`` of ptxas' registers
            against cudaOccupancyMaxActiveBlocksPerMultiprocessor); the
            encode kernels must reach the plans' 2 blocks per SM
-  kernels  each kernel against its plain version on the inputs of one real
+ lm       the LM stack's serving path (``repro_torch.models``,
+           ``parallel/api``), plain PyTorch: no kernel of the port may
+           launch on it (the counts are set to 0 before it and read
+           after). The ten archs at ``reduced_config`` in f32, params
+           from the port's init on the CPU copied to the card: forward,
+           loss_fn, and through the ``parallel/api`` steps prefill and 8
+           teacher-forced decode steps, on the card against the CPU within
+           LM_TOL (the unembedding widened to f32 on both,
+           ``tests/torch_lm_f32.py``; the shipped bf16 one held alone on
+           the same inputs); qwen2-7b, olmoe-1b-7b (drops off: capacity
+           factor E/k), mamba2-2.7b, h2o-danube-1.8b (a 6144-token prompt
+           past its 4096 window: the ring wraps, prefill slices the keys)
+           and whisper-base at their published width and depth in f32:
+           prefill, 16 greedy decode steps, the last against one forward
+           over the prompt and the generated tokens within LM_FULL_TOL;
+           then each served by ``launch.serve.serve_lm(reduced=False)``,
+           the user's path, params drawn in bf16 (no f32 master): prefill
+           ms, decode ms per token and tokens/s at batch 4 and a 512-token
+           prompt (danube: 1 x 6144), peak memory, the first greedy tokens
+           (its ``lm_sample`` record; it raises on a logit that is not
+           finite); last ``python -m repro_torch.launch.serve --mode lm``
+           in children: a reduced arch and ``--full`` qwen2-7b must exit 0
+           with one ``lm_served`` record, ``--full`` jamba-v0.1-52b (104 GB
+           in bf16) must be refused with a ``MemoryError``
+ kernels  each kernel against its plain version on the inputs of one real
            engine tile (nerf: 4096 pixels x 32 samples; gia: 4096 pixels):
            max error against the stated tolerance, device time per call
            (CUDA events), ``floor_ms`` (the same kernel's queued time on
@@ -325,6 +349,32 @@ DP_STEPS = 16                # train_field(mesh=) on nerf
 ELASTIC_STEPS = 48           # the elastic phase's uninterrupted runs
 ELASTIC_SAVE = 8             # its checkpoints' interval
 ELASTIC_LOST = 15            # the chunk end where the lost host shows
+# the lm phase: the ten archs at reduced_config, card against CPU (f32,
+# the unembed widened to f32 on both: see lm_phase), B x S prompt tokens
+# and LM_DECODE teacher-forced decode steps
+LM_TOL = 1e-4
+LM_REDUCED_BATCH, LM_REDUCED_PROMPT, LM_DECODE = 2, 16, 8
+# full width and depth in f32: the last of LM_GEN greedy decode steps
+# against one forward over the prompt and the generated tokens (another
+# sum order: chunked against full attention, SSD chunks against the
+# recurrence); atol + rtol
+LM_FULL_TOL = 1e-3
+LM_GEN = 16
+# arch -> (batch, prompt) of the f32 check and of the bf16 timing;
+# danube's prompt is longer than its 4096-token window, so its ring cache
+# wraps and chunked prefill slices the keys to window + q_chunk
+LM_FULL = {"qwen2-7b": ((2, 64), (4, 512)),
+           "olmoe-1b-7b": ((2, 64), (4, 512)),
+           "mamba2-2.7b": ((2, 64), (4, 512)),
+           "h2o-danube-1.8b": ((1, 6144), (1, 6144)),
+           "whisper-base": ((2, 64), (4, 512))}
+# the launcher's --mode lm in children: a reduced arch; one published
+# config that fits on the card in its act dtype (it must serve); and one
+# that does not (it must be refused before anything is drawn)
+LM_LAUNCH_ARCH = "olmoe-1b-7b"
+LM_LAUNCH_FULL_ARCH = "qwen2-7b"
+LM_LAUNCH_REFUSED_ARCH = "jamba-v0.1-52b"
+LM_LAUNCH_TIMEOUT_S = 300
 
 
 def fail(msg):
@@ -1378,6 +1428,255 @@ def examples_phase(kernel_names, gpu):
     return ({"phase": "examples", "seconds": time.perf_counter() - t_phase,
              "runs": runs, "launches": total, **gpu}, total)
 
+def lm_inputs(cfg, batch, prompt, seed):
+    """numpy prompt (tokens, or embeddings and (3, B, S) M-RoPE positions
+    for the vision stub; whisper's frame embeddings) and decode tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (batch, prompt + LM_GEN))
+    out = {"tokens": toks[:, :prompt], "decode": toks[:, prompt:]}
+    if cfg.is_encdec or cfg.frontend == "vision":
+        out["embeddings"] = rng.standard_normal(
+            (batch, prompt, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "vision":
+        pos = np.broadcast_to(np.arange(prompt), (3, batch, prompt)).copy()
+        pos[1] //= 2
+        pos[2] %= 4
+        out["positions"] = pos
+    return out
+
+
+def lm_batch(cfg, inp, dev):
+    import torch
+    tok = torch.from_numpy(inp["tokens"]).to(dev)
+    if cfg.is_encdec:
+        return {"tokens": tok, "enc_embeddings": torch.from_numpy(
+            inp["embeddings"]).to(dev)}
+    if cfg.frontend == "vision":
+        return {"embeddings": torch.from_numpy(inp["embeddings"]).to(dev),
+                "positions": torch.from_numpy(inp["positions"]).to(dev)}
+    return {"tokens": tok}
+
+
+def lm_max_err(got, ref):
+    """max |got - ref| and whether it is within LM_TOL (atol + rtol)."""
+    d = (got.double().cpu() - ref.double().cpu()).abs()
+    bound = LM_TOL + LM_TOL * ref.double().cpu().abs()
+    return float(d.max()), bool((d <= bound).all())
+
+
+def lm_launcher(argv):
+    """``python -m repro_torch.launch.serve --mode lm`` + argv in a child:
+    (exit code, its JSON records, its stderr, wall seconds)."""
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--mode",
+             "lm"] + argv, capture_output=True, text=True,
+            timeout=LM_LAUNCH_TIMEOUT_S, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=SRC))
+    except subprocess.TimeoutExpired:
+        fail(f"lm: the launcher {argv} did not exit within "
+             f"{LM_LAUNCH_TIMEOUT_S} s")
+    recs = [json.loads(l) for l in out.stdout.splitlines()
+            if l.startswith("{")]
+    return out.returncode, recs, out.stderr, time.perf_counter() - t0
+
+
+def lm_phase(dev, gpu):
+    """The LM stack's serving path on the card (no kernel of the port
+    runs on it): parity of the ten reduced archs against the CPU, five
+    archs at full width and depth (decode against forward in f32, then
+    ``serve_lm`` timed in bf16), and the launcher's ``--mode lm`` in
+    children."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.common.param import tree_map
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import encdec as tencdec, layers as tlayers
+    from repro_torch.models import lm as tlm
+    from repro_torch.parallel import api
+    # by path: the card's site-packages may hold a package named tests
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_lm_f32 import f32_unembed
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 checks in f32
+    K.reset_launch_counts()
+
+    def mods(cfg):
+        return tencdec if cfg.is_encdec else tlm
+
+    def forward(cfg, params, b):
+        if cfg.is_encdec:
+            enc = tencdec.encode(params, cfg, b["enc_embeddings"])
+            return tencdec.decode_train(params, cfg, b["tokens"], enc)
+        return tlm.forward(params, cfg, b)[0]
+
+    def serve(cfg, params, b, dec_tokens, prompt, greedy, d=dev):
+        """prefill, then LM_DECODE (teacher-forced) or LM_GEN (greedy)
+        steps through the ``parallel/api`` steps: (prefill logits, each
+        step's logits, tokens fed)."""
+        batch = b["embeddings" if "embeddings" in b else "tokens"].shape[0]
+        enc = prompt if cfg.is_encdec else 0
+        shape = dict(capacity=prompt + LM_GEN, batch_size=batch,
+                     enc_len=enc)
+        prefill = api.make_prefill_step(cfg, **shape)[0]
+        decode = api.make_decode_step(cfg, **shape)[0]
+        cache = api.make_cache(cfg, batch, prompt + LM_GEN, enc_len=enc,
+                               device=d)
+        pl, cache = prefill(params, b, cache)
+        steps, fed = [], []
+        tok = torch.argmax(pl, -1)[:, None] if greedy else dec_tokens[:, :1]
+        for i in range(LM_GEN if greedy else LM_DECODE):
+            fed.append(tok)
+            lg, cache = decode(params, cache, tok, prompt + i)
+            steps.append(lg)
+            tok = torch.argmax(lg, -1)[:, None] if greedy \
+                else dec_tokens[:, i + 1:i + 2]
+        del cache
+        return pl, steps, torch.cat(fed, 1)
+
+    # -- 1. the ten archs at reduced_config: the card against the CPU
+    parity = {}
+    with f32_unembed():
+        for arch in registry.list_archs():
+            cfg = dataclasses.replace(registry.reduced_config(arch),
+                                      act_dtype="float32")
+            inp = lm_inputs(cfg, LM_REDUCED_BATCH, LM_REDUCED_PROMPT, SEED)
+            p_cpu = api.init_params(cfg, SEED, device="cpu")
+            p_gpu = tree_map(lambda a: a.to(dev), p_cpu)
+            row = {}
+            outs = {}
+            for name, d, p in (("cpu", torch.device("cpu"), p_cpu),
+                               ("gpu", dev, p_gpu)):
+                b = lm_batch(cfg, inp, d)
+                dec = torch.from_numpy(inp["decode"]).to(d)
+                lb = dict(b)
+                if cfg.frontend == "vision":
+                    lb["labels"] = torch.from_numpy(inp["tokens"]).to(d)
+                loss = mods(cfg).loss_fn(p, cfg, lb)[0]
+                pl, steps, _ = serve(cfg, p, b, dec, LM_REDUCED_PROMPT,
+                                     greedy=False, d=d)
+                outs[name] = {"forward": forward(cfg, p, b),
+                              "loss": loss.reshape(1), "prefill": pl,
+                              "decode": torch.stack(steps)}
+            ok = True
+            for k in outs["cpu"]:
+                err, good = lm_max_err(outs["gpu"][k], outs["cpu"][k])
+                row[f"{k}_max_abs_err"] = err
+                ok = ok and good
+            if not ok:
+                fail(f"lm[{arch}]: the card against the CPU beyond "
+                     f"{LM_TOL}: {row}")
+            parity[arch] = row
+            del p_cpu, p_gpu, outs
+    # the shipped unembed (bf16 operands, f32 sums: one bf16 GEMM with an
+    # f32 output on the card) on the same inputs on both devices
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn((64, 3584), generator=gen)
+    table = torch.randn((4096, 3584), generator=gen) * 0.02
+    u_cpu = tlayers.unembed({"table": table}, x)
+    u_gpu = tlayers.unembed({"table": table.to(dev)}, x.to(dev))
+    unembed_err = float((u_gpu.cpu() - u_cpu).abs().max())
+    if not unembed_err <= 1e-5 * float(u_cpu.abs().max()):
+        fail(f"lm: the bf16 unembed on the card against the CPU: "
+             f"{unembed_err}")
+
+    # -- 2. full width and depth in f32: decode against the forward
+    full = {}
+    for arch, ((b32, s32), (b16, s16)) in LM_FULL.items():
+        cfg0 = registry.get_config(arch)
+        cfg = dataclasses.replace(cfg0, act_dtype="float32")
+        if cfg.moe is not None:     # no drops: every expert takes a group
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts
+                / cfg.moe.top_k))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = api.init_params(cfg, SEED, device=dev)
+        torch.cuda.synchronize()
+        row = {"param_count": cfg.param_count(),
+               "param_bytes_f32": api.param_bytes(cfg),
+               "init_s": time.perf_counter() - t0}
+        with f32_unembed():
+            inp = lm_inputs(cfg, b32, s32, SEED)
+            b = lm_batch(cfg, inp, dev)
+            pl, steps, fed = serve(cfg, params, b, None, s32, greedy=True)
+            fb = dict(b)
+            fb["tokens"] = torch.cat([b["tokens"], fed], 1)
+            ref = forward(cfg, params, fb)[:, s32 + LM_GEN - 1]
+        d = (steps[-1].double() - ref.double()).abs()
+        bound = LM_FULL_TOL + LM_FULL_TOL * ref.double().abs()
+        row.update(f32_batch=b32, f32_prompt=s32,
+                   f32_decode_vs_forward_max_abs_err=float(d.max()),
+                   f32_peak_bytes=torch.cuda.max_memory_allocated(dev))
+        if not bool((d <= bound).all()):
+            fail(f"lm[{arch}]: f32 decode step {LM_GEN} against the "
+                 f"forward: max error {float(d.max())} beyond {LM_FULL_TOL}")
+        del params, pl, steps, ref, d, fb, b
+
+        # -- 3. the served path, serve_lm, in the config's own act dtype
+        # (params drawn in it: the same seed's values, cast): a first
+        # call of one decode step warms the libraries, the second is timed
+        runs = []
+        for gen_len in (1, LM_GEN):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            logged = io.StringIO()
+            with contextlib.redirect_stdout(logged):
+                times = lserve.serve_lm(arch, reduced=False, batch=b16,
+                                        prompt_len=s16, gen_len=gen_len,
+                                        seed=SEED, device=dev)
+            runs.append((times, logged.getvalue()))
+        (prefill_s, decode_s), logged = runs[-1]
+        recs = {r["event"]: r for r in map(json.loads, logged.splitlines())}
+        if set(recs) != {"lm_served", "lm_sample"}:
+            fail(f"lm[{arch}]: serve_lm logged {sorted(recs)}")
+        row.update(bf16_batch=b16, bf16_prompt=s16,
+                   bf16_param_bytes=api.param_bytes(cfg0, cfg0.adtype),
+                   bf16_prefill_ms=prefill_s * 1e3,
+                   bf16_decode_ms_per_token=decode_s * 1e3 / LM_GEN,
+                   bf16_tokens_per_s=b16 * LM_GEN / decode_s,
+                   bf16_peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   bf16_first_tokens=recs["lm_sample"]["tokens"])
+        full[arch] = row
+        torch.cuda.empty_cache()
+
+    launches = K.launch_counts()
+    if any(launches.values()):
+        fail(f"lm: the LM path launched a kernel of the port: {launches}")
+
+    # -- 4. the launcher's --mode lm in children, on the card
+    launcher = {}
+    for name, argv in (("reduced", ["--arch", LM_LAUNCH_ARCH]),
+                       ("full", ["--arch", LM_LAUNCH_FULL_ARCH, "--full"])):
+        rc, recs, err, wall = lm_launcher(argv)
+        served = [r for r in recs if r.get("event") == "lm_served"]
+        if rc != 0 or len(served) != 1:
+            fail(f"lm: the launcher {argv}: exit {rc}, records {recs}, "
+                 f"{err[-3000:]}")
+        launcher[name] = {"wall_s": wall, "arch": served[0]["arch"],
+                          **{k: served[0][k] for k in (
+                              "prefill_ms", "decode_ms", "tok_per_s")}}
+    argv = ["--arch", LM_LAUNCH_REFUSED_ARCH, "--full"]
+    rc, recs, err, wall = lm_launcher(argv)
+    refusal = f"MemoryError: {LM_LAUNCH_REFUSED_ARCH}: its params take"
+    if rc == 0 or refusal not in err or recs:
+        fail(f"lm: the launcher {argv} was not refused: exit {rc}, "
+             f"records {recs}, {err[-3000:]}")
+    launcher["refused"] = {"wall_s": wall, "arch": LM_LAUNCH_REFUSED_ARCH,
+                           "error": err.strip().splitlines()[-1]}
+    return {"phase": "lm", "seconds": time.perf_counter() - t_phase,
+            "launches": launches,
+            "note": "the LM path runs plain PyTorch; no kernel of the "
+                    "port launches on it",
+            "parity": parity, "unembed_bf16_max_abs_err": unembed_err,
+            "full": full, "launcher": launcher, **gpu}
+
+
 
 def main():
     import torch
@@ -1469,6 +1768,10 @@ def main():
 
     # --------------------------------------------------------- analysis
     emit(analysis_phase(ptxas, dev, gpu))
+
+    # --------------------------------------------------------------- lm
+    # the LM stack's serving path, before the field phases take memory
+    emit(lm_phase(dev, gpu))
 
     # ---------------------------------------------------------- kernels
     params = [fields.from_jax_params(np_params(cfg, SEED + s), cfg, dev)

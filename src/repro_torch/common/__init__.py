@@ -1,1 +1,2 @@
-"""What the port shares across layers: the partitioning rules."""
+"""What the port shares across layers: the partitioning rules and the
+parameter trees with logical axes (``param.py``)."""

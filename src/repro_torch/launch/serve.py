@@ -2,10 +2,12 @@
 
   * ``--mode render``: train a few scenes, then serve a mixed stream of
     pixel requests (scenes x viewpoints) through the ``RenderEngine``.
-  * ``--mode lm``: the LM decode loop, not ported yet (it raises).
+  * ``--mode lm``: the LM decode loop (prefill, then greedy decode) for
+    the ten assigned architectures.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode render --app gia
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --app nvr
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch mamba2-2.7b
 
 It follows the JAX launcher step for step and logs the same events with
 the same keys (JSON lines, ``obs/log.py``). It differs in four places:
@@ -18,9 +20,12 @@ the same keys (JSON lines, ``obs/log.py``). It differs in four places:
     14 (default) is the JAX launcher's laptop table, ``None`` keeps the
     Table-I size.
   * No ``--use-pallas``: there is no XLA route to choose against.
-  * ``--mode lm`` raises ``NotImplementedError`` (the LM stack is not
-    ported yet); ``--arch`` and ``--reduced`` stay, so that the flag sets
-    match.
+  * ``--mode lm``: ``--full`` serves the arch's published config (the
+    JAX launcher's ``--reduced`` is on by default and cannot be turned
+    off). The LM loop runs on one device (``parallel/api``), its params
+    drawn in the act dtype with no f32 master; an arch whose params do
+    not fit on the card is refused (``MemoryError``) before any is drawn,
+    and a logit that is not finite raises (the JAX loop checks neither).
 
 ``--shard`` serves through a mesh of the visible devices
 (``launch.mesh.make_local_mesh()``, 1 x 1 as in the JAX launcher: the
@@ -31,9 +36,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.mesh import make_local_mesh
@@ -150,12 +157,96 @@ def serve_render(app: str = "gia", encoding: str = "hash",
     return stats
 
 
+def _wait(dev) -> None:
+    # repro: sync-boundary the LM loop's timing points wait for the card
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _host_tokens(tok) -> np.ndarray:
+    # repro: sync-boundary greedy decode reads each step's argmax on the host
+    return tok[:, 0].cpu().numpy()
+
+
+def _check_finite(finite, arch: str) -> None:
+    # repro: sync-boundary read once, after the timed decode
+    if not bool(finite):
+        raise FloatingPointError(f"{arch}: a logit of the prefill or of a "
+                                 "decode step is not finite")
+
+
 def serve_lm(arch: str, reduced: bool = True, batch: int = 2,
-             prompt_len: int = 32, gen_len: int = 16, seed: int = 0):
-    """The LM decode loop: not ported yet."""
-    raise NotImplementedError(
-        "--mode lm (the LM stack: models, parallel/api, the decode loop) is "
-        "not ported to repro_torch yet (ROADMAP A14)")
+             prompt_len: int = 32, gen_len: int = 16, seed: int = 0, *,
+             device: DeviceLike = None):
+    """Prefill a random prompt, then greedy-decode ``gen_len`` tokens for
+    ``arch`` (its ``reduced_config`` unless ``reduced=False``) through the
+    ``parallel/api`` steps on one device; logs ``lm_served`` and
+    ``lm_sample``, adds ``lm.prefill``/``lm.decode`` tracer events, and
+    returns (prefill seconds, decode seconds). The params are drawn on the
+    device in the act dtype, with no f32 master (``api.init_params(
+    compute_dtype=)``); an arch they do not fit raises ``MemoryError``
+    first. A logit that is not finite raises ``FloatingPointError``."""
+    from repro_torch.configs import registry
+    from repro_torch.parallel import api
+
+    dev = resolve_device(device)
+    cfg = (registry.reduced_config(arch) if reduced
+           else registry.get_config(arch))
+    mesh = make_local_mesh(device=dev)
+    capacity = prompt_len + gen_len
+    enc_len = prompt_len if cfg.is_encdec else 0
+
+    prefill_fn, _ = api.make_prefill_step(
+        cfg, mesh, capacity=capacity, batch_size=batch, enc_len=enc_len)
+    decode_fn, _ = api.make_decode_step(
+        cfg, mesh, capacity=capacity, batch_size=batch, enc_len=enc_len)
+
+    params = api.init_params(cfg, seed=seed, mesh=mesh,
+                             compute_dtype=cfg.adtype)
+    cache = api.make_cache(cfg, batch, capacity, enc_len=enc_len,
+                           device=dev)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len))).to(dev)
+    batch_in = {"tokens": toks}
+    if cfg.is_encdec:
+        batch_in["enc_embeddings"] = torch.from_numpy(
+            rng.standard_normal((batch, prompt_len, cfg.d_model))).to(
+            dev, cfg.adtype)
+    if cfg.frontend == "vision":
+        batch_in = {"embeddings": torch.from_numpy(
+            rng.standard_normal((batch, prompt_len, cfg.d_model))).to(
+            dev, cfg.adtype)}
+
+    t0 = time.perf_counter()
+    logits, cache = prefill_fn(params, batch_in, cache)
+    _wait(dev)
+    t_prefill = time.perf_counter() - t0
+    out_tokens = []
+    finite = torch.isfinite(logits).all()
+    tok = torch.argmax(logits, -1)[:, None]
+    t0 = time.perf_counter()
+    for i in range(gen_len):
+        out_tokens.append(_host_tokens(tok))
+        logits, cache = decode_fn(params, cache, tok, prompt_len + i)
+        finite &= torch.isfinite(logits).all()
+        tok = torch.argmax(logits, -1)[:, None]
+    _wait(dev)
+    t_decode = time.perf_counter() - t0
+    _check_finite(finite, arch)
+    if TRACER.enabled:
+        now = time.perf_counter()
+        TRACER.add_event("lm.prefill", now - t_decode - t_prefill,
+                         now - t_decode, cat="serve", arch=arch)
+        TRACER.add_event("lm.decode", now - t_decode, now, cat="serve",
+                         arch=arch, n_steps=gen_len)
+    _LOG.info("lm_served", arch=arch, prompt_len=prompt_len,
+              prefill_ms=round(t_prefill * 1e3),
+              decode_steps=gen_len, decode_ms=round(t_decode * 1e3),
+              tok_per_s=round(gen_len * batch / t_decode, 1))
+    _LOG.info("lm_sample",
+              tokens=[int(t) for t in np.stack(out_tokens, 1)[0][:12]])
+    return t_prefill, t_decode
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -165,6 +256,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--encoding", default="hash")
     ap.add_argument("--arch", default="olmoe-1b-7b")
     ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", action="store_true",
+                    help="--mode lm: the arch's published config in place "
+                         "of its reduced one")
     ap.add_argument("--train-steps", type=int, default=150)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--tile-pixels", type=int, default=4096)
@@ -213,7 +307,8 @@ def main(argv=None):
                      quant=args.quant,
                      metrics_out=args.metrics_out, device=args.device)
     else:
-        serve_lm(args.arch, args.reduced)
+        serve_lm(args.arch, args.reduced and not args.full,
+                 device=args.device)
     if args.trace_out:
         TRACER.export(args.trace_out)
         _LOG.info("trace_written", path=args.trace_out,

@@ -1,0 +1,207 @@
+"""Shared LM layers: norms, projections, embeddings, RoPE (incl. M-RoPE),
+the JAX package's ``models/layers.py`` in plain PyTorch.
+
+The rounding follows the JAX functions step for step, since it shows in
+bf16: a norm's variance is an f32-accumulating reduction of the act-dtype
+input (no f32 copy of ``x``) and its ``rsqrt`` is cast to the act dtype
+before the multiply; the unembedding rounds both operands to bf16 and
+accumulates in f32 whatever the act dtype; GELU is the tanh approximation
+(``jax.nn.gelu``'s default); swiglu's SiLU stays in the act dtype."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.common.param import Boxed, KeyGen, normal_init, \
+    scaled_init, zeros_init, ones_init
+
+
+# ---------------------------------------------------------------- norms
+def init_rmsnorm(kg: KeyGen, d: int, dtype=torch.float32,
+                 axis_name: str = "embed", lead: Tuple[int, ...] = ()):
+    return {"scale": Boxed(ones_init(kg(), lead + (d,), dtype),
+                           (axis_name,))}
+
+
+def _sumsq_f32(x: torch.Tensor) -> torch.Tensor:
+    """sum(x * x) over the last dim, accumulated in f32 without an f32
+    copy of x (the reduction widens each element as it reads it)."""
+    if x.dtype == torch.float32:
+        return torch.einsum("...d,...d->...", x, x)
+    n = torch.linalg.vector_norm(x, dim=-1, dtype=torch.float32)
+    return n * n
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    var = (_sumsq_f32(x) / x.shape[-1])[..., None]
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * params["scale"].to(x.dtype)
+
+
+def init_layernorm(kg: KeyGen, d: int, dtype=torch.float32,
+                   lead: Tuple[int, ...] = ()):
+    return {"scale": Boxed(ones_init(kg(), lead + (d,), dtype), ("embed",)),
+            "bias": Boxed(zeros_init(kg(), lead + (d,), dtype), ("embed",))}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    n = x.shape[-1]
+    mu = (x.sum(-1, dtype=torch.float32) / n)[..., None]
+    ex2 = (_sumsq_f32(x) / n)[..., None]
+    var = ex2 - mu * mu
+    inv = torch.rsqrt(var + eps)
+    y = (x - mu.to(x.dtype)) * inv.to(x.dtype)
+    return y * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
+
+
+def head_rmsnorm(scale, x, eps: float = 1e-6):
+    """qk-norm: RMSNorm over the head_dim of (B, S, H, hd)."""
+    var = (_sumsq_f32(x) / x.shape[-1])[..., None]
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * scale.to(x.dtype)
+
+
+# ---------------------------------------------------------------- linear
+def init_linear(kg: KeyGen, d_in: int, d_out: int, axes,
+                dtype=torch.float32, bias: bool = False, bias_axes=None,
+                lead: Tuple[int, ...] = ()):
+    p = {"w": Boxed(scaled_init(kg(), lead + (d_in, d_out), dtype=dtype,
+                                fan_in=d_in), tuple(axes))}
+    if bias:
+        p["b"] = Boxed(zeros_init(kg(), lead + (d_out,), dtype),
+                       tuple(bias_axes or (axes[-1],)))
+    return p
+
+
+def linear(params, x, act_dtype=None):
+    w = params["w"]
+    if act_dtype is not None:
+        w = w.to(act_dtype)
+        x = x.to(act_dtype)
+    y = x @ w
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------- embedding
+def init_embedding(kg: KeyGen, vocab: int, d: int, dtype=torch.float32):
+    return {"table": Boxed(normal_init(kg(), (vocab, d), dtype=dtype),
+                           ("vocab", "embed"))}
+
+
+def embed(params, ids, act_dtype):
+    return params["table"][ids].to(act_dtype)
+
+
+def unembed(params, x):
+    """Logits against the (vocab, embed) table; f32 for the softmax. Both
+    operands are rounded to bf16 and the products summed in f32, as the
+    JAX function's bf16 einsum with an f32 result: on the card one bf16
+    GEMM with an f32 output, on the CPU the same bf16 values widened."""
+    table = params["table"].to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    x2 = xb.reshape(-1, xb.shape[-1])
+    if x2.is_cuda:
+        out = torch.mm(x2, table.t(), out_dtype=torch.float32)
+    else:
+        out = x2.float() @ table.float().t()
+    return out.reshape(x.shape[:-1] + (table.shape[0],))
+
+
+# ---------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (B, S, H, hd), positions (B, S) -> rotated x (half-split layout)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)        # (hd/2,)
+    ang = positions[..., None].float() * freqs               # (B, S, hd/2)
+    return _rotate(x, ang)
+
+
+def apply_m_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                 sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): positions (3, B, S) = (t, h, w) ids;
+    the hd/2 frequency slots are partitioned into ``sections`` groups, each
+    rotated by its own positional stream."""
+    hd = x.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    freqs = rope_freqs(hd, theta, x.device)
+    angs = []
+    start = 0
+    for s, sec in enumerate(sections):
+        f = freqs[start:start + sec]
+        angs.append(positions[s][..., None].float() * f)
+        start += sec
+    return _rotate(x, torch.cat(angs, dim=-1))
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper encoder's fixed sinusoidal embedding (S, d)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    # -log(10000) / d in f32, as the JAX function computes it
+    rate = -torch.log(torch.tensor(10000.0, dtype=torch.float32,
+                                   device=device)) / d
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                 device=device) * rate)
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+# ---------------------------------------------------------------- FFNs
+def init_swiglu(kg: KeyGen, d: int, d_ff: int, dtype=torch.float32,
+                lead: Tuple[int, ...] = ()):
+    return {
+        "w_gate": Boxed(scaled_init(kg(), lead + (d, d_ff), dtype=dtype,
+                                    fan_in=d), ("embed", "mlp")),
+        "w_up": Boxed(scaled_init(kg(), lead + (d, d_ff), dtype=dtype,
+                                  fan_in=d), ("embed", "mlp")),
+        "w_down": Boxed(scaled_init(kg(), lead + (d_ff, d), dtype=dtype,
+                                    fan_in=d_ff), ("mlp", "embed")),
+    }
+
+
+def swiglu(params, x):
+    dt = x.dtype
+    g = x @ params["w_gate"].to(dt)
+    u = x @ params["w_up"].to(dt)
+    # silu stays in the activation dtype, as in the JAX function
+    h = F.silu(g) * u
+    return h @ params["w_down"].to(dt)
+
+
+def init_gelu_mlp(kg: KeyGen, d: int, d_ff: int, dtype=torch.float32,
+                  lead: Tuple[int, ...] = ()):
+    return {
+        "w_up": Boxed(scaled_init(kg(), lead + (d, d_ff), dtype=dtype,
+                                  fan_in=d), ("embed", "mlp")),
+        "b_up": Boxed(zeros_init(kg(), lead + (d_ff,), dtype), ("mlp",)),
+        "w_down": Boxed(scaled_init(kg(), lead + (d_ff, d), dtype=dtype,
+                                    fan_in=d_ff), ("mlp", "embed")),
+        "b_down": Boxed(zeros_init(kg(), lead + (d,), dtype), ("embed",)),
+    }
+
+
+def gelu_mlp(params, x):
+    dt = x.dtype
+    h = x @ params["w_up"].to(dt) + params["b_up"].to(dt)
+    h = F.gelu(h, approximate="tanh")
+    return h @ params["w_down"].to(dt) + params["b_down"].to(dt)

@@ -1,0 +1,198 @@
+"""Unified decoder-only LM: init / forward / loss / prefill / decode, the
+JAX package's ``models/lm.py`` in plain PyTorch.
+
+The parameter layout is the JAX one: each sub-layer of a block period
+(``blocks.block_period``) is a subtree ``blocks/sub{p}`` whose leaves are
+stacked over the ``n_periods`` periods, with a leading ``'layers'``
+logical axis. The JAX package scans over that axis (``lax.scan``, via
+``models/scan_util.py``); the port loops over it in Python and indexes
+each period's slice, so it needs no ``scan_util``. Caches are stacked the
+same way and are filled and updated in place (the JAX steps carry and
+donate theirs); ``prefill`` and ``decode_step`` return them.
+
+``loss_fn`` is the forward loss only (the parity oracle of the serving
+path); training waits for the LM training slice.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.common.param import Boxed, KeyGen, tree_from_numpy, \
+    tree_map, unbox
+from repro_torch.device import resolve_device
+from repro_torch.models import blocks, layers
+from repro_torch.models.config import ModelConfig
+
+
+def n_periods(cfg: ModelConfig) -> int:
+    return cfg.n_layers // blocks.block_period(cfg)
+
+
+def _with_layers_axis(tree):
+    """Prepend the 'layers' logical axis to every Boxed leaf."""
+    return tree_map(lambda b: Boxed(b.value, ("layers",) + b.axes), tree,
+                    is_leaf=lambda x: isinstance(x, Boxed))
+
+
+def init_lm(kg: KeyGen, cfg: ModelConfig) -> Dict:
+    """Returns a Boxed tree. Layer params are stacked over periods with a
+    leading 'layers' logical axis. ``kg``'s device is where they live
+    (``KeyGen(seed, "meta")`` for shapes only)."""
+    period = blocks.block_period(cfg)
+    np_ = n_periods(cfg)
+    params: Dict = {
+        "embedding": layers.init_embedding(kg, cfg.vocab_size, cfg.d_model,
+                                           cfg.pdtype),
+        "final_norm": layers.init_rmsnorm(kg, cfg.d_model, cfg.pdtype),
+    }
+    if not cfg.tie_embeddings:
+        params["unembedding"] = layers.init_embedding(
+            kg, cfg.vocab_size, cfg.d_model, cfg.pdtype)
+    params["blocks"] = {
+        f"sub{p}": _with_layers_axis(
+            blocks.init_block(kg, cfg, p, lead=(np_,)))
+        for p in range(period)}
+    return params
+
+
+def from_jax_params(np_tree, cfg: ModelConfig, device=None) -> Dict:
+    """A JAX ``unbox(lm.init_lm(key, cfg))[0]`` tree, as numpy arrays, as
+    the port's params on ``device`` (CUDA unless named): the same keys and
+    stacked shapes, dtypes kept; a missing or extra key or another shape
+    raises."""
+    expected = unbox(init_lm(KeyGen(0, "meta"), cfg))[0]
+    return tree_from_numpy(np_tree, expected, resolve_device(device))
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+    """Token ids or stubbed modality embeddings (audio frames / vision
+    patches, per the assignment's frontend-stub rule)."""
+    if "embeddings" in batch:
+        return batch["embeddings"].to(cfg.adtype)
+    return layers.embed(params["embedding"], batch["tokens"], cfg.adtype)
+
+
+def _positions(cfg: ModelConfig, batch: Dict, b: int, s: int, device):
+    if "positions" in batch:
+        return batch["positions"]
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None].expand(
+        b, s)
+    if cfg.m_rope_sections is not None:
+        pos = pos[None].expand(3, b, s)     # t == h == w for text
+    return pos
+
+
+def _index(tree, i: int):
+    """Period ``i``'s slice of a stacked (params or cache) tree: views."""
+    return tree_map(lambda a: a[i], tree)
+
+
+def _unembed_table(params):
+    return params.get("unembedding", params["embedding"])
+
+
+def forward(params, cfg: ModelConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence forward -> (logits (B, S, V), aux)."""
+    x, aux = hidden_states(params, cfg, batch)
+    return layers.unembed(_unembed_table(params), x), aux
+
+
+def hidden_states(params, cfg: ModelConfig, batch: Dict
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """Forward without the unembedding: (B, S, d) final-norm states."""
+    x = _embed_inputs(params, cfg, batch)
+    b, s = x.shape[:2]
+    positions = _positions(cfg, batch, b, s, x.device)
+    period = blocks.block_period(cfg)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_periods(cfg)):
+        for p in range(period):
+            x, aux = blocks.apply_block(
+                _index(params["blocks"][f"sub{p}"], i), cfg, p, x,
+                positions)
+            if "moe_aux_loss" in aux:
+                aux_sum = aux_sum + aux["moe_aux_loss"]
+    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, {"moe_aux_loss": aux_sum}
+
+
+def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
+                          labels: torch.Tensor,
+                          seq_chunk: int = 512) -> torch.Tensor:
+    """CE against a big vocab without materializing (B, S, V) logits: one
+    sequence chunk's logits at a time."""
+    b, s, d = x.shape
+    c = next(cc for cc in range(min(seq_chunk, s), 0, -1) if s % cc == 0)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(0, s, c):
+        logits = layers.unembed({"table": table}, x[:, j:j + c])
+        logz = torch.logsumexp(logits.float(), dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, j:j + c, None].long())[..., 0].float()
+        total = total + torch.sum(logz - gold)
+    return total / (b * s)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross entropy (labels = batch['labels'] or shifted
+    tokens), computed seq-chunked so full logits never hit memory."""
+    x, aux = hidden_states(params, cfg, batch)
+    if "labels" in batch:
+        labels = batch["labels"]
+    else:
+        labels = batch["tokens"][:, 1:]
+        x = x[:, :-1]
+    ce = chunked_cross_entropy(x, _unembed_table(params)["table"], labels)
+    loss = ce + 0.01 * aux.get("moe_aux_loss", 0.0) / max(cfg.n_layers, 1)
+    return loss, {"ce": ce, **aux}
+
+
+# --------------------------------------------------------------- serving
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               device=None) -> Dict:
+    """Stacked (over periods) per-sublayer caches on ``device`` (CUDA
+    unless named); ring slots start at -1 (empty), not 0."""
+    device = resolve_device(device)
+    np_ = n_periods(cfg)
+    return {f"sub{p}": blocks.init_block_cache(cfg, p, batch, capacity,
+                                               device=device, lead=(np_,))
+            for p in range(blocks.block_period(cfg))}
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict, cache: Dict
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Process the prompt; returns (last-token logits (B, V), cache), the
+    cache filled in place."""
+    x = _embed_inputs(params, cfg, batch)
+    b, s = x.shape[:2]
+    positions = _positions(cfg, batch, b, s, x.device)
+    period = blocks.block_period(cfg)
+    for i in range(n_periods(cfg)):
+        for p in range(period):
+            x, _ = blocks.prefill_block(
+                _index(params["blocks"][f"sub{p}"], i), cfg, p, x,
+                positions, _index(cache[f"sub{p}"], i))
+    x = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    logits = layers.unembed(_unembed_table(params), x)[:, 0]
+    return logits, cache
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
+                pos, cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """One decode step. tokens (B, 1) int; ``pos`` the new token's position
+    (a host int: the lockstep batch's). The cache is updated in place."""
+    pos = int(pos)
+    x = layers.embed(params["embedding"], tokens, cfg.adtype)
+    period = blocks.block_period(cfg)
+    for i in range(n_periods(cfg)):
+        for p in range(period):
+            x, _ = blocks.decode_block(
+                _index(params["blocks"][f"sub{p}"], i), cfg, p, x, pos,
+                _index(cache[f"sub{p}"], i))
+    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = layers.unembed(_unembed_table(params), x)[:, 0]
+    return logits, cache

@@ -1185,3 +1185,96 @@ def test_budget_matches_cuda(dev, app):
             assert budget.blocks_per_sm(
                 cuda["registers"], est.threads, est.smem_bytes) == cuda[
                 "blocks_per_sm"], est.where
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,v", [(1, 64, 256), (37, 3584, 4096),
+                                   (512, 512, 51865)])
+def test_lm_unembed_bf16_gemm_matches_cpu(dev, n, d, v):
+    """The LM unembedding on the card (one bf16 GEMM with an f32 output,
+    ``torch.mm(out_dtype=)``) against the CPU's widened bf16 operands:
+    the same products, summed in another order."""
+    from repro_torch.models import layers
+    gen = torch.Generator().manual_seed(n)
+    x = torch.randn((n, d), generator=gen)
+    table = torch.randn((v, d), generator=gen) * 0.02
+    want = layers.unembed({"table": table}, x)
+    got = layers.unembed({"table": table.to(dev)}, x.to(dev))
+    assert got.dtype == torch.float32 and got.shape == (n, v)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "whisper-base",
+                                  "qwen2-vl-72b", "h2o-danube-1.8b"])
+def test_lm_serving_on_the_card_matches_cpu(dev, arch):
+    """A reduced arch in f32 on the same params: prefill and 8 greedy
+    decode steps on the card against the CPU within 1e-4 (the unembed
+    widened to f32 on both: its bf16 rounding would turn f32 noise into
+    whole bf16 steps), and no kernel of the port launches."""
+    import dataclasses
+    from repro_torch.common.param import tree_map
+    from repro_torch.configs import registry
+    from repro_torch.models import encdec, lm
+    from repro_torch.parallel import api
+    from torch_lm_f32 import f32_unembed   # tests/ is on the path
+    cfg = dataclasses.replace(registry.reduced_config(arch),
+                              act_dtype="float32")
+    mod = encdec if cfg.is_encdec else lm
+    p_cpu = api.init_params(cfg, seed=1, device="cpu")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, 256, (2, 24)))
+    emb = torch.from_numpy(rng.standard_normal((2, 16, cfg.d_model))
+                           .astype(np.float32))
+    tkernels.reset_launch_counts()
+    outs = []
+    for d in (torch.device("cpu"), dev):
+        p = tree_map(lambda a: a.to(d), p_cpu)
+        batch = {"tokens": toks[:, :16].to(d)}
+        if cfg.is_encdec:
+            batch["enc_embeddings"] = emb.to(d)
+        if cfg.frontend == "vision":
+            batch = {"embeddings": emb.to(d)}
+        cache = api.make_cache(cfg, 2, 24, enc_len=16 if cfg.is_encdec
+                               else 0, device=d)
+        with f32_unembed():
+            logits, cache = mod.prefill(p, cfg, batch, cache)
+            steps = [logits]
+            for i in range(8):
+                logits, cache = mod.decode_step(
+                    p, cfg, toks[:, 16 + i:17 + i].to(d), 16 + i, cache)
+                steps.append(logits)
+        outs.append(torch.stack(steps).cpu())
+    torch.testing.assert_close(outs[1], outs[0], atol=TOL, rtol=TOL)
+    assert not any(tkernels.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_lm_full_width_serves_in_bf16_when_only_bf16_fits(dev, capsys):
+    """qwen3-32b at its published config: 131 GB in f32, 65.5 GB in bf16.
+    ``init_params`` refuses the f32 tree before drawing, and ``serve_lm``
+    (params drawn in bf16, no f32 master) serves it; jamba-v0.1-52b
+    (103 GB in bf16) is refused even in bf16."""
+    import json
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.parallel import api
+    torch.cuda.empty_cache()
+    cfg = registry.get_config("qwen3-32b")
+    with pytest.raises(MemoryError, match="qwen3-32b: its params take"):
+        api.init_params(cfg, device=dev)
+    with pytest.raises(MemoryError, match="in bfloat16"):
+        api.init_params(registry.get_config("jamba-v0.1-52b"), device=dev,
+                        compute_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats(dev)
+    capsys.readouterr()
+    serve.serve_lm("qwen3-32b", reduced=False, batch=1, prompt_len=16,
+                   gen_len=2, device=dev)
+    recs = [json.loads(line) for line in
+            capsys.readouterr().out.strip().splitlines()]
+    assert [r["event"] for r in recs] == ["lm_served", "lm_sample"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert api.param_bytes(cfg, torch.bfloat16) <= peak < \
+        api.param_bytes(cfg, torch.bfloat16) + 8 * 10 ** 9
+    torch.cuda.empty_cache()

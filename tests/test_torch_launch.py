@@ -79,7 +79,8 @@ def test_parser_flags_are_jax_minus_use_pallas_plus_device(monkeypatch):
     jflags = _parser_of(jserve.main, monkeypatch)
     tflags = _parser_of(tserve.main, monkeypatch)
     assert set(jflags) - set(tflags) == {"use_pallas"}
-    assert set(tflags) - set(jflags) == {"device"}
+    # --full: the JAX --reduced is on by default and cannot be turned off
+    assert set(tflags) - set(jflags) == {"device", "full"}
     for dest in set(jflags) & set(tflags):
         assert tflags[dest] == jflags[dest], dest
     assert tflags["device"][:2] == (("--device",), "cuda")
@@ -136,13 +137,21 @@ def test_tiny_runs_log_the_same_events_with_the_same_keys(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--shard", "--mode", "lm"],
                                   ["--mode", "lm"]])
-def test_what_is_not_ported_raises(argv):
-    """Only the LM mode (A14) is not ported, with ``--shard`` too (which
-    the render mode serves: ``tests/test_torch_sharding.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        tserve.main(argv + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A14"):
-        tserve.serve_lm("olmoe-1b-7b")
+def test_what_is_not_ported_raises(argv, capsys):
+    """What is not ported yet raises: the LM steps on a mesh of more than
+    one device (ROADMAP A14.5). The LM mode itself serves, with
+    ``--shard`` too (its 1 x 1 local mesh is one device)."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import api
+    capsys.readouterr()
+    tserve.main(argv + ["--device", "cpu"])
+    events = [json.loads(line)["event"] for line in
+              capsys.readouterr().out.strip().splitlines()]
+    assert events == ["lm_served", "lm_sample"]
+    two = Mesh([torch.device("cpu")] * 2, ("data",))
+    with pytest.raises(NotImplementedError, match="ROADMAP A14.5"):
+        api.make_decode_step(reduced_config("olmoe-1b-7b"), two)
 
 
 def test_launcher_without_a_gpu_raises(monkeypatch):
