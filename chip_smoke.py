@@ -51,6 +51,30 @@ JSON line:
            in children: a reduced arch and ``--full`` qwen2-7b must exit 0
            with one ``lm_served`` record, ``--full`` jamba-v0.1-52b (104 GB
            in bf16) must be refused with a ``MemoryError``
+ lm_train  LM training (``parallel/api.build_train_step``, the backward
+           with remat, ``launch/train.py``), plain PyTorch: no kernel of
+           the port may launch on it. The ten archs at ``reduced_config``
+           in f32 (attention chunked in 4 query blocks, danube's window
+           slicing the keys): one loss and every gradient leaf, then
+           LM_TRAIN_PARITY_STEPS train steps' losses and grad norms, on the
+           card against the CPU within LM_TOL (the unembedding widened to
+           f32 on both); h2o-danube-1.8b (1 x 6144 tokens, past its
+           window), mamba2-2.7b (4 x 1024) and whisper-base (4 x 512)
+           trained at published width and depth in bf16 on an f32 master
+           with ``TrainConfig``'s Adam for LM_TRAIN_STEPS steps: ms a step
+           after a warm-up step, tokens/s, peak memory, the first loss
+           against ln(vocab), the bound (8 N tokens at the bf16 peak) and
+           one more step under a CUDA-only trace; the loss must fall (the
+           last 4 steps' mean below the first 4's); danube in f32 at a
+           small batch: the directional derivative along the normalised
+           gradient against a central difference (LM_GRAD_CHECK_TOL);
+           olmoe-1b-7b's 124.5 GB train state refused by ``check_fits``
+           before anything is drawn; last, in children: ``python -m
+           repro_torch.launch.train`` (reduced olmoe, 24 steps: the loss
+           must fall), one killed after its first checkpoint and re-run
+           (it resumes at the next step, losses within LM_RESUME_TOL of
+           the uninterrupted run's) and ``examples/torch/train_lm.py`` at
+           its defaults
  kernels  each kernel against its plain version on the inputs of one real
            engine tile (nerf: 4096 pixels x 32 samples; gia: 4096 pixels):
            max error against the stated tolerance, device time per call
@@ -375,6 +399,37 @@ LM_LAUNCH_ARCH = "olmoe-1b-7b"
 LM_LAUNCH_FULL_ARCH = "qwen2-7b"
 LM_LAUNCH_REFUSED_ARCH = "jamba-v0.1-52b"
 LM_LAUNCH_TIMEOUT_S = 300
+# the lm_train phase: the ten reduced archs in f32, one step's loss and
+# gradients and LM_TRAIN_PARITY_STEPS steps' losses on the card against
+# the CPU (LM_TOL), chunked attention at LM_TRAIN_Q_CHUNK (4 query blocks
+# of the 16 tokens) and danube's window at LM_TRAIN_WINDOW (keys sliced)
+LM_TRAIN_PARITY_STEPS = 4
+LM_TRAIN_Q_CHUNK = 4
+LM_TRAIN_WINDOW = 4
+# full width and depth in bf16 compute with an f32 master, cut only in
+# batch x tokens: arch -> (batch, tokens a row). danube's 6144 tokens pass
+# its 4096 window, so the backward runs chunked attention's sliced keys
+LM_TRAIN_FULL = {"h2o-danube-1.8b": (1, 6144), "mamba2-2.7b": (4, 1024),
+                 "whisper-base": (4, 512)}
+LM_TRAIN_STEPS = 16
+BF16_PEAK_FLOPS = 989e12     # dense bf16 tensor-core peak of one H100
+# the full-width gradient check: danube in f32 at a small batch, the
+# directional derivative along the normalised gradient against a central
+# difference of the loss, relative; the step moves the loss by about
+# LM_GRAD_CHECK_DELTA
+LM_GRAD_CHECK = ("h2o-danube-1.8b", 2, 256)
+LM_GRAD_CHECK_TOL = 1e-2
+LM_GRAD_CHECK_DELTA = 1e-2
+# refused at full width: its train state (16 bytes a parameter) does not
+# fit on one card
+LM_TRAIN_REFUSED_ARCH = "olmoe-1b-7b"
+# the launcher's children: a reduced MoE arch, 24 steps in chunks of 8
+# with a checkpoint every 8; a child killed after its first checkpoint
+LM_TRAIN_LAUNCH_ARCH = "olmoe-1b-7b"
+LM_TRAIN_LAUNCH_ARGV = ["--arch", LM_TRAIN_LAUNCH_ARCH, "--reduced",
+                        "--chunk-steps", "8", "--ckpt-every", "8"]
+LM_TRAIN_LAUNCH_STEPS = 24
+LM_RESUME_TOL = 1e-4
 
 
 def fail(msg):
@@ -587,6 +642,37 @@ def phase_device_ms(prof):
     for name, row in out.items():
         row["gpu_span_ms"] = union_ms(spans.get(name, []))
     return out
+
+
+def trace_device(run, acts, n, unit, top=10):
+    """Device busy time, idle share, device events and time by kernel
+    (the ``top`` longest) of one traced call of ``run``, which does
+    ``n`` ``unit``s of work (requests, training steps) and waits for
+    the device."""
+    import torch
+    from torch.profiler import profile
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, spans = {}, []
+    for ev in prof.events():
+        if device_work(ev):
+            key = re.sub(r"\(.*", "", ev.name)[-70:]
+            dur = (ev.time_range.end - ev.time_range.start) / 1e3
+            by_kernel[key] = by_kernel.get(key, 0.0) + dur
+            spans.append((ev.time_range.start / 1e3,
+                          ev.time_range.end / 1e3))
+    busy_ms = union_ms(spans)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
+    return {f"{unit}s": n, "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms if spans else "not measured",
+            f"device_busy_ms_per_{unit}": busy_ms / n
+            if spans else "not measured",
+            "device_idle_share": (1 - busy_ms / wall_ms) if spans
+            else "not measured",
+            "device_events": len(spans), "top_device_ms": top}
 
 
 def tree_items(tree, prefix=""):
@@ -1677,6 +1763,350 @@ def lm_phase(dev, gpu):
             "full": full, "launcher": launcher, **gpu}
 
 
+# the LM launcher's child (``python -m repro_torch.launch.train``, or a
+# script): runs it as ``python -m`` does, writing each step's loss to a
+# JSON-lines file as it comes (a killed child leaves the steps it
+# reached), then its kernels' launch counts
+LM_TRAIN_CHILD = """
+import json, runpy, sys
+sys.path.insert(0, {src!r})
+from repro_torch import kernels
+from repro_torch.train import loop
+out = open({out!r}, "w", buffering=1)
+run = loop.TrainEngine.run
+def logged(self, state, on_metrics=None):
+    def each(step, row, st):
+        out.write(json.dumps({{"step": step, "loss": row["loss"]}}) + "\\n")
+        if on_metrics is not None:
+            on_metrics(step, row, st)
+    return run(self, state, on_metrics=each)
+loop.TrainEngine.run = logged
+sys.argv = [{target!r}] + {argv!r}
+try:
+    if {target!r}.endswith(".py"):
+        runpy.run_path({target!r}, run_name="__main__")
+    else:
+        runpy.run_module({target!r}, run_name="__main__", alter_sys=True)
+finally:
+    out.write(json.dumps({{"launches": kernels.launch_counts()}}) + "\\n")
+"""
+
+
+def lm_train_child(target, argv, out, env=None):
+    """A ``LM_TRAIN_CHILD`` process (stdout and stderr to files beside
+    ``out``)."""
+    with open(out + ".stdout", "w") as so, open(out + ".stderr", "w") as se:
+        return subprocess.Popen(
+            [sys.executable, "-c", LM_TRAIN_CHILD.format(
+                src=SRC, target=target, argv=argv, out=out)],
+            cwd=ROOT, stdout=so, stderr=se,
+            env=dict(os.environ, PYTHONPATH=SRC, **(env or {})))
+
+
+def lm_train_child_result(child, out, what):
+    """(per-step losses {step: loss}, launch counts, stdout) of a finished
+    child; fails on a non-zero exit or a missing launch record."""
+    try:
+        rc = child.wait(timeout=LM_LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        fail(f"lm_train: {what} did not exit within {LM_LAUNCH_TIMEOUT_S} s")
+    with open(out + ".stderr") as f:
+        err = f.read()
+    if rc != 0:
+        fail(f"lm_train: {what} exited {rc}: {err[-3000:]}")
+    recs = [json.loads(l) for l in open(out)]
+    launches = [r["launches"] for r in recs if "launches" in r]
+    if len(launches) != 1:
+        fail(f"lm_train: {what} wrote no launch counts")
+    with open(out + ".stdout") as f:
+        stdout = f.read()
+    return ({r["step"]: r["loss"] for r in recs if "step" in r},
+            launches[0], stdout)
+
+
+def lm_token_batch(cfg, src, step, dev):
+    """Full-width step ``step``'s batch: the stream's S + 1 tokens a row as
+    S tokens and their S next-token labels (whisper: S decoder tokens,
+    shifted in its loss, and S frame embeddings), on ``dev``."""
+    import numpy as np
+    import torch
+    toks = torch.from_numpy(src.batch(step)["tokens"])
+    if cfg.is_encdec:
+        rng = np.random.default_rng((SEED, step))
+        emb = rng.standard_normal((toks.shape[0], toks.shape[1] - 1,
+                                   cfg.d_model)).astype(np.float32)
+        return {"tokens": toks[:, :-1].to(dev),
+                "enc_embeddings": torch.from_numpy(emb).to(dev)}
+    return {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+
+
+def lm_train_phase(dev, gpu):
+    """LM training on the card (no kernel of the port runs on it): the ten
+    reduced archs' gradients and steps against the CPU, three archs
+    trained at full width and depth in bf16 with an f32 master, a
+    directional-derivative check at full width, a full-width refusal, and
+    the launcher and the ``train_lm`` twin in children (a killed child
+    resumed)."""
+    import math
+    import torch
+    from torch.profiler import ProfilerActivity
+    from repro_torch import kernels as K
+    from repro_torch.checkpoint import store
+    from repro_torch.common.param import tree_leaves, tree_map
+    from repro_torch.configs import registry
+    from repro_torch.data import tokens as tdata
+    from repro_torch.models import encdec as tencdec, lm as tlm
+    from repro_torch.parallel import api
+    from repro_torch.train import loop, optim
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_lm_f32 import f32_unembed
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 checks in f32
+    K.reset_launch_counts()
+
+    def mods(cfg):
+        return tencdec if cfg.is_encdec else tlm
+
+    # -- 1. the ten archs at reduced_config in f32: the card against the CPU
+    parity = {}
+    with f32_unembed():
+        for arch in registry.list_archs():
+            cfg = registry.reduced_config(arch)
+            ch = {"act_dtype": "float32", "attn_q_chunk": LM_TRAIN_Q_CHUNK}
+            if cfg.swa_window is not None:
+                ch["swa_window"] = LM_TRAIN_WINDOW
+            cfg = dataclasses.replace(cfg, **ch)
+            inp = lm_inputs(cfg, LM_REDUCED_BATCH, LM_REDUCED_PROMPT, SEED)
+            src = tdata.SyntheticTokens(tdata.DataConfig(
+                cfg.vocab_size, LM_REDUCED_PROMPT + 1, LM_REDUCED_BATCH,
+                seed=SEED))
+            p_cpu = api.init_params(cfg, SEED, device="cpu")
+            outs = {}
+            for name, d in (("cpu", torch.device("cpu")), ("gpu", dev)):
+                p = tree_map(lambda a: a.to(d, copy=True), p_cpu)
+                b = lm_batch(cfg, inp, d)
+                if cfg.frontend == "vision":
+                    b["labels"] = torch.from_numpy(inp["tokens"]).to(d)
+                (loss, _), grads = loop.value_and_grad(
+                    lambda q, bb: mods(cfg).loss_fn(q, cfg, bb), p, b,
+                    has_aux=True)
+                step, _ = api.build_train_step(cfg)
+                state = api.make_train_state(p)
+                curve = []
+                for i in range(LM_TRAIN_PARITY_STEPS):
+                    state, m = step(state, lm_token_batch(cfg, src, i, d))
+                    curve.append(torch.stack([m["loss"], m["grad_norm"]]))
+                outs[name] = {"loss": loss.reshape(1),
+                              "grads": tree_leaves(grads),
+                              "steps": torch.stack(curve)}
+            row, ok = {}, True
+            for k in ("loss", "steps"):
+                err, good = lm_max_err(outs["gpu"][k], outs["cpu"][k])
+                row[f"{k}_max_abs_err"] = err
+                ok = ok and good
+            errs = [lm_max_err(g, c) for g, c in zip(outs["gpu"]["grads"],
+                                                     outs["cpu"]["grads"])]
+            row["grad_leaves"] = len(errs)
+            row["grad_max_abs_err"] = max(e for e, _ in errs)
+            ok = ok and all(g for _, g in errs)
+            if not ok:
+                fail(f"lm_train[{arch}]: the card against the CPU beyond "
+                     f"{LM_TOL}: {row}")
+            parity[arch] = row
+            del p_cpu, outs, state
+
+    # -- 2. full width and depth: bf16 compute, f32 master, TrainConfig's
+    # Adam; a warm-up step, then LM_TRAIN_STEPS - 1 timed
+    full = {}
+    tc = api.TrainConfig()
+    for arch, (batch, seq) in LM_TRAIN_FULL.items():
+        cfg = registry.get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = api.init_params(cfg, SEED, device=dev, train_cfg=tc)
+        n_params = sum(a.numel() for a in tree_leaves(params))
+        state = api.make_train_state(params)
+        step, _ = api.build_train_step(cfg, train_cfg=tc)
+        src = tdata.SyntheticTokens(tdata.DataConfig(
+            cfg.vocab_size, seq + 1, batch, seed=SEED))
+        batches = [lm_token_batch(cfg, src, i, dev)
+                   for i in range(LM_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        losses = []
+        t0 = time.perf_counter()
+        for i, b in enumerate(batches):
+            if i == 1:      # after the warm-up step
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / (LM_TRAIN_STEPS - 1)
+        losses = torch.stack(losses).tolist()
+        tokens = batch * seq
+        bound_s = 8 * n_params * tokens / BF16_PEAK_FLOPS
+        row = {"batch": batch, "tokens_per_row": seq, "params": n_params,
+               "train_state_bytes": api.train_state_bytes(cfg, tc),
+               "init_s": init_s, "step_ms": step_s * 1e3,
+               "tokens_per_s": tokens / step_s,
+               "peak_bytes": torch.cuda.max_memory_allocated(dev),
+               "ln_vocab": math.log(cfg.vocab_size),
+               "first_loss": losses[0], "losses": losses,
+               "bound_ms": bound_s * 1e3, "step_over_bound": step_s / bound_s}
+        # one more step under a CUDA-only trace: where its time goes
+        prof_batch = lm_token_batch(cfg, src, LM_TRAIN_STEPS, dev)
+        held = [state]
+
+        def one_step():
+            held[0], _ = step(held[0], prof_batch)
+            torch.cuda.synchronize()
+        row["profile"] = trace_device(one_step, [ProfilerActivity.CUDA], 1,
+                                      "step", top=8)
+        state = held[0]
+        full[arch] = row
+        if not all(math.isfinite(l) for l in losses):
+            fail(f"lm_train[{arch}]: a loss is not finite: {losses}")
+        if not sum(losses[-4:]) < sum(losses[:4]):
+            fail(f"lm_train[{arch}]: the loss did not fall over "
+                 f"{LM_TRAIN_STEPS} steps: {losses}")
+        del params, state, held, batches, prof_batch, m
+        torch.cuda.empty_cache()
+
+    # -- 3. the gradient at full width (f32, a small batch): autograd's
+    # directional derivative along g / |g| (= |g|) against a central
+    # difference of the loss
+    arch, batch, seq = LM_GRAD_CHECK
+    cfg = dataclasses.replace(registry.get_config(arch), act_dtype="float32")
+    params = api.init_params(cfg, SEED, device=dev)
+    src = tdata.SyntheticTokens(tdata.DataConfig(cfg.vocab_size, seq + 1,
+                                                 batch, seed=SEED))
+    b = lm_token_batch(cfg, src, 0, dev)
+    with f32_unembed():
+        loss, grads = loop.value_and_grad(
+            lambda p, bb: tlm.loss_fn(p, cfg, bb)[0], params, b)
+        gnorm = float(optim.global_norm(grads))
+        eps = LM_GRAD_CHECK_DELTA / gnorm
+
+        def moved(alpha):
+            for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+                p.add_(g, alpha=alpha / gnorm)
+            with torch.no_grad():
+                return float(tlm.loss_fn(params, cfg, b)[0])
+        l_plus = moved(eps)
+        l_minus = moved(-2 * eps)
+    fd = (l_plus - l_minus) / (2 * eps)
+    grad_check = {"arch": arch, "batch": batch, "tokens_per_row": seq,
+                  "loss": float(loss), "grad_norm": gnorm, "eps": eps,
+                  "central_difference": fd,
+                  "rel_err": abs(fd - gnorm) / gnorm}
+    if not grad_check["rel_err"] <= LM_GRAD_CHECK_TOL:
+        fail(f"lm_train: the full-width gradient check: {grad_check}")
+    del params, grads, b
+    torch.cuda.empty_cache()
+
+    # -- 4. a full-width train state that does not fit: refused before
+    # anything is drawn
+    before = torch.cuda.memory_allocated(dev)
+    cfg = registry.get_config(LM_TRAIN_REFUSED_ARCH)
+    try:
+        api.init_params(cfg, SEED, device=dev, train_cfg=tc)
+        fail(f"lm_train: {LM_TRAIN_REFUSED_ARCH}'s train state was not "
+             "refused")
+    except MemoryError as e:
+        refusal = {"arch": LM_TRAIN_REFUSED_ARCH, "error": str(e),
+                   "train_state_bytes": api.train_state_bytes(cfg, tc)}
+    if torch.cuda.memory_allocated(dev) != before:
+        fail("lm_train: the refused init drew memory")
+
+    launches = K.launch_counts()
+    if any(launches.values()):
+        fail(f"lm_train: the LM train path launched a kernel of the port: "
+             f"{launches}")
+
+    # -- 5. the launcher and the twin in children: an uninterrupted run and
+    # the example (side by side), then a child killed after its first
+    # checkpoint and re-run
+    work = os.path.join(ROOT, "build", "chip_smoke_lm_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "tmp"))
+    t0 = time.perf_counter()
+    steps = ["--steps", str(LM_TRAIN_LAUNCH_STEPS)]
+    runs = {
+        "full": lm_train_child(
+            "repro_torch.launch.train", LM_TRAIN_LAUNCH_ARGV + steps
+            + ["--ckpt-dir", os.path.join(work, "full")],
+            os.path.join(work, "full.jsonl")),
+        "example": lm_train_child(
+            os.path.join(ROOT, "examples", "torch", "train_lm.py"), [],
+            os.path.join(work, "example.jsonl"),
+            env={"TMPDIR": os.path.join(work, "tmp")})}
+    kdir = os.path.join(work, "kill")
+    killed = lm_train_child(
+        "repro_torch.launch.train", LM_TRAIN_LAUNCH_ARGV
+        + ["--steps", "100000", "--ckpt-dir", kdir],
+        os.path.join(work, "kill.jsonl"))
+    while store.latest_step(kdir) is None:
+        if killed.poll() is not None:
+            fail(f"lm_train: the killed child exited {killed.returncode} "
+                 "before its first checkpoint")
+        if time.perf_counter() - t0 > LM_LAUNCH_TIMEOUT_S:
+            killed.kill()
+            fail("lm_train: the killed child saved no checkpoint")
+        time.sleep(0.02)
+    killed.send_signal(signal.SIGKILL)
+    killed.wait()
+    killed_at = store.latest_step(kdir)
+    if killed_at >= LM_TRAIN_LAUNCH_STEPS - 1:
+        fail(f"lm_train: the child was killed only after step {killed_at}")
+    runs["resumed"] = lm_train_child(
+        "repro_torch.launch.train", LM_TRAIN_LAUNCH_ARGV + steps
+        + ["--ckpt-dir", kdir], os.path.join(work, "resumed.jsonl"))
+    res = {name: lm_train_child_result(c, os.path.join(work, name
+                                                       + ".jsonl"), name)
+           for name, c in runs.items()}
+    children_s = time.perf_counter() - t0
+    full_l, resumed_l = res["full"][0], res["resumed"][0]
+    if sorted(full_l) != list(range(LM_TRAIN_LAUNCH_STEPS)):
+        fail(f"lm_train: the launcher ran steps {sorted(full_l)}")
+    fl = [full_l[i] for i in range(LM_TRAIN_LAUNCH_STEPS)]
+    if not sum(fl[-4:]) < sum(fl[:4]):
+        fail(f"lm_train: the launcher's loss did not fall: {fl}")
+    if sorted(resumed_l) != list(range(killed_at + 1,
+                                       LM_TRAIN_LAUNCH_STEPS)):
+        fail(f"lm_train: resumed after step {killed_at}, it ran steps "
+             f"{sorted(resumed_l)}")
+    resume_err = max(abs(resumed_l[i] - full_l[i]) for i in resumed_l)
+    if not resume_err <= LM_RESUME_TOL:
+        fail(f"lm_train: resumed losses {resumed_l} against {full_l}: "
+             f"{resume_err}")
+    ex_lines = [l for l in res["example"][2].splitlines()
+                if not l.startswith("{")]
+    ex = re.match(r"loss: (\S+) -> (\S+) ", ex_lines[-1]) if ex_lines \
+        else None
+    if ex is None or not float(ex.group(2)) < float(ex.group(1)):
+        fail(f"lm_train: the train_lm twin printed {ex_lines}")
+    child_launches = {n: r[1] for n, r in res.items()}
+    if any(v for c in child_launches.values() for v in c.values()):
+        fail(f"lm_train: a child launched a kernel of the port: "
+             f"{child_launches}")
+    shutil.rmtree(work, ignore_errors=True)
+    launcher = {"children_s": children_s, "steps": LM_TRAIN_LAUNCH_STEPS,
+                "loss_first": fl[0], "loss_last": fl[-1],
+                "killed_after_step": killed_at,
+                "resumed_max_abs_err": resume_err,
+                "example": ex_lines}
+    return {"phase": "lm_train", "seconds": time.perf_counter() - t_phase,
+            "launches": launches,
+            "note": "the LM train path runs plain PyTorch; no kernel of "
+                    "the port launches on it",
+            "parity": parity, "full": full, "grad_check": grad_check,
+            "refused": refusal, "launcher": launcher, **gpu}
+
+
 
 def main():
     import torch
@@ -1772,6 +2202,7 @@ def main():
     # --------------------------------------------------------------- lm
     # the LM stack's serving path, before the field phases take memory
     emit(lm_phase(dev, gpu))
+    emit(lm_train_phase(dev, gpu))
 
     # ---------------------------------------------------------- kernels
     params = [fields.from_jax_params(np_params(cfg, SEED + s), cfg, dev)
@@ -2190,33 +2621,7 @@ def main():
     # CPU + CUDA activity (the breakdown), and CUDA activity alone, whose
     # host overhead is smaller, so its idle share is nearer the unprofiled
     # stream's.
-    def trace(run, acts, n, unit, top=10):
-        """Device busy time, idle share, device events and time by kernel
-        (the ``top`` longest) of one traced call of ``run``, which does
-        ``n`` ``unit``s of work (requests, training steps) and waits for
-        the device."""
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            run()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        by_kernel, spans = {}, []
-        for ev in prof.events():
-            if device_work(ev):
-                key = re.sub(r"\(.*", "", ev.name)[-70:]
-                dur = (ev.time_range.end - ev.time_range.start) / 1e3
-                by_kernel[key] = by_kernel.get(key, 0.0) + dur
-                spans.append((ev.time_range.start / 1e3,
-                              ev.time_range.end / 1e3))
-        busy_ms = union_ms(spans)
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
-        return {f"{unit}s": n, "wall_ms": wall_ms,
-                "device_busy_ms": busy_ms if spans else "not measured",
-                f"device_busy_ms_per_{unit}": busy_ms / n
-                if spans else "not measured",
-                "device_idle_share": (1 - busy_ms / wall_ms) if spans
-                else "not measured",
-                "device_events": len(spans), "top_device_ms": top}
+    trace = trace_device
 
     def profile_window(engine, window_reqs, acts, top=10):
         """``trace`` of one window of served requests."""

@@ -44,6 +44,15 @@ def tree_map(fn, tree, is_leaf=None):
     return fn(tree)
 
 
+def unstack(tree, n: int):
+    """The ``n`` slices along the leading (stack) axis of every leaf, as a
+    list of trees: one ``unbind`` a leaf, so that autograd stacks each
+    leaf's gradients once (indexing slice ``i`` would give every slice a
+    zero-filled gradient of the whole stack to sum)."""
+    split = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t: t[i], split) for i in range(n)]
+
+
 def tree_leaves(tree):
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]

@@ -24,6 +24,7 @@ decode path.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -31,7 +32,7 @@ import torch
 
 from repro_torch.common.param import Boxed, KeyGen, ones_init, \
     scaled_init, zeros_init
-from repro_torch.models import layers
+from repro_torch.models import layers, remat
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
@@ -149,13 +150,36 @@ def q_chunk(cfg: ModelConfig, sq: int) -> Optional[int]:
     return next(c for c in range(qc, 0, -1) if sq % c == 0)
 
 
+def _attend_block(q, k, v, qc: int, off: int, window: Optional[int],
+                  causal: bool, slice_keys: bool) -> torch.Tensor:
+    """One query block of chunked attention: the block's ``qc`` queries
+    from absolute position ``off`` against the keys they can see."""
+    sk = k.shape[1]
+    qi = torch.arange(qc, device=q.device)[:, None] + off
+    if slice_keys:
+        kw = window + qc
+        start = min(max(off - window + 1, 0), sk - kw)
+        k, v = k[:, start:start + kw], v[:, start:start + kw]
+        kj = torch.arange(kw, device=q.device)[None, :] + start
+        m = (kj <= qi) & (kj > qi - window)
+    else:
+        kj = torch.arange(sk, device=q.device)[None, :]
+        m = (kj <= qi) if causal else torch.ones(
+            (qc, sk), dtype=torch.bool, device=q.device)
+        if window is not None:
+            m = m & (kj > qi - window)
+    return _grouped_attend(q, k, v, m[None])
+
+
 def _attend_maybe_chunked(q, k, v, cfg: ModelConfig,
                           causal: bool) -> torch.Tensor:
     """Full attention with q-block chunking when the score tensor would be
     large: each block materializes only (B, H, qc, Sk), the
-    flash-attention memory shape, one block after another. With a sliding
-    window a block [off, off+qc) reads only the ``window + qc`` keys from
-    a clipped start: the keys it can see."""
+    flash-attention memory shape, one block after another, and the
+    backward recomputes each block's scores instead of keeping every
+    block's probabilities (``models/remat.py``). With a sliding window a
+    block [off, off+qc) reads only the ``window + qc`` keys from a clipped
+    start: the keys it can see."""
     sq, sk = q.shape[1], k.shape[1]
     window = cfg.swa_window if causal else None
     qc = q_chunk(cfg, sq)
@@ -163,28 +187,13 @@ def _attend_maybe_chunked(q, k, v, cfg: ModelConfig,
         mask = causal_mask(sq, sk, window=window, causal=causal,
                            device=q.device)
         return _grouped_attend(q, k, v, mask)
-    kw = window + qc if window is not None else sk
-    slice_keys = window is not None and causal and sk > kw
-    out = torch.empty_like(q)
-    ar_q = torch.arange(qc, device=q.device)[:, None]
-    for i in range(sq // qc):
-        off = i * qc + (sk - sq)
-        qb = q[:, i * qc:(i + 1) * qc]
-        qi = ar_q + off
-        if slice_keys:
-            start = min(max(off - window + 1, 0), sk - kw)
-            kb, vb = k[:, start:start + kw], v[:, start:start + kw]
-            kj = torch.arange(kw, device=q.device)[None, :] + start
-            m = (kj <= qi) & (kj > qi - window)
-        else:
-            kb, vb = k, v
-            kj = torch.arange(sk, device=q.device)[None, :]
-            m = (kj <= qi) if causal else torch.ones(
-                (qc, sk), dtype=torch.bool, device=q.device)
-            if window is not None:
-                m = m & (kj > qi - window)
-        out[:, i * qc:(i + 1) * qc] = _grouped_attend(qb, kb, vb, m[None])
-    return out
+    slice_keys = window is not None and causal and sk > window + qc
+    outs = [remat.checkpoint(
+        functools.partial(_attend_block, qc=qc, off=i * qc + (sk - sq),
+                          window=window, causal=causal,
+                          slice_keys=slice_keys),
+        q[:, i * qc:(i + 1) * qc], k, v) for i in range(sq // qc)]
+    return torch.cat(outs, dim=1)
 
 
 def attend_full(params, cfg: ModelConfig, x, positions, *,

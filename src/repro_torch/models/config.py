@@ -3,11 +3,12 @@ package's ``models/config.py`` with torch dtypes.
 
 ``ModelConfig``, ``MoEConfig`` and ``SSMConfig`` keep every field of the
 JAX dataclasses, so a config compares equal to its JAX twin field by
-field (``dataclasses.asdict``). Three fields are inert in the port and
-kept only for that: ``scan_layers`` and ``unroll_chunks`` (the port loops
-over layer periods and SSD chunks in Python; there is no ``lax.scan`` to
-unroll) and ``remat`` (the serving path runs no backward). ``adtype`` and
-``pdtype`` are ``torch.dtype``s."""
+field (``dataclasses.asdict``). Two fields are inert in the port and kept
+only for that: ``scan_layers`` and ``unroll_chunks`` (the port loops over
+layer periods and SSD chunks in Python; there is no ``lax.scan`` to
+unroll). ``remat`` is live: the training backward recomputes each block
+as it says (``models/lm.py``). ``adtype`` and ``pdtype`` are
+``torch.dtype``s."""
 from __future__ import annotations
 
 import dataclasses
@@ -75,10 +76,12 @@ class ModelConfig:
     tie_embeddings: bool = False
     act_dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    # the JAX package's remat policy and layer / SSD-chunk scan switches:
-    # kept so that configs compare equal, inert in the port (no backward
-    # on the serving path; layers and chunks are Python loops)
+    # the backward's recompute policy per block: "full" saves only each
+    # block's input, "dots" also its weight products, "none" everything
+    # (models/remat.maybe_remat)
     remat: str = "full"
+    # the JAX package's layer / SSD-chunk scan switches: kept so that
+    # configs compare equal, inert in the port (Python loops)
     scan_layers: bool = True
     unroll_chunks: bool = False
     # q-chunked attention: bound score materialization to

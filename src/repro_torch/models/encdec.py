@@ -8,17 +8,24 @@ longer decoder contexts); attention is non-rotary; norms are pre-LN
 LayerNorms. Layers are stacked over depth and looped in Python. Serving
 keeps a self-attention KV cache and a cross-attention cache of the
 encoder's keys and values, filled at prefill; both are updated in place.
+
+Training (``loss_fn``) recomputes as the LM does (``models/lm.py``): the
+CE's sequence chunks and chunked attention's query blocks always, and
+each encoder and decoder layer under ``cfg.remat``. The JAX package
+checkpoints only the first two here; the per-layer recompute changes
+memory, not the gradients.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.common.param import Boxed, KeyGen, normal_init, \
-    tree_from_numpy, tree_map, unbox
+    tree_from_numpy, tree_map, unbox, unstack
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, remat
 from repro_torch.models.config import ModelConfig
 
 MAX_DEC_POSITIONS = 448
@@ -79,19 +86,24 @@ def _layer(stacked, i: int):
     return tree_map(lambda a: a[i], stacked)
 
 
+def _enc_layer(cfg: ModelConfig, positions, lp, x):
+    h = layers.layernorm(lp["ln1"], x)
+    x = x + attention.attend_full(lp["attn"], cfg, h, positions,
+                                  causal=False)
+    h = layers.layernorm(lp["ln2"], x)
+    return x + layers.gelu_mlp(lp["mlp"], h)
+
+
 def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames (B, S_enc, d): stubbed conv-frontend output."""
     b, s, _ = frames.shape
     x = frames.to(cfg.adtype) + layers.sinusoidal_positions(
         s, cfg.d_model, frames.device).to(cfg.adtype)[None]
     positions = torch.zeros((b, s), dtype=torch.int32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["enc_layers"], i)
-        h = layers.layernorm(lp["ln1"], x)
-        x = x + attention.attend_full(lp["attn"], cfg, h, positions,
-                                      causal=False)
-        h = layers.layernorm(lp["ln2"], x)
-        x = x + layers.gelu_mlp(lp["mlp"], h)
+    fn = remat.maybe_remat(functools.partial(_enc_layer, cfg, positions),
+                           cfg.remat)
+    for lp in unstack(params["enc_layers"], cfg.n_layers):
+        x = fn(lp, x)
     return layers.layernorm(params["enc_ln"], x)
 
 
@@ -118,18 +130,22 @@ def decode_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
         + _dec_positions(params, cfg, s)[None]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["dec_layers"], i)
-        h = layers.layernorm(lp["ln1"], x)
-        x = x + attention.attend_full(lp["attn"], cfg, h, positions,
-                                      causal=True)
-        h = layers.layernorm(lp["ln_x"], x)
-        x = x + attention.attend_full(lp["xattn"], cfg, h, positions,
-                                      causal=False, kv_x=enc_out,
-                                      rope=False)
-        h = layers.layernorm(lp["ln2"], x)
-        x = x + layers.gelu_mlp(lp["mlp"], h)
+    fn = remat.maybe_remat(functools.partial(_dec_layer, cfg, positions),
+                           cfg.remat)
+    for lp in unstack(params["dec_layers"], cfg.n_layers):
+        x = fn(lp, x, enc_out)
     return layers.layernorm(params["dec_ln"], x)
+
+
+def _dec_layer(cfg: ModelConfig, positions, lp, x, enc_out):
+    h = layers.layernorm(lp["ln1"], x)
+    x = x + attention.attend_full(lp["attn"], cfg, h, positions,
+                                  causal=True)
+    h = layers.layernorm(lp["ln_x"], x)
+    x = x + attention.attend_full(lp["xattn"], cfg, h, positions,
+                                  causal=False, kv_x=enc_out, rope=False)
+    h = layers.layernorm(lp["ln2"], x)
+    return x + layers.gelu_mlp(lp["mlp"], h)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict):

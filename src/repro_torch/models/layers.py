@@ -96,6 +96,28 @@ def embed(params, ids, act_dtype):
     return params["table"][ids].to(act_dtype)
 
 
+class _Bf16Logits(torch.autograd.Function):
+    """(N, d) bf16 @ (V, d)^T bf16 -> (N, V) f32 on the card: one bf16 GEMM
+    with an f32 output (``torch.mm(out_dtype=)``, which has no autograd
+    formula of its own). The backward's two products are bf16 GEMMs
+    summing in f32, with the f32 cotangent rounded to bf16 first, as the
+    JAX reference's default-precision products on a TPU round it; the CPU
+    path keeps it in f32."""
+
+    @staticmethod
+    def forward(ctx, x2, table):
+        ctx.save_for_backward(x2, table)
+        return torch.mm(x2, table.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, table = ctx.saved_tensors
+        gb = g.to(torch.bfloat16)
+        gx = torch.mm(gb, table) if ctx.needs_input_grad[0] else None
+        gt = torch.mm(gb.t(), x2) if ctx.needs_input_grad[1] else None
+        return gx, gt
+
+
 def unembed(params, x):
     """Logits against the (vocab, embed) table; f32 for the softmax. Both
     operands are rounded to bf16 and the products summed in f32, as the
@@ -105,7 +127,7 @@ def unembed(params, x):
     xb = x.to(torch.bfloat16)
     x2 = xb.reshape(-1, xb.shape[-1])
     if x2.is_cuda:
-        out = torch.mm(x2, table.t(), out_dtype=torch.float32)
+        out = _Bf16Logits.apply(x2, table)
     else:
         out = x2.float() @ table.float().t()
     return out.reshape(x.shape[:-1] + (table.shape[0],))

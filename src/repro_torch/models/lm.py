@@ -10,19 +10,26 @@ each period's slice, so it needs no ``scan_util``. Caches are stacked the
 same way and are filled and updated in place (the JAX steps carry and
 donate theirs); ``prefill`` and ``decode_step`` return them.
 
-``loss_fn`` is the forward loss only (the parity oracle of the serving
-path); training waits for the LM training slice.
+Training differentiates ``loss_fn`` with autograd and bounds its memory
+as the JAX package does with ``jax.checkpoint``: each block runs under
+``cfg.remat`` (``models/remat.py``: "full" keeps only the block's input
+for the backward), and each sequence chunk of ``chunked_cross_entropy``
+is recomputed by the backward, so no chunk's (B, c, V) logits are kept.
+``hidden_states`` takes the period slices with ``common.param.unstack``
+(one ``unbind`` a leaf, one gradient stack in the backward). The serving
+path runs without autograd and recomputes nothing.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.common.param import Boxed, KeyGen, tree_from_numpy, \
-    tree_map, unbox
+    tree_map, unbox, unstack
 from repro_torch.device import resolve_device
-from repro_torch.models import blocks, layers
+from repro_torch.models import blocks, layers, remat
 from repro_torch.models.config import ModelConfig
 
 
@@ -107,32 +114,51 @@ def hidden_states(params, cfg: ModelConfig, batch: Dict
     b, s = x.shape[:2]
     positions = _positions(cfg, batch, b, s, x.device)
     period = blocks.block_period(cfg)
+    np_ = n_periods(cfg)
+    subs = [unstack(params["blocks"][f"sub{p}"], np_)
+            for p in range(period)]
+    # remat per block, not per period: a hybrid period (jamba: 8 layers)
+    # as one unit would hold the whole period's intermediates in its
+    # backward, as in the JAX package
+    fns = [remat.maybe_remat(functools.partial(_apply_block, cfg, p,
+                                               positions), cfg.remat)
+           for p in range(period)]
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n_periods(cfg)):
+    for i in range(np_):
         for p in range(period):
-            x, aux = blocks.apply_block(
-                _index(params["blocks"][f"sub{p}"], i), cfg, p, x,
-                positions)
+            x, aux = fns[p](subs[p][i], x)
             if "moe_aux_loss" in aux:
                 aux_sum = aux_sum + aux["moe_aux_loss"]
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, {"moe_aux_loss": aux_sum}
 
 
+def _apply_block(cfg: ModelConfig, p: int, positions, sub_params, x):
+    return blocks.apply_block(sub_params, cfg, p, x, positions)
+
+
+def _ce_chunk(table, xb, lb) -> torch.Tensor:
+    """The summed CE of one sequence chunk (its logits are transient)."""
+    logits = layers.unembed({"table": table}, xb)
+    logz = torch.logsumexp(logits.float(), dim=-1)
+    gold = torch.gather(logits, -1, lb[..., None].long())[..., 0].float()
+    return torch.sum(logz - gold)
+
+
 def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
                           labels: torch.Tensor,
                           seq_chunk: int = 512) -> torch.Tensor:
     """CE against a big vocab without materializing (B, S, V) logits: one
-    sequence chunk's logits at a time."""
+    sequence chunk's logits at a time, each chunk recomputed by the
+    backward (saving them is the memory the chunking exists to avoid).
+    The chunk is the largest divisor of S up to ``seq_chunk``, as in the
+    JAX function: a prime S runs one position a chunk."""
     b, s, d = x.shape
     c = next(cc for cc in range(min(seq_chunk, s), 0, -1) if s % cc == 0)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for j in range(0, s, c):
-        logits = layers.unembed({"table": table}, x[:, j:j + c])
-        logz = torch.logsumexp(logits.float(), dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels[:, j:j + c, None].long())[..., 0].float()
-        total = total + torch.sum(logz - gold)
+        total = total + remat.checkpoint(_ce_chunk, table, x[:, j:j + c],
+                                         labels[:, j:j + c])
     return total / (b * s)
 
 

@@ -6,9 +6,13 @@ inter-chunk state recurrence, the latter a Python loop over chunks (the
 JAX ``lax.scan``) carrying the (B, H, P, N) state. Decode: the O(1)
 recurrent update, its state kept in the act dtype between steps.
 
-``exp`` of the segment sums above the diagonal can overflow; as in the
-JAX function it is selected away by ``where``, never multiplied by a mask
-(inf * 0 is NaN). ``apply_ssm`` runs the largest chunk up to
+The segment sums above the diagonal are not used, and their ``exp`` can
+overflow once training grows ``dt``: the port sets them to -inf before
+the ``exp``, which gives 0 there. The JAX function exponentiates, then
+selects with ``where``: the same forward values, but in its backward an
+overflowed ``exp`` times its zero cotangent is NaN (it turns mamba2-2.7b's
+full-width training to NaN within 10 steps on the H100); the port's
+gradient is JAX's wherever JAX's is finite. ``apply_ssm`` runs the largest chunk up to
 ``cfg.ssm.chunk`` that divides the sequence, so a prime prompt length
 falls to chunk 1, a loop of one step per token: serve prompt lengths that
 divide by the chunk.
@@ -122,8 +126,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     seg = cums[:, :, :, None, :] - cums[:, :, None, :, :]   # (b,nc,q,q,h)
     qi = torch.arange(chunk, device=x.device)
     causal = (qi[:, None] >= qi[None, :])[None, None, :, :, None]
-    L = torch.where(causal, torch.exp(seg),
-                    torch.zeros((), dtype=seg.dtype, device=x.device)) \
+    L = torch.exp(torch.where(causal, seg, torch.tensor(
+        float("-inf"), dtype=seg.dtype, device=x.device))) \
         * dtc[:, :, None, :, :]
     CB = torch.einsum("bcigm,bcjgm->bcijg", Cc, Bc)   # (b,nc,q,q,g)
     CBh = torch.repeat_interleave(CB, rep, dim=-1)    # (b,nc,q,q,h)

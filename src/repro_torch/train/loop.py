@@ -5,15 +5,22 @@ sit on the global grid of ``chunk_plan`` (multiples of ``chunk_steps``,
 plus the last step), as the JAX engine's scanned chunks do. PyTorch runs
 eagerly, so a chunk is a Python loop of steps, each enqueued without
 waiting for the device; the chunk's end is its one sync point, where
-every step's metrics (``loss``, ``psnr``, ``grad_norm`` when clipped)
-come to the host at once. ``lr`` is a host number and ``dt`` is the
-chunk's wall time over its steps. ``on_metrics(step, row, state)`` fires
-per step after its chunk, and ``on_chunk_end(end_step, state)`` once per
-chunk.
+every step's device metrics come to the host at once. ``lr`` is a host
+number and ``dt`` is the chunk's wall time over its steps.
+``on_metrics(step, row, state)`` fires per step after its chunk, and
+``on_chunk_end(end_step, state)`` once per chunk.
 
-Batches come from ``batch_fn(step)``, a pure function of the global step
-(``core.train`` seeds a generator from the run's seed and the step), so
-a run's batches do not depend on its chunking.
+Batches come from exactly one of two sources, each a pure function of
+the global step, so a run's batches do not depend on its chunking:
+``batch_fn(step)`` makes the batch on the device (``core.train`` seeds a
+generator from the run's seed and the step), ``host_batch_fn(step)``
+returns numpy arrays (the LM's ``data/tokens.SyntheticTokens.batch``),
+which the engine stacks per chunk, and a ``data/tokens.Prefetcher``
+thread pins and copies to the state's device (``non_blocking``) while the
+previous chunk runs, as the JAX engine's ``_host_chunk_iter`` does.
+Metrics rows carry whatever the step returns: the field steps' ``loss``,
+``psnr`` and ``lr``; the LM step's ``loss``, ``ce``, ``moe_aux_loss``,
+``grad_norm`` and ``lr``.
 
 ``make_scanned_step(grad_accum=k)`` splits every batch leaf along axis 0
 into k micro-batches and averages their losses and gradients (summed in
@@ -28,8 +35,9 @@ checkpoint there (``checkpoint/store.py``, the JAX package's format) at
 end once ``ckpt_every`` steps have passed since the last save, and at the
 last step, keeping ``ckpt_keep``. Since batches are a pure function of the
 step, a resumed run replays the uninterrupted one: bit for bit on the CPU.
-On the card ``encode_bwd`` sums with atomics in a varying order, so two
-runs, resumed or not, differ by that rounding.
+On the card ``encode_bwd`` (fields) and the embedding gather's backward
+(LMs, ``index_put_`` with accumulation) sum with atomics in a varying
+order, so two runs, resumed or not, differ by that rounding.
 
 Observability and health, as in the JAX engine: the engine owns a metrics
 ``Registry`` (its own, or the caller's ``metrics_registry``); each chunk,
@@ -57,12 +65,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import store
 from repro_torch.common import partitioning
+from repro_torch.data.tokens import Prefetcher
 from repro_torch.launch.mesh import replicate, shard_devices, shard_rows
 from repro_torch.obs import log as obs_log
 from repro_torch.obs import metrics as obs_metrics
@@ -73,6 +83,9 @@ from repro_torch.train import compression as compression_mod
 from repro_torch.train import optim
 
 _LOG = obs_log.get_logger("train")
+# host chunks built and copied ahead of the one running (the JAX
+# engine's default ``prefetch``)
+PREFETCH_DEPTH = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,18 +118,28 @@ def chunk_plan(start: int, steps: int,
     return plan
 
 
-def value_and_grad(loss_fn: Callable, params, batch
-                   ) -> Tuple[torch.Tensor, Dict]:
+def value_and_grad(loss_fn: Callable, params, batch, has_aux: bool = False
+                   ) -> Tuple[Any, Dict]:
     """(loss, grads of every leaf of ``params``): the loss runs on views
     of the leaves that require a gradient, so the caller's tensors stay as
-    they are and can be updated in place afterwards."""
+    they are and can be updated in place afterwards. A leaf the loss does
+    not use gets a zero gradient, as under ``jax.grad``. With ``has_aux``,
+    ``loss_fn`` returns (loss, aux) and the first result is (loss, aux),
+    aux's tensors detached, as ``jax.value_and_grad(has_aux=True)``."""
     views = optim.tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss = loss_fn(views, batch)
+        out = loss_fn(views, batch)
+        loss, aux = out if has_aux else (out, None)
         flat = optim.tree_leaves(views)
-        grads = torch.autograd.grad(loss, flat)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                    materialize_grads=True)
     by_id = {id(v): g for v, g in zip(flat, grads)}
-    return loss.detach(), optim.tree_map(lambda v: by_id[id(v)], views)
+    grads = optim.tree_map(lambda v: by_id[id(v)], views)
+    if has_aux:
+        aux = {k: v.detach() if isinstance(v, torch.Tensor) else v
+               for k, v in aux.items()}
+        return (loss.detach(), aux), grads
+    return loss.detach(), grads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,26 +149,39 @@ class _CompressionKnobs:
     compression_topk: float
 
 
+def _batch_axis(name: str, v: torch.Tensor) -> int:
+    """The axis of a batch leaf that holds its examples: 1 for the LM's
+    (3, B, S) M-RoPE ``positions``, else 0."""
+    return 1 if name == "positions" and v.ndim == 3 else 0
+
+
 def accumulated_value_and_grad(loss_fn: Callable, params, batch,
                                grad_accum: int,
-                               grad_fn: Optional[Callable] = None
-                               ) -> Tuple[torch.Tensor, Dict]:
+                               grad_fn: Optional[Callable] = None,
+                               has_aux: bool = False
+                               ) -> Tuple[Any, Dict]:
     """(loss, grads) averaged over ``grad_accum`` equal micro-batches, each
-    batch leaf split along axis 0: summed in micro-batch order, then
-    divided by ``grad_accum``, as the JAX package's scan does. Each
-    micro-batch goes through ``grad_fn(params, micro_batch)`` (default:
-    :func:`value_and_grad` of ``loss_fn``)."""
+    batch leaf split along its example axis (axis 0; axis 1 of the M-RoPE
+    ``positions``, as the JAX LM step's ``to_mb``): summed in micro-batch
+    order, then divided by ``grad_accum``, as the JAX package's scan
+    does. Each micro-batch goes through ``grad_fn(params, micro_batch)``
+    (default: :func:`value_and_grad` of ``loss_fn``). With ``has_aux``
+    the first result is (loss, the last micro-batch's aux), as the JAX LM
+    step keeps it."""
     if grad_fn is None:
         def grad_fn(p, b):
-            return value_and_grad(loss_fn, p, b)
-    sizes = {k: v.shape[0] for k, v in batch.items()}
+            return value_and_grad(loss_fn, p, b, has_aux=has_aux)
+    sizes = {k: v.shape[_batch_axis(k, v)] for k, v in batch.items()}
     if any(n % grad_accum for n in sizes.values()):
         raise ValueError(f"grad_accum={grad_accum} does not divide the "
                          f"batch: leading sizes {sizes}")
-    parts = {k: v.chunk(grad_accum) for k, v in batch.items()}
-    loss = grads = None
+    parts = {k: v.chunk(grad_accum, dim=_batch_axis(k, v))
+             for k, v in batch.items()}
+    loss = grads = aux = None
     for i in range(grad_accum):
         l_i, g_i = grad_fn(params, {k: p[i] for k, p in parts.items()})
+        if has_aux:
+            l_i, aux = l_i
         if grads is None:
             loss, grads = l_i, g_i
         else:
@@ -154,7 +190,8 @@ def accumulated_value_and_grad(loss_fn: Callable, params, batch,
     # a device divisor: a CUDA divide by a Python number multiplies by its
     # reciprocal, which is not the JAX package's division for every k
     k = torch.full((), float(grad_accum), device=loss.device)
-    return loss / k, optim.tree_map(lambda g: g / k, grads)
+    grads = optim.tree_map(lambda g: g / k, grads)
+    return ((loss / k, aux) if has_aux else loss / k), grads
 
 
 def data_parallel_grad_fn(loss_fn: Callable, mesh=None,
@@ -257,22 +294,43 @@ def init_train_state(params, compression: Optional[str] = None,
     return state
 
 
+def _first_tensor(tree) -> torch.Tensor:
+    """The first tensor leaf of a state (dicts and NamedTuples)."""
+    return next(leaf for _, leaf in store._flatten(tree)
+                if isinstance(leaf, torch.Tensor))
+
+
+def _pinned_copy(stacked: Dict[str, Any], device: torch.device) -> Dict:
+    """A chunk's stacked numpy batches on ``device``: through pinned host
+    memory and a ``non_blocking`` copy for a CUDA device."""
+    if device.type != "cuda":
+        return {k: torch.from_numpy(v).to(device) for k, v in stacked.items()}
+    return {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
+            for k, v in stacked.items()}
+
+
 class TrainEngine:
     """Chunked training loop (the module docstring has the contract).
-    ``step_fn(state, step, batch) -> (state, metrics)``; ``batch_fn(step)
-    -> batch``, on the device the state lives on."""
+    ``step_fn(state, step, batch) -> (state, metrics)``; exactly one of
+    ``batch_fn(step) -> batch`` (on the device the state lives on) and
+    ``host_batch_fn(step) -> {name: numpy array}``."""
 
     def __init__(self, cfg: EngineConfig, step_fn: Callable, *,
-                 batch_fn: Callable,
+                 batch_fn: Optional[Callable] = None,
+                 host_batch_fn: Optional[Callable] = None,
                  monitor: Optional[HeartbeatMonitor] = None,
                  detector: Optional[StragglerDetector] = None,
                  policy: Optional[FailurePolicy] = None,
                  on_event: Optional[Callable] = None,
                  on_chunk_end: Optional[Callable] = None,
                  metrics_registry: Optional[obs_metrics.Registry] = None):
+        if (batch_fn is None) == (host_batch_fn is None):
+            raise ValueError(
+                "exactly one of batch_fn / host_batch_fn required")
         self.cfg = cfg
         self.step_fn = step_fn
         self.batch_fn = batch_fn
+        self.host_batch_fn = host_batch_fn
         # per-engine registry; the default straggler detector keeps its
         # per-host step-time histograms in it (health.step_s.<host>)
         self.obs = metrics_registry or obs_metrics.Registry()
@@ -307,30 +365,51 @@ class TrainEngine:
                 state = store.restore(cfg.ckpt_dir, state, step=last)
                 start = last + 1
                 _LOG.info("resumed", step=last, ckpt_dir=str(cfg.ckpt_dir))
+        plan = chunk_plan(start, cfg.steps, cfg.chunk_steps)
+        prefetch = (self._host_chunk_iter(plan, _first_tensor(state).device)
+                    if self.host_batch_fn is not None else None)
         try:
-            return self._run(state, start, ckpt, on_metrics)
+            return self._run(state, start, plan, ckpt, on_metrics, prefetch)
         finally:
+            if prefetch is not None:
+                prefetch.close()
             if ckpt is not None:
                 ckpt.wait()
 
-    def _run(self, state, start, ckpt, on_metrics):
+    def _host_chunk_iter(self, plan, device: torch.device) -> Prefetcher:
+        """Prefetched iterator of each chunk's stacked batches on
+        ``device``."""
+        def chunks():
+            for s0, n in plan:
+                per_step = [self.host_batch_fn(s0 + i) for i in range(n)]
+                yield {k: np.stack([b[k] for b in per_step])
+                       for k in per_step[0]}
+
+        return Prefetcher(chunks(), depth=PREFETCH_DEPTH,
+                          to_device=lambda st: _pinned_copy(st, device))
+
+    def _batches(self, s0: int, n: int, prefetch) -> Iterator[Dict]:
+        """The chunk's per-step batches, in step order."""
+        if prefetch is None:
+            for i in range(n):
+                yield self.batch_fn(s0 + i)
+            return
+        stacked = next(prefetch)
+        for i in range(n):
+            yield {k: v[i] for k, v in stacked.items()}
+
+    def _run(self, state, start, plan, ckpt, on_metrics, prefetch):
         history: List[Dict[str, float]] = []
         last_saved = start - 1
         step_hist = self.obs.histogram("train.step_s")
         steps_ctr = self.obs.counter("train.steps")
-        for s0, n in chunk_plan(start, self.cfg.steps, self.cfg.chunk_steps):
+        for s0, n in plan:
             t0 = time.perf_counter()
             rows = []
-            for i in range(n):
-                state, metrics = self.step_fn(state, s0 + i,
-                                              self.batch_fn(s0 + i))
+            for i, batch in enumerate(self._batches(s0, n, prefetch)):
+                state, metrics = self.step_fn(state, s0 + i, batch)
                 rows.append(metrics)
-            on_device = sorted(k for k, v in rows[0].items()
-                               if isinstance(v, torch.Tensor))
-            # the chunk's one sync point: every step's device metrics
-            # come to the host in one copy
-            values = torch.stack([torch.stack([r[k].float() for r in rows])
-                                  for k in on_device]).cpu().tolist()
+            on_device, values = _read_metrics(rows)
             dt = time.perf_counter() - t0
             # the read above is the chunk's sync point, so the event and
             # the histogram cover device completion with no wait of their own
@@ -365,6 +444,16 @@ class TrainEngine:
                 self.events.append(ev)
                 self.on_event(ev)
         return state, history
+
+
+# repro: sync-boundary the chunk's one host read of every step's metrics
+def _read_metrics(rows: List[Dict]) -> Tuple[List[str], List[List[float]]]:
+    """The chunk's one sync point: (the names of its device metrics, their
+    values, one list a name and one value a step), in one copy."""
+    on_device = sorted(k for k, v in rows[0].items()
+                       if isinstance(v, torch.Tensor))
+    return on_device, torch.stack([torch.stack([r[k].float() for r in rows])
+                                   for k in on_device]).cpu().tolist()
 
 
 def _process_index() -> int:

@@ -11,7 +11,16 @@ takes them. Two differences, both of form:
   host numbers and reading them never waits for the device;
 - ``adam_update`` updates the params and the moments in place (the JAX
   version returns new trees): a Table-I gia stack is 2 GiB, and its two
-  moments 4 GiB more, so new trees would double that every step.
+  moments 4 GiB more, so new trees would double that every step. For the
+  same reason it scales clipped gradients as it reads them, and updates a
+  leaf larger than ``UPDATE_SLICE`` elements a slice of rows at a time
+  (mamba2-2.7b's stacked ``w_in`` is 1.7 G elements): the update is
+  elementwise, so the results are the same bits, and its temporaries are
+  one slice's, not the leaf's.
+
+``optimizer_spec`` gives the logical specs of an ``AdamState`` from the
+params' ones, as the JAX function does; the LM sharding (ROADMAP A14.5)
+will read it.
 """
 from __future__ import annotations
 
@@ -20,6 +29,10 @@ import math
 from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+
+# elements of the largest piece of a leaf that ``adam_update`` and
+# ``global_norm`` process at once
+UPDATE_SLICE = 1 << 26
 
 
 class AdamState(NamedTuple):
@@ -82,17 +95,37 @@ def lr_schedule(cfg: AdamConfig, step: int) -> float:
     return float(lr)
 
 
+def _row_slices(t: torch.Tensor) -> List[Any]:
+    """Indices of pieces of ``t``'s first axis of at most ``UPDATE_SLICE``
+    elements each (``...``, the whole, for a small leaf or a 0-d one)."""
+    if t.ndim == 0 or t.numel() <= UPDATE_SLICE:
+        return [...]
+    rows = max(1, UPDATE_SLICE // max(1, t[0].numel()))
+    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
+
+
+def _sumsq(l: torch.Tensor) -> torch.Tensor:
+    return sum(torch.sum(torch.square(l[s].to(torch.float32)))
+               for s in _row_slices(l))
+
+
 def global_norm(tree) -> torch.Tensor:
-    """The f32 norm of every leaf together, on the leaves' device."""
-    return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
-                          for l in tree_leaves(tree)))
+    """The f32 norm of every leaf together, on the leaves' device (a leaf
+    larger than ``UPDATE_SLICE`` summed a slice of rows at a time)."""
+    return torch.sqrt(sum(_sumsq(l) for l in tree_leaves(tree)))
+
+
+def _clip_scale(grads, max_norm: float):
+    """(the scale that clips ``grads`` to a global norm of at most
+    ``max_norm``, the norm), both on the device."""
+    norm = global_norm(grads)
+    return torch.clamp(max_norm / (norm + 1e-9), max=1.0), norm
 
 
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
     before); the scale stays on the device."""
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    scale, norm = _clip_scale(grads, max_norm)
     return tree_map(lambda g: g * scale, grads), norm
 
 
@@ -102,25 +135,36 @@ def adam_update(grads, state: AdamState, params, cfg: AdamConfig
     place and returns (params, the new state, metrics: ``lr`` and, with
     clipping, ``grad_norm``)."""
     metrics: Dict[str, Any] = {}
+    scale = None
     if cfg.grad_clip is not None:
-        grads, metrics["grad_norm"] = clip_by_global_norm(grads,
-                                                          cfg.grad_clip)
+        scale, metrics["grad_norm"] = _clip_scale(grads, cfg.grad_clip)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = float(1.0 - _f32(b1) ** _f32(step))
     bc2 = float(1.0 - _f32(b2) ** _f32(step))
 
-    def upd(p, m, v, g):
+    def upd_rows(p, m, v, g):
+        if scale is not None:
+            g = g * scale
         m.mul_(b1).add_(g, alpha=1.0 - b1)
         v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
         u = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
         if cfg.weight_decay:
             u.add_(p, alpha=cfg.weight_decay)
         p.sub_(u.mul_(lr).to(p.dtype))
+
+    def upd(p, m, v, g):
+        for s in _row_slices(p):
+            upd_rows(p[s], m[s], v[s], g[s])
         return p
 
     with torch.no_grad():
         params = tree_map(upd, params, state.mu, state.nu, grads)
     metrics["lr"] = lr
     return params, AdamState(step=step, mu=state.mu, nu=state.nu), metrics
+
+
+def optimizer_spec(param_specs) -> AdamState:
+    """Logical specs of an ``AdamState`` given the params' logical specs."""
+    return AdamState(step=(), mu=param_specs, nu=param_specs)

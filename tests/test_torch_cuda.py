@@ -1278,3 +1278,97 @@ def test_lm_full_width_serves_in_bf16_when_only_bf16_fits(dev, capsys):
     assert api.param_bytes(cfg, torch.bfloat16) <= peak < \
         api.param_bytes(cfg, torch.bfloat16) + 8 * 10 ** 9
     torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "olmoe-1b-7b",
+                                  "mamba2-2.7b", "whisper-base",
+                                  "qwen2-vl-72b"])
+def test_lm_train_step_on_the_card_matches_cpu(dev, arch):
+    """A reduced arch in f32 on the same params (chunked attention in 4
+    query blocks, danube's keys sliced): the loss and every gradient leaf
+    on the card against the CPU, then 3 train steps' losses and grad
+    norms, within 1e-4 (the unembed widened to f32 on both); no kernel of
+    the port launches."""
+    from repro_torch.common.param import tree_leaves, tree_map
+    from repro_torch.configs import registry
+    from repro_torch.models import encdec, lm
+    from repro_torch.parallel import api
+    from torch_lm_f32 import f32_unembed   # tests/ is on the path
+    cfg = registry.reduced_config(arch)
+    ch = {"act_dtype": "float32", "attn_q_chunk": 4}
+    if cfg.swa_window is not None:
+        ch["swa_window"] = 4
+    cfg = dataclasses.replace(cfg, **ch)
+    mod = encdec if cfg.is_encdec else lm
+    p_cpu = api.init_params(cfg, seed=2, device="cpu")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, 256, (4, 2, 17)))
+    emb = torch.from_numpy(rng.standard_normal((2, 16, cfg.d_model))
+                           .astype(np.float32))
+    tkernels.reset_launch_counts()
+    outs = []
+    for d in (torch.device("cpu"), dev):
+        def batch(i):
+            b = {"tokens": toks[i, :, :16].to(d),
+                 "labels": toks[i, :, 1:].to(d)}
+            if cfg.is_encdec:
+                b = {"tokens": toks[i, :, :16].to(d),
+                     "enc_embeddings": emb.to(d)}
+            if cfg.frontend == "vision":
+                b["embeddings"] = emb.to(d)
+            return b
+        p = tree_map(lambda a: a.to(d, copy=True), p_cpu)
+        with f32_unembed():
+            loss, grads = tloop.value_and_grad(
+                lambda q, b: mod.loss_fn(q, cfg, b)[0], p, batch(0))
+            step, _ = api.make_train_step(cfg)
+            state = api.make_train_state(p)
+            curve = []
+            for i in range(1, 4):
+                state, m = step(state, batch(i))
+                curve.append(torch.stack([m["loss"], m["grad_norm"]]))
+        outs.append([loss] + tree_leaves(grads) + [torch.stack(curve)])
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got.cpu(), want, atol=TOL, rtol=TOL)
+    assert not any(tkernels.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_lm_unembed_backward_on_the_card(dev):
+    """The card's unembedding backward (bf16 GEMMs of the cotangent
+    rounded to bf16) against the CPU's f32 autograd of the widened
+    operands: each gradient within 1% of its max (one bf16 rounding)."""
+    from repro_torch.models import layers
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((300, 512), generator=gen)
+    table = torch.randn((4096, 512), generator=gen) * 0.02
+    g = torch.randn((300, 4096), generator=gen)
+    grads = []
+    for d in (torch.device("cpu"), dev):
+        xd = x.to(d).requires_grad_(True)
+        td = table.to(d).requires_grad_(True)
+        out = layers.unembed({"table": td}, xd)
+        assert out.dtype == torch.float32
+        grads.append(torch.autograd.grad(out, (xd, td), g.to(d)))
+    for got, want in zip(grads[1], grads[0]):
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_lm_train_state_fit_check_on_the_card(dev):
+    """olmoe-1b-7b's train state (6.92 B params x 16 bytes and its bf16
+    copy, 124.6 GB) is refused before anything is drawn;
+    h2o-danube-1.8b's (33 GB) passes the check."""
+    from repro_torch.configs import registry
+    from repro_torch.parallel import api
+    torch.cuda.empty_cache()
+    tc = api.TrainConfig()
+    before = torch.cuda.memory_allocated(dev)
+    with pytest.raises(MemoryError, match="olmoe-1b-7b: its train state"):
+        api.init_params(registry.get_config("olmoe-1b-7b"), device=dev,
+                        train_cfg=tc)
+    assert torch.cuda.memory_allocated(dev) == before
+    api.check_fits(registry.get_config("h2o-danube-1.8b"), dev,
+                   train_cfg=tc)

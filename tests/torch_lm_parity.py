@@ -27,6 +27,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import repro.models.layers as jlayers
@@ -242,3 +243,166 @@ def check_decode(arch):
     o, _, _, steps, cache = _port_serve(arch)
     assert_close(steps, o["decode"], "decode logits")
     assert_tree_close(cache, o["cache_decode"])
+
+
+# ---------------------------------------------------------------- training
+# The training checks (``tests/test_torch_lm_train_*.py``) run in f32 with
+# the f32 unembedding on both sides: the gradients of the shipped one go
+# through bf16 roundings, which an f32 difference of 1e-7 can flip.
+# ``GRAD_Q_CHUNK`` makes S=16 run chunked attention in 4 query blocks, and
+# a window of 4 (< S - q_chunk) runs h2o-danube's sliced-key branch.
+GRAD_Q_CHUNK = 4
+GRAD_WINDOW = 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The training tests' modules run torch on one thread: the reduced
+    models gain nothing from more, and the suite's parallel workers would
+    only contend for the cores (imported into each module, it applies
+    there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+TRAIN_STEPS = 6
+TRAIN_SEQ = 16
+TRAIN_BATCH = 4
+
+
+def train_configs(arch):
+    """(JAX config, port config) of the gradient and train-step checks."""
+    jc, tc = configs(arch)
+    ch = {"attn_q_chunk": GRAD_Q_CHUNK}
+    if jc.swa_window is not None:
+        ch["swa_window"] = GRAD_WINDOW
+    return dataclasses.replace(jc, **ch), dataclasses.replace(tc, **ch)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_params(arch):
+    """The JAX package's params of ``train_configs(arch)`` as numpy."""
+    cfg, _ = train_configs(arch)
+    key = jax.random.PRNGKey(SEED)
+    init = jencdec.init_encdec if cfg.is_encdec else jlm.init_lm
+    return _np(unbox(init(key, cfg))[0])
+
+
+@functools.lru_cache(maxsize=None)
+def jax_grad_oracle(arch):
+    """(loss, aux, grads as numpy) of ``jax.value_and_grad(loss_fn)``."""
+    cfg, _ = train_configs(arch)
+    loss_fn = jencdec.loss_fn if cfg.is_encdec else jlm.loss_fn
+    inp = inputs(cfg)
+    with f32_unembed():
+        (loss, aux), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: loss_fn(p, cfg, b), has_aux=True))(
+            jax_params(arch), jax_batch(cfg, inp, labels=True))
+    return float(loss), _np(aux), _np(grads)
+
+
+def port_train_params(arch, **changes):
+    """(port config with ``changes``, its model module, the JAX params on
+    the CPU)."""
+    from repro_torch.models import encdec as tencdec, lm as tlm
+    _, cfg = train_configs(arch)
+    cfg = dataclasses.replace(cfg, **changes)
+    mod = tencdec if cfg.is_encdec else tlm
+    return cfg, mod, mod.from_jax_params(jax_params(arch), cfg,
+                                          device="cpu")
+
+
+def check_grads(arch, remat):
+    """The port's loss, aux and every gradient leaf under ``remat``
+    against ``jax.value_and_grad`` (whose config remats "full")."""
+    from repro_torch.train import loop
+    cfg, mod, params = port_train_params(arch, remat=remat)
+    jloss, jaux, jgrads = jax_grad_oracle(arch)
+    batch = torch_batch(cfg, inputs(cfg), labels=True)
+    with f32_unembed():
+        (loss, aux), grads = loop.value_and_grad(
+            lambda p, b: mod.loss_fn(p, cfg, b), params, batch,
+            has_aux=True)
+    assert_close(loss, jloss, "loss")
+    assert set(aux) == set(jaux)
+    for k in jaux:
+        assert_close(aux[k], jaux[k], k)
+    assert_tree_close(grads, jgrads, path="grad")
+
+
+def token_batches(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                  seq=TRAIN_SEQ, seed=SEED):
+    """``steps`` numpy batches of the JAX package's token stream (plus
+    frame embeddings for whisper, drawn from ``seed`` and the step)."""
+    from repro.data.tokens import DataConfig, SyntheticTokens
+    src = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                     global_batch=batch, seed=seed))
+    out = []
+    for i in range(steps):
+        b = src.batch(i)
+        if cfg.is_encdec:
+            rng = np.random.default_rng((seed, i))
+            b["enc_embeddings"] = rng.standard_normal(
+                (batch, seq, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def auto_mesh():
+    """A one-device ("data", "model") mesh with Auto axes: jax 0.9's
+    ``make_local_mesh`` gives Explicit ones, on which the JAX LM steps
+    fail (ROADMAP C2)."""
+    from jax.sharding import AxisType
+    return jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+
+
+JAX_STEP_KEYS = ("loss", "grad_norm", "ce")
+
+
+@functools.lru_cache(maxsize=None)
+def jax_train_curve(arch, compression=None):
+    """Per-step metrics (``JAX_STEP_KEYS`` the step reports) of
+    ``TRAIN_STEPS`` steps of the JAX ``api.make_train_step``."""
+    from repro.parallel import api as japi
+    cfg, _ = train_configs(arch)
+    tc = japi.TrainConfig(compression=compression)
+    mesh = auto_mesh()
+    rows = []
+    with f32_unembed():
+        step, sh = japi.make_train_step(cfg, mesh, train_cfg=tc)
+        state = jax.device_put(
+            japi.make_train_state(jax.tree.map(jnp.asarray, jax_params(arch)),
+                                  compression=compression is not None),
+            sh["state"])
+        for b in token_batches(cfg):
+            state, m = step(state, b)
+            rows.append({k: float(m[k]) for k in JAX_STEP_KEYS if k in m})
+    return rows
+
+
+def port_train_curve(arch, compression=None, num_microbatches=1,
+                     steps=TRAIN_STEPS):
+    """The port's ``api.make_train_step`` on the same params and batches:
+    per-step metrics (``JAX_STEP_KEYS``)."""
+    from repro_torch.parallel import api as tapi
+    cfg, _, params = port_train_params(arch)
+    tc = tapi.TrainConfig(compression=compression,
+                          num_microbatches=num_microbatches)
+    step, _ = tapi.make_train_step(cfg, train_cfg=tc)
+    state = tapi.make_train_state(params, compression=compression is not None)
+    rows = []
+    with f32_unembed():
+        for b in token_batches(cfg, steps=steps):
+            state, m = step(state, {k: torch.from_numpy(v)
+                                    for k, v in b.items()})
+            rows.append({k: float(m[k]) for k in JAX_STEP_KEYS if k in m})
+    return rows, state
+
+
+def assert_curves_close(got, want):
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert set(g) == set(w), (i, g, w)
+        for k in w:
+            assert_close(g[k], w[k], f"step {i} {k}")
