@@ -75,6 +75,25 @@ JSON line:
            (it resumes at the next step, losses within LM_RESUME_TOL of
            the uninterrupted run's) and ``examples/torch/train_lm.py`` at
            its defaults
+ lm_shard  the LM sharding (``parallel/api`` on a mesh,
+           ``parallel/sharded.py``), plain PyTorch: no kernel of the port
+           may launch on it. The one card repeated as (2, 2) and (4, 1)
+           ("data", "model") meshes: reduced danube, olmoe, mamba2,
+           jamba and whisper (tinydp) in f32, every gradient leaf of
+           the first batch, 3 sharded train steps' losses and every
+           param, the sharded prefill and 4 decode
+           steps' logits, against the unsharded ones on the card within
+           LM_SHARD_TOL, the sharded init equal to the one-device init
+           sliced, every shard in ``shard_shape``; h2o-danube-1.8b at full
+           width in bf16 on an f32 master, 6 steps of 2 x 3072 tokens on
+           (2, 2) and unsharded on the same batches: ms a step, tokens/s,
+           peak memory, the gather and row-sum bytes a step (computed
+           from the leaves' shapes), each loss
+           within LM_SHARD_FULL_TOL of the unsharded one and falling;
+           memory plans from meta inits (olmoe-1b-7b's train state,
+           jamba-v0.1-52b's and qwen2-vl-72b's bf16 serving params) on
+           80 GB devices; a reduced danube state saved on (4, 1) and
+           recovered onto the (2, 1) plan bit for bit, one more step
  kernels  each kernel against its plain version on the inputs of one real
            engine tile (nerf: 4096 pixels x 32 samples; gia: 4096 pixels):
            max error against the stated tolerance, device time per call
@@ -2108,6 +2127,304 @@ def lm_train_phase(dev, gpu):
 
 
 
+# the lm_shard phase: the LM sharding on meshes of the one card repeated,
+# (2, 2) and (4, 1) ("data", "model"). (a) reduced archs in f32: the
+# sharded steps against the unsharded ones on the card within
+# LM_SHARD_TOL; (b) h2o-danube-1.8b at full width in bf16 on an f32
+# master, LM_SHARD_FULL_STEPS steps of (batch, tokens a row), each loss
+# within LM_SHARD_FULL_TOL of the unsharded step's; (c) memory plans from
+# meta inits on 80 GB devices; (d) a reduced danube state saved on (4, 1)
+# and recovered onto the (2, 1) plan of two survivors
+LM_SHARD_MESHES = ((2, 2), (4, 1))
+LM_SHARD_ARCHS = {"h2o-danube-1.8b": "baseline", "olmoe-1b-7b": "baseline",
+                  "mamba2-2.7b": "baseline", "jamba-v0.1-52b": "baseline",
+                  "whisper-base": "tinydp"}
+LM_SHARD_STEPS = 3
+LM_SHARD_BATCH, LM_SHARD_SEQ, LM_SHARD_DECODE = 4, 16, 4
+LM_SHARD_TOL = 1e-5
+LM_SHARD_FULL = ("h2o-danube-1.8b", 2, 3072)
+LM_SHARD_FULL_STEPS = 6
+LM_SHARD_FULL_TOL = 2e-2
+LM_SHARD_DEVICE_BYTES = 80e9
+LM_SHARD_PLANS = (("olmoe-1b-7b", "train", (4, 1)),
+                  ("olmoe-1b-7b", "train", (2, 2)),
+                  ("jamba-v0.1-52b", "serve", (2, 2)),
+                  ("jamba-v0.1-52b", "serve", (4, 1)),
+                  ("qwen2-vl-72b", "serve", (2, 2)),
+                  ("qwen2-vl-72b", "serve", (4, 1)))
+
+
+def lm_shard_phase(dev, gpu):
+    """The LM sharding on the one card repeated as (2, 2) and (4, 1)
+    meshes (plain PyTorch: no kernel of the port may launch on it)."""
+    import math
+    from types import SimpleNamespace
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.checkpoint import store
+    from repro_torch.common.partitioning import rule_preset
+    from repro_torch.configs import registry
+    from repro_torch.data import tokens as tdata
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import encdec as tencdec, lm as tlm
+    from repro_torch.parallel import api, sharded as sh
+    from repro_torch.runtime import elastic
+    from repro_torch.train import optim
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_lm_f32 import f32_unembed
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 checks in f32
+    K.reset_launch_counts()
+
+    def card_mesh2(shape):
+        return Mesh(np.array([dev] * (shape[0] * shape[1]), dtype=object)
+                    .reshape(shape), ("data", "model"))
+
+    def max_err(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    def shapes_ok(tree):
+        return all(tuple(s.shape) == l.sharding.shard_shape(l.shape)
+                   for l in optim.tree_leaves(tree) for s in l.shards)
+
+    # -- (a) the reduced archs in f32: sharded against unsharded
+    reduced = {}
+    with f32_unembed():
+        for arch, preset in LM_SHARD_ARCHS.items():
+            cfg = dataclasses.replace(registry.reduced_config(arch),
+                                      act_dtype="float32")
+            mod = tencdec if cfg.is_encdec else tlm
+            src = tdata.SyntheticTokens(tdata.DataConfig(
+                cfg.vocab_size, LM_SHARD_SEQ + 1, LM_SHARD_BATCH, seed=SEED))
+            batches = [lm_token_batch(cfg, src, i, dev)
+                       for i in range(LM_SHARD_STEPS)]
+            inp = lm_inputs(cfg, LM_SHARD_BATCH, LM_SHARD_SEQ, SEED)
+            enc = LM_SHARD_SEQ if cfg.is_encdec else 0
+            cap = LM_SHARD_SEQ + LM_SHARD_DECODE
+            one_p = api.init_params(cfg, SEED, device=dev)
+            # every gradient leaf, not only the loss and the norm
+            _, one_g = api.make_value_and_grad(cfg)(one_p, batches[0])
+            one_state = api.make_train_state(
+                optim.tree_map(torch.clone, one_p))
+            one_step, _ = api.make_train_step(cfg)
+            one_losses = []
+            for b in batches:
+                one_state, m = one_step(one_state, b)
+                one_losses.append(m["loss"])
+            pre1, _ = api.make_prefill_step(cfg, capacity=cap,
+                                            batch_size=LM_SHARD_BATCH,
+                                            enc_len=enc)
+            dec1, _ = api.make_decode_step(cfg, capacity=cap,
+                                           batch_size=LM_SHARD_BATCH,
+                                           enc_len=enc)
+            c1 = api.make_cache(cfg, LM_SHARD_BATCH, cap, enc, device=dev)
+            l1, c1 = pre1(one_p, lm_batch(cfg, inp, dev), c1)
+            one_logits = [l1]
+            for i in range(LM_SHARD_DECODE):
+                t = torch.from_numpy(inp["decode"][:, i:i + 1]).to(dev)
+                l1, c1 = dec1(one_p, c1, t, LM_SHARD_SEQ + i)
+                one_logits.append(l1)
+            rows = {}
+            for shape in LM_SHARD_MESHES:
+                mesh, rules = card_mesh2(shape), rule_preset(preset)
+                sp = api.init_params(cfg, SEED, mesh, rules)
+                init_equal = all(torch.equal(sh.gather(a, dev), b) for a, b
+                                 in zip(optim.tree_leaves(sp),
+                                        optim.tree_leaves(one_p)))
+                _, g = api.make_value_and_grad(cfg, mesh, rules)(
+                    sp, batches[0])
+                grad_err = max(max_err(sh.gather(a, dev), b) for a, b in
+                               zip(optim.tree_leaves(g),
+                                   optim.tree_leaves(one_g)))
+                del g
+                state = api.make_train_state(sp)
+                step, _ = api.make_train_step(cfg, mesh, rules)
+                losses = []
+                for b in batches:
+                    state, m = step(state, b)
+                    losses.append(m["loss"])
+                loss_err = max(abs(float(a) - float(b))
+                               for a, b in zip(losses, one_losses))
+                param_err = max(max_err(sh.gather(a, dev), b) for a, b in
+                                zip(optim.tree_leaves(state["params"]),
+                                    optim.tree_leaves(one_state["params"])))
+                pre, info = api.make_prefill_step(
+                    cfg, mesh, rules, capacity=cap,
+                    batch_size=LM_SHARD_BATCH, enc_len=enc)
+                dec, _ = api.make_decode_step(
+                    cfg, mesh, rules, capacity=cap,
+                    batch_size=LM_SHARD_BATCH, enc_len=enc)
+                cache = api.make_cache(cfg, LM_SHARD_BATCH, cap, enc,
+                                       shardings=info["cache"])
+                sp = api.init_params(cfg, SEED, mesh, rules)
+                lg, cache = pre(sp, lm_batch(cfg, inp, dev), cache)
+                logit_err = max_err(lg, one_logits[0])
+                for i in range(LM_SHARD_DECODE):
+                    t = torch.from_numpy(inp["decode"][:, i:i + 1]).to(dev)
+                    lg, cache = dec(sp, cache, t, LM_SHARD_SEQ + i)
+                    logit_err = max(logit_err, max_err(lg,
+                                                       one_logits[i + 1]))
+                row = {"rows": len(cache.rows),
+                       "loss_max_abs_err": loss_err,
+                       "param_max_abs_err": param_err,
+                       "grad_max_abs_err": grad_err,
+                       "logit_max_abs_err": logit_err,
+                       "init_equal": init_equal,
+                       "shard_shapes_ok": shapes_ok(state["params"])
+                       and shapes_ok(state["opt"].mu),
+                       "position_bytes": sh.shard_bytes(state["params"])}
+                rows["x".join(map(str, shape))] = row
+                if not (init_equal and row["shard_shapes_ok"]
+                        and loss_err <= LM_SHARD_TOL
+                        and param_err <= LM_SHARD_TOL
+                        and grad_err <= LM_SHARD_TOL
+                        and logit_err <= LM_SHARD_TOL):
+                    fail(f"lm_shard[{arch} {shape}]: sharded against "
+                         f"unsharded beyond {LM_SHARD_TOL}: {row}")
+                del sp, state, cache
+            reduced[arch] = rows
+            del one_p, one_g, one_state, c1
+    torch.cuda.empty_cache()
+
+    # -- (b) full width: danube in bf16 on an f32 master, the (2, 2) mesh
+    # against one device, the same batches
+    arch, batch, seq = LM_SHARD_FULL
+    cfg = registry.get_config(arch)
+    tc = api.TrainConfig()
+    src = tdata.SyntheticTokens(tdata.DataConfig(cfg.vocab_size, seq + 1,
+                                                 batch, seed=SEED))
+    full = {}
+    mesh, rules = card_mesh2((2, 2)), rule_preset("baseline")
+    for name, m_ in (("unsharded", None), ("2x2", mesh)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        if m_ is None:
+            params = api.init_params(cfg, SEED, device=dev, train_cfg=tc)
+        else:
+            params = api.init_params(cfg, SEED, m_, rules, train_cfg=tc)
+        state = api.make_train_state(params)
+        step, _ = api.make_train_step(cfg, m_, rules if m_ else None,
+                                      train_cfg=tc)
+        batches = [lm_token_batch(cfg, src, i, dev)
+                   for i in range(LM_SHARD_FULL_STEPS)]
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, b in enumerate(batches):
+            if i == 1:                      # after the warm-up step
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / (LM_SHARD_FULL_STEPS - 1)
+        row = {"step_ms": step_s * 1e3,
+               "tokens_per_s": batch * seq / step_s,
+               "peak_bytes": torch.cuda.max_memory_allocated(dev),
+               "losses": torch.stack(losses).tolist()}
+        if m_ is not None:
+            leaves = optim.tree_leaves(state["params"])
+            n_rows = len(api.batch_row_devices(m_, rules, batch))
+            n_gathers = len(set(api.batch_row_devices(m_, rules, batch)))
+            item = torch.empty((), dtype=cfg.adtype).element_size()
+            whole = sum(l.numel() * (item if l.ndim >= 2 else 4)
+                        for l in leaves)
+            row.update({
+                "rows": n_rows, "gathers_a_step": n_gathers,
+                # computed from the leaves' shapes, not counted in the run:
+                # the gathered compute copies, and each row's gradient
+                # slice for every position (copies included), in f32
+                "gather_bytes_a_step_from_shapes": n_gathers * whole,
+                "row_sum_bytes_a_step_from_shapes": n_rows * sum(
+                    s.numel() * 4 for l in leaves for s in l.shards),
+                "position_bytes": sh.shard_bytes(state),
+                "note": "the four positions share one card: its peak holds "
+                        "them all, not a per-device saving"})
+        full[name] = row
+        del params, state, batches, m
+    torch.cuda.empty_cache()
+    fl, sl = full["unsharded"]["losses"], full["2x2"]["losses"]
+    full_err = max(abs(a - b) for a, b in zip(fl, sl))
+    full["loss_max_abs_err"] = full_err
+    if not all(math.isfinite(l) for l in fl + sl) or full_err > \
+            LM_SHARD_FULL_TOL or not (fl[-1] < fl[0] and sl[-1] < sl[0]):
+        fail(f"lm_shard[{arch} full]: losses {sl} against {fl}: "
+             f"{full_err} (tol {LM_SHARD_FULL_TOL}; each must fall)")
+
+    # -- (c) memory plans from meta inits, on 80 GB devices
+    plans = []
+    for arch_, kind, shape in LM_SHARD_PLANS:
+        cfg_ = registry.get_config(arch_)
+        stand = SimpleNamespace(shape={"data": shape[0], "model": shape[1]})
+        dt = None if kind == "train" else cfg_.adtype
+        stored = api.shard_param_bytes(cfg_, stand, compute_dtype=dt)
+        need = (api.train_state_bytes(cfg_, tc, mesh=stand) if kind ==
+                "train" else api.param_bytes(cfg_, dt, mesh=stand))
+        try:
+            api.check_fits(cfg_, compute_dtype=dt,
+                           train_cfg=tc if kind == "train" else None,
+                           mesh=stand, device_bytes=LM_SHARD_DEVICE_BYTES)
+            verdict = "fits"
+        except MemoryError as e:
+            verdict = f"refused: {e}"
+        plans.append({"arch": arch_, "what": kind, "mesh": list(shape),
+                      "max_stored_bytes": max(stored),
+                      "max_position_bytes": max(need),
+                      "verdict_80GB": verdict})
+
+    # -- (d) elastic: a reduced danube state saved on (4, 1), recovered
+    # onto the (2, 1) plan of two survivors, one more step
+    work = os.path.join(ROOT, "build", "chip_smoke_lm_shard")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = dataclasses.replace(registry.reduced_config("h2o-danube-1.8b"),
+                              act_dtype="float32")
+    mesh41, rules = card_mesh2((4, 1)), rule_preset("baseline")
+    state = api.make_train_state(api.init_params(cfg, SEED, mesh41, rules))
+    step, _ = api.make_train_step(cfg, mesh41, rules)
+    src = tdata.SyntheticTokens(tdata.DataConfig(
+        cfg.vocab_size, LM_SHARD_SEQ + 1, LM_SHARD_BATCH, seed=SEED))
+    state, _ = step(state, lm_token_batch(cfg, src, 0, dev))
+    store.save(state, 1, work)
+    plan = elastic.remesh_plan(2, 4, 1)
+    mesh21, step_fn, got, at = elastic.recover(
+        work, cfg, plan, devices=[dev] * 2,
+        make_step=lambda c, m_, r: api.make_train_step(
+            c, m_, r, train_cfg=api.TrainConfig(
+                num_microbatches=plan.microbatch_multiplier))[0])
+    bit_equal = all(
+        torch.equal(sh.gather(a, dev), sh.gather(b, dev)) for a, b in zip(
+            optim.tree_leaves({"p": got["params"], "m": got["opt"].mu,
+                               "v": got["opt"].nu}),
+            optim.tree_leaves({"p": state["params"], "m": state["opt"].mu,
+                               "v": state["opt"].nu})))
+    got, m = step_fn(got, lm_token_batch(cfg, src, 1, dev))
+    recovered = {"saved_on": [4, 1], "plan": [plan.data, plan.model],
+                 "microbatch_multiplier": plan.microbatch_multiplier,
+                 "resumed_step": at, "bit_equal": bit_equal,
+                 "next_loss": float(m["loss"]),
+                 "mesh": mesh21.shape}
+    shutil.rmtree(work, ignore_errors=True)
+    if not (bit_equal and at == 1 and got["opt"].step == 2
+            and math.isfinite(recovered["next_loss"])):
+        fail(f"lm_shard: elastic recovery: {recovered}")
+
+    launches = K.launch_counts()
+    if any(launches.values()):
+        fail(f"lm_shard: the LM sharding launched a kernel of the port: "
+             f"{launches}")
+    return {"phase": "lm_shard", "seconds": time.perf_counter() - t_phase,
+            "launches": launches, "tol": LM_SHARD_TOL,
+            "full_tol": LM_SHARD_FULL_TOL,
+            "note": "one card repeated as each mesh: the positions share "
+                    "its memory and run one after another",
+            "reduced": reduced,
+            "full": {"arch": arch, "batch": batch, "tokens_per_row": seq,
+                     "steps": LM_SHARD_FULL_STEPS, **full},
+            "plans": plans, "elastic": recovered, **gpu}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2203,6 +2520,7 @@ def main():
     # the LM stack's serving path, before the field phases take memory
     emit(lm_phase(dev, gpu))
     emit(lm_train_phase(dev, gpu))
+    emit(lm_shard_phase(dev, gpu))
 
     # ---------------------------------------------------------- kernels
     params = [fields.from_jax_params(np_params(cfg, SEED + s), cfg, dev)

@@ -19,6 +19,13 @@ restores what the other wrote:
     ``<V1``), the manifest naming the dtype; restore re-views the bytes
     under the manifest's dtype. No ml_dtypes is needed.
 
+**Sharded trees** (``parallel/sharded.Sharded`` leaves, the LM state on a
+mesh) are written as their whole tensors, gathered from the first
+position holding each slice, so the files do not depend on the mesh;
+``restore(shardings=)`` places each leaf by its NamedSharding (any mesh),
+as the JAX function's ``device_put`` does, and a sharded target leaf
+without one is placed by its own sharding.
+
 ``AsyncCheckpointer.save`` snapshots the state to host memory before it
 returns (CUDA leaves: copies into reused pinned buffers, queued on the
 current stream, so the next step's in-place updates run after them), and
@@ -39,6 +46,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharded import Sharded, gather, place
 
 MANIFEST = "manifest.json"
 
@@ -82,7 +91,10 @@ def _leaf_filename(i: int) -> str:
 
 def _to_numpy(leaf) -> Tuple[np.ndarray, str, Optional[str]]:
     """(array of the leaf's bytes, manifest dtype, .npy descr to write in
-    place of the array's own, or None). Host leaves only."""
+    place of the array's own, or None). Host leaves, and sharded leaves
+    (gathered to the host)."""
+    if isinstance(leaf, Sharded):
+        leaf = gather(leaf, torch.device("cpu"))
     if isinstance(leaf, torch.Tensor):
         if leaf.device.type != "cpu":
             raise ValueError("checkpoint leaves must be on the host: "
@@ -189,10 +201,14 @@ def _load_leaf(path: Path, rec: Dict, verify: bool, name: str
 
 
 def restore(directory: str | os.PathLike, target: Any,
-            step: Optional[int] = None, verify: bool = True) -> Any:
+            step: Optional[int] = None, shardings: Any = None,
+            verify: bool = True) -> Any:
     """Restore into the structure of ``target``: a tree of tensors (each
-    restored leaf takes its target's dtype and device) and ints (restored
-    as ints, as Adam's step is)."""
+    restored leaf takes its target's dtype and device; a meta tensor is a
+    template), sharded leaves (placed by their own sharding) and ints
+    (restored as ints, as Adam's step is). ``shardings`` (the same
+    structure, NamedShardings) places each tensor leaf on its mesh, which
+    may be any mesh."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -206,17 +222,26 @@ def restore(directory: str | os.PathLike, target: Any,
             f"checkpoint has {len(manifest['leaves'])} leaves, target has "
             f"{len(leaves)}: structure changed?")
     by_path = {l["path"]: l for l in manifest["leaves"]}
+    places = ([s for _, s in _flatten(shardings)] if shardings is not None
+              else [None] * len(leaves))
     out = []
-    for name, tgt in leaves:
+    for (name, tgt), shard in zip(leaves, places):
         rec = by_path.get(name)
         if rec is None:
             raise KeyError(f"leaf {name} missing from checkpoint")
         t = _load_leaf(d / rec["file"], rec, verify, name)
-        tshape = list(tgt.shape) if isinstance(tgt, torch.Tensor) else []
+        is_leaf = isinstance(tgt, (torch.Tensor, Sharded))
+        tshape = list(tgt.shape) if is_leaf else []
         if list(t.shape) != tshape:
             raise ValueError(f"{name}: shape {list(t.shape)} != {tshape}")
-        out.append(t.to(device=tgt.device, dtype=tgt.dtype)
-                   if isinstance(tgt, torch.Tensor) else int(t))
+        if not is_leaf:
+            out.append(int(t))
+            continue
+        if shard is None and isinstance(tgt, Sharded):
+            shard = tgt.sharding
+        t = t.to(dtype=tgt.dtype)
+        out.append(place(t, shard) if shard is not None
+                   else t.to(device=tgt.device))
     return _unflatten(target, iter(out))
 
 
@@ -247,7 +272,11 @@ class AsyncCheckpointer:
         host tensors are cloned (the caller updates them in place)."""
         leaves, event = [], None
         for i, (_, leaf) in enumerate(_flatten(tree)):
-            if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
+            if isinstance(leaf, Sharded):
+                # gathered whole to the host here (a blocking copy), so
+                # the writer never touches a device tensor
+                leaves.append(gather(leaf, torch.device("cpu")))
+            elif isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
                 buf = self._pinned.get(i)
                 if buf is None or buf.shape != leaf.shape \
                         or buf.dtype != leaf.dtype:

@@ -14,12 +14,18 @@ The draws differ from JAX's (another RNG), so parity with the JAX package
 goes through carried-over weights, never through matching draws. The
 initialisers take the full shape, a leading stack axis included, and are
 told ``fan_in`` where the first dimension is not the fan-in.
+
+``KeyGen(seed, device, lazy=True)`` makes a tree whose initialiser leaves
+are :class:`LazyLeaf`s: the draw's seed, shape, dtype and scale, not its
+values. ``parallel/sharded.py`` makes each shard of such a leaf on its
+own device from the same draws, so a sharded init equals the one-device
+init sliced, and no device ever holds a whole leaf that is not its own.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,6 +105,39 @@ class Draw:
     generator: Optional[torch.Generator]
     device: torch.device
     compute_dtype: Optional[torch.dtype] = None
+    seed: Optional[int] = None       # the generator's seed (lazy draws)
+    lazy: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class LazyLeaf:
+    """An initialiser's leaf not made yet: an N(0, 1) f32 draw from a
+    generator seeded ``seed``, scaled in place by ``scale`` and rounded to
+    ``dtype``; or, with ``seed`` None, the constant ``fill``."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    seed: Optional[int]
+    scale: Optional[Callable] = None
+    fill: float = 0.0
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def parts(self, device: torch.device) -> Iterator[torch.Tensor]:
+        """The leaf's values on ``device`` in draw order: one leading slice
+        at a time for a leaf of three or more dims, else the whole; the
+        values of the eager init, bit for bit."""
+        if self.seed is None:
+            shape, n = _part_shape(self.shape)
+            for _ in range(n):
+                yield torch.full(shape, self.fill, dtype=self.dtype,
+                                 device=device)
+            return
+        gen = torch.Generator(device=device)
+        gen.manual_seed(self.seed)
+        for r in _normal_parts(gen, device, self.shape, self.scale):
+            yield r.to(self.dtype)
 
 
 def _leaf_dtype(gen: Draw, shape, dtype) -> torch.dtype:
@@ -108,20 +147,36 @@ def _leaf_dtype(gen: Draw, shape, dtype) -> torch.dtype:
     return dtype
 
 
+def _part_shape(shape) -> Tuple[Tuple[int, ...], int]:
+    """(the shape of one drawn part, the number of parts): a leaf of three
+    or more dims is drawn one leading slice at a time."""
+    shape = tuple(shape)
+    return (shape[1:], shape[0]) if len(shape) >= 3 else (shape, 1)
+
+
+def _normal_parts(generator, device, shape, scale) -> Iterator[torch.Tensor]:
+    part, n = _part_shape(shape)
+    for _ in range(n):
+        yield scale(torch.randn(part, generator=generator, device=device,
+                                dtype=torch.float32))
+
+
 def _normal(gen: Draw, shape, dtype, scale) -> torch.Tensor:
     """N(0, 1) drawn in f32, ``scale``d in place and rounded to the leaf's
     dtype. A leaf of three or more dimensions (stacked over layers) is
     drawn one leading slice at a time, so a leaf made in its compute dtype
     never exists whole in f32; the draws are the same either way."""
     shape = tuple(shape)
-    out = torch.empty(shape, dtype=_leaf_dtype(gen, shape, dtype),
-                      device=gen.device)
+    dt = _leaf_dtype(gen, shape, dtype)
+    if gen.lazy:
+        return LazyLeaf(shape, dt, gen.seed, scale)
+    out = torch.empty(shape, dtype=dt, device=gen.device)
     if gen.device.type == "meta":
         return out
-    for part in (out if len(shape) >= 3 else out[None]):
-        part.copy_(scale(torch.randn(part.shape, generator=gen.generator,
-                                     device=gen.device,
-                                     dtype=torch.float32)))
+    for part, value in zip(out if len(shape) >= 3 else out[None],
+                           _normal_parts(gen.generator, gen.device, shape,
+                                         scale)):
+        part.copy_(value)
     return out
 
 
@@ -137,11 +192,16 @@ def scaled_init(gen: Draw, shape, dtype=torch.float32, fan_in=None):
 
 
 def zeros_init(gen: Draw, shape, dtype=torch.float32):
+    if gen.lazy:
+        return LazyLeaf(tuple(shape), _leaf_dtype(gen, shape, dtype), None)
     return torch.zeros(tuple(shape), dtype=_leaf_dtype(gen, shape, dtype),
                        device=gen.device)
 
 
 def ones_init(gen: Draw, shape, dtype=torch.float32):
+    if gen.lazy:
+        return LazyLeaf(tuple(shape), _leaf_dtype(gen, shape, dtype), None,
+                        fill=1.0)
     return torch.ones(tuple(shape), dtype=_leaf_dtype(gen, shape, dtype),
                       device=gen.device)
 
@@ -153,12 +213,16 @@ class KeyGen:
     seeded from this one's own CPU stream, so the split never waits on
     the device. On ``device="meta"`` an init allocates nothing: it gives
     the tree's shapes, dtypes and axes. With ``compute_dtype`` the f32
-    leaves of two or more dimensions are made in it (see ``Draw``)."""
+    leaves of two or more dimensions are made in it (see ``Draw``). With
+    ``lazy`` the initialisers return :class:`LazyLeaf`s (the few leaves
+    made outside them are made on ``device``)."""
 
     def __init__(self, seed: int, device=None,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 lazy: bool = False):
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
+        self.lazy = lazy
         self._gen = torch.Generator()
         self._gen.manual_seed(int(seed))
 
@@ -166,6 +230,9 @@ class KeyGen:
         if self.device.type == "meta":
             return Draw(None, self.device, self.compute_dtype)
         seed = int(torch.randint(0, 2 ** 62, (), generator=self._gen))
+        if self.lazy:
+            return Draw(None, self.device, self.compute_dtype, seed=seed,
+                        lazy=True)
         sub = torch.Generator(device=self.device)
         sub.manual_seed(seed)
         return Draw(sub, self.device, self.compute_dtype)

@@ -4,13 +4,14 @@ A :class:`Mesh` is an array of ``torch.device``s with a name per axis,
 as ``jax.sharding.Mesh`` is one of JAX devices. One process drives it: a
 sharded path launches each shard's work on its own device and gathers the
 results on the mesh's first device (``serve/sharding.py``,
-``train/loop.data_parallel_grad_fn``). A mesh may hold one device more
+``train/loop.data_parallel_grad_fn``, the LM steps of ``parallel/api``
+on a mesh). A mesh may hold one device more
 than once; its shards then run one after another on that device and share
 its memory, as the JAX package's tests share one CPU split into forced
 host devices.
 
 ``make_production_mesh`` (the JAX package's 16x16 TPU pod) waits for the
-LM stack (ROADMAP A14), which decides what it means on H100s.
+dry run (ROADMAP A14.7), which decides what it means on H100s.
 """
 from __future__ import annotations
 
@@ -116,6 +117,17 @@ def shard_devices(mesh: Mesh, rules: Optional[LogicalRules] = None,
     axes = partitioning.present_axes(mesh, rules.mesh_axes(logical))
     if axes is None:
         return None
+    return axes_devices(mesh, axes)
+
+
+def axes_devices(mesh: Mesh, axes) -> List[torch.device]:
+    """The device of each shard of a split over the mesh axes ``axes`` (a
+    spec entry: None, a name or a tuple of names, the first the major
+    one), in shard order; a split over no axes is one shard on the first
+    device. Axes the split does not use replicate, and a shard runs on the
+    first device along them."""
+    if axes is None or axes == ():
+        return [mesh.devices[0]]
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
     index = tuple(slice(None) if a in axes else 0 for a in mesh.axis_names)
     kept = [a for a in mesh.axis_names if a in axes]

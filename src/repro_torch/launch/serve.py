@@ -177,34 +177,42 @@ def _check_finite(finite, arch: str) -> None:
 
 def serve_lm(arch: str, reduced: bool = True, batch: int = 2,
              prompt_len: int = 32, gen_len: int = 16, seed: int = 0, *,
-             device: DeviceLike = None):
+             device: DeviceLike = None, mesh=None):
     """Prefill a random prompt, then greedy-decode ``gen_len`` tokens for
     ``arch`` (its ``reduced_config`` unless ``reduced=False``) through the
-    ``parallel/api`` steps on one device; logs ``lm_served`` and
-    ``lm_sample``, adds ``lm.prefill``/``lm.decode`` tracer events, and
-    returns (prefill seconds, decode seconds). The params are drawn on the
-    device in the act dtype, with no f32 master (``api.init_params(
-    compute_dtype=)``); an arch they do not fit raises ``MemoryError``
-    first. A logit that is not finite raises ``FloatingPointError``."""
+    ``parallel/api`` steps built from the local mesh (its default
+    ``(1, 1)`` shape: one device, as the JAX function's ``make_local_mesh()``
+    is; a ``mesh`` of more devices shards the params and splits the batch);
+    logs ``lm_served`` and ``lm_sample``, adds ``lm.prefill``/``lm.decode``
+    tracer events, and returns (prefill seconds, decode seconds). The
+    params are drawn on the device in the act dtype, with no f32 master
+    (``api.init_params(compute_dtype=)``); an arch they do not fit raises
+    ``MemoryError`` first. A logit that is not finite raises
+    ``FloatingPointError``."""
+    from repro_torch.common.partitioning import DEFAULT_RULES
     from repro_torch.configs import registry
     from repro_torch.parallel import api
 
     dev = resolve_device(device)
     cfg = (registry.reduced_config(arch) if reduced
            else registry.get_config(arch))
-    mesh = make_local_mesh(device=dev)
+    mesh = mesh or make_local_mesh(device=dev)
+    dev = mesh.devices[0]
+    rules = DEFAULT_RULES.copy_with()
     capacity = prompt_len + gen_len
     enc_len = prompt_len if cfg.is_encdec else 0
 
     prefill_fn, _ = api.make_prefill_step(
-        cfg, mesh, capacity=capacity, batch_size=batch, enc_len=enc_len)
-    decode_fn, _ = api.make_decode_step(
-        cfg, mesh, capacity=capacity, batch_size=batch, enc_len=enc_len)
+        cfg, mesh, rules, capacity=capacity, batch_size=batch,
+        enc_len=enc_len)
+    decode_fn, dsh = api.make_decode_step(
+        cfg, mesh, rules, capacity=capacity, batch_size=batch,
+        enc_len=enc_len)
 
-    params = api.init_params(cfg, seed=seed, mesh=mesh,
+    params = api.init_params(cfg, seed, mesh, rules,
                              compute_dtype=cfg.adtype)
     cache = api.make_cache(cfg, batch, capacity, enc_len=enc_len,
-                           device=dev)
+                           shardings=dsh.get("cache"), device=dev)
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batch, prompt_len))).to(dev)

@@ -1,6 +1,6 @@
 """Training launcher of the port, the JAX package's ``launch/train.py``:
-an LM trained on one device through the shared training engine, with
-checkpointing, resume and health hooks.
+an LM trained on one device or a ``(data, model)`` mesh through the
+shared training engine, with checkpointing, resume and health hooks.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
       --reduced --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
@@ -13,14 +13,20 @@ stacks each chunk's batches and copies them to the card on a background
 thread while the previous chunk runs. The engine's one host read a chunk
 (every step's metrics at once) is the loop's only sync point.
 
+``--data`` and ``--model`` build the mesh with ``launch/mesh.
+make_local_mesh`` (which clamps to the devices there are, as the JAX
+function does); on a mesh of more than one device the train state is
+sharded (``parallel/api``); the engine copies each whole batch to the
+mesh's first device and the step moves each row to its device.
+
 It differs from the JAX launcher in two places:
 
-  * ``--device`` (default ``cuda``) picks the device; without a GPU the
-    default raises, it does not fall back.
-  * ``--data`` or ``--model`` above 1 raise ``NotImplementedError``: the
-    LM sharding is ROADMAP A14.5. A model whose train state (16 bytes a
-    parameter and the compute copy) does not fit on the card is refused
-    with ``MemoryError`` before anything is drawn.
+  * ``--device`` (default ``cuda``) picks the device type and the mesh's
+    first device; without a GPU the default raises, it does not fall
+    back.
+  * A model whose train state (16 bytes a parameter and the compute copy;
+    on a mesh, each device's shards and the gathered compute copy) does
+    not fit is refused with ``MemoryError`` before anything is drawn.
 
 As in the JAX package, whisper (an encoder-decoder, whose batches need
 ``enc_embeddings``) trains through ``parallel/api.build_train_step``, not
@@ -31,9 +37,13 @@ from __future__ import annotations
 import argparse
 from typing import Optional
 
+import numpy as np
+
+from repro_torch.common.partitioning import DEFAULT_RULES
 from repro_torch.configs import registry
 from repro_torch.data import tokens as token_data
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.obs import log as obs_log
 from repro_torch.obs.trace import TRACER
 from repro_torch.parallel import api
@@ -44,21 +54,27 @@ _LOG = obs_log.get_logger("train")
 
 def train_loop(cfg, mesh=None, *, steps: int, seq_len: int,
                global_batch: int, ckpt_dir=None, ckpt_every: int = 50,
-               train_cfg: Optional[api.TrainConfig] = None,
+               rules=None, train_cfg: Optional[api.TrainConfig] = None,
                log_every: int = 10, seed: int = 0, on_step=None,
                chunk_steps: int = 16, metrics_out: Optional[str] = None,
                device: DeviceLike = None):
     """Train ``cfg`` for ``steps`` steps of ``global_batch`` x ``seq_len``
-    synthetic tokens on ``mesh``'s one device (or ``device``: CUDA unless
-    named); resume from ``ckpt_dir``'s newest checkpoint. Returns (the
-    final state, the loss of each step run in this call)."""
+    synthetic tokens on ``mesh`` (sharded under ``rules``, default the JAX
+    default rules, when it has more than one device; else its one device,
+    or ``device``: CUDA unless named); resume from ``ckpt_dir``'s newest
+    checkpoint. Returns (the final state, the loss of each step run in
+    this call)."""
     if cfg.is_encdec:
         raise ValueError(f"{cfg.name}: an encoder-decoder trains through "
                          "parallel/api.build_train_step with enc_embeddings "
                          "in its batches, not through the token launcher")
     train_cfg = train_cfg or api.TrainConfig()
-    raw_step, _ = api.build_train_step(cfg, mesh, train_cfg=train_cfg)
-    params = api.init_params(cfg, seed=seed, mesh=mesh, device=device,
+    rules = rules or DEFAULT_RULES.copy_with()
+    example = {"batch": {"tokens": np.zeros((global_batch, seq_len),
+                                            np.int32)}}
+    raw_step, _ = api.build_train_step(cfg, mesh, rules, train_cfg=train_cfg,
+                                       example_batch=example)
+    params = api.init_params(cfg, seed, mesh, rules, device=device,
                              train_cfg=train_cfg)
     state = api.make_train_state(
         params, compression=train_cfg.compression is not None)
@@ -119,24 +135,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.data * args.model > 1:
-        raise NotImplementedError(
-            f"--data {args.data} --model {args.model}: the LM trains on one "
-            "device; meshes of more wait for the LM sharding (ROADMAP "
-            "A14.5)")
     if args.trace_out:
         TRACER.enable()
     cfg = (registry.reduced_config(args.arch) if args.reduced
            else registry.get_config(args.arch))
+    dev = resolve_device(args.device)
+    mesh = make_local_mesh(args.data, args.model, device=dev)
     tc = api.TrainConfig(num_microbatches=args.microbatches,
                          compression=args.compression)
-    _, losses = train_loop(cfg, steps=args.steps, seq_len=args.seq,
+    _, losses = train_loop(cfg, mesh, steps=args.steps, seq_len=args.seq,
                            global_batch=args.batch,
                            ckpt_dir=args.ckpt_dir,
                            ckpt_every=args.ckpt_every,
                            chunk_steps=args.chunk_steps, train_cfg=tc,
-                           metrics_out=args.metrics_out,
-                           device=resolve_device(args.device))
+                           metrics_out=args.metrics_out, device=dev)
     if losses:
         _LOG.info("trained", loss_first=round(losses[0], 4),
                   loss_last=round(losses[-1], 4), n_steps=len(losses))

@@ -107,11 +107,14 @@ def _project_qkv(params, cfg: ModelConfig, x, kv_x, positions,
     return q, k, v
 
 
-def _grouped_attend(q, k, v, mask):
+def _grouped_attend(q, k, v, mask, sharder=None):
     """q (B,Sq,H,hd), k/v (B,Sk,KV,hd), mask (1|B, Sq, Sk) bool."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
+    if sharder is not None:
+        sharder(q.reshape(b, sq, kv, g, hd), "batch", "act_seq", "kv_heads",
+                None, None)
     # (B, KV, G*Sq, hd): a KV head's query heads are rows of one product
     qg = q.reshape(b, sq, kv, g, hd).permute(0, 2, 3, 1, 4) \
         .reshape(b, kv, g * sq, hd)
@@ -151,7 +154,8 @@ def q_chunk(cfg: ModelConfig, sq: int) -> Optional[int]:
 
 
 def _attend_block(q, k, v, qc: int, off: int, window: Optional[int],
-                  causal: bool, slice_keys: bool) -> torch.Tensor:
+                  causal: bool, slice_keys: bool,
+                  sharder=None) -> torch.Tensor:
     """One query block of chunked attention: the block's ``qc`` queries
     from absolute position ``off`` against the keys they can see."""
     sk = k.shape[1]
@@ -168,11 +172,11 @@ def _attend_block(q, k, v, qc: int, off: int, window: Optional[int],
             (qc, sk), dtype=torch.bool, device=q.device)
         if window is not None:
             m = m & (kj > qi - window)
-    return _grouped_attend(q, k, v, m[None])
+    return _grouped_attend(q, k, v, m[None], sharder=sharder)
 
 
 def _attend_maybe_chunked(q, k, v, cfg: ModelConfig,
-                          causal: bool) -> torch.Tensor:
+                          causal: bool, sharder=None) -> torch.Tensor:
     """Full attention with q-block chunking when the score tensor would be
     large: each block materializes only (B, H, qc, Sk), the
     flash-attention memory shape, one block after another, and the
@@ -186,23 +190,25 @@ def _attend_maybe_chunked(q, k, v, cfg: ModelConfig,
     if qc is None:
         mask = causal_mask(sq, sk, window=window, causal=causal,
                            device=q.device)
-        return _grouped_attend(q, k, v, mask)
+        return _grouped_attend(q, k, v, mask, sharder=sharder)
     slice_keys = window is not None and causal and sk > window + qc
     outs = [remat.checkpoint(
         functools.partial(_attend_block, qc=qc, off=i * qc + (sk - sq),
                           window=window, causal=causal,
-                          slice_keys=slice_keys),
+                          slice_keys=slice_keys, sharder=sharder),
         q[:, i * qc:(i + 1) * qc], k, v) for i in range(sq // qc)]
     return torch.cat(outs, dim=1)
 
 
 def attend_full(params, cfg: ModelConfig, x, positions, *,
-                causal: bool = True, kv_x=None, rope: bool = True
-                ) -> torch.Tensor:
+                causal: bool = True, kv_x=None, rope: bool = True,
+                sharder=None) -> torch.Tensor:
     """Training / prefill / cross attention over the full sequence."""
     kv_x = x if kv_x is None else kv_x
     q, k, v = _project_qkv(params, cfg, x, kv_x, positions, rope=rope)
-    out = _attend_maybe_chunked(q, k, v, cfg, causal)
+    if sharder is not None:
+        q = sharder(q, "batch", "act_seq", "act_heads", "head_dim")
+    out = _attend_maybe_chunked(q, k, v, cfg, causal, sharder=sharder)
     return _out_proj(out, params["wo"])
 
 
@@ -223,6 +229,12 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, ring: bool,
     }
 
 
+def cache_logical_axes() -> Dict:
+    return {"k": ("batch", "act_seq", "kv_heads", "head_dim"),
+            "v": ("batch", "act_seq", "kv_heads", "head_dim"),
+            "slot_pos": ("act_seq",)}
+
+
 def _time_positions(positions) -> torch.Tensor:
     """The 1-D temporal position stream (lockstep batch; M-RoPE's t axis)."""
     while positions.ndim > 1:
@@ -230,12 +242,12 @@ def _time_positions(positions) -> torch.Tensor:
     return positions
 
 
-def prefill_into_cache(params, cfg: ModelConfig, x, positions, cache
-                       ) -> Tuple[torch.Tensor, Dict]:
+def prefill_into_cache(params, cfg: ModelConfig, x, positions, cache,
+                       sharder=None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence attention that also fills ``cache`` in place (the
     last ``size`` tokens for a ring cache, rolled so slot = pos % size)."""
     q, k, v = _project_qkv(params, cfg, x, x, positions)
-    out = _attend_maybe_chunked(q, k, v, cfg, causal=True)
+    out = _attend_maybe_chunked(q, k, v, cfg, causal=True, sharder=sharder)
     y = _out_proj(out, params["wo"])
 
     size = cache["k"].shape[1]
@@ -256,8 +268,8 @@ def prefill_into_cache(params, cfg: ModelConfig, x, positions, cache
     return y, cache
 
 
-def decode_step_attn(params, cfg: ModelConfig, x, pos: int, cache
-                     ) -> Tuple[torch.Tensor, Dict]:
+def decode_step_attn(params, cfg: ModelConfig, x, pos: int, cache,
+                     sharder=None) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. x (B, 1, d); ``pos`` a host int (lockstep batch).
 
     Full cache: slot == pos. Ring cache: slot == pos % size; masking is by
@@ -276,5 +288,6 @@ def decode_step_attn(params, cfg: ModelConfig, x, pos: int, cache
     valid = (spos >= 0) & (spos <= pos)
     if cfg.swa_window is not None:
         valid = valid & (spos > pos - cfg.swa_window)
-    out = _grouped_attend(q, cache["k"], cache["v"], valid[None, None, :])
+    out = _grouped_attend(q, cache["k"], cache["v"], valid[None, None, :],
+                          sharder=sharder)
     return _out_proj(out, params["wo"]), cache

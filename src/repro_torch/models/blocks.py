@@ -50,28 +50,32 @@ def init_block(kg: KeyGen, cfg: ModelConfig, layer_idx: int,
     return p
 
 
-def _ffn(params, cfg: ModelConfig, layer_idx: int, x):
+def _ffn(params, cfg: ModelConfig, layer_idx: int, x, sharder=None):
     """The block's FFN half: (x, aux)."""
     ffn = cfg.ffn_kind(layer_idx)
     if ffn == "none":
         return x, {}
     h = layers.rmsnorm(params["norm2"], x, cfg.norm_eps)
     if ffn == "moe":
-        y, aux = moe_lib.apply_moe(params["moe"], cfg, h)
+        y, aux = moe_lib.apply_moe(params["moe"], cfg, h, sharder=sharder)
     else:
-        y, aux = layers.swiglu(params["mlp"], h), {}
+        y, aux = layers.swiglu(params["mlp"], h, sharder=sharder), {}
     return x + y, aux
 
 
-def apply_block(params, cfg: ModelConfig, layer_idx: int, x, positions
-                ) -> Tuple[torch.Tensor, Dict]:
+def apply_block(params, cfg: ModelConfig, layer_idx: int, x, positions,
+                sharder=None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence block. Returns (x, aux)."""
     h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if cfg.layer_kind(layer_idx) == "attn":
-        mix = attention.attend_full(params["attn"], cfg, h, positions)
+        mix = attention.attend_full(params["attn"], cfg, h, positions,
+                                    sharder=sharder)
     else:
-        mix = ssm_lib.apply_ssm(params["ssm"], cfg, h)
-    return _ffn(params, cfg, layer_idx, x + mix)
+        mix = ssm_lib.apply_ssm(params["ssm"], cfg, h, sharder=sharder)
+    x, aux = _ffn(params, cfg, layer_idx, x + mix, sharder=sharder)
+    if sharder is not None:
+        x = sharder(x, "batch", "act_seq", "act_embed")
+    return x, aux
 
 
 def init_block_cache(cfg: ModelConfig, layer_idx: int, batch: int,
@@ -84,29 +88,35 @@ def init_block_cache(cfg: ModelConfig, layer_idx: int, batch: int,
     return ssm_lib.init_ssm_cache(cfg, batch, device=device, lead=lead)
 
 
+def block_cache_axes(cfg: ModelConfig, layer_idx: int) -> Dict:
+    if cfg.layer_kind(layer_idx) == "attn":
+        return attention.cache_logical_axes()
+    return ssm_lib.ssm_cache_logical_axes()
+
+
 def prefill_block(params, cfg: ModelConfig, layer_idx: int, x, positions,
-                  cache) -> Tuple[torch.Tensor, Dict]:
+                  cache, sharder=None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence block that fills its ``cache`` in place."""
     h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if cfg.layer_kind(layer_idx) == "attn":
         mix, cache = attention.prefill_into_cache(
-            params["attn"], cfg, h, positions, cache)
+            params["attn"], cfg, h, positions, cache, sharder=sharder)
     else:
-        mix, st = ssm_lib.apply_ssm(params["ssm"], cfg, h,
+        mix, st = ssm_lib.apply_ssm(params["ssm"], cfg, h, sharder=sharder,
                                     return_state=True)
         cache["ssm_state"].copy_(st["ssm_state"])
         cache["conv_state"].copy_(st["conv_state"])
-    x, _ = _ffn(params, cfg, layer_idx, x + mix)
+    x, _ = _ffn(params, cfg, layer_idx, x + mix, sharder=sharder)
     return x, cache
 
 
 def decode_block(params, cfg: ModelConfig, layer_idx: int, x, pos: int,
-                 cache) -> Tuple[torch.Tensor, Dict]:
+                 cache, sharder=None) -> Tuple[torch.Tensor, Dict]:
     h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if cfg.layer_kind(layer_idx) == "attn":
         mix, cache = attention.decode_step_attn(
-            params["attn"], cfg, h, pos, cache)
+            params["attn"], cfg, h, pos, cache, sharder=sharder)
     else:
         mix, cache = ssm_lib.decode_step_ssm(params["ssm"], cfg, h, cache)
-    x, _ = _ffn(params, cfg, layer_idx, x + mix)
+    x, _ = _ffn(params, cfg, layer_idx, x + mix, sharder=sharder)
     return x, cache

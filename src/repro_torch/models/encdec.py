@@ -86,22 +86,26 @@ def _layer(stacked, i: int):
     return tree_map(lambda a: a[i], stacked)
 
 
-def _enc_layer(cfg: ModelConfig, positions, lp, x):
+def _enc_layer(cfg: ModelConfig, positions, sharder, lp, x):
     h = layers.layernorm(lp["ln1"], x)
     x = x + attention.attend_full(lp["attn"], cfg, h, positions,
-                                  causal=False)
+                                  causal=False, sharder=sharder)
     h = layers.layernorm(lp["ln2"], x)
-    return x + layers.gelu_mlp(lp["mlp"], h)
+    x = x + layers.gelu_mlp(lp["mlp"], h, sharder=sharder)
+    if sharder is not None:
+        x = sharder(x, "batch", "act_seq", "act_embed")
+    return x
 
 
-def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+def encode(params, cfg: ModelConfig, frames: torch.Tensor, sharder=None
+           ) -> torch.Tensor:
     """frames (B, S_enc, d): stubbed conv-frontend output."""
     b, s, _ = frames.shape
     x = frames.to(cfg.adtype) + layers.sinusoidal_positions(
         s, cfg.d_model, frames.device).to(cfg.adtype)[None]
     positions = torch.zeros((b, s), dtype=torch.int32, device=x.device)
-    fn = remat.maybe_remat(functools.partial(_enc_layer, cfg, positions),
-                           cfg.remat)
+    fn = remat.maybe_remat(functools.partial(_enc_layer, cfg, positions,
+                                             sharder), cfg.remat)
     for lp in unstack(params["enc_layers"], cfg.n_layers):
         x = fn(lp, x)
     return layers.layernorm(params["enc_ln"], x)
@@ -118,42 +122,43 @@ def _dec_positions(params, cfg: ModelConfig, s: int) -> torch.Tensor:
 
 
 def decode_train(params, cfg: ModelConfig, tokens: torch.Tensor,
-                 enc_out: torch.Tensor) -> torch.Tensor:
-    x = decode_hidden(params, cfg, tokens, enc_out)
+                 enc_out: torch.Tensor, sharder=None) -> torch.Tensor:
+    x = decode_hidden(params, cfg, tokens, enc_out, sharder=sharder)
     return layers.unembed(params["embedding"], x)
 
 
 def decode_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
-                  enc_out: torch.Tensor) -> torch.Tensor:
+                  enc_out: torch.Tensor, sharder=None) -> torch.Tensor:
     b, s = tokens.shape
     x = layers.embed(params["embedding"], tokens, cfg.adtype) \
         + _dec_positions(params, cfg, s)[None]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
-    fn = remat.maybe_remat(functools.partial(_dec_layer, cfg, positions),
-                           cfg.remat)
+    fn = remat.maybe_remat(functools.partial(_dec_layer, cfg, positions,
+                                             sharder), cfg.remat)
     for lp in unstack(params["dec_layers"], cfg.n_layers):
         x = fn(lp, x, enc_out)
     return layers.layernorm(params["dec_ln"], x)
 
 
-def _dec_layer(cfg: ModelConfig, positions, lp, x, enc_out):
+def _dec_layer(cfg: ModelConfig, positions, sharder, lp, x, enc_out):
     h = layers.layernorm(lp["ln1"], x)
     x = x + attention.attend_full(lp["attn"], cfg, h, positions,
-                                  causal=True)
+                                  causal=True, sharder=sharder)
     h = layers.layernorm(lp["ln_x"], x)
     x = x + attention.attend_full(lp["xattn"], cfg, h, positions,
-                                  causal=False, kv_x=enc_out, rope=False)
+                                  causal=False, kv_x=enc_out, rope=False,
+                                  sharder=sharder)
     h = layers.layernorm(lp["ln2"], x)
-    return x + layers.gelu_mlp(lp["mlp"], h)
+    return x + layers.gelu_mlp(lp["mlp"], h, sharder=sharder)
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict):
+def loss_fn(params, cfg: ModelConfig, batch: Dict, sharder=None):
     """batch: enc_embeddings (B, S_enc, d), tokens (B, S_dec); CE
     seq-chunked (``lm.chunked_cross_entropy``)."""
     from repro_torch.models.lm import chunked_cross_entropy
-    enc_out = encode(params, cfg, batch["enc_embeddings"])
-    x = decode_hidden(params, cfg, batch["tokens"], enc_out)
+    enc_out = encode(params, cfg, batch["enc_embeddings"], sharder=sharder)
+    x = decode_hidden(params, cfg, batch["tokens"], enc_out, sharder=sharder)
     labels = batch["tokens"][:, 1:]
     ce = chunked_cross_entropy(x[:, :-1], params["embedding"]["table"],
                                labels)
@@ -179,11 +184,11 @@ def init_dec_cache(cfg: ModelConfig, batch: int, capacity: int,
     }
 
 
-def prefill(params, cfg: ModelConfig, batch: Dict, cache: Dict
-            ) -> Tuple[torch.Tensor, Dict]:
+def prefill(params, cfg: ModelConfig, batch: Dict, cache: Dict,
+            sharder=None) -> Tuple[torch.Tensor, Dict]:
     """Encode the audio, prime the decoder caches with the prompt tokens
     (in place); returns (last-token logits (B, V), cache)."""
-    enc_out = encode(params, cfg, batch["enc_embeddings"])
+    enc_out = encode(params, cfg, batch["enc_embeddings"], sharder=sharder)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = layers.embed(params["embedding"], tokens, cfg.adtype) \
@@ -194,7 +199,8 @@ def prefill(params, cfg: ModelConfig, batch: Dict, cache: Dict
         lp = _layer(params["dec_layers"], i)
         h = layers.layernorm(lp["ln1"], x)
         mix, _ = attention.prefill_into_cache(
-            lp["attn"], cfg, h, positions, _layer(cache["self"], i))
+            lp["attn"], cfg, h, positions, _layer(cache["self"], i),
+            sharder=sharder)
         x = x + mix
         h = layers.layernorm(lp["ln_x"], x)
         xk = attention._proj(enc_out, lp["xattn"]["wk"])
@@ -202,17 +208,18 @@ def prefill(params, cfg: ModelConfig, batch: Dict, cache: Dict
         cache["cross"]["k"][i] = xk
         cache["cross"]["v"][i] = xv
         q = attention._proj(h, lp["xattn"]["wq"])
-        out = attention._attend_maybe_chunked(q, xk, xv, cfg, causal=False)
+        out = attention._attend_maybe_chunked(q, xk, xv, cfg, causal=False,
+                                              sharder=sharder)
         x = x + attention._out_proj(out, lp["xattn"]["wo"])
         h = layers.layernorm(lp["ln2"], x)
-        x = x + layers.gelu_mlp(lp["mlp"], h)
+        x = x + layers.gelu_mlp(lp["mlp"], h, sharder=sharder)
     x = layers.layernorm(params["dec_ln"], x[:, -1:])
     logits = layers.unembed(params["embedding"], x)[:, 0]
     return logits, cache
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos,
-                cache: Dict) -> Tuple[torch.Tensor, Dict]:
+                cache: Dict, sharder=None) -> Tuple[torch.Tensor, Dict]:
     """One decoder token against the self and cross caches. tokens (B, 1);
     ``pos`` a host int. Past the learned table the last position repeats,
     as in the JAX step."""
@@ -225,17 +232,18 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos,
         lp = _layer(params["dec_layers"], i)
         h = layers.layernorm(lp["ln1"], x)
         mix, _ = attention.decode_step_attn(lp["attn"], cfg, h, pos,
-                                            _layer(cache["self"], i))
+                                            _layer(cache["self"], i),
+                                            sharder=sharder)
         x = x + mix
         h = layers.layernorm(lp["ln_x"], x)
         q = attention._proj(h, lp["xattn"]["wq"])
         ck, cv = cache["cross"]["k"][i], cache["cross"]["v"][i]
         mask = torch.ones((1, 1, ck.shape[1]), dtype=torch.bool,
                           device=x.device)
-        out = attention._grouped_attend(q, ck, cv, mask)
+        out = attention._grouped_attend(q, ck, cv, mask, sharder=sharder)
         x = x + attention._out_proj(out, lp["xattn"]["wo"])
         h = layers.layernorm(lp["ln2"], x)
-        x = x + layers.gelu_mlp(lp["mlp"], h)
+        x = x + layers.gelu_mlp(lp["mlp"], h, sharder=sharder)
     x = layers.layernorm(params["dec_ln"], x)
     logits = layers.unembed(params["embedding"], x)[:, 0]
     return logits, cache

@@ -201,12 +201,14 @@ def init_swiglu(kg: KeyGen, d: int, d_ff: int, dtype=torch.float32,
     }
 
 
-def swiglu(params, x):
+def swiglu(params, x, sharder=None):
     dt = x.dtype
     g = x @ params["w_gate"].to(dt)
     u = x @ params["w_up"].to(dt)
     # silu stays in the activation dtype, as in the JAX function
     h = F.silu(g) * u
+    if sharder is not None:
+        h = sharder(h, "batch", "act_seq", "act_mlp")
     return h @ params["w_down"].to(dt)
 
 
@@ -222,8 +224,10 @@ def init_gelu_mlp(kg: KeyGen, d: int, d_ff: int, dtype=torch.float32,
     }
 
 
-def gelu_mlp(params, x):
+def gelu_mlp(params, x, sharder=None):
     dt = x.dtype
     h = x @ params["w_up"].to(dt) + params["b_up"].to(dt)
     h = F.gelu(h, approximate="tanh")
+    if sharder is not None:
+        h = sharder(h, "batch", "act_seq", "act_mlp")
     return h @ params["w_down"].to(dt) + params["b_down"].to(dt)

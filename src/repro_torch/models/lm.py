@@ -100,14 +100,19 @@ def _unembed_table(params):
     return params.get("unembedding", params["embedding"])
 
 
-def forward(params, cfg: ModelConfig, batch: Dict
+def forward(params, cfg: ModelConfig, batch: Dict, sharder=None
             ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence forward -> (logits (B, S, V), aux)."""
-    x, aux = hidden_states(params, cfg, batch)
+    x, aux = hidden_states(params, cfg, batch, sharder=sharder)
     return layers.unembed(_unembed_table(params), x), aux
 
 
-def hidden_states(params, cfg: ModelConfig, batch: Dict
+def _layer_sharder(sharder, i: int, p: int):
+    """``sharder`` inside period ``i``'s sub-layer ``p`` (None stays)."""
+    return None if sharder is None else sharder.at_layer((i, p))
+
+
+def hidden_states(params, cfg: ModelConfig, batch: Dict, sharder=None
                   ) -> Tuple[torch.Tensor, Dict]:
     """Forward without the unembedding: (B, S, d) final-norm states."""
     x = _embed_inputs(params, cfg, batch)
@@ -120,21 +125,23 @@ def hidden_states(params, cfg: ModelConfig, batch: Dict
     # remat per block, not per period: a hybrid period (jamba: 8 layers)
     # as one unit would hold the whole period's intermediates in its
     # backward, as in the JAX package
-    fns = [remat.maybe_remat(functools.partial(_apply_block, cfg, p,
-                                               positions), cfg.remat)
-           for p in range(period)]
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(np_):
         for p in range(period):
-            x, aux = fns[p](subs[p][i], x)
+            fn = remat.maybe_remat(functools.partial(
+                _apply_block, cfg, p, positions,
+                _layer_sharder(sharder, i, p)), cfg.remat)
+            x, aux = fn(subs[p][i], x)
             if "moe_aux_loss" in aux:
                 aux_sum = aux_sum + aux["moe_aux_loss"]
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, {"moe_aux_loss": aux_sum}
 
 
-def _apply_block(cfg: ModelConfig, p: int, positions, sub_params, x):
-    return blocks.apply_block(sub_params, cfg, p, x, positions)
+def _apply_block(cfg: ModelConfig, p: int, positions, sharder, sub_params,
+                 x):
+    return blocks.apply_block(sub_params, cfg, p, x, positions,
+                              sharder=sharder)
 
 
 def _ce_chunk(table, xb, lb) -> torch.Tensor:
@@ -162,11 +169,11 @@ def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
     return total / (b * s)
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict
+def loss_fn(params, cfg: ModelConfig, batch: Dict, sharder=None
             ) -> Tuple[torch.Tensor, Dict]:
     """Next-token cross entropy (labels = batch['labels'] or shifted
     tokens), computed seq-chunked so full logits never hit memory."""
-    x, aux = hidden_states(params, cfg, batch)
+    x, aux = hidden_states(params, cfg, batch, sharder=sharder)
     if "labels" in batch:
         labels = batch["labels"]
     else:
@@ -189,8 +196,15 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
             for p in range(blocks.block_period(cfg))}
 
 
-def prefill(params, cfg: ModelConfig, batch: Dict, cache: Dict
-            ) -> Tuple[torch.Tensor, Dict]:
+def cache_logical_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of :func:`init_cache`'s leaves."""
+    return {f"sub{p}": {k: ("layers",) + ax for k, ax in
+                        blocks.block_cache_axes(cfg, p).items()}
+            for p in range(blocks.block_period(cfg))}
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict, cache: Dict,
+            sharder=None) -> Tuple[torch.Tensor, Dict]:
     """Process the prompt; returns (last-token logits (B, V), cache), the
     cache filled in place."""
     x = _embed_inputs(params, cfg, batch)
@@ -201,14 +215,16 @@ def prefill(params, cfg: ModelConfig, batch: Dict, cache: Dict
         for p in range(period):
             x, _ = blocks.prefill_block(
                 _index(params["blocks"][f"sub{p}"], i), cfg, p, x,
-                positions, _index(cache[f"sub{p}"], i))
+                positions, _index(cache[f"sub{p}"], i),
+                sharder=_layer_sharder(sharder, i, p))
     x = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = layers.unembed(_unembed_table(params), x)[:, 0]
     return logits, cache
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
-                pos, cache: Dict) -> Tuple[torch.Tensor, Dict]:
+                pos, cache: Dict, sharder=None
+                ) -> Tuple[torch.Tensor, Dict]:
     """One decode step. tokens (B, 1) int; ``pos`` the new token's position
     (a host int: the lockstep batch's). The cache is updated in place."""
     pos = int(pos)
@@ -218,7 +234,8 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
         for p in range(period):
             x, _ = blocks.decode_block(
                 _index(params["blocks"][f"sub{p}"], i), cfg, p, x, pos,
-                _index(cache[f"sub{p}"], i))
+                _index(cache[f"sub{p}"], i),
+                sharder=_layer_sharder(sharder, i, p))
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = layers.unembed(_unembed_table(params), x)[:, 0]
     return logits, cache

@@ -57,58 +57,94 @@ def moe_capacity(m: MoEConfig, group_size: int) -> int:
     return max(4, int(per * m.capacity_factor))
 
 
-def apply_moe(params, cfg: ModelConfig, x: torch.Tensor
+def apply_moe(params, cfg: ModelConfig, x: torch.Tensor, sharder=None
               ) -> Tuple[torch.Tensor, Dict]:
-    """x (B, S, d) -> (y (B, S, d), aux metrics as 0-d tensors)."""
+    """x (B, S, d) -> (y (B, S, d), aux metrics as 0-d tensors).
+
+    On a sharded step (``sharder.rows`` set) ``x`` is one row of the
+    step's batch: the token groups, their capacity and each assignment's
+    slot are those of the whole batch, the slots continuing the counts of
+    the rows before (``parallel/sharded.RowContext``), so every token
+    takes the slot the JAX step's global cumsum gives it; the row's
+    partial sums of the load-balance loss go to the context."""
     m = cfg.moe
     b, s, d = x.shape
     n = b * s
-    gsz = moe_group_size(m, n)
-    n_groups = n // gsz
+    rows = sharder.rows if sharder is not None else None
+    n_rows, row = (rows.n_rows, sharder.row) if rows is not None else (1, 0)
+    gsz = moe_group_size(m, n * n_rows)
     cap = moe_capacity(m, gsz)
     e, k = m.n_experts, m.top_k
     dt = x.dtype
     dev = x.device
-    xt = x.reshape(n_groups, gsz, d)
+    off = row * n                       # the row's first token in the batch
+    g0 = off // gsz
+    n_groups = (off + n - 1) // gsz - g0 + 1
+    xt = x.reshape(n, d)
+    if sharder is not None:
+        # groups shard over the batch axes (a hint: no effect on values)
+        sharder(xt.reshape(n_groups, n // n_groups, d)
+                if n % n_groups == 0 else xt[None], "batch", None, None)
 
     logits = (xt @ params["router"].to(dt)).float()
-    probs = torch.softmax(logits, dim=-1)                    # (G, S, E)
-    gate, expert_id = torch.topk(probs, k, dim=-1)           # (G, S, k)
+    probs = torch.softmax(logits, dim=-1)                    # (n, E)
+    gate, expert_id = torch.topk(probs, k, dim=-1)           # (n, k)
     gate = gate / gate.sum(-1, keepdim=True)
 
-    # dispatch: slot of each (token, k) in its expert, by a group-local
-    # cumsum over the flat (token, k) order; past capacity -> dropped
-    flat_expert = expert_id.reshape(n_groups, gsz * k)
-    onehot = F.one_hot(flat_expert, e).to(torch.int32)
-    pos = torch.cumsum(onehot, dim=1) - 1
-    flat_pos = torch.gather(pos, 2, flat_expert[..., None])[..., 0]
+    # dispatch: the slot of each (token, k) in its expert is its group's
+    # running count over the flat (token, k) order; past capacity ->
+    # dropped. One cumsum over the row, less each group's count at its
+    # start, plus the group's count in the rows before
+    flat_expert = expert_id.reshape(n * k)
+    onehot = F.one_hot(flat_expert, e).to(torch.int64)       # (n*k, E)
+    csum = torch.cumsum(onehot, dim=0)
+    token_idx = torch.arange(n, device=dev).repeat_interleave(k)
+    flat_group = ((off + token_idx) // gsz - g0)             # local group
+    starts = [max(0, (g0 + g) * gsz - off) * k for g in range(n_groups)]
+    base = torch.stack([csum[j - 1] if j > 0 else torch.zeros_like(csum[0])
+                        for j in starts])                    # (G, E)
+    if rows is not None:
+        prefix, first = rows.start(sharder.layer, row, n * n_rows // gsz,
+                                   e, dev)
+        base = base - prefix[g0:g0 + n_groups]
+    pos = csum - 1 - base[flat_group]
+    flat_pos = torch.gather(pos, 1, flat_expert[:, None])[:, 0]
     keep = flat_pos < cap
     safe_pos = torch.where(keep, flat_pos, cap - 1)
-    token_idx = torch.arange(gsz, device=dev).repeat_interleave(k)
-    g_idx = torch.arange(n_groups, device=dev)[:, None].expand(
-        n_groups, gsz * k)
-    src = torch.where(keep[..., None], xt[:, token_idx],
+    src = torch.where(keep[:, None], xt[token_idx],
                       torch.zeros((), dtype=dt, device=dev))
     buf = torch.zeros((n_groups, e, cap, d), dtype=dt, device=dev)
-    buf.index_put_((g_idx, flat_expert, safe_pos), src, accumulate=True)
+    buf.index_put_((flat_group, flat_expert, safe_pos), src, accumulate=True)
+    if sharder is not None:   # (G, E, C, d): the token -> expert a2a
+        buf = sharder(buf, "batch", "act_expert", None, None)
 
     # batched expert FFN (SwiGLU), one product per expert
     g_ = torch.einsum("gecd,edh->gech", buf, params["w_gate"].to(dt))
     u_ = torch.einsum("gecd,edh->gech", buf, params["w_up"].to(dt))
     h_ = F.silu(g_.float()).to(dt) * u_
     out = torch.einsum("gech,ehd->gecd", h_, params["w_down"].to(dt))
+    if sharder is not None:   # expert -> token a2a back
+        out = sharder(out, "batch", "act_expert", None, None)
 
     # combine: each token's k picks, weighted, summed in k order
-    picked = out[g_idx, flat_expert, safe_pos]               # (G, S*k, d)
-    picked = torch.where(keep[..., None], picked,
+    picked = out[flat_group, flat_expert, safe_pos]          # (n*k, d)
+    picked = torch.where(keep[:, None], picked,
                          torch.zeros((), dtype=dt, device=dev))
-    weighted = picked * gate.reshape(n_groups, gsz * k, 1).to(dt)
-    y = weighted.reshape(n_groups, gsz, k, d).sum(2)
+    weighted = picked * gate.reshape(n * k, 1).to(dt)
+    y = weighted.reshape(n, k, d).sum(1)
 
-    density = F.one_hot(expert_id, e).float().mean(dim=(0, 1, 2))
-    router_mean = probs.mean(dim=(0, 1))
+    counts = onehot.sum(0)
+    density = counts.float() / (n * k)
+    router_mean = probs.mean(dim=0)
     aux = {
         "moe_aux_loss": e * torch.sum(density * router_mean),
         "moe_drop_frac": 1.0 - keep.float().mean(),
     }
+    if rows is not None and first:
+        by_group = torch.zeros((n * n_rows // gsz, e), dtype=torch.int64,
+                               device=dev)
+        by_group.index_add_(0, flat_group + g0, onehot)
+        rows.finish(sharder.layer, row, by_group, {
+            "counts": counts, "router_sum": probs.sum(0),
+            "kept": keep.sum(), "tokens": n})
     return y.reshape(b, s, d), aux

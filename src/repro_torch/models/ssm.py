@@ -99,7 +99,7 @@ def _causal_conv(x, w, b, state: Optional[torch.Tensor] = None):
     return F.silu(out), xp[:, -(k - 1):]
 
 
-def ssd_chunked(x, dt, A, B, C, chunk: int):
+def ssd_chunked(x, dt, A, B, C, chunk: int, sharder=None):
     """Chunked SSD scan.
 
     x (b, s, h, p); dt (b, s, h) [post-softplus, f32]; A (h,) [negative];
@@ -117,6 +117,12 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     dtc = dt.reshape(b, nc, chunk, h)
     Bc = B.reshape(b, nc, chunk, g, n)
     Cc = C.reshape(b, nc, chunk, g, n)
+    if sharder is not None and nc > 1:
+        # the chunks are sequence-parallel for the intra-chunk work
+        xc = sharder(xc, "batch", "act_seq", None, "ssm_inner", None)
+        dtc = sharder(dtc, "batch", "act_seq", None, "ssm_inner")
+        Bc = sharder(Bc, "batch", "act_seq", None, None, None)
+        Cc = sharder(Cc, "batch", "act_seq", None, None, None)
 
     dA = dtc * A[None, None, None, :]                 # (b, nc, q, h) <= 0
     cums = torch.cumsum(dA, dim=2)                    # within-chunk cumsum
@@ -162,7 +168,8 @@ def ssd_chunk(cfg: ModelConfig, s: int) -> int:
                 if s % c == 0)
 
 
-def apply_ssm(params, cfg: ModelConfig, x, return_state: bool = False):
+def apply_ssm(params, cfg: ModelConfig, x, sharder=None,
+              return_state: bool = False):
     """Full-sequence Mamba-2 block. x (B, S, d) -> (B, S, d)."""
     s_cfg = cfg.ssm
     dt_act = x.dtype
@@ -184,7 +191,8 @@ def apply_ssm(params, cfg: ModelConfig, x, return_state: bool = False):
     xh = xin.reshape(b, s, nh, s_cfg.head_dim)
     Bh = B.reshape(b, s, s_cfg.n_groups, s_cfg.d_state)
     Ch = C.reshape(b, s, s_cfg.n_groups, s_cfg.d_state)
-    y, state = ssd_chunked(xh, dtv, A, Bh, Ch, ssd_chunk(cfg, s))
+    y, state = ssd_chunked(xh, dtv, A, Bh, Ch, ssd_chunk(cfg, s),
+                           sharder=sharder)
     y = y + params["D"].to(dt_act)[None, None, :, None] * xh
     y = y.reshape(b, s, di)
     # gated RMSNorm (mamba2's norm_before_gate=False path)
@@ -194,6 +202,11 @@ def apply_ssm(params, cfg: ModelConfig, x, return_state: bool = False):
     if return_state:
         return out, {"ssm_state": state, "conv_state": conv_state}
     return out
+
+
+def ssm_cache_logical_axes() -> Dict:
+    return {"ssm_state": ("batch", "ssm_inner", None, None),
+            "conv_state": ("batch", None, "ssm_inner")}
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, device=None,

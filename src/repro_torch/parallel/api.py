@@ -1,18 +1,15 @@
-"""The LM train and serving steps of the port on one device: the JAX
-package's ``parallel/api.py`` without its sharding.
+"""The LM train and serving steps of the port: the JAX package's
+``parallel/api.py``.
 
-``init_params``, ``cast_params_for_compute``, ``make_cache``,
-``make_prefill_step`` and ``make_decode_step`` keep the JAX signatures'
-meaning. The JAX functions take a device mesh and build jitted steps with
-explicit shardings; here ``mesh`` is ``None`` or a mesh of one device
-(``launch/mesh.Mesh``), and any other mesh raises until the LM sharding
-slice. The steps are plain Python functions; the cache is filled and
-updated in place and returned (the JAX steps donate it).
-
-The steps cast the f32 master params to ``cfg.adtype`` (leaves of two or
-more dimensions; norms and biases stay f32), as the JAX steps do at every
-call. A leaf already cast is passed through, so a server that needs no
-f32 master draws its params straight into the compute dtype with
+On one device (``mesh`` None or a mesh of one device,
+``launch/mesh.Mesh``) the steps are plain Python functions over a tree of
+tensors. ``init_params``, ``cast_params_for_compute``, ``make_cache``,
+``make_prefill_step`` and ``make_decode_step`` keep the JAX meaning; the
+cache is filled and updated in place and returned (the JAX steps donate
+it). The steps cast the f32 master params to ``cfg.adtype`` (leaves of two
+or more dimensions; norms and biases stay f32), as the JAX steps do at
+every call. A leaf already cast is passed through, so a server that needs
+no f32 master draws its params straight into the compute dtype with
 ``init_params(cfg, compute_dtype=cfg.adtype)``: its peak memory is then
 the compute tree, and a model that fits in bf16 but not in f32 (qwen3-32b
 and qwen3-moe-30b-a3b on an 80 GB card) serves. A tree that does not fit
@@ -30,34 +27,96 @@ moments in place (``train/optim.adam_update``). Metrics: ``loss``,
 ``grad_norm``, ``lr`` and the loss's scalar aux (the LM's ``ce`` and
 ``moe_aux_loss``). ``init_params(train_cfg=)`` refuses a model whose
 train state would not fit before drawing it (``train_state_bytes``).
-``train_state_specs``, ``param_specs`` and ``batch_specs`` wait for the
-LM sharding (ROADMAP A14.5), as meshes of more than one device do.
+
+On a mesh of more than one device (the LM sharding):
+
+* **Placement is JAX's.** ``param_specs``, ``batch_specs``,
+  ``train_state_specs`` and ``cache_specs`` are the JAX functions' specs
+  (``common/partitioning.logical_to_spec`` with the divisibility
+  fallback, recorded in ``rules.fallbacks``). ``init_params(mesh=,
+  rules=)`` draws each shard on its position's device
+  (``parallel/sharded.place`` of a lazy init): a tree of
+  ``parallel/sharded.Sharded`` leaves, each position holding the slice
+  ``NamedSharding.shard_shape`` gives, whose values are the one-device
+  init's sliced. Adam's moments and the error feedback are sharded alike.
+* **Compute splits the batch; the model axis only stores.** A step
+  splits its batch over the mesh axes its batch spec gives the batch dim
+  (replicated, one row, when the batch does not divide), into equal rows
+  in the spec's order; each row runs on the first device along the axes
+  the split does not use (``launch/mesh.axes_devices``). Stated
+  difference: the JAX step also splits compute over 'model' (tensor,
+  expert and sequence parallelism); here 'model' shards storage only
+  (ROADMAP A14.5b).
+* **Training** follows ``cast_params_once``: each f32 master shard is cast
+  to ``cfg.adtype`` on its own device, and the compute copy is gathered
+  whole onto each row's device by ``sharded.gather_for_compute``, whose
+  backward hands each position its slice of the row's gradient. The rows'
+  forwards run first, in row order; then each row's backward in row
+  order, its gradients added to the sum of the rows before on the owning
+  shard's device; the sum is divided by the number of rows, as
+  ``train/loop.data_parallel_grad_fn`` does (``make_value_and_grad``
+  returns these gradients). With ``num_microbatches`` each micro-batch
+  (the JAX step's: a contiguous slice of the global batch) goes through
+  all of this in turn, and the micro-batches are summed in order and
+  divided (``train/loop.accumulated_value_and_grad``). Compression and Adam run shard-locally; the clip's global norm
+  counts each distinct slice once.
+* **The MoE layer keeps the global batch's token groups**: a row's
+  capacity slots continue the counts of the rows before it, and the
+  load-balance loss is formed from every row's partial sums
+  (``parallel/sharded.RowContext``), so the sharded step computes the
+  function the JAX step computes, not one with per-row groups.
+* **Serving** gathers the compute copy once per params tree onto each
+  row's device and keeps it there while the tree lives, one copy shared
+  by every prefill and decode step (``compute_copy``): serving params do
+  not change. A cache on a mesh (``make_cache(shardings=)``) is one whole
+  cache per row, split over the batch dim of ``cache_specs`` and whole
+  along 'model' on the row's device (stated difference: JAX shards its
+  model dims too; here they have no compute of their own). Tokens are
+  split as the cache is; ``tok_sharding`` reports JAX's rule.
+* **Memory**: ``train_state_bytes(mesh=)`` and ``param_bytes(mesh=)`` give
+  each position's bytes: its shards, the compute copy of its shards and,
+  once for each device that runs a row, the gathered whole compute copy
+  (gathering one block at a time is ROADMAP A14.5b). ``check_fits(mesh=)`` holds each
+  device's sum (positions sharing a card add up) against its free memory
+  or ``device_bytes``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+import weakref
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.common.param import KeyGen, tree_bytes, tree_leaves, \
     tree_map, unbox
+from repro_torch.common.partitioning import (
+    DEFAULT_RULES, ActivationSharder, LogicalRules, NamedSharding,
+    PartitionSpec as P, divisible_fallback, logical_to_spec,
+    specs_to_shardings)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import axes_devices
 from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharded as sh
+from repro_torch.parallel.sharded import Sharded
 from repro_torch.train import compression as compression_mod
 from repro_torch.train import loop, optim
 
 
-def _check_mesh(mesh) -> Optional[torch.device]:
-    """The one device of ``mesh`` (None: no mesh); more devices raise."""
-    if mesh is None:
-        return None
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"the LM steps run on one device; a mesh of {mesh.size} waits "
-            "for the LM sharding (ROADMAP A14.5)")
-    return mesh.devices[0]
+def _mesh_size(mesh) -> int:
+    return int(np.prod(list(mesh.shape.values())))
+
+
+def _sharded_mesh(mesh) -> bool:
+    """True for a mesh of more than one device (the sharded path)."""
+    return mesh is not None and _mesh_size(mesh) > 1
+
+
+def _mesh_device(mesh) -> Optional[torch.device]:
+    """The one device of a one-device mesh (None: no mesh)."""
+    return None if mesh is None else mesh.devices[0]
 
 
 def _init_tree(cfg: ModelConfig, kg: KeyGen) -> Dict:
@@ -69,11 +128,174 @@ def _init_tree(cfg: ModelConfig, kg: KeyGen) -> Dict:
     return cast_params_for_compute(tree, kg.compute_dtype)
 
 
+# ------------------------------------------------------------------ specs
+def abstract_params(cfg: ModelConfig, seed: int = 0,
+                    compute_dtype: Optional[torch.dtype] = None):
+    """(a tree of meta tensors, the tree of logical axes): the JAX
+    function's (ShapeDtypeStruct tree, axes tree), allocating nothing."""
+    kg = KeyGen(seed, "meta", compute_dtype)
+    boxed = (encdec.init_encdec(kg, cfg) if cfg.is_encdec
+             else lm.init_lm(kg, cfg))
+    shapes, axes = unbox(boxed)
+    if compute_dtype is not None:
+        shapes = cast_params_for_compute(shapes, compute_dtype)
+    return shapes, axes
+
+
+def param_specs(cfg: ModelConfig, mesh, rules: LogicalRules,
+                compute_dtype: Optional[torch.dtype] = None):
+    """(meta shapes, PartitionSpec tree) of the params on ``mesh``."""
+    shapes, axes = abstract_params(cfg, compute_dtype=compute_dtype)
+    return shapes, logical_to_spec(axes, mesh, rules, shapes)
+
+
+def batch_logical_axes(cfg: ModelConfig, batch: Dict) -> Dict:
+    """Logical axes for every input tensor of a train/prefill batch."""
+    out = {}
+    for name, v in batch.items():
+        if name == "positions" and v.ndim == 3:
+            out[name] = (None, "batch", "act_seq")
+        elif name in ("embeddings", "enc_embeddings"):
+            out[name] = ("batch", "act_seq", "act_embed")
+        else:                       # tokens / labels
+            out[name] = ("batch", "act_seq")
+    return out
+
+
+def batch_specs(cfg: ModelConfig, batch, mesh, rules: LogicalRules):
+    """Specs of a batch's leaves (anything with ``.shape`` and ``.ndim``)."""
+    return logical_to_spec(batch_logical_axes(cfg, batch), mesh, rules,
+                           batch)
+
+
+def train_state_specs(pspecs, compression: bool = False) -> Dict:
+    specs = {"params": pspecs, "opt": optim.AdamState(
+        step=P(), mu=pspecs, nu=pspecs)}
+    if compression:
+        specs["efb"] = pspecs
+    return specs
+
+
+def _meta_cache(cfg: ModelConfig, batch: int, capacity: int,
+                enc_len: int) -> Dict:
+    meta = torch.device("meta")
+    if cfg.is_encdec:
+        return encdec.init_dec_cache(cfg, batch, capacity,
+                                     enc_len or capacity, device=meta)
+    return lm.init_cache(cfg, batch, capacity, device=meta)
+
+
+def _cache_axes(cfg: ModelConfig) -> Dict:
+    if not cfg.is_encdec:
+        return lm.cache_logical_axes(cfg)
+    from repro_torch.models.attention import cache_logical_axes
+    kv = ("layers", "batch", "act_seq", "kv_heads", "head_dim")
+    return {"self": {k: ("layers",) + v
+                     for k, v in cache_logical_axes().items()},
+            "cross": {"k": kv, "v": kv}}
+
+
+def cache_specs(cfg: ModelConfig, mesh, rules: LogicalRules, batch: int,
+                capacity: int, enc_len: int = 0):
+    """(meta cache tree, its PartitionSpec tree)."""
+    shapes = _meta_cache(cfg, batch, capacity, enc_len)
+    return shapes, logical_to_spec(_cache_axes(cfg), mesh, rules, shapes)
+
+
+def _row_devices(mesh, rules: LogicalRules, batch: int
+                 ) -> List[torch.device]:
+    """The device of each row of a batch of ``batch`` examples: the axes
+    its batch spec gives the batch dim (a scratch rule set: a step records
+    no fallback of its own, as a jitted JAX step records none)."""
+    entry = divisible_fallback(mesh, (batch,), ("batch",),
+                               LogicalRules(rules.rules))[0]
+    return axes_devices(mesh, entry)
+
+
+# ------------------------------------------------------------------ memory
+def _dtype_size(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _casts(leaf, adtype: torch.dtype) -> bool:
+    """True where the compute copy narrows the leaf (f32, two or more
+    dims, another act dtype)."""
+    return (leaf.dtype == torch.float32 and leaf.ndim >= 2
+            and adtype != torch.float32)
+
+
+def _position_bytes(cfg: ModelConfig, mesh, rules: LogicalRules,
+                    per_param: int, compute_dtype: Optional[torch.dtype],
+                    cast: bool, gathered: bool = True) -> List[int]:
+    """Each mesh position's bytes: ``per_param`` bytes for every byte of
+    its param shards (params, and for training gradients, moments, error
+    feedback), the compute copy of its shards (``cast``) and, with
+    ``gathered``, the whole gathered compute copy once per device that
+    runs a row (on the first row position there; a stand-in mesh's
+    positions are each their own device), as the steps gather it."""
+    shapes, specs = param_specs(cfg, mesh, LogicalRules(rules.rules),
+                                compute_dtype)
+    n = _mesh_size(mesh)
+    out = [0] * n
+    whole = 0
+    for leaf, spec in zip(optim.tree_leaves(shapes),
+                          optim.tree_leaves(specs)):
+        numel = int(np.prod(NamedSharding(mesh, spec).shard_shape(
+            tuple(leaf.shape))))
+        item = leaf.element_size()
+        narrow = cast and _casts(leaf, cfg.adtype)
+        citem = _dtype_size(cfg.adtype) if narrow else item
+        for p in range(n):
+            out[p] += per_param * numel * item + (numel * citem if narrow
+                                                  else 0)
+        whole += leaf.numel() * citem
+    if gathered:
+        devices = getattr(mesh, "devices", None)
+        seen = set()
+        for p in _row_positions(mesh, rules):
+            dev = p if devices is None else devices[p]
+            if dev not in seen:
+                seen.add(dev)
+                out[p] += whole
+    return out
+
+
+def shard_param_bytes(cfg: ModelConfig, mesh,
+                      rules: Optional[LogicalRules] = None,
+                      compute_dtype: Optional[torch.dtype] = None
+                      ) -> List[int]:
+    """The bytes of ``init_params(cfg, mesh=, rules=, compute_dtype=)``'s
+    shards at each mesh position (what each device stores under the JAX
+    package), from a meta init; ``mesh`` needs only ``shape`` (a stand-in
+    plans a mesh this process does not have)."""
+    return _position_bytes(cfg, mesh, rules or DEFAULT_RULES, 1,
+                           compute_dtype, cast=False, gathered=False)
+
+
+def _row_positions(mesh, rules: LogicalRules) -> List[int]:
+    """The mesh positions that run a row of a batch the batch axes
+    divide: the first along the axes the split does not use."""
+    n = _mesh_size(mesh)
+    axes = divisible_fallback(mesh, (n,), ("batch",),
+                              LogicalRules(rules.rules))[0]
+    pos = np.arange(n).reshape(tuple(mesh.shape.values()))
+    used = () if axes is None else ((axes,) if isinstance(axes, str)
+                                    else tuple(axes))
+    index = tuple(slice(None) if a in used else 0 for a in mesh.shape)
+    return sorted(int(p) for p in np.asarray(pos[index]).reshape(-1))
+
+
 def param_bytes(cfg: ModelConfig,
-                compute_dtype: Optional[torch.dtype] = None) -> int:
+                compute_dtype: Optional[torch.dtype] = None, *,
+                mesh=None, rules: Optional[LogicalRules] = None):
     """Bytes of ``init_params(cfg, compute_dtype=)``'s tree, from a
-    meta-device init (nothing is allocated)."""
-    return tree_bytes(_init_tree(cfg, KeyGen(0, "meta", compute_dtype)))
+    meta-device init (nothing is allocated). With a mesh of more than one
+    device: each position's bytes when serving, its shards and (on a
+    row's device) the gathered compute copy."""
+    if not _sharded_mesh(mesh):
+        return tree_bytes(_init_tree(cfg, KeyGen(0, "meta", compute_dtype)))
+    return _position_bytes(cfg, mesh, rules or DEFAULT_RULES, 1,
+                           compute_dtype, cast=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,14 +311,22 @@ class TrainConfig:
 
 
 def train_state_bytes(cfg: ModelConfig,
-                      train_cfg: Optional[TrainConfig] = None) -> int:
+                      train_cfg: Optional[TrainConfig] = None, *,
+                      mesh=None, rules: Optional[LogicalRules] = None):
     """Bytes that training ``cfg`` holds besides its activations, from a
     meta-device init: the params, their gradients and Adam's ``mu`` and
     ``nu`` (16 bytes a parameter in f32), the error feedback with
-    compression (4 more) and the compute copy the step casts."""
+    compression (4 more) and the compute copy the step casts. With a mesh
+    of more than one device: a list, each position's bytes of its shards
+    and their compute copy, and on a row's device the gathered compute
+    copy."""
     tc = train_cfg or TrainConfig()
+    per = 4 + (tc.compression is not None)
+    if _sharded_mesh(mesh):
+        return _position_bytes(cfg, mesh, rules or DEFAULT_RULES, per, None,
+                               cast=tc.cast_params_once)
     tree = _init_tree(cfg, KeyGen(0, "meta"))
-    need = (4 + (tc.compression is not None)) * tree_bytes(tree)
+    need = per * tree_bytes(tree)
     if tc.cast_params_once and cfg.adtype != torch.float32:
         item = torch.empty((), dtype=cfg.adtype).element_size()
         need += sum(a.numel() * item for a in tree_leaves(tree)
@@ -104,12 +334,46 @@ def train_state_bytes(cfg: ModelConfig,
     return int(need)
 
 
-def check_fits(cfg: ModelConfig, device: torch.device,
+def check_fits(cfg: ModelConfig, device: DeviceLike = None,
                compute_dtype: Optional[torch.dtype] = None,
-               train_cfg: Optional[TrainConfig] = None) -> None:
+               train_cfg: Optional[TrainConfig] = None, *, mesh=None,
+               rules: Optional[LogicalRules] = None,
+               device_bytes: Optional[int] = None) -> None:
     """Raise ``MemoryError`` when the params (with ``train_cfg``: the
     train state, ``train_state_bytes``) would not fit in the memory free
-    on the CUDA ``device`` (other devices are not checked)."""
+    on the CUDA ``device`` (other devices are not checked). With a mesh of
+    more than one device, each device's positions add up and are held
+    against its free memory, or against ``device_bytes`` when given (then
+    CPUs count too). A stand-in mesh (``mesh.shape`` only) plans devices
+    this process does not have: each position its own device of
+    ``device_bytes``."""
+    if _sharded_mesh(mesh):
+        need = (train_state_bytes(cfg, train_cfg, mesh=mesh, rules=rules)
+                if train_cfg is not None else
+                param_bytes(cfg, compute_dtype, mesh=mesh, rules=rules))
+        devices = getattr(mesh, "devices", None)
+        if devices is None:
+            if device_bytes is None:
+                raise ValueError("a stand-in mesh needs device_bytes")
+            devices = [torch.device("meta", p) for p in range(len(need))]
+        per_dev: Dict = {}
+        for d, b in zip(devices, need):
+            per_dev[d] = per_dev.get(d, 0) + b
+        for d, b in per_dev.items():
+            if device_bytes is None and d.type != "cuda":
+                continue
+            free = (device_bytes if device_bytes is not None
+                    else torch.cuda.mem_get_info(d)[0])
+            if b > free:
+                what = "train state" if train_cfg is not None else "params"
+                raise MemoryError(
+                    f"{cfg.name}: its {what} on mesh {mesh.shape} take "
+                    f"{b / 1e9:.1f} GB on {d} (its positions' shards and "
+                    f"the gathered compute copy), more than the "
+                    f"{free / 1e9:.1f} GB free there")
+        return
+    device = torch.device(device) if device is not None else \
+        resolve_device(None)
     if device.type != "cuda":
         return
     if train_cfg is not None:
@@ -124,11 +388,13 @@ def check_fits(cfg: ModelConfig, device: torch.device,
     if need > free:
         raise MemoryError(
             f"{cfg.name}: {what}, more than the {free / 1e9:.1f} GB free "
-            f"on {device}; one device cannot hold it (the LM sharding, "
-            "ROADMAP A14.5, will spread it)")
+            f"on {device}; one device cannot hold it: shard it over a "
+            "mesh (init_params(mesh=))")
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, mesh=None, *,
+# ------------------------------------------------------------------ params
+def init_params(cfg: ModelConfig, seed: int = 0, mesh=None,
+                rules: Optional[LogicalRules] = None, *,
                 device: DeviceLike = None,
                 compute_dtype: Optional[torch.dtype] = None,
                 train_cfg: Optional[TrainConfig] = None) -> Dict:
@@ -140,8 +406,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, mesh=None, *,
     drawn (in f32 one layer's slice at a time), so no f32 master is ever
     held. A tree larger than the card's free memory (with ``train_cfg``,
     a train state: ``train_state_bytes``) raises ``MemoryError`` before
-    anything is drawn."""
-    mesh_dev = _check_mesh(mesh)
+    anything is drawn. On a mesh of more than one device: a tree of
+    ``Sharded`` leaves placed by ``param_specs(cfg, mesh, rules)``, each
+    shard drawn on its device, equal to the one-device draw sliced."""
+    if _sharded_mesh(mesh):
+        rules = rules or DEFAULT_RULES
+        check_fits(cfg, compute_dtype=compute_dtype, train_cfg=train_cfg,
+                   mesh=mesh, rules=rules)
+        _, specs = param_specs(cfg, mesh, rules, compute_dtype)
+        lazy = _init_tree(cfg, KeyGen(seed, mesh.devices[0], compute_dtype,
+                                      lazy=True))
+        return sh.shard_tree(lazy, specs_to_shardings(specs, mesh))
+    mesh_dev = _mesh_device(mesh)
     dev = resolve_device(mesh_dev if mesh_dev is not None else device)
     check_fits(cfg, dev, compute_dtype, train_cfg)
     return _init_tree(cfg, KeyGen(seed, dev, compute_dtype))
@@ -149,21 +425,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, mesh=None, *,
 
 def cast_params_for_compute(params, adtype: torch.dtype):
     """The compute copy of the f32 master params: every f32 leaf of two or
-    more dimensions cast to ``adtype``, the rest as they are."""
+    more dimensions cast to ``adtype`` (a sharded leaf shard by shard, on
+    its devices), the rest as they are."""
     def cast(p):
         if p.dtype != torch.float32 or p.ndim < 2:
             return p
-        return p.to(adtype)
+        return sh.map_sharded(lambda t: t.to(adtype), p)
     return tree_map(cast, params)
 
 
 # --------------------------------------------------------------- training
 def make_train_state(params, compression: bool = False) -> Dict:
     """``{"params", "opt"}`` (and zero error feedback ``"efb"`` with
-    ``compression``) over ``params``, which the step updates in place."""
+    ``compression``) over ``params``, which the step updates in place;
+    sharded params give sharded moments and feedback."""
     state = {"params": params, "opt": optim.adam_init(params)}
     if compression:
-        state["efb"] = tree_map(torch.zeros_like, params)
+        state["efb"] = tree_map(optim.zeros_like, params)
     return state
 
 
@@ -171,35 +449,199 @@ def _loss_for(cfg: ModelConfig) -> Callable:
     return encdec.loss_fn if cfg.is_encdec else lm.loss_fn
 
 
+def _batch_size(batch: Dict) -> int:
+    k, v = next(iter(batch.items()))
+    return v.shape[loop._batch_axis(k, v)]
+
+
+def split_batch(batch: Dict, devices: Sequence[torch.device]) -> List[Dict]:
+    """``batch`` in ``len(devices)`` equal contiguous rows along each
+    leaf's example axis, row ``r`` on ``devices[r]``."""
+    n = len(devices)
+    size = _batch_size(batch)
+    if size % n:
+        raise ValueError(f"a batch of {size} does not split into {n} rows")
+    per = size // n
+    out = []
+    for r, dev in enumerate(devices):
+        out.append({k: v.narrow(loop._batch_axis(k, v), r * per, per).to(dev)
+                    for k, v in batch.items()})
+    return out
+
+
+def _flatten(tree) -> Tuple[List, Callable]:
+    """(the leaves in sorted-key order, a function rebuilding the tree
+    from a list of new leaves)."""
+    leaves = optim.tree_leaves(tree)
+    ids = {id(l): i for i, l in enumerate(leaves)}
+
+    def rebuild(new):
+        return optim.tree_map(lambda l: new[ids[id(l)]], tree)
+    return leaves, rebuild
+
+
+def _moe_row_losses(cfg: ModelConfig, ctx: sh.RowContext, auxes: List,
+                    devices: Sequence[torch.device]):
+    """Each row's loss for the global MoE objective, and the global
+    ``moe_aux_loss``: the load-balance loss of the whole batch is
+    ``E sum_e density_e router_mean_e`` per layer, with the density (no
+    gradient) from every row's counts and the router mean a sum over the
+    rows, so row ``r``'s share is ``E sum_e density_e router_sum_re / N``;
+    row ``r``'s loss is its CE plus ``0.01 R`` times its share over the
+    layers, so the rows' mean is the JAX loss."""
+    m = cfg.moe
+    n_rows = len(devices)
+    home = devices[0]
+    shares = [torch.zeros((), dtype=torch.float32, device=d)
+              for d in devices]
+    for layer in dict.fromkeys(k for k, _ in ctx.stats):
+        st = [ctx.stats[(layer, r)] for r in range(n_rows)]
+        total = sum(s["tokens"] for s in st)
+        counts = sum(s["counts"].to(home) for s in st)
+        density = counts.float() / (total * m.top_k)
+        for r, d in enumerate(devices):
+            shares[r] = shares[r] + m.n_experts * torch.sum(
+                density.to(d) * st[r]["router_sum"]) / total
+    scale = 0.01 * n_rows / max(cfg.n_layers, 1)
+    losses = [aux["ce"] + scale * a for aux, a in zip(auxes, shares)]
+    aux_loss = sum(a.detach().to(home) for a in shares)
+    return losses, aux_loss
+
+
+def _sharded_value_and_grad(cfg: ModelConfig, mesh, rules: LogicalRules,
+                            tc: TrainConfig) -> Callable:
+    """``(params, batch) -> ((loss, aux), grads)`` of one (micro-)batch on
+    a mesh: the batch split into rows, the compute copy cast per shard and
+    gathered once onto each row's device, every row's forward in row
+    order, then every row's backward in row order, summed on the owning
+    shards' devices and divided by the number of rows. The gradients are
+    ``Sharded`` leaves laid out as the params."""
+    loss_fn = _loss_for(cfg)
+    sharder = ActivationSharder(mesh, rules)
+
+    def grad_fn(params, batch):
+        devices = _row_devices(mesh, rules, _batch_size(batch))
+        rows = split_batch(batch, devices)
+        n_rows = len(devices)
+        home = devices[0]
+        leaves, rebuild = _flatten(params)
+        masters = [[s.detach().requires_grad_(True) for s in leaf.shards]
+                   for leaf in leaves]
+        ctx = sh.RowContext(n_rows)
+        copies: Dict = {}
+        losses, auxes = [], []
+        with torch.enable_grad():
+            compute = [[m.to(cfg.adtype) if tc.cast_params_once
+                        and _casts(leaf, cfg.adtype) else m for m in ms]
+                       for leaf, ms in zip(leaves, masters)]
+            for r, (dev, piece) in enumerate(zip(devices, rows)):
+                if dev not in copies:       # one gathered copy per device
+                    copies[dev] = rebuild([
+                        sh.gather_for_compute(leaf, comp, dev)
+                        for leaf, comp in zip(leaves, compute)])
+                loss, aux = loss_fn(copies[dev], cfg, piece,
+                                    sharder=sharder.for_row(ctx, r))
+                losses.append(loss)
+                auxes.append(aux)
+            # a device divisor: a CUDA divide by a Python number multiplies
+            # by its reciprocal (data_parallel_grad_fn divides so too)
+            k = {d: torch.full((), float(n_rows), device=d)
+                 for d in dict.fromkeys([home] + [m.device for ms in masters
+                                                  for m in ms])}
+            out_aux = {n: sum(a[n].detach().to(home) for a in auxes) / k[home]
+                       for n, v in auxes[0].items()
+                       if isinstance(v, torch.Tensor) and v.ndim == 0}
+            if ctx.stats:
+                losses, out_aux["moe_aux_loss"] = _moe_row_losses(
+                    cfg, ctx, auxes, devices)
+            flat = [m for ms in masters for m in ms]
+            acc = None
+            for loss in losses:
+                # the casts and gathers are shared by the rows
+                g = torch.autograd.grad(loss, flat, retain_graph=True,
+                                        allow_unused=True,
+                                        materialize_grads=True)
+                acc = list(g) if acc is None else [
+                    a + b for a, b in zip(acc, g)]
+        total = sum(l.detach().to(home) for l in losses) / k[home]
+        grads, i = [], 0
+        for leaf, ms in zip(leaves, masters):
+            grads.append(Sharded(leaf.sharding, leaf.shape,
+                                 [a / k[a.device]
+                                  for a in acc[i:i + len(ms)]]))
+            i += len(ms)
+        return (total, out_aux), rebuild(grads)
+
+    return grad_fn
+
+
+def make_value_and_grad(cfg: ModelConfig, mesh=None,
+                        rules: Optional[LogicalRules] = None,
+                        train_cfg: Optional[TrainConfig] = None
+                        ) -> Callable:
+    """``(params, batch) -> ((loss, aux), grads)``: the train step's loss
+    and gradients before compression and Adam (the module docstring), on
+    one device or, for ``init_params(mesh=)``'s params, on a mesh (the
+    gradients then ``Sharded`` as the params). With ``num_microbatches >
+    1``: the micro-batches' sums, divided (``train/loop.
+    accumulated_value_and_grad``), aux the last micro-batch's."""
+    tc = train_cfg or TrainConfig()
+    if _sharded_mesh(mesh):
+        grad_fn = _sharded_value_and_grad(cfg, mesh, rules or DEFAULT_RULES,
+                                          tc)
+    else:
+        loss_fn = _loss_for(cfg)
+
+        def loss_of(p, batch):
+            if tc.cast_params_once:
+                p = cast_params_for_compute(p, cfg.adtype)
+            return loss_fn(p, cfg, batch)
+
+        def grad_fn(params, batch):
+            return loop.value_and_grad(loss_of, params, batch, has_aux=True)
+    nmb = tc.num_microbatches
+    if nmb == 1:
+        return grad_fn
+
+    def accumulated(params, batch):
+        return loop.accumulated_value_and_grad(
+            None, params, batch, nmb, grad_fn=grad_fn, has_aux=True)
+    return accumulated
+
+
 def build_train_step(cfg: ModelConfig, mesh=None,
-                     train_cfg: Optional[TrainConfig] = None
+                     rules: Optional[LogicalRules] = None,
+                     train_cfg: Optional[TrainConfig] = None,
+                     batch_shardings=None, example_batch=None
                      ) -> Tuple[Callable, Dict]:
     """``step(state, batch) -> (state, metrics)``: the loss and its
-    gradients, compression, Adam (the module docstring). ``batch`` holds
-    ``tokens`` (B, S) int (and ``labels``; qwen2-vl's stub ``embeddings``
-    and (3, B, S) ``positions``; whisper's ``enc_embeddings``) on the
-    state's device. Returns (step, info); info is empty until the LM
-    sharding gives it the JAX step's shardings. The metrics stay on the
-    device (``lr`` is a host number)."""
-    _check_mesh(mesh)
+    gradients (:func:`make_value_and_grad`), compression, Adam (the module
+    docstring). ``batch`` holds ``tokens`` (B, S) int (and ``labels``;
+    qwen2-vl's stub ``embeddings`` and (3, B, S) ``positions``; whisper's
+    ``enc_embeddings``), on the state's device or, on a mesh, anywhere
+    (each row is moved to its device). Returns (step, info); on a mesh of
+    more than one device info holds the JAX step's ``state``
+    (NamedShardings), ``batch`` (from ``example_batch``'s specs, or
+    ``batch_shardings``) and ``state_specs``; on one device it is empty.
+    The metrics stay on the device (``lr`` is a host number)."""
     tc = train_cfg or TrainConfig()
-    loss_fn = _loss_for(cfg)
-    nmb = tc.num_microbatches
-
-    def loss_of(p, batch):
-        if tc.cast_params_once:
-            p = cast_params_for_compute(p, cfg.adtype)
-        return loss_fn(p, cfg, batch)
+    info: Dict = {}
+    if _sharded_mesh(mesh):
+        rules = rules or DEFAULT_RULES
+        _, pspecs = param_specs(cfg, mesh, rules)
+        state_specs = train_state_specs(
+            pspecs, compression=tc.compression is not None)
+        if example_batch is not None and batch_shardings is None:
+            bspecs = batch_specs(cfg, example_batch["batch"], mesh, rules)
+            batch_shardings = specs_to_shardings(bspecs, mesh)
+        info = {"state": specs_to_shardings(state_specs, mesh),
+                "batch": batch_shardings, "state_specs": state_specs}
+    value_and_grad = make_value_and_grad(cfg, mesh, rules, tc)
 
     # repro: hot-path the step stays async: the engine's chunk read is its sync
     def step(state, batch):
         params = state["params"]
-        if nmb > 1:
-            (loss, aux), grads = loop.accumulated_value_and_grad(
-                loss_of, params, batch, nmb, has_aux=True)
-        else:
-            (loss, aux), grads = loop.value_and_grad(
-                loss_of, params, batch, has_aux=True)
+        (loss, aux), grads = value_and_grad(params, batch)
         new_state = dict(state)
         if tc.compression is not None:
             grads, new_state = compression_mod.apply_inline(
@@ -213,23 +655,45 @@ def build_train_step(cfg: ModelConfig, mesh=None,
         new_state["opt"] = new_opt
         return new_state, metrics
 
-    return step, {}
+    return step, info
 
 
 def make_train_step(cfg: ModelConfig, mesh=None,
-                    train_cfg: Optional[TrainConfig] = None
+                    rules: Optional[LogicalRules] = None,
+                    train_cfg: Optional[TrainConfig] = None,
+                    batch_shardings=None, example_batch=None
                     ) -> Tuple[Callable, Dict]:
     """The one-step form of :func:`build_train_step` (the JAX function
     jits and donates; the eager step already updates the state in
     place)."""
-    return build_train_step(cfg, mesh, train_cfg)
+    return build_train_step(cfg, mesh, rules, train_cfg=train_cfg,
+                            batch_shardings=batch_shardings,
+                            example_batch=example_batch)
+
+
+def batch_row_devices(mesh, rules: Optional[LogicalRules],
+                      batch: int) -> List[torch.device]:
+    """The device of each row of a sharded step's batch of ``batch``
+    examples (one, the mesh's first, without a mesh of more than one
+    device)."""
+    if not _sharded_mesh(mesh):
+        return [_mesh_device(mesh)] if mesh is not None else []
+    return _row_devices(mesh, rules or DEFAULT_RULES, batch)
 
 
 # ---------------------------------------------------------------- serving
 def make_cache(cfg: ModelConfig, batch: int, capacity: int,
-               enc_len: int = 0, *, device: DeviceLike = None) -> Dict:
+               enc_len: int = 0, shardings=None, *,
+               device: DeviceLike = None):
     """Properly initialized cache (ring slot positions -1, not zeros) on
-    the device (CUDA unless named)."""
+    the device (CUDA unless named). With ``shardings`` (``cache_specs``'s,
+    as NamedShardings): a :class:`RowCache`, one whole cache per row of
+    the batch split of the mesh they name."""
+    if shardings is not None:
+        devices = _cache_row_devices(shardings)
+        per = batch // len(devices)
+        return RowCache([make_cache(cfg, per, capacity, enc_len, device=d)
+                         for d in devices], devices, _cache_axes(cfg))
     dev = resolve_device(device)
     if cfg.is_encdec:
         return encdec.init_dec_cache(cfg, batch, capacity,
@@ -237,49 +701,172 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int,
     return lm.init_cache(cfg, batch, capacity, device=dev)
 
 
+def _cache_row_devices(shardings) -> List[torch.device]:
+    """The rows of a cache's batch split: the spec entry of the batch dim
+    (dim 1, after the stack axis, of every cache leaf of three or more
+    dims)."""
+    leaves = tree_leaves(shardings)
+    spec = next(tuple(s.spec) for s in leaves if len(s.spec) >= 3)
+    return axes_devices(leaves[0].mesh, spec[1])
+
+
+def _batch_dim(axes) -> Optional[int]:
+    return axes.index("batch") if "batch" in axes else None
+
+
+class RowCache:
+    """A cache on a mesh: one whole cache per row of the batch split
+    (``rows[r]`` on ``devices[r]``), updated in place by the steps;
+    ``axes`` are the leaves' logical axes (which dim is the batch)."""
+
+    def __init__(self, rows: List[Dict], devices: List[torch.device],
+                 axes: Dict):
+        self.rows = rows
+        self.devices = devices
+        self.axes = axes
+
+    def gather(self, device: DeviceLike = None) -> Dict:
+        """The whole cache on ``device`` (the first row's by default): the
+        rows' leaves joined along their batch dim; a leaf without one (a
+        ring's slot positions, the same in every row) from row 0."""
+        dev = self.devices[0] if device is None else resolve_device(device)
+
+        def join(axes, *leaves):
+            d = _batch_dim(axes)
+            if d is None:
+                return leaves[0].to(dev)
+            return torch.cat([l.to(dev) for l in leaves], dim=d)
+
+        def walk(axes, parts):
+            if isinstance(axes, dict):
+                return {k: walk(axes[k], [p[k] for p in parts])
+                        for k in axes}
+            return join(axes, *parts)
+        return walk(self.axes, self.rows)
+
+
+# each sharded params tree's gathered compute copies, by (device, dtype),
+# keyed on the tree's first leaf and freed with it
+_COMPUTE_COPIES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def compute_copy(params, adtype: torch.dtype, device: torch.device) -> Dict:
+    """The compute copy of the sharded ``params`` tree (cast per shard)
+    whole on ``device``: gathered the first time a step asks for it and
+    then kept while the tree's leaves live, for every step built on it
+    (prefill and decode share it: serving params do not change)."""
+    leaves = tree_leaves(params)
+    entry = _COMPUTE_COPIES.get(leaves[0])
+    if entry is None or len(entry["leaves"]) != len(leaves) or any(
+            ref() is not leaf for ref, leaf in zip(entry["leaves"], leaves)):
+        entry = {"leaves": [weakref.ref(l) for l in leaves], "copies": {}}
+        _COMPUTE_COPIES[leaves[0]] = entry
+    key = (device, adtype)
+    if key not in entry["copies"]:
+        cast = cast_params_for_compute(params, adtype)
+        entry["copies"][key] = tree_map(lambda l: sh.gather(l, device), cast)
+    return entry["copies"][key]
+
+
+def tok_sharding(mesh, batch_size: int) -> NamedSharding:
+    """The JAX decode step's token placement: the batch over
+    ('pod', 'data') (or 'data') when it divides, else replicated."""
+    n = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
+    data = ("pod", "data") if "pod" in mesh.shape else "data"
+    return NamedSharding(mesh, P(data, None) if batch_size % n == 0
+                         else P())
+
+
+def _mesh_serving_info(cfg, mesh, rules, batch_size, capacity, enc_len):
+    _, pspecs = param_specs(cfg, mesh, rules)
+    _, cspecs = cache_specs(cfg, mesh, rules, batch_size, capacity, enc_len)
+    return {"params": specs_to_shardings(pspecs, mesh),
+            "cache": specs_to_shardings(cspecs, mesh),
+            "cache_shapes": _cache_shapes(cfg, batch_size, capacity,
+                                          enc_len)}
+
+
 def _cache_shapes(cfg: ModelConfig, batch: int, capacity: int,
                   enc_len: int) -> Dict:
-    meta = torch.device("meta")
-    if cfg.is_encdec:
-        c = encdec.init_dec_cache(cfg, batch, capacity, enc_len or capacity,
-                                  device=meta)
-    else:
-        c = lm.init_cache(cfg, batch, capacity, device=meta)
-    return tree_map(lambda a: (tuple(a.shape), a.dtype), c)
+    return tree_map(lambda a: (tuple(a.shape), a.dtype),
+                    _meta_cache(cfg, batch, capacity, enc_len))
 
 
 def make_prefill_step(cfg: ModelConfig, mesh=None,
+                      rules: Optional[LogicalRules] = None,
+                      batch_shardings=None, example_batch=None,
                       capacity: Optional[int] = None, batch_size: int = 1,
                       enc_len: int = 0) -> Tuple[Callable, Dict]:
     """``prefill(params, batch, cache) -> (last-token logits (B, V),
     cache)``, with the params cast for compute at each call (a leaf
     already cast passes through). Returns (step, info) where info holds
     ``cache_shapes`` (shape, dtype per leaf) as the JAX info holds its
-    cache's ShapeDtypeStructs."""
-    _check_mesh(mesh)
+    cache's ShapeDtypeStructs. On a mesh of more than one device the
+    params are ``init_params(mesh=)``'s, the cache ``make_cache(
+    shardings=info["cache"])``'s, and info holds the JAX ``params`` and
+    ``cache`` shardings too."""
+    model = encdec if cfg.is_encdec else lm
+    if _sharded_mesh(mesh):
+        rules = rules or DEFAULT_RULES
+        sharder = ActivationSharder(mesh, rules)
+
+        def sharded_step(params, batch, cache: RowCache):
+            rows = split_batch(batch, cache.devices)
+            ctx = sh.RowContext(len(rows))
+            logits = []
+            for r, (dev, piece) in enumerate(zip(cache.devices, rows)):
+                out, _ = model.prefill(compute_copy(params, cfg.adtype, dev),
+                                       cfg, piece,
+                                       cache.rows[r],
+                                       sharder=sharder.for_row(ctx, r))
+                logits.append(out.to(cache.devices[0]))
+            return torch.cat(logits), cache
+
+        return sharded_step, _mesh_serving_info(
+            cfg, mesh, rules, batch_size, capacity or 0, enc_len)
 
     def step(params, batch, cache):
         params = cast_params_for_compute(params, cfg.adtype)
-        if cfg.is_encdec:
-            return encdec.prefill(params, cfg, batch, cache)
-        return lm.prefill(params, cfg, batch, cache)
+        return model.prefill(params, cfg, batch, cache)
 
     return step, {"cache_shapes": _cache_shapes(cfg, batch_size,
                                                 capacity or 0, enc_len)}
 
 
 def make_decode_step(cfg: ModelConfig, mesh=None,
+                     rules: Optional[LogicalRules] = None,
                      capacity: int = 1024, batch_size: int = 1,
                      enc_len: int = 0) -> Tuple[Callable, Dict]:
     """``decode(params, cache, tokens (B, 1), pos) -> (logits (B, V),
-    cache)``; ``pos`` is a host int."""
-    _check_mesh(mesh)
+    cache)``; ``pos`` is a host int. On a mesh of more than one device the
+    tokens are split as the cache's rows are, and info holds the JAX
+    ``tok_sharding`` besides the params and cache shardings."""
+    model = encdec if cfg.is_encdec else lm
+    if _sharded_mesh(mesh):
+        rules = rules or DEFAULT_RULES
+        sharder = ActivationSharder(mesh, rules)
+
+        def sharded_step(params, cache: RowCache, tokens, pos):
+            rows = split_batch({"tokens": tokens}, cache.devices)
+            ctx = sh.RowContext(len(rows))
+            logits = []
+            for r, (dev, piece) in enumerate(zip(cache.devices, rows)):
+                out, _ = model.decode_step(compute_copy(params, cfg.adtype,
+                                                        dev), cfg,
+                                           piece["tokens"], pos,
+                                           cache.rows[r],
+                                           sharder=sharder.for_row(ctx, r))
+                logits.append(out.to(cache.devices[0]))
+            return torch.cat(logits), cache
+
+        info = _mesh_serving_info(cfg, mesh, rules, batch_size, capacity,
+                                  enc_len)
+        info["tok_sharding"] = tok_sharding(mesh, batch_size)
+        return sharded_step, info
 
     def step(params, cache, tokens, pos):
         params = cast_params_for_compute(params, cfg.adtype)
-        if cfg.is_encdec:
-            return encdec.decode_step(params, cfg, tokens, pos, cache)
-        return lm.decode_step(params, cfg, tokens, pos, cache)
+        return model.decode_step(params, cfg, tokens, pos, cache)
 
     return step, {"cache_shapes": _cache_shapes(cfg, batch_size, capacity,
                                                 enc_len)}

@@ -1,0 +1,235 @@
+"""Sharded leaves: what a ``jax.Array`` with a ``NamedSharding`` is to the
+JAX package, for the port's one-process meshes (``launch/mesh.Mesh``).
+
+A :class:`Sharded` leaf is a global shape, a
+``common/partitioning.NamedSharding`` and one tensor per mesh position, in
+the shape ``sharding.shard_shape(shape)`` gives, on that position's
+device. A dimension the spec leaves whole is copied whole onto every
+position, so the bytes each position holds (:func:`shard_bytes`) are those
+each device holds under the JAX package. A mesh that repeats a device (one
+card as a (2, 2) mesh) keeps each position's tensor separately on it: the
+card then holds the sum of its positions.
+
+* :func:`place` and :func:`shard_tree` make the shards of a tensor or of a
+  ``common/param.LazyLeaf`` (a sharded init draws each shard on its
+  device from the one-device init's draws); :func:`gather` and
+  :func:`gather_tree` make the whole tensor on one device from the first
+  position holding each distinct slice.
+* :func:`gather_for_compute` is the differentiable gather of a sharded
+  train step: forward, the whole leaf on a compute device; backward, the
+  gradient's slice for every position holding it (copies included),
+  moved to that position's device, so every copy of a replicated slice
+  gets the same gradient and stays equal to the others under Adam.
+* :class:`RowContext` carries the rows of one sharded forward for the one
+  layer whose result depends on other rows' tokens: the MoE's capacity
+  slots count the assignments of the whole token group, which the JAX
+  step's global batch holds (``models/moe.apply_moe``).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from repro_torch.common.param import LazyLeaf
+from repro_torch.common.partitioning import NamedSharding
+
+
+class Sharded:
+    """A global leaf of ``shape`` as one tensor per mesh position."""
+
+    # weakly referable: the serving steps key a tree's gathered compute
+    # copy on its first leaf (parallel/api.compute_copy)
+    __slots__ = ("sharding", "shape", "shards", "__weakref__")
+
+    def __init__(self, sharding: NamedSharding, shape: Sequence[int],
+                 shards: List[torch.Tensor]):
+        self.sharding = sharding
+        self.shape = tuple(shape)
+        self.shards = list(shards)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def numel(self) -> int:
+        n = 1
+        for d in self.shape:
+            n *= d
+        return n
+
+    def indices(self) -> List[Tuple[slice, ...]]:
+        return self.sharding.indices(self.shape)
+
+    def owners(self) -> List[int]:
+        """The first position holding each distinct slice."""
+        return self.sharding.owners(self.shape)
+
+    def __repr__(self) -> str:
+        return (f"Sharded({self.shape}, {self.dtype}, "
+                f"{self.sharding.spec!r})")
+
+
+def map_sharded(fn, *leaves):
+    """``fn`` shard by shard over leaves of one sharding (a plain tensor
+    leaf: ``fn`` once)."""
+    if not isinstance(leaves[0], Sharded):
+        return fn(*leaves)
+    first = leaves[0]
+    return Sharded(first.sharding, first.shape,
+                   [fn(*parts) for parts in zip(*(l.shards for l in leaves))])
+
+
+def place(leaf, sharding: NamedSharding) -> Sharded:
+    """``leaf`` (a tensor anywhere, or a ``LazyLeaf``) as shards on the
+    positions of ``sharding``: each its own contiguous tensor."""
+    shape = tuple(leaf.shape)
+    shard_shape = sharding.shard_shape(shape)
+    indices = sharding.indices(shape)
+    devices = sharding.mesh.devices
+    shards = [torch.empty(shard_shape, dtype=leaf.dtype, device=d)
+              for d in devices]
+    if not isinstance(leaf, LazyLeaf):
+        for out, idx in zip(shards, indices):
+            out.copy_(leaf[idx])
+        return Sharded(sharding, shape, shards)
+    # a lazy leaf: the one-device init's draws, made once on each distinct
+    # device and cut into the shards of the positions there
+    for dev in dict.fromkeys(devices):
+        mine = [p for p, d in enumerate(devices) if d == dev]
+        for i, part in enumerate(leaf.parts(dev)):
+            for p in mine:
+                idx = indices[p]
+                if len(shape) >= 3:
+                    if idx[0].start <= i < idx[0].stop:
+                        shards[p][i - idx[0].start].copy_(part[idx[1:]])
+                else:
+                    shards[p].copy_(part[idx])
+    return Sharded(sharding, shape, shards)
+
+
+def shard_tree(tree, shardings):
+    """Every leaf of ``tree`` (dicts) placed by the NamedSharding at the
+    same path of ``shardings``."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, shardings[k]) for k, v in tree.items()}
+    return place(tree, shardings)
+
+
+def gather(leaf, device: torch.device) -> torch.Tensor:
+    """The whole tensor of ``leaf`` on ``device`` (a plain tensor: moved)."""
+    if not isinstance(leaf, Sharded):
+        return leaf.to(device)
+    out = torch.empty(leaf.shape, dtype=leaf.dtype, device=device)
+    indices = leaf.indices()
+    for p in leaf.owners():
+        out[indices[p]].copy_(leaf.shards[p])
+    return out
+
+
+def gather_tree(tree, device: torch.device):
+    """``tree`` (dicts, NamedTuples) with every leaf whole on ``device``;
+    ints and other host leaves stay."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(gather_tree(getattr(tree, f), device)
+                            for f in tree._fields))
+    if isinstance(tree, (Sharded, torch.Tensor)):
+        return gather(tree, device)
+    return tree
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: the whole leaf on ``device`` from its owners' shards.
+    Backward: each position's slice of the gradient on its device."""
+
+    @staticmethod
+    def forward(ctx, layout, device, *shards):
+        shape, indices, owners = layout
+        out = torch.empty(shape, dtype=shards[0].dtype, device=device)
+        for p in owners:
+            out[indices[p]].copy_(shards[p])
+        ctx.layout = layout
+        ctx.shard_devices = [s.device for s in shards]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        _, indices, _ = ctx.layout
+        return (None, None, *(grad[idx].to(dev) for idx, dev
+                              in zip(indices, ctx.shard_devices)))
+
+
+def gather_for_compute(leaf: Sharded, shards: Sequence[torch.Tensor],
+                       device: torch.device) -> torch.Tensor:
+    """The differentiable gather of ``shards`` (``leaf``'s layout, e.g.
+    the compute copy of its master shards) onto ``device``."""
+    layout = (leaf.shape, leaf.indices(), leaf.owners())
+    return _Gather.apply(layout, device, *shards)
+
+
+def shard_bytes(tree) -> List[int]:
+    """Bytes each mesh position holds of ``tree``'s sharded leaves (dicts,
+    NamedTuples; other leaves are not counted)."""
+    out: List[int] = []
+
+    def visit(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                visit(v)
+        elif isinstance(t, tuple) and hasattr(t, "_fields"):
+            for f in t._fields:
+                visit(getattr(t, f))
+        elif isinstance(t, Sharded):
+            if not out:
+                out.extend([0] * len(t.shards))
+            for p, s in enumerate(t.shards):
+                out[p] += s.numel() * s.element_size()
+    visit(tree)
+    return out
+
+
+class RowContext:
+    """The rows of one sharded forward: ``n_rows`` equal pieces of the
+    batch, run one after another in row order.
+
+    For each layer key (``ActivationSharder.at_layer``) it keeps the MoE
+    routing counts of the rows run so far, per global token group and
+    expert, so a row's capacity slots continue its group's count as the
+    JAX step's global cumsum does; ``prefix`` remembers the counts a
+    (layer, row) started from, so the recomputation of a checkpointed
+    block sees them again. ``stats`` holds each (layer, row)'s partial
+    sums of the load-balance loss (``parallel/api`` forms the global loss
+    from them)."""
+
+    def __init__(self, n_rows: int):
+        self.n_rows = n_rows
+        self._running: Dict = {}
+        self.prefix: Dict = {}
+        self.stats: Dict = {}
+
+    def start(self, layer, row: int, n_groups: int, n_experts: int,
+              device: torch.device) -> Tuple[torch.Tensor, bool]:
+        """(the counts that (``layer``, ``row``) starts from, True the
+        first time it runs)."""
+        key = (layer, row)
+        if key in self.prefix:
+            return self.prefix[key].to(device), False
+        run = self._running.get(layer)
+        if run is None:
+            run = torch.zeros((n_groups, n_experts), dtype=torch.int64,
+                              device=device)
+        self.prefix[key] = run.to(device)
+        return self.prefix[key], True
+
+    def finish(self, layer, row: int, counts: torch.Tensor,
+               stats: Dict) -> None:
+        """Add (``layer``, ``row``)'s ``counts`` to the layer's running
+        counts and keep its ``stats``."""
+        self._running[layer] = self.prefix[(layer, row)] + counts
+        self.stats[(layer, row)] = stats

@@ -15,11 +15,14 @@ micro-batching (gradient accumulation, ``microbatch_multiplier``), so the
 optimizer schedule is unchanged and the step counter continues from the
 checkpoint.
 
-Stated difference from the JAX module: its ``recover`` takes an LM config
-and restores through ``parallel/api``'s sharded parameter specs; the
-port's takes the field training state as the template of what to restore
+:func:`recover` has two forms. Given an LM ``ModelConfig`` (the JAX
+form) it restores the train state with the shardings of
+``parallel/api.param_specs`` on the new mesh, each leaf placed shard by
+shard (``checkpoint/store.restore(shardings=)``), and builds the step with
+``make_step(cfg, mesh, rules)``. Given a field training state
 (``train/loop.init_train_state``), whose params replicate on every
-device. The LM form waits for the LM stack (ROADMAP A14).
+device, it restores that structure onto the new mesh's first device and
+builds the step with ``make_step(mesh, rules)``.
 """
 from __future__ import annotations
 
@@ -93,9 +96,30 @@ def _template_on(tree, device: torch.device):
     and dtype on ``device`` (ints, as Adam's step, stay)."""
     if isinstance(tree, dict):
         return {k: _template_on(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_template_on(getattr(tree, f), device)
+                            for f in tree._fields))
     if isinstance(tree, torch.Tensor):
         return torch.empty(tree.shape, dtype=tree.dtype, device=device)
     return tree
+
+
+def _lm_state(checkpoint_dir, cfg, mesh: Mesh, rules, step: int):
+    """An LM train state restored onto ``mesh``: sharded by
+    ``param_specs`` on a mesh of more than one device, else whole on its
+    device."""
+    from repro_torch.common.partitioning import specs_to_shardings
+    from repro_torch.parallel import api
+    from repro_torch.train import optim
+    shapes, specs = api.param_specs(cfg, mesh, rules)
+    target = {"params": shapes,
+              "opt": optim.AdamState(step=0, mu=shapes, nu=shapes)}
+    if mesh.size == 1:
+        return store.restore(checkpoint_dir,
+                             _template_on(target, mesh.devices[0]), step=step)
+    shardings = specs_to_shardings(api.train_state_specs(specs), mesh)
+    return store.restore(checkpoint_dir, target, step=step,
+                         shardings=shardings)
 
 
 def recover(checkpoint_dir, state, plan: MeshPlan, rules=None,
@@ -103,16 +127,28 @@ def recover(checkpoint_dir, state, plan: MeshPlan, rules=None,
             devices: Optional[Sequence] = None):
     """Rebuild ``(mesh, step_fn, state, resumed_step)`` on the
     post-failure mesh: the mesh of ``plan`` over ``devices``
-    (:func:`build_mesh`), the newest checkpoint under ``checkpoint_dir``
-    restored into the structure, shapes and dtypes of ``state`` on the
-    mesh's first device, and ``make_step(mesh, rules)`` (None without
-    ``make_step``), whose step should accumulate
-    ``plan.microbatch_multiplier`` micro-batches to keep the global
-    batch."""
+    (:func:`build_mesh`) and the newest checkpoint under
+    ``checkpoint_dir`` restored onto it.
+
+    ``state`` is an LM ``ModelConfig`` (the JAX form: the train state
+    ``{"params", "opt"}`` restored with ``param_specs``' shardings under
+    ``rules``, default the JAX default rules, and ``make_step(cfg, mesh,
+    rules)``) or a field training state (its structure, shapes and dtypes
+    restored on the mesh's first device, and ``make_step(mesh, rules)``).
+    The step should accumulate ``plan.microbatch_multiplier``
+    micro-batches to keep the global batch; ``step_fn`` is None without
+    ``make_step``."""
+    from repro_torch.models.config import ModelConfig
     mesh = build_mesh(plan, devices)
     step = store.latest_step(checkpoint_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {checkpoint_dir}")
+    if isinstance(state, ModelConfig):
+        from repro_torch.common.partitioning import DEFAULT_RULES
+        rules = rules or DEFAULT_RULES.copy_with()
+        restored = _lm_state(checkpoint_dir, state, mesh, rules, step)
+        step_fn = make_step(state, mesh, rules) if make_step else None
+        return mesh, step_fn, restored, step
     restored = store.restore(checkpoint_dir,
                              _template_on(state, mesh.devices[0]), step=step)
     step_fn = make_step(mesh, rules) if make_step else None

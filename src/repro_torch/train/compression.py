@@ -15,6 +15,13 @@ The training engine (``train/loop.py``) applies :func:`apply_inline`
 after the gradient and before Adam, to the ``"grid"`` leaf, with the
 buffer in the engine's ``state["efb"]``. Everything here is plain tensor
 ops on the gradient's device.
+
+A sharded gradient (``parallel/sharded.Sharded``, the LM steps on a mesh)
+is compressed as its whole tensor would be: top-k keeps the entries at or
+above the k-th largest magnitude of the whole leaf (each distinct slice's
+own top k, gathered, hold it), and int8 scales by the whole leaf's
+abs-max; each shard then compresses locally, copies of a replicated slice
+alike.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.parallel.sharded import Sharded, map_sharded
 from repro_torch.quant import qtypes
 from repro_torch.train.optim import tree_map
 
@@ -54,6 +62,39 @@ def compress_int8(g: torch.Tensor, efb: torch.Tensor
     return deq, acc - deq
 
 
+def _owner_parts(g: Sharded):
+    home = g.shards[0].device
+    return home, [g.shards[p] for p in g.owners()]
+
+
+def _compress_sharded(g: Sharded, efb: Sharded, scheme: str, frac: float
+                      ) -> Tuple[Sharded, Sharded]:
+    acc = map_sharded(torch.add, g, efb)
+    home, parts = _owner_parts(acc)
+    if scheme == "topk":
+        k = max(1, int(acc.numel() * frac))
+        cand = torch.cat([torch.topk(p.reshape(-1).abs(), min(k, p.numel()),
+                                     sorted=False).values.to(home)
+                          for p in parts])
+        thresh = torch.topk(cand, k, sorted=False).values.min()
+
+        def one(a):
+            kept = torch.where(a.abs() >= thresh.to(a.device), a, 0.0)
+            return kept, a - kept
+    else:
+        maxes = torch.stack([p.float().abs().amax().to(home) for p in parts])
+        scale = qtypes.absmax_scale(maxes, "int8").reshape(
+            (1,) * acc.ndim)
+
+        def one(a):
+            q = qtypes.quantize(a, scale.to(a.device), "int8")
+            deq = qtypes.dequantize(q, scale.to(a.device)).to(a.dtype)
+            return deq, a - deq
+    pairs = [one(a) for a in acc.shards]
+    return (Sharded(acc.sharding, acc.shape, [p[0] for p in pairs]),
+            Sharded(acc.sharding, acc.shape, [p[1] for p in pairs]))
+
+
 def apply_inline(grads: Dict, state: Dict, train_cfg) -> Tuple[Any, Dict]:
     """Compress a dict tree of gradients with the error feedback in
     ``state["efb"]`` (zeros when absent); ``train_cfg`` gives
@@ -61,14 +102,17 @@ def apply_inline(grads: Dict, state: Dict, train_cfg) -> Tuple[Any, Dict]:
     (the sent gradients, the state with the new feedback)."""
     efb = state.get("efb")
     if efb is None:
-        efb = tree_map(torch.zeros_like, grads)
-    if train_cfg.compression == "topk":
-        frac = train_cfg.compression_topk
-        out = tree_map(lambda g, e: compress_topk(g, e, frac), grads, efb)
-    elif train_cfg.compression == "int8":
-        out = tree_map(compress_int8, grads, efb)
-    else:
-        raise ValueError(train_cfg.compression)
+        efb = tree_map(lambda g: map_sharded(torch.zeros_like, g), grads)
+    scheme, frac = train_cfg.compression, train_cfg.compression_topk
+    if scheme not in ("topk", "int8"):
+        raise ValueError(scheme)
+
+    def one(g, e):
+        if isinstance(g, Sharded):
+            return _compress_sharded(g, e, scheme, frac)
+        return (compress_topk(g, e, frac) if scheme == "topk"
+                else compress_int8(g, e))
+    out = tree_map(one, grads, efb)
 
     def pick(tree, i):
         return {k: (pick(v, i) if isinstance(v, dict) else v[i])

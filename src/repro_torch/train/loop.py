@@ -77,6 +77,7 @@ from repro_torch.launch.mesh import replicate, shard_devices, shard_rows
 from repro_torch.obs import log as obs_log
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import TRACER
+from repro_torch.parallel.sharded import Sharded, map_sharded
 from repro_torch.runtime.health import (FailurePolicy, HeartbeatMonitor,
                                         StragglerDetector)
 from repro_torch.train import compression as compression_mod
@@ -165,7 +166,9 @@ def accumulated_value_and_grad(loss_fn: Callable, params, batch,
     ``positions``, as the JAX LM step's ``to_mb``): summed in micro-batch
     order, then divided by ``grad_accum``, as the JAX package's scan
     does. Each micro-batch goes through ``grad_fn(params, micro_batch)``
-    (default: :func:`value_and_grad` of ``loss_fn``). With ``has_aux``
+    (default: :func:`value_and_grad` of ``loss_fn``); a sharded gradient
+    (``parallel/sharded.Sharded``) is summed and divided shard by shard,
+    each shard on its own device. With ``has_aux``
     the first result is (loss, the last micro-batch's aux), as the JAX LM
     step keeps it."""
     if grad_fn is None:
@@ -186,12 +189,21 @@ def accumulated_value_and_grad(loss_fn: Callable, params, batch,
             loss, grads = l_i, g_i
         else:
             loss = loss + l_i
-            grads = optim.tree_map(torch.add, grads, g_i)
-    # a device divisor: a CUDA divide by a Python number multiplies by its
-    # reciprocal, which is not the JAX package's division for every k
-    k = torch.full((), float(grad_accum), device=loss.device)
-    grads = optim.tree_map(lambda g: g / k, grads)
-    return ((loss / k, aux) if has_aux else loss / k), grads
+            grads = optim.tree_map(
+                lambda a, b: map_sharded(torch.add, a, b), grads, g_i)
+    # a device divisor on each gradient's device (a sharded gradient's
+    # shards may lie on several): a CUDA divide by a Python number
+    # multiplies by its reciprocal, which is not the JAX package's division
+    # for every k
+    ks: Dict[torch.device, torch.Tensor] = {}
+
+    def divide(g: torch.Tensor) -> torch.Tensor:
+        if g.device not in ks:
+            ks[g.device] = torch.full((), float(grad_accum), device=g.device)
+        return g / ks[g.device]
+    grads = optim.tree_map(lambda g: map_sharded(divide, g), grads)
+    loss = divide(loss)
+    return ((loss, aux) if has_aux else loss), grads
 
 
 def data_parallel_grad_fn(loss_fn: Callable, mesh=None,
@@ -295,9 +307,14 @@ def init_train_state(params, compression: Optional[str] = None,
 
 
 def _first_tensor(tree) -> torch.Tensor:
-    """The first tensor leaf of a state (dicts and NamedTuples)."""
-    return next(leaf for _, leaf in store._flatten(tree)
-                if isinstance(leaf, torch.Tensor))
+    """The first tensor leaf of a state (dicts and NamedTuples; a sharded
+    leaf's first shard)."""
+    for _, leaf in store._flatten(tree):
+        if isinstance(leaf, Sharded):
+            return leaf.shards[0]
+        if isinstance(leaf, torch.Tensor):
+            return leaf
+    raise ValueError("the state holds no tensor")
 
 
 def _pinned_copy(stacked: Dict[str, Any], device: torch.device) -> Dict:

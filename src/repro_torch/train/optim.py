@@ -19,8 +19,14 @@ takes them. Two differences, both of form:
   one slice's, not the leaf's.
 
 ``optimizer_spec`` gives the logical specs of an ``AdamState`` from the
-params' ones, as the JAX function does; the LM sharding (ROADMAP A14.5)
-will read it.
+params' ones, as the JAX function does.
+
+Sharded leaves (``parallel/sharded.Sharded``, the LM train state on a
+mesh): Adam runs shard by shard (it is elementwise, so shard-local Adam
+is the unsharded Adam, and copies of a replicated slice, given the same
+gradient, stay bit-equal), and the clip's global norm sums each distinct
+slice once (a replicated slice's copies are not counted again), on the
+first leaf's first shard's device.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ import math
 from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.parallel.sharded import Sharded, map_sharded
 
 # elements of the largest piece of a leaf that ``adam_update`` and
 # ``global_norm`` process at once
@@ -71,9 +79,14 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return out
 
 
+def zeros_like(x):
+    """Zeros of a leaf's shape, dtype and layout (sharded or not)."""
+    return map_sharded(torch.zeros_like, x)
+
+
 def adam_init(params) -> AdamState:
-    return AdamState(step=0, mu=tree_map(torch.zeros_like, params),
-                     nu=tree_map(torch.zeros_like, params))
+    return AdamState(step=0, mu=tree_map(zeros_like, params),
+                     nu=tree_map(zeros_like, params))
 
 
 def _f32(x: float) -> torch.Tensor:
@@ -109,10 +122,23 @@ def _sumsq(l: torch.Tensor) -> torch.Tensor:
                for s in _row_slices(l))
 
 
+def _leaf_sumsq(l, home: torch.device) -> torch.Tensor:
+    if isinstance(l, Sharded):
+        return sum(_sumsq(l.shards[p]).to(home) for p in l.owners())
+    return _sumsq(l).to(home)
+
+
+def _home(tree) -> torch.device:
+    first = tree_leaves(tree)[0]
+    return (first.shards[0] if isinstance(first, Sharded) else first).device
+
+
 def global_norm(tree) -> torch.Tensor:
-    """The f32 norm of every leaf together, on the leaves' device (a leaf
-    larger than ``UPDATE_SLICE`` summed a slice of rows at a time)."""
-    return torch.sqrt(sum(_sumsq(l) for l in tree_leaves(tree)))
+    """The f32 norm of every leaf together, on the first leaf's device (a
+    leaf larger than ``UPDATE_SLICE`` summed a slice of rows at a time; a
+    sharded leaf's distinct slices once each)."""
+    home = _home(tree)
+    return torch.sqrt(sum(_leaf_sumsq(l, home) for l in tree_leaves(tree)))
 
 
 def _clip_scale(grads, max_norm: float):
@@ -126,7 +152,8 @@ def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
     before); the scale stays on the device."""
     scale, norm = _clip_scale(grads, max_norm)
-    return tree_map(lambda g: g * scale, grads), norm
+    return tree_map(lambda g: map_sharded(lambda t: t * scale.to(t.device),
+                                          g), grads), norm
 
 
 def adam_update(grads, state: AdamState, params, cfg: AdamConfig
@@ -146,7 +173,7 @@ def adam_update(grads, state: AdamState, params, cfg: AdamConfig
 
     def upd_rows(p, m, v, g):
         if scale is not None:
-            g = g * scale
+            g = g * scale.to(g.device)
         m.mul_(b1).add_(g, alpha=1.0 - b1)
         v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
         u = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
@@ -154,9 +181,16 @@ def adam_update(grads, state: AdamState, params, cfg: AdamConfig
             u.add_(p, alpha=cfg.weight_decay)
         p.sub_(u.mul_(lr).to(p.dtype))
 
-    def upd(p, m, v, g):
+    def upd_local(p, m, v, g):
         for s in _row_slices(p):
             upd_rows(p[s], m[s], v[s], g[s])
+        return p
+
+    def upd(p, m, v, g):
+        if not isinstance(p, Sharded):
+            return upd_local(p, m, v, g)
+        for parts in zip(p.shards, m.shards, v.shards, g.shards):
+            upd_local(*parts)
         return p
 
     with torch.no_grad():

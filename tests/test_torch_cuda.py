@@ -1372,3 +1372,111 @@ def test_lm_train_state_fit_check_on_the_card(dev):
     assert torch.cuda.memory_allocated(dev) == before
     api.check_fits(registry.get_config("h2o-danube-1.8b"), dev,
                    train_cfg=tc)
+
+
+def _lm_card_mesh(dev, shape):
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(np.array([dev] * (shape[0] * shape[1]), dtype=object)
+                .reshape(shape), ("data", "model"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "olmoe-1b-7b",
+                                  "jamba-v0.1-52b", "whisper-base"])
+def test_lm_sharded_step_and_decode_on_the_card(dev, arch):
+    """The LM sharding on ``[cuda:0] * 4`` as (2, 2) (whisper: tinydp, the
+    batch over both axes): a reduced arch in f32, 3 sharded train steps'
+    losses and every param against the unsharded steps on the card, then
+    the sharded prefill and 4 decode steps' logits, within 1e-5; no kernel
+    of the port launches."""
+    from repro_torch.common.partitioning import rule_preset
+    from repro_torch.configs import registry
+    from repro_torch.parallel import api, sharded
+    from torch_lm_f32 import f32_unembed   # tests/ is on the path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.reduced_config(arch),
+                              act_dtype="float32")
+    mesh = _lm_card_mesh(dev, (2, 2))
+    rules = rule_preset("tinydp" if cfg.is_encdec else "baseline")
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, 256, (4, 4, 21))).to(dev)
+    emb = torch.from_numpy(rng.standard_normal((4, 16, cfg.d_model))
+                           .astype(np.float32)).to(dev)
+
+    def batch(i):
+        if cfg.is_encdec:
+            return {"tokens": toks[i, :, :16], "enc_embeddings": emb}
+        return {"tokens": toks[i, :, :16], "labels": toks[i, :, 1:17]}
+    tkernels.reset_launch_counts()
+    enc = 16 if cfg.is_encdec else 0
+    outs = []
+    with f32_unembed():
+        for m in (None, mesh):
+            params = (api.init_params(cfg, 5, device=dev) if m is None
+                      else api.init_params(cfg, 5, m, rules))
+            step, _ = api.make_train_step(cfg, m, rules if m else None)
+            state = api.make_train_state(params)
+            losses = []
+            for i in range(3):
+                state, met = step(state, batch(i))
+                losses.append(met["loss"])
+            params = (api.init_params(cfg, 5, device=dev) if m is None
+                      else api.init_params(cfg, 5, m, rules))
+            pre, info = api.make_prefill_step(
+                cfg, m, rules if m else None, capacity=20, batch_size=4,
+                enc_len=enc)
+            dec, _ = api.make_decode_step(cfg, m, rules if m else None,
+                                          capacity=20, batch_size=4,
+                                          enc_len=enc)
+            cache = (api.make_cache(cfg, 4, 20, enc, device=dev)
+                     if m is None else
+                     api.make_cache(cfg, 4, 20, enc, shardings=info["cache"]))
+            b = {"tokens": toks[3, :, :16]}
+            if cfg.is_encdec:
+                b["enc_embeddings"] = emb
+            lg, cache = pre(params, b, cache)
+            logits = [lg]
+            for i in range(4):
+                lg, cache = dec(params, cache, toks[3, :, 16 + i:17 + i],
+                                16 + i)
+                logits.append(lg)
+            outs.append((torch.stack(losses), [
+                sharded.gather(l, dev) for l in
+                toptim.tree_leaves(state["params"])], logits))
+    (l1, p1, g1), (l2, p2, g2) = outs
+    torch.testing.assert_close(l2, l1, atol=1e-5, rtol=0)
+    for a, b in zip(p2 + g2, p1 + g1):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    assert not any(tkernels.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_lm_sharded_recovery_on_the_card(dev, tmp_path):
+    """A reduced danube train state saved on ``[cuda:0] * 4`` as (4, 1)
+    recovers onto the (2, 1) plan of two survivors bit for bit, sharded on
+    the new mesh, and takes one more step."""
+    from repro_torch.common.partitioning import DEFAULT_RULES
+    from repro_torch.configs import registry
+    from repro_torch.parallel import api, sharded
+    from repro_torch.runtime import elastic
+    cfg = dataclasses.replace(registry.reduced_config("h2o-danube-1.8b"),
+                              act_dtype="float32")
+    mesh = _lm_card_mesh(dev, (4, 1))
+    state = api.make_train_state(api.init_params(cfg, 0, mesh,
+                                                 DEFAULT_RULES))
+    step, _ = api.make_train_step(cfg, mesh, DEFAULT_RULES)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 8, 17))).to(dev)
+    state, _ = step(state, {"tokens": toks[0]})
+    ckpt_store.save(state, 1, tmp_path)
+    plan = elastic.remesh_plan(2, 4, 1)
+    mesh2, step_fn, got, at = elastic.recover(
+        tmp_path, cfg, plan, devices=[dev] * 2,
+        make_step=lambda c, m, r: api.make_train_step(c, m, r)[0])
+    assert at == 1 and mesh2.shape == {"data": 2, "model": 1}
+    for a, b in zip(toptim.tree_leaves(got["params"]),
+                    toptim.tree_leaves(state["params"])):
+        assert a.sharding.mesh is mesh2
+        assert torch.equal(sharded.gather(a, dev), sharded.gather(b, dev))
+    got, m = step_fn(got, {"tokens": toks[1]})
+    assert got["opt"].step == 2 and torch.isfinite(m["loss"])

@@ -138,20 +138,25 @@ def test_tiny_runs_log_the_same_events_with_the_same_keys(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [["--shard", "--mode", "lm"],
                                   ["--mode", "lm"]])
 def test_what_is_not_ported_raises(argv, capsys):
-    """What is not ported yet raises: the LM steps on a mesh of more than
-    one device (ROADMAP A14.5). The LM mode itself serves, with
-    ``--shard`` too (its 1 x 1 local mesh is one device)."""
-    from repro_torch.configs.registry import reduced_config
-    from repro_torch.launch.mesh import Mesh
-    from repro_torch.parallel import api
+    """The LM mode serves, with ``--shard`` too (its 1 x 1 local mesh is
+    one device), and what raised here until the LM sharding (ROADMAP
+    A14.5) serves: ``serve_lm`` on a mesh of two devices gives the
+    one-device tokens (its sample), the batch split over 'data'."""
     capsys.readouterr()
     tserve.main(argv + ["--device", "cpu"])
-    events = [json.loads(line)["event"] for line in
-              capsys.readouterr().out.strip().splitlines()]
-    assert events == ["lm_served", "lm_sample"]
+    records = [json.loads(line) for line in
+               capsys.readouterr().out.strip().splitlines()]
+    assert [r["event"] for r in records] == ["lm_served", "lm_sample"]
+    from repro_torch.launch.mesh import Mesh
     two = Mesh([torch.device("cpu")] * 2, ("data",))
-    with pytest.raises(NotImplementedError, match="ROADMAP A14.5"):
-        api.make_decode_step(reduced_config("olmoe-1b-7b"), two)
+    tserve.serve_lm("olmoe-1b-7b", batch=2, prompt_len=8, gen_len=4,
+                    device="cpu", mesh=two)
+    tserve.serve_lm("olmoe-1b-7b", batch=2, prompt_len=8, gen_len=4,
+                    device="cpu")
+    sampled = [json.loads(line) for line in
+               capsys.readouterr().out.strip().splitlines()]
+    assert [r["event"] for r in sampled] == ["lm_served", "lm_sample"] * 2
+    assert sampled[1]["tokens"] == sampled[3]["tokens"]
 
 
 def test_launcher_without_a_gpu_raises(monkeypatch):

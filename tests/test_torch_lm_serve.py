@@ -205,16 +205,34 @@ def test_api_steps_equal_the_model_functions_on_cast_params(arch):
 
 
 def test_steps_take_one_device_and_refuse_a_larger_mesh():
+    """A one-device mesh gives plain tensors; a larger one, refused until
+    the LM sharding (ROADMAP A14.5), gives sharded params (a (1, 2) mesh:
+    'model' splits storage, one row computes) whose prefill and decode
+    equal the one-device steps' on the same params."""
+    from repro_torch.parallel import sharded
     cfg = tregistry.reduced_config("yi-6b")
     one = Mesh([CPU], ("data",))
     params = api.init_params(cfg, seed=0, mesh=one)
     assert tree_leaves(params)[0].device == CPU
     api.make_prefill_step(cfg, one, capacity=8)
-    for make in (api.make_prefill_step, api.make_decode_step):
-        with pytest.raises(NotImplementedError, match="A14.5"):
-            make(cfg, Mesh([CPU, CPU], ("data",)), capacity=8)
-    with pytest.raises(NotImplementedError, match="A14.5"):
-        api.init_params(cfg, mesh=Mesh([[CPU, CPU]], ("data", "model")))
+    two = Mesh([[CPU, CPU]], ("data", "model"))
+    sp = api.init_params(cfg, mesh=two)
+    assert all(isinstance(l, sharded.Sharded) for l in tree_leaves(sp))
+    assert any(l.shards[0].shape != l.shape for l in tree_leaves(sp))
+    batch = {"tokens": torch.arange(8).reshape(2, 4) % cfg.vocab_size}
+    outs = []
+    for mesh, p in ((two, sp), (None, sharded.gather_tree(sp, CPU))):
+        pre, info = api.make_prefill_step(cfg, mesh, capacity=8,
+                                          batch_size=2)
+        dec, _ = api.make_decode_step(cfg, mesh, capacity=8, batch_size=2)
+        cache = (api.make_cache(cfg, 2, 8, shardings=info["cache"])
+                 if mesh is not None else
+                 api.make_cache(cfg, 2, 8, device="cpu"))
+        logits, cache = pre(p, batch, cache)
+        tok = torch.argmax(logits, -1)[:, None]
+        outs.append((logits, dec(p, cache, tok, 4)[0]))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_init_params_is_a_function_of_the_seed():

@@ -194,10 +194,31 @@ def test_launcher_flags_are_jax_plus_device(monkeypatch):
         assert tflags["device"][:2] == (("--device",), "cuda")
 
 
-def test_launcher_refuses_a_mesh_and_an_encdec():
-    with pytest.raises(NotImplementedError, match="A14.5"):
-        ttrain.main(["--arch", "olmoe-1b-7b", "--reduced", "--data", "2",
-                     "--device", "cpu"])
+def test_launcher_refuses_a_mesh_and_an_encdec(monkeypatch, capsys):
+    """``--data 2 --model 2`` (refused until the LM sharding, ROADMAP
+    A14.5) trains reduced olmoe on a (2, 2) mesh of the four CPUs the
+    local device list is patched to: its losses equal ``train_loop``'s on
+    that mesh, and fall. An encoder-decoder is still refused."""
+    from repro_torch.launch import mesh as lmesh
+    monkeypatch.setattr(lmesh, "local_devices",
+                        lambda device=None: [torch.device("cpu")] * 4)
+    argv = ["--arch", "olmoe-1b-7b", "--reduced", "--data", "2", "--model",
+            "2", "--steps", "24", "--batch", "4", "--seq", "16",
+            "--chunk-steps", "8", "--device", "cpu"]
+    capsys.readouterr()
+    ttrain.main(argv)
+    trained = [json.loads(line) for line in
+               capsys.readouterr().out.strip().splitlines()
+               if json.loads(line)["event"] == "trained"][0]
+    mesh = lmesh.make_local_mesh(2, 2, device="cpu")
+    assert mesh.shape == {"data": 2, "model": 2}
+    _, losses = ttrain.train_loop(registry.reduced_config("olmoe-1b-7b"),
+                                  mesh, steps=24, seq_len=16,
+                                  global_batch=4, chunk_steps=8,
+                                  device="cpu")
+    assert trained["loss_first"] == round(losses[0], 4)
+    assert trained["loss_last"] == round(losses[-1], 4)
+    assert np.mean(losses[-4:]) < np.mean(losses[:4])
     with pytest.raises(ValueError, match="build_train_step"):
         ttrain.train_loop(registry.reduced_config("whisper-base"), steps=1,
                           seq_len=8, global_batch=2, device="cpu")
