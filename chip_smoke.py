@@ -94,6 +94,25 @@ JSON line:
            jamba-v0.1-52b's and qwen2-vl-72b's bf16 serving params) on
            80 GB devices; a reduced danube state saved on (4, 1) and
            recovered onto the (2, 1) plan bit for bit, one more step
+ dryrun   the dry run (``python -m repro_torch.launch.dryrun``), which
+           counts steps on meta tensors on the CPU, held to this card:
+           (a) ``--fields`` in a child: 12 records, each fitting with a
+           bound > 0; (b) ``--mesh both`` children for whisper-base
+           train_4k and jamba-v0.1-52b's and qwen2-vl-72b's decode_32k (a
+           subset of ``--all``, which takes minutes): no failure, each
+           record's state bytes equal ``train_state_bytes(mesh=)`` /
+           ``param_bytes(mesh=)`` on the same stand-in mesh, jamba and
+           qwen2-vl not fitting 80 GB; (c) nerf_hash, gia_hash and
+           nsdf_hash render one position's 8,192 pixels of the 4k camera
+           through ``pipeline.make_render_step`` here: each kernel's
+           launches equal the record's, the device ms at least its
+           ``bound_s`` (the ratio printed); (d) ``build_and_count`` on a
+           one-position mesh at this card's shapes, h2o-danube-1.8b train
+           at 1 x 6144 (bf16 on an f32 master) and qwen2-7b prefill at
+           4 x 512 in bf16: the counted peak within 10% of
+           ``torch.cuda.max_memory_allocated`` for the same step, the
+           counted matrix FLOPs equal to ``FlopCounterMode`` on it, its ms
+           at least ``bound_s``
  kernels  each kernel against its plain version on the inputs of one real
            engine tile (nerf: 4096 pixels x 32 samples; gia: 4096 pixels):
            max error against the stated tolerance, device time per call
@@ -309,13 +328,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W): HBM3 rate,
-# TF32 on the tensor cores (the MLP products, three passes in 3xTF32) and
-# f32 outside them (the encode's arithmetic).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_F32_FLOPS = 67e12
-TF32_PASSES = 3
+# The H100 SXM peaks (HBM3 rate, bf16, TF32 and f32 FLOP/s, 80 GB) are
+# ``repro_torch.launch.roofline.H100_SXM``; the kernels' work, the bounds
+# read, is ``repro_torch.kernels.cost``.
 TOL = 1e-4          # kernel vs plain, f32: 3xTF32 products, another sum order
 PARITY_TOL = 1e-4   # engine on the card vs render_frame on the CPU
 QUANT_DENSE_MAX = 0.2   # quantized frame vs dense frame (tests/test_quant.py)
@@ -431,7 +446,6 @@ LM_TRAIN_WINDOW = 4
 LM_TRAIN_FULL = {"h2o-danube-1.8b": (1, 6144), "mamba2-2.7b": (4, 1024),
                  "whisper-base": (4, 512)}
 LM_TRAIN_STEPS = 16
-BF16_PEAK_FLOPS = 989e12     # dense bf16 tensor-core peak of one H100
 # the full-width gradient check: danube in f32 at a small batch, the
 # directional derivative along the normalised gradient against a central
 # difference of the loss, relative; the step moves the loss by about
@@ -1875,6 +1889,7 @@ def lm_train_phase(dev, gpu):
     from repro_torch.common.param import tree_leaves, tree_map
     from repro_torch.configs import registry
     from repro_torch.data import tokens as tdata
+    from repro_torch.launch.roofline import H100_SXM
     from repro_torch.models import encdec as tencdec, lm as tlm
     from repro_torch.parallel import api
     from repro_torch.train import loop, optim
@@ -1967,7 +1982,7 @@ def lm_train_phase(dev, gpu):
         step_s = (time.perf_counter() - t0) / (LM_TRAIN_STEPS - 1)
         losses = torch.stack(losses).tolist()
         tokens = batch * seq
-        bound_s = 8 * n_params * tokens / BF16_PEAK_FLOPS
+        bound_s = 8 * n_params * tokens / H100_SXM["peak_flops_bf16"]
         row = {"batch": batch, "tokens_per_row": seq, "params": n_params,
                "train_state_bytes": api.train_state_bytes(cfg, tc),
                "init_s": init_s, "step_ms": step_s * 1e3,
@@ -2145,7 +2160,6 @@ LM_SHARD_TOL = 1e-5
 LM_SHARD_FULL = ("h2o-danube-1.8b", 2, 3072)
 LM_SHARD_FULL_STEPS = 6
 LM_SHARD_FULL_TOL = 2e-2
-LM_SHARD_DEVICE_BYTES = 80e9
 LM_SHARD_PLANS = (("olmoe-1b-7b", "train", (4, 1)),
                   ("olmoe-1b-7b", "train", (2, 2)),
                   ("jamba-v0.1-52b", "serve", (2, 2)),
@@ -2167,6 +2181,7 @@ def lm_shard_phase(dev, gpu):
     from repro_torch.configs import registry
     from repro_torch.data import tokens as tdata
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.roofline import H100_SXM
     from repro_torch.models import encdec as tencdec, lm as tlm
     from repro_torch.parallel import api, sharded as sh
     from repro_torch.runtime import elastic
@@ -2325,20 +2340,18 @@ def lm_shard_phase(dev, gpu):
                "peak_bytes": torch.cuda.max_memory_allocated(dev),
                "losses": torch.stack(losses).tolist()}
         if m_ is not None:
-            leaves = optim.tree_leaves(state["params"])
             n_rows = len(api.batch_row_devices(m_, rules, batch))
             n_gathers = len(set(api.batch_row_devices(m_, rules, batch)))
-            item = torch.empty((), dtype=cfg.adtype).element_size()
-            whole = sum(l.numel() * (item if l.ndim >= 2 else 4)
-                        for l in leaves)
+            coll = api.step_collective_bytes(cfg, m_, rules, batch)
             row.update({
                 "rows": n_rows, "gathers_a_step": n_gathers,
                 # computed from the leaves' shapes, not counted in the run:
                 # the gathered compute copies, and each row's gradient
                 # slice for every position (copies included), in f32
-                "gather_bytes_a_step_from_shapes": n_gathers * whole,
-                "row_sum_bytes_a_step_from_shapes": n_rows * sum(
-                    s.numel() * 4 for l in leaves for s in l.shards),
+                "gather_bytes_a_step_from_shapes": sum(
+                    c["all-gather"] for c in coll),
+                "row_sum_bytes_a_step_from_shapes": sum(
+                    c["all-reduce"] for c in coll),
                 "position_bytes": sh.shard_bytes(state),
                 "note": "the four positions share one card: its peak holds "
                         "them all, not a per-device saving"})
@@ -2365,7 +2378,7 @@ def lm_shard_phase(dev, gpu):
         try:
             api.check_fits(cfg_, compute_dtype=dt,
                            train_cfg=tc if kind == "train" else None,
-                           mesh=stand, device_bytes=LM_SHARD_DEVICE_BYTES)
+                           mesh=stand, device_bytes=H100_SXM["hbm_bytes"])
             verdict = "fits"
         except MemoryError as e:
             verdict = f"refused: {e}"
@@ -2425,6 +2438,234 @@ def lm_shard_phase(dev, gpu):
             "plans": plans, "elastic": recovered, **gpu}
 
 
+# the dryrun phase: the children of (a) and (b), started together; (b)
+# is a subset of --all --mesh both (the whole sweep takes minutes on one
+# process): a train cell and the two serving cells the memory plans refuse
+DRYRUN_LM_CELLS = (("whisper-base", "train_4k"),
+                   ("jamba-v0.1-52b", "decode_32k"),
+                   ("qwen2-vl-72b", "decode_32k"))
+DRYRUN_NOT_FITTING = ("jamba-v0.1-52b", "qwen2-vl-72b")
+DRYRUN_TIMEOUT_S = 300
+# (c): one position's share of the 4k render step on 256 positions
+DRYRUN_APPS = ("nerf", "gia", "nsdf")
+DRYRUN_PIXELS = (1 << 21) // 256
+# (d): the card's own shapes on a one-position mesh: batch x tokens a row
+# (a train row comes with its labels, as lm_train_phase's rows do)
+DRYRUN_CARD = (("h2o-danube-1.8b", "train", 1, 6144),
+               ("qwen2-7b", "prefill", 4, 512))
+DRYRUN_PEAK_TOL = 0.10
+
+
+def dryrun_children(work):
+    """Start ``python -m repro_torch.launch.dryrun`` children, all
+    together: (a) ``--fields``, (b) each of DRYRUN_LM_CELLS on both meshes;
+    name -> (Popen, its --out file)."""
+    env = {**os.environ, "PYTHONPATH": SRC}
+    argvs = {"fields": ["--fields"]}
+    for arch, shape in DRYRUN_LM_CELLS:
+        argvs[f"{arch}/{shape}"] = ["--arch", arch, "--shape", shape,
+                                   "--mesh", "both"]
+    out = {}
+    for i, (name, argv) in enumerate(argvs.items()):
+        path = os.path.join(work, f"dryrun_{i}.json")
+        log = open(os.path.join(work, f"dryrun_{i}.log"), "w")
+        out[name] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--out", path], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT), path, log)
+    return out
+
+
+def dryrun_child_records(child, name):
+    proc, path, log = child
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"dryrun[{name}]: the child ran past {DRYRUN_TIMEOUT_S} s")
+    log.close()
+    if rc != 0:
+        with open(log.name) as f:
+            tail = f.read()[-3000:]
+        fail(f"dryrun[{name}]: the child exited {rc}: {tail}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def dryrun_phase(dev, gpu):
+    """The dry run (``python -m repro_torch.launch.dryrun``) on the CPU in
+    children, and its counts held to this card: the render step's
+    launches and time, and the counted peak memory, matrix FLOPs and
+    bound of two LM steps at the card's shapes."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import kernels as K
+    from repro_torch.common.partitioning import rule_preset
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.core import fields, pipeline
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel import api
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    children = dryrun_children(work)
+    rules = rule_preset("baseline")
+
+    # -- (d) LM steps at the card's shapes, counted on meta and run here
+    card = {}
+    for arch, step_kind, batch, seq in DRYRUN_CARD:
+        cfg = registry.get_config(arch)
+        cell = ShapeCell("card", seq, batch, step_kind)
+        names = ("tokens", "labels") if step_kind == "train" else ("tokens",)
+        specs = {"batch": {n: torch.empty((batch, seq), dtype=torch.int32,
+                                          device="meta") for n in names}}
+        counted, _ = dryrun.build_and_count(cfg, cell, dryrun.ONE_POSITION,
+                                            rules, specs=specs)
+        rec = roofline.summarize(f"{arch}/card", counted, 1, 0.0)
+        rng = np.random.default_rng(SEED)
+        inputs = {n: torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (batch, seq)).astype(np.int32)).to(dev)
+            for n in names}
+        torch.cuda.empty_cache()
+        if step_kind == "train":
+            tc = api.TrainConfig()
+            state = api.make_train_state(api.init_params(
+                cfg, SEED, device=dev, train_cfg=tc))
+            step, _ = api.make_train_step(cfg, train_cfg=tc)
+
+            def run():
+                return step(state, inputs)
+        else:
+            params = api.init_params(cfg, SEED, device=dev,
+                                     compute_dtype=cfg.adtype)
+            cache = api.make_cache(cfg, batch, seq, device=dev)
+            step, _ = api.make_prefill_step(cfg, capacity=seq,
+                                            batch_size=batch)
+
+            def run():
+                return step(params, inputs, cache)
+        run()                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        del out
+        with FlopCounterMode(display=False) as fc:
+            run()
+        torch.cuda.synchronize()
+        flops = fc.get_total_flops()
+        counted_peak = rec["memory_analysis"]["peak_bytes"]
+        row = {"batch": batch, "tokens_per_row": seq, "step": step_kind,
+               "counted_peak_bytes": counted_peak,
+               "max_memory_allocated": peak,
+               "peak_rel_err": abs(counted_peak - peak) / peak,
+               "counted_matmul_flops": counted["flops"],
+               "flop_counter_mode_flops": flops,
+               "bound_s": rec["bound_s"], "dominant": rec["dominant"],
+               "step_ms": step_ms,
+               "step_over_bound": step_ms / 1e3 / rec["bound_s"]}
+        card[arch] = row
+        del run, step
+        state = params = cache = None
+        if row["peak_rel_err"] > DRYRUN_PEAK_TOL or flops != counted["flops"] \
+                or step_ms / 1e3 < rec["bound_s"]:
+            fail(f"dryrun[{arch} {step_kind} {batch}x{seq}]: counted "
+                 f"against the card beyond {DRYRUN_PEAK_TOL} of the peak, "
+                 f"FLOPs unequal, or faster than the bound: {row}")
+    torch.cuda.empty_cache()
+
+    # -- (a) the field cells
+    frecs = dryrun_child_records(children["fields"], "fields")
+    if len(frecs) != 12 or any(
+            "error" in r or not r["bound_s"] > 0
+            or not r["memory_analysis"]["fits_h100_80g"]
+            for r in frecs.values()):
+        fail(f"dryrun[fields]: {len(frecs)} records, not 12 fitting ones "
+             f"with a bound > 0: {sorted(frecs)}")
+
+    # -- (c) one position's share of the render step on the card: the
+    # launches the record counts, a time at least its bound
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    apps = {}
+    launches = dict.fromkeys(K.launch_counts(), 0)
+    for app in DRYRUN_APPS:
+        rec = frecs[f"field-{app}-hash/single"]
+        fcfg = fields.make_field_config(app, "hash")
+
+        def draw(shapes, grid=False):
+            if isinstance(shapes, dict):
+                return {k: draw(v, k == "grid") for k, v in shapes.items()}
+            t = torch.empty(shapes, dtype=torch.float32, device=dev)
+            if grid:
+                return t.uniform_(-1.0, 1.0, generator=gen)
+            return t.normal_(generator=gen) / float(np.sqrt(shapes[-2]))
+        fp = draw(fields.param_shapes(fcfg))
+        render = pipeline.make_render_step(fcfg)
+        ids = torch.arange(DRYRUN_PIXELS, dtype=torch.int32, device=dev)
+        K.reset_launch_counts()                # the path: one render step
+        rgb = render(fp, ids)
+        torch.cuda.synchronize()
+        got = {k: n for k, n in K.launch_counts().items() if n}
+        for k, n in got.items():
+            launches[k] += n
+        want = {k: w["launches"] for k, w in rec["kernels"].items()}
+        ms = device_ms(lambda: render(fp, ids), reps=5)
+        apps[app] = {"launches": got, "record_launches": want,
+                     "ms": ms, "bound_ms": rec["bound_s"] * 1e3,
+                     "dominant": rec["dominant"],
+                     "ms_over_bound": ms / (rec["bound_s"] * 1e3),
+                     "finite": bool(torch.isfinite(rgb).all())}
+        del fp, rgb
+        if got != want or ms < rec["bound_s"] * 1e3 or \
+                not apps[app]["finite"]:
+            fail(f"dryrun[{app}]: the card against the record: "
+                 f"{apps[app]}")
+    torch.cuda.empty_cache()
+
+    # -- (b) the LM cells: no failure, each position's state as the memory
+    # plans give it on the same stand-in mesh, the refused archs refused
+    cells = {}
+    for arch, shape in DRYRUN_LM_CELLS:
+        recs = dryrun_child_records(children[f"{arch}/{shape}"],
+                                    f"{arch}/{shape}")
+        cfg = registry.get_config(arch)
+        for key, rec in recs.items():
+            if "error" in rec:
+                fail(f"dryrun[{key}]: {rec['error']}")
+            mesh = make_production_mesh(multi_pod=key.endswith("multi"))
+            tc = api.TrainConfig(**(rec["train_overrides"] or {}))
+            plan = (api.train_state_bytes(cfg, tc, mesh=mesh, rules=rules)
+                    if shape.startswith("train") else
+                    api.param_bytes(cfg, cfg.adtype, mesh=mesh, rules=rules))
+            ma = rec["memory_analysis"]
+            cells[key] = {"state_bytes": ma["state_bytes"],
+                          "plan_bytes": plan[rec["position"]],
+                          "argument_bytes": ma["argument_bytes"],
+                          "temp_bytes": ma["temp_bytes"],
+                          "fits_h100_80g": ma["fits_h100_80g"],
+                          "dominant": rec["dominant"],
+                          "bound_s": rec["bound_s"]}
+            if ma["state_bytes"] != plan[rec["position"]] or (
+                    arch in DRYRUN_NOT_FITTING) == ma["fits_h100_80g"]:
+                fail(f"dryrun[{key}]: state bytes against the plan, or the "
+                     f"fit verdict: {cells[key]}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"phase": "dryrun", "seconds": time.perf_counter() - t_phase,
+            "launches": launches, "pixels": DRYRUN_PIXELS,
+            "fields": {"records": len(frecs)}, "apps": apps,
+            "lm_cells": cells, "card_steps": card,
+            "peak_tol": DRYRUN_PEAK_TOL, **gpu}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2453,6 +2694,8 @@ def main():
                                                        level_meta, sm_count)
     from repro_torch.kernels.hashgrid.ref import encode_ref
     from repro_torch.kernels.ray_march import ops as rm_ops
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.launch.roofline import H100_SXM, kernel_ops_s
     from repro_torch.quant import QuantSpec, quantize_field
     from repro_torch.checkpoint import store as ckpt_store
     from repro_torch.core import occupancy as occ_mod
@@ -2522,6 +2765,12 @@ def main():
     emit(lm_train_phase(dev, gpu))
     emit(lm_shard_phase(dev, gpu))
 
+    # ----------------------------------------------------------- dryrun
+    # the dry run counted on meta in children, its counts held to the card
+    line = dryrun_phase(dev, gpu)
+    dr_launches = line["launches"]
+    emit(line)
+
     # ---------------------------------------------------------- kernels
     params = [fields.from_jax_params(np_params(cfg, SEED + s), cfg, dev)
               for s in range(2)]
@@ -2572,13 +2821,8 @@ def main():
         TILE_PIXELS, N_SAMPLES, 4)
     rgb, sigma = packed[..., :3], packed[..., 3]
 
-    def mlp_flops(m):
-        return 2 * (m.in_dim * m.hidden_dim
-                    + (m.n_hidden - 1) * m.hidden_dim ** 2
-                    + m.hidden_dim * m.out_dim)
-
     def wbytes(tree):
-        return sum(t.numel() * t.element_size() for t in tree.values())
+        return kcost.tensor_bytes(tree.values())
 
     # each app's grid tile: (points, grid config, distinct rows it touches)
     tiles = {"nerf": (flat_pts, g, touched_rows(flat_pts, g)),
@@ -2597,19 +2841,6 @@ def main():
                 np_params(c, SEED + 40 + 2 * i + (app == "gia")), c, dev))
             tiles[v] = (x, c.grid, touched_rows(x, c.grid))
 
-    def grid_work(app, tables, scales):
-        """Bytes and f32 flops of the encode of this tile: points in, the
-        distinct table rows it gathers at the table's itemsize, the scales;
-        per level and corner the d-linear weight (d muls), F multiply-adds
-        and, for codes, F dequant multiplies."""
-        x, gg, rows = tiles[app]
-        quantized = scales is not None
-        return {"bytes": x.numel() * 4
-                + rows * gg.n_features * tables.element_size()
-                + (scales.numel() * 4 if quantized else 0),
-                "flops": x.shape[0] * gg.n_levels * (1 << gg.dim)
-                * (gg.dim + (3 if quantized else 2) * gg.n_features),
-                "mlp_flops": 0}
 
     grid_bf16 = p0["grid"].to(torch.bfloat16)
     dmlp_bf16 = {k: t.to(torch.bfloat16)
@@ -2655,23 +2886,22 @@ def main():
     # tables and bf16 density weights
     runs = {}
     for v, (app, tab, sc, w, m) in field_inputs.items():
-        fw = grid_work(app, tab, sc)
         n = tiles[app][0].shape[0]
         runs["field_fwd" if sc is None else "field_fwd_q", v] = (
             field_call(v, True), field_call(v, False), None,
-            {"bytes": fw["bytes"] + wbytes(w) + n * m.out_dim * 4,
-             "flops": fw["flops"], "mlp_flops": n * mlp_flops(m)},
+            kcost.field_fwd(n, tiles[app][1], m, tab.element_size(),
+                            sc is not None, wbytes(w), tiles[app][2]),
             field_call(v, True, 1))
     for v in ("f32", "bf16", "int8", "fp8", "gia_f32", "gia_bf16",
               "gia_int8", "gia_fp8", *grid_scenes):
         app, tab, sc, _, _ = field_inputs[v]
-        fw = grid_work(app, tab, sc)
         x, gg, _ = tiles[app]
         plan = encode_plan(gg, tab.dtype, x.shape[0],
                            sm_count(x.device.index))
         runs["encode_fwd", v] = (
             encode_call(v, True), encode_call(v, False), None,
-            {**fw, "bytes": fw["bytes"] + x.shape[0] * gg.out_dim * 4,
+            {**kcost.encode_fwd(x.shape[0], gg, tab.element_size(),
+                                sc is not None, tiles[app][2]),
              # every corner of every level: the gather requests it issues
              "gathers": x.shape[0] * gg.n_levels * (1 << gg.dim),
              "plan": {k: plan[k] for k in ("group_levels",
@@ -2689,8 +2919,7 @@ def main():
     def mlp_run(w, x, m):
         return (lambda: mlp_ops.mlp(w, x, m), lambda: apply_mlp(w, x, m),
                 lambda: matmul_chain(w, x, m),
-                {"bytes": x.shape[0] * (m.in_dim + m.out_dim) * 4 + wbytes(w),
-                 "flops": 0, "mlp_flops": x.shape[0] * mlp_flops(m)},
+                kcost.mlp_fwd(x.shape[0], m, wbytes(w)),
                 lambda: mlp_ops.mlp(w, x[:1], m))
     runs["mlp_fwd", None] = mlp_run(p0["mlp"], color_in, ccfg)
     # the unfused route's grid heads on the dense and tiled grids: the MLP
@@ -2709,10 +2938,7 @@ def main():
             lambda c=c, sg=sg, dt=dt: rm_ops.composite(c, sg, dt),
             lambda c=c, sg=sg, dt=dt: render.composite(c, sg, dt),
             None,
-            # rgb + sigma per sample, the dts, pixel + opacity; per
-            # sample: -sigma*dt, 2 exp, 1-alpha, csum, sub, mul, 4 fma
-            {"bytes": b * 4 * 4 + dt.numel() * 4 + TILE_PIXELS * 4 * 4,
-             "flops": b * 16, "mlp_flops": 0},
+            kcost.composite_fwd(TILE_PIXELS, N_SAMPLES, dt.numel()),
             lambda c=c, sg=sg, dt=dt: rm_ops.composite(c[:1], sg[:1],
                                                        dt[:1]))
 
@@ -2736,10 +2962,10 @@ def main():
         # products on the tensor cores (3 TF32 passes), the rest in f32 on
         # the CUDA cores, which run beside the tensor cores; and, for the
         # record, with every flop in f32 on the CUDA cores
-        t_bytes = w["bytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = max(TF32_PASSES * w["mlp_flops"] / PEAK_TF32_FLOPS,
-                    w["flops"] / PEAK_F32_FLOPS) * 1e3
-        t_f32 = (w["flops"] + w["mlp_flops"]) / PEAK_F32_FLOPS * 1e3
+        t_bytes = w["bytes"] / H100_SXM["hbm_bw"] * 1e3
+        t_ops = kernel_ops_s(w) * 1e3
+        t_f32 = (w["flops"] + w["mlp_flops"]) / H100_SXM["peak_flops_f32"] \
+            * 1e3
         ms = device_ms(kern, reps=20)
         results[name, v] = {
             "max_abs_err": err, "tol": TOL, "ms": ms,
@@ -2781,16 +3007,11 @@ def main():
         rows, vals = table_grad_scatter(x, gg, cot)
         acc = torch.zeros((gg.n_levels * gg.table_size, gg.n_features),
                           dtype=torch.float32, device=dev)
-        corners = x.shape[0] * gg.n_levels * (1 << gg.dim)
-        atomics = corners * gg.n_features
-        # points and cotangent in, the gradient of the whole table out at
-        # the table's dtype; per corner d weight multiplies, F products and
-        # F atomic adds (f32 operations)
-        nbytes = (x.numel() + cot.numel()) * 4 + tab.numel() \
-            * tab.element_size()
-        flops = corners * (gg.dim + 2 * gg.n_features)
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        atomics = x.shape[0] * gg.n_levels * (1 << gg.dim) * gg.n_features
+        bw = kcost.encode_bwd(x.shape[0], gg, tab.numel(), tab.element_size())
+        nbytes, flops = bw["bytes"], bw["flops"]
+        t_bytes = nbytes / H100_SXM["hbm_bw"] * 1e3
+        t_ops = kernel_ops_s(bw) * 1e3
         ms = device_ms(kern, reps=20)
         results["encode_bwd", v] = {
             "max_abs_err": err, "rel_err": rel, "tol": tol, "ms": ms,
@@ -3942,7 +4163,7 @@ def main():
              "launch": launch_launches, "launch_apps": apps_launches,
              "serve_shard": sh_launches, "serve_shard_occ": sho_launches,
              "train_dp": dp_launches, "elastic": el_launches,
-             "examples": ex_launches}
+             "examples": ex_launches, "dryrun": dr_launches}
     report = {
         "field_fwd": ("src/repro_torch/csrc/field.cu",
                       "src/repro/kernels/fused_field/fused_field.py:111",

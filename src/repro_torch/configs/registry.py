@@ -1,13 +1,15 @@
-"""Architecture registry of the port: ``--arch <id>`` resolution and the
-reduced smoke configs, the JAX package's ``configs/registry.py``.
-
-``input_specs`` (the dry run's shape-only inputs, ``jax.ShapeDtypeStruct``
-there) waits for the port's dry run (ROADMAP A14.7)."""
+"""Architecture registry of the port: ``--arch <id>`` resolution, the
+reduced smoke configs and the dry run's per-(arch x shape) input specs,
+the JAX package's ``configs/registry.py``."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Dict, Union
 
+import torch
+
+from repro_torch.configs.shapes import SHAPES, ShapeCell
 from repro_torch.models.config import ModelConfig
 
 ARCH_MODULES = {
@@ -61,6 +63,37 @@ def reduced_config(arch: str) -> ModelConfig:
     if cfg.swa_window is not None:
         changes["swa_window"] = 16
     return dataclasses.replace(cfg, **changes)
+
+
+def input_specs(cfg: ModelConfig, shape: Union[str, ShapeCell]) -> Dict:
+    """Meta-tensor stand-ins for every model input of this cell (the JAX
+    function's ``ShapeDtypeStruct``s): shapes and dtypes only, nothing
+    allocated. Token ids are int32, as the JAX specs give them. ``shape``
+    names a cell of ``SHAPES`` or is a ``ShapeCell``."""
+    cell = SHAPES[shape] if isinstance(shape, str) else shape
+    b, s = cell.global_batch, cell.seq_len
+    i32 = torch.int32
+    f = cfg.adtype
+
+    def sds(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if cell.step in ("train", "prefill"):
+        if cfg.is_encdec:
+            return {"batch": {
+                "enc_embeddings": sds((b, s, cfg.d_model), f),
+                "tokens": sds((b, s), i32)}}
+        if cfg.frontend == "vision":
+            batch = {"embeddings": sds((b, s, cfg.d_model), f)}
+            if cell.step == "train":
+                batch["labels"] = sds((b, s), i32)
+            batch["positions"] = sds((3, b, s), i32)
+            return {"batch": batch}
+        return {"batch": {"tokens": sds((b, s), i32)}}
+
+    # decode: one new token against a cache of s tokens
+    return {"tokens": sds((b, 1), i32),
+            "pos": sds((), i32)}
 
 
 def field_config(app: str, encoding: str):

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import fields, render
 from repro_torch.core.fields import FieldConfig
+from repro_torch.data import scenes
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs.trace import annotate
 
@@ -55,6 +56,15 @@ class RenderSettings:
         return max(1, self.sample_budget * n_pixels // self.tile_pixels)
 
 
+def field_eval_fn(cfg: FieldConfig, settings: RenderSettings) -> Callable:
+    """``(params, points[, dirs]) -> field output`` on the route
+    ``settings`` names (``fields.apply_field``)."""
+    def f(params, points, dirs=None):
+        return fields.apply_field(params, cfg, points, dirs,
+                                  fused=settings.fused)
+    return f
+
+
 # ------------------------------------------------------------- NSDF shading
 def sphere_trace(sdf_fn: Callable, origins: torch.Tensor, dirs: torch.Tensor,
                  n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -82,9 +92,10 @@ def shade_nsdf(params, cfg: FieldConfig, origins: torch.Tensor,
                dirs: torch.Tensor, settings: RenderSettings) -> torch.Tensor:
     """Sphere-trace the field, then Lambert-shade the hits with the normal
     from central differences (eps 2e-3); misses are black. (R, 3)."""
+    feval = field_eval_fn(cfg, settings)
+
     def sdf_world(p):
-        return fields.apply_field(params, cfg, (p + 1.0) / 2.0,
-                                  fused=settings.fused)
+        return feval(params, (p + 1.0) / 2.0)
     p, hit = sphere_trace(sdf_world, origins, dirs, settings.sphere_steps)
     eps = 2e-3
     g = [(sdf_world(_offset(p, i, eps)) - sdf_world(_offset(p, i, -eps)))[:, 0]
@@ -124,6 +135,7 @@ def make_tile_fn(cfg: FieldConfig, settings: RenderSettings,
     ones of a padded request."""
     if cfg.app not in APPS:
         raise ValueError(f"unknown app {cfg.app!r} (apps: {APPS})")
+    feval = field_eval_fn(cfg, settings)
 
     def tile(params, cam: render.Camera, pixel_ids: torch.Tensor,
              n_valid: Optional[int] = None):
@@ -138,9 +150,7 @@ def make_tile_fn(cfg: FieldConfig, settings: RenderSettings,
             return rgb, row
 
         if cfg.app == "gia":
-            return dense(fields.apply_field(params, cfg,
-                                            pixel_coords(cam, pixel_ids),
-                                            fused=settings.fused))
+            return dense(feval(params, pixel_coords(cam, pixel_ids)))
         with annotate("raymarch"):
             origins, dirs = render.make_rays(cam, pixel_ids)
         if cfg.app == "nsdf":
@@ -149,7 +159,7 @@ def make_tile_fn(cfg: FieldConfig, settings: RenderSettings,
                   n_samples=settings.n_samples, use_kernel_composite=True)
 
         def field(p, d):
-            return fields.apply_field(params, cfg, p, d, fused=settings.fused)
+            return feval(params, p, d)
         if not settings.occupancy:
             return dense(render.render_rays(field, origins, dirs, **kw),
                          settings.n_samples)
@@ -169,6 +179,24 @@ def make_tile_fn(cfg: FieldConfig, settings: RenderSettings,
             live, torch.full_like(live, float(n * settings.n_samples)),
             aux["dropped_per_ray"][:n].sum().float()])[None, :]
     return tile
+
+
+def make_render_step(cfg: FieldConfig,
+                     settings: Optional[RenderSettings] = None,
+                     cam: Optional[render.Camera] = None) -> Callable:
+    """The field's serve step: ``(params, pixel_ids (B,)) -> rgb (B, 3)``,
+    one batched request of pixels against a trained field through
+    :func:`make_tile_fn`, the camera fixed (default: the paper's 4k target,
+    ``scenes.default_camera(2160, 3840)``). The dry run counts it
+    (``launch/dryrun.field_cell``); a server passes the camera as data
+    (``make_multi_scene_tile_fn``)."""
+    settings = settings or RenderSettings()
+    cam = cam or scenes.default_camera(2160, 3840)
+    tile_fn = make_tile_fn(cfg, settings)
+
+    def step(params, pixel_ids):
+        return tile_fn(params, cam, pixel_ids)
+    return step
 
 
 # --------------------------------------------------- multi-scene (stacked)

@@ -24,10 +24,27 @@ def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is a meta tensor: the wrapper then records
+    its kernel's work on the active counter (``kernels/cost.record``) and
+    returns an empty meta output of the kernel's shape and dtype. Nothing
+    computes there, so this is no fallback: the plain version never runs
+    on meta (its op-by-op count is not the kernel's work). A mix of meta
+    and other devices raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"meta"}:
+        return True
+    if "meta" in kinds:
+        raise ValueError(f"tensors on {sorted(str(t.device) for t in tensors)}"
+                         ": a meta call takes meta tensors only")
+    return False
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when the plain version should run: every tensor lies on the
     CPU. Tensors on a CUDA device go to the kernel, which checks them;
-    a mix of devices, or any other device, raises."""
+    a mix of devices, or any other device, raises (a wrapper takes meta
+    tensors through :func:`on_meta` first)."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return True

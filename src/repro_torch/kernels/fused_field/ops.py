@@ -16,7 +16,11 @@ activations with f32 matmuls, applies the transposes (``fused_mlp.vjp``)
 and sends the features' gradient through the encode's scatter-add
 (``encode_bwd``). Quantized tables or weights are inference only, as the
 JAX package's quantized route bypasses its VJP: a call that would need a
-gradient raises."""
+gradient raises.
+
+On meta tensors the wrapper records the kernel's work
+(``kernels/cost.field_fwd``) on the active counter and returns an empty
+(B, out) f32 meta tensor (``kernels/common.on_meta``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -25,7 +29,9 @@ import torch
 
 from repro_torch.core.encoding import GridConfig
 from repro_torch.core.mlp import MLPConfig
-from repro_torch.kernels.common import check_table_scales, needs_grad, on_cpu
+from repro_torch.kernels import cost
+from repro_torch.kernels.common import (check_table_scales, needs_grad,
+                                        on_cpu, on_meta)
 from repro_torch.kernels.fused_field.fused_field import fused_field_cuda
 from repro_torch.kernels.fused_field.ref import field_ref
 from repro_torch.kernels.fused_mlp.ops import weight_dict
@@ -35,6 +41,16 @@ from repro_torch.obs.trace import annotate
 from repro_torch.quant.api import maybe_dequant_mlp
 
 
+def _meta_field(points, tables, weights, grid_cfg, mlp_cfg, table_scales):
+    """The meta route: the kernel's work recorded, its empty output."""
+    cost.record("field_fwd" if table_scales is None else "field_fwd_q",
+                cost.field_fwd(points.shape[0], grid_cfg, mlp_cfg,
+                               tables.element_size(), table_scales is not None,
+                               cost.tensor_bytes(weights.values())))
+    return torch.empty((points.shape[0], mlp_cfg.out_dim),
+                       dtype=torch.float32, device=points.device)
+
+
 class _Field(torch.autograd.Function):
     @staticmethod
     def forward(ctx, points, tables, w_in, w_hidden, w_out, grid_cfg,
@@ -42,6 +58,9 @@ class _Field(torch.autograd.Function):
         ctx.save_for_backward(points, tables, w_in, w_hidden, w_out)
         ctx.cfgs = (grid_cfg, mlp_cfg)
         weights = weight_dict(w_in, w_hidden, w_out)
+        if on_meta(points, tables, *weights.values()):
+            return _meta_field(points, tables, weights, grid_cfg, mlp_cfg,
+                               None)
         if on_cpu(points, tables, *weights.values()):
             return field_ref(points, tables, weights, grid_cfg, mlp_cfg)
         return fused_field_cuda(points, tables, w_in, w_hidden, w_out,
@@ -86,6 +105,9 @@ def field(points: torch.Tensor, tables: torch.Tensor,
                 "route bypasses its VJP")
         weights = maybe_dequant_mlp(mlp_params)
         extra = () if table_scales is None else (table_scales,)
+        if on_meta(points, tables, *extra, *weights.values()):
+            return _meta_field(points, tables, weights, grid_cfg, mlp_cfg,
+                               table_scales)
         if on_cpu(points, tables, *extra, *weights.values()):
             return field_ref(points, tables, weights, grid_cfg, mlp_cfg,
                              table_scales)

@@ -9,6 +9,11 @@ route is: a ``torch.autograd.Function`` whose forward is the encode
 int8 and fp8 tables (with ``table_scales``) are inference only, as in the
 JAX package, whose quantized route has no VJP: a call that would need a
 gradient raises.
+
+On meta tensors the forward and the VJP record their kernel's work
+(``kernels/cost.encode_fwd``, ``encode_bwd``) on the active counter and
+return empty meta outputs of the kernels' shapes and dtypes
+(``kernels/common.on_meta``).
 """
 from __future__ import annotations
 
@@ -17,7 +22,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.encoding import GridConfig
-from repro_torch.kernels.common import check_table_scales, needs_grad, on_cpu
+from repro_torch.kernels import cost
+from repro_torch.kernels.common import (check_table_scales, needs_grad,
+                                        on_cpu, on_meta)
 from repro_torch.kernels.hashgrid import vjp
 from repro_torch.kernels.hashgrid.hashgrid import (hashgrid_encode_bwd_cuda,
                                                    hashgrid_encode_cuda)
@@ -25,10 +32,20 @@ from repro_torch.kernels.hashgrid.ref import encode_ref
 from repro_torch.obs.trace import annotate
 
 
+def _meta_encode(points, tables, cfg, table_scales=None):
+    """The meta route of the encode: its work recorded, its empty output."""
+    cost.record("encode_fwd", cost.encode_fwd(
+        points.shape[0], cfg, tables.element_size(), table_scales is not None))
+    return torch.empty((points.shape[0], cfg.out_dim), dtype=torch.float32,
+                       device=points.device)
+
+
 def encode_forward(points: torch.Tensor, tables: torch.Tensor,
                    cfg: GridConfig) -> torch.Tensor:
     """The encode of dense tables, outside autograd: ``encode_fwd`` on
     CUDA, the plain version on the CPU."""
+    if on_meta(points, tables):
+        return _meta_encode(points, tables, cfg)
     if on_cpu(points, tables):
         return encode_ref(points, tables, cfg)
     return hashgrid_encode_cuda(points, tables, cfg)
@@ -39,6 +56,11 @@ def encode_vjp(points: torch.Tensor, tables: torch.Tensor, cfg: GridConfig,
                ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """The encode's VJP: cotangent g (B, L*F) -> (d_points or None,
     d_tables). ``encode_bwd`` on CUDA, the plain twin on the CPU."""
+    if on_meta(points, tables, g):
+        cost.record("encode_bwd", cost.encode_bwd(
+            points.shape[0], cfg, tables.numel(), tables.element_size()))
+        return (torch.empty_like(points) if need_points else None,
+                torch.empty_like(tables))
     if on_cpu(points, tables, g):
         return vjp.encode_bwd(points, tables, cfg, g, need_points)
     return hashgrid_encode_bwd_cuda(points, tables, cfg, g, need_points)
@@ -74,6 +96,8 @@ def encode(points: torch.Tensor, tables: torch.Tensor, cfg: GridConfig, *,
                 "quantized (int8/fp8) tables are inference only: the encode "
                 "has no gradient for them, as the JAX package's quantized "
                 "route has no VJP")
+        if on_meta(points, tables, table_scales):
+            return _meta_encode(points, tables, cfg, table_scales)
         if on_cpu(points, tables, table_scales):
             return encode_ref(points, tables, cfg, table_scales)
         return hashgrid_encode_cuda(points, tables, cfg, table_scales)

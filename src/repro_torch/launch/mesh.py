@@ -10,13 +10,16 @@ than once; its shards then run one after another on that device and share
 its memory, as the JAX package's tests share one CPU split into forced
 host devices.
 
-``make_production_mesh`` (the JAX package's 16x16 TPU pod) waits for the
-dry run (ROADMAP A14.7), which decides what it means on H100s.
+``make_production_mesh`` is the JAX package's production mesh as a
+stand-in (:class:`MeshShape`: axis names and sizes, no devices) for the
+dry run (``launch/dryrun.py``), which plans it on H100 nodes without
+having them.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -100,6 +103,36 @@ def make_local_mesh(data: int = 1, model: int = 1,
         data, model = n, 1
     return Mesh(np.array(devices[:data * model], dtype=object)
                 .reshape(data, model), ("data", "model"))
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A stand-in mesh: axis names and their sizes, no devices. The memory
+    plans (``parallel/api.check_fits``, ``shard_param_bytes``,
+    ``train_state_bytes``, ``step_collective_bytes``) take it where they
+    take a :class:`Mesh`, each position its own device."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """The JAX package's production meshes as stand-ins: (16, 16) as
+    ("data", "model"), and with ``multi_pod`` (2, 16, 16) as ("pod",
+    "data", "model"). On H100s they stand for 32 or 64 nodes of 8 SXM
+    cards, NVLink within a node (8 consecutive positions in row-major
+    order) and InfiniBand between nodes. No process drives such a mesh:
+    the dry run plans it (``launch/dryrun.py``)."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
 
 
 def mesh_chip_count(mesh: Mesh) -> int:

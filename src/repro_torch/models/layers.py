@@ -122,11 +122,12 @@ def unembed(params, x):
     """Logits against the (vocab, embed) table; f32 for the softmax. Both
     operands are rounded to bf16 and the products summed in f32, as the
     JAX function's bf16 einsum with an f32 result: on the card one bf16
-    GEMM with an f32 output, on the CPU the same bf16 values widened."""
+    GEMM with an f32 output (on meta tensors too, so the dry run counts the
+    card's product), on the CPU the same bf16 values widened."""
     table = params["table"].to(torch.bfloat16)
     xb = x.to(torch.bfloat16)
     x2 = xb.reshape(-1, xb.shape[-1])
-    if x2.is_cuda:
+    if x2.is_cuda or x2.is_meta:
         out = _Bf16Logits.apply(x2, table)
     else:
         out = x2.float() @ table.float().t()

@@ -176,7 +176,7 @@ def train_state_specs(pspecs, compression: bool = False) -> Dict:
     return specs
 
 
-def _meta_cache(cfg: ModelConfig, batch: int, capacity: int,
+def abstract_cache(cfg: ModelConfig, batch: int, capacity: int,
                 enc_len: int) -> Dict:
     meta = torch.device("meta")
     if cfg.is_encdec:
@@ -198,7 +198,7 @@ def _cache_axes(cfg: ModelConfig) -> Dict:
 def cache_specs(cfg: ModelConfig, mesh, rules: LogicalRules, batch: int,
                 capacity: int, enc_len: int = 0):
     """(meta cache tree, its PartitionSpec tree)."""
-    shapes = _meta_cache(cfg, batch, capacity, enc_len)
+    shapes = abstract_cache(cfg, batch, capacity, enc_len)
     return shapes, logical_to_spec(_cache_axes(cfg), mesh, rules, shapes)
 
 
@@ -272,17 +272,31 @@ def shard_param_bytes(cfg: ModelConfig, mesh,
                            compute_dtype, cast=False, gathered=False)
 
 
-def _row_positions(mesh, rules: LogicalRules) -> List[int]:
-    """The mesh positions that run a row of a batch the batch axes
-    divide: the first along the axes the split does not use."""
+def _row_positions(mesh, rules: LogicalRules,
+                   batch: Optional[int] = None) -> List[int]:
+    """The mesh positions that run a row of a batch of ``batch`` examples
+    (default: one the batch axes divide), in row order: the first along
+    the axes the split does not use. ``mesh`` needs only ``shape``."""
     n = _mesh_size(mesh)
-    axes = divisible_fallback(mesh, (n,), ("batch",),
-                              LogicalRules(rules.rules))[0]
+    axes = divisible_fallback(mesh, (n if batch is None else batch,),
+                              ("batch",), LogicalRules(rules.rules))[0]
     pos = np.arange(n).reshape(tuple(mesh.shape.values()))
     used = () if axes is None else ((axes,) if isinstance(axes, str)
                                     else tuple(axes))
     index = tuple(slice(None) if a in used else 0 for a in mesh.shape)
-    return sorted(int(p) for p in np.asarray(pos[index]).reshape(-1))
+    grid = np.asarray(pos[index])
+    kept = [a for a in mesh.shape if a in used]
+    return [int(p) for p in grid.transpose(
+        [kept.index(a) for a in used]).reshape(-1)]
+
+
+def row_positions(mesh, rules: Optional[LogicalRules], batch: int
+                  ) -> List[int]:
+    """The mesh position of each row of a sharded step's batch of
+    ``batch`` examples, in row order (:func:`batch_row_devices` as
+    positions; ``mesh`` needs only ``shape``, so a stand-in plans a mesh
+    this process does not have)."""
+    return _row_positions(mesh, rules or DEFAULT_RULES, batch)
 
 
 def param_bytes(cfg: ModelConfig,
@@ -681,6 +695,87 @@ def batch_row_devices(mesh, rules: Optional[LogicalRules],
     return _row_devices(mesh, rules or DEFAULT_RULES, batch)
 
 
+# the cards of one node, joined by NVLink (H100 SXM: 8), in consecutive
+# mesh positions
+NODE_CARDS = 8
+
+
+def step_collective_bytes(cfg: ModelConfig, mesh,
+                          rules: Optional[LogicalRules] = None,
+                          batch: int = 1, *, train: bool = True
+                          ) -> List[Dict]:
+    """The bytes the port's sharded step moves into each mesh position,
+    computed from the layout (nothing runs): a list over positions of
+    ``{"all-gather": bytes a step, "all-reduce": bytes a step, "once":
+    {...}, "links": {kind: "nvlink" | "ib"}}``.
+
+    * **The gathered compute copy** (all-gather): the whole tree in the
+      compute dtype (``_casts`` leaves narrowed), received once by each
+      device that runs a row (the first row position there: a stand-in
+      mesh's positions are each their own device). Training gathers it
+      every step; serving once for the params tree (``compute_copy``),
+      recorded under ``once``, 0 a step.
+    * **The row sums** (all-reduce, training): each row's gradient of
+      every slice a position holds, added on the position's device in f32,
+      so ``rows x`` its shards' bytes at 4 bytes an element. (The slice
+      crosses in the gradient's dtype on the row's device, the compute
+      dtype for cast leaves; counted here in f32, the dtype it is summed
+      in.)
+    * **The logits** (serving): each row's (rows' batch, vocab) f32 logits
+      gathered onto the first row's device, a step.
+
+    A collective's group is the positions that send or receive it; it
+    crosses NVLink when they all lie in one node of ``NODE_CARDS``
+    consecutive positions in row-major order, InfiniBand otherwise.
+    ``mesh`` needs only ``shape``."""
+    rules = rules or DEFAULT_RULES
+    n = _mesh_size(mesh)
+    out = [{"all-gather": 0, "all-reduce": 0, "once": {}, "links": {}}
+           for _ in range(n)]
+    if not _sharded_mesh(mesh):
+        return out
+    shapes, specs = param_specs(cfg, mesh, LogicalRules(rules.rules))
+    rows = _row_positions(mesh, rules, batch)
+    devices = getattr(mesh, "devices", None)
+    gathers, seen = [], set()
+    for p in rows:
+        dev = p if devices is None else devices[p]
+        if dev not in seen:
+            seen.add(dev)
+            gathers.append(p)
+    whole, owners = 0, set()
+    shard_f32 = [0] * n
+    for leaf, spec in zip(optim.tree_leaves(shapes), optim.tree_leaves(specs)):
+        sharding = NamedSharding(mesh, spec)
+        item = (_dtype_size(cfg.adtype) if _casts(leaf, cfg.adtype)
+                else leaf.element_size())
+        whole += leaf.numel() * item
+        owners.update(sharding.owners(tuple(leaf.shape)))
+        numel = int(np.prod(sharding.shard_shape(tuple(leaf.shape))))
+        for p in range(n):
+            shard_f32[p] += numel * 4
+
+    def link(group) -> str:
+        return ("nvlink" if len({q // NODE_CARDS for q in group}) == 1
+                else "ib")
+    for p in gathers:
+        kind = "all-gather"
+        if train:
+            out[p][kind] += whole
+        else:
+            out[p]["once"] = {kind: whole}
+        out[p]["links"][kind] = link(owners | {p})
+    if train:
+        for p in range(n):
+            out[p]["all-reduce"] = len(rows) * shard_f32[p]
+            out[p]["links"]["all-reduce"] = link(set(rows) | {p})
+    elif len(rows) > 1:
+        per_row = batch // len(rows) * cfg.vocab_size * 4
+        out[rows[0]]["all-gather"] += (len(rows) - 1) * per_row
+        out[rows[0]]["links"]["all-gather"] = link(set(rows))
+    return out
+
+
 # ---------------------------------------------------------------- serving
 def make_cache(cfg: ModelConfig, batch: int, capacity: int,
                enc_len: int = 0, shardings=None, *,
@@ -789,7 +884,7 @@ def _mesh_serving_info(cfg, mesh, rules, batch_size, capacity, enc_len):
 def _cache_shapes(cfg: ModelConfig, batch: int, capacity: int,
                   enc_len: int) -> Dict:
     return tree_map(lambda a: (tuple(a.shape), a.dtype),
-                    _meta_cache(cfg, batch, capacity, enc_len))
+                    abstract_cache(cfg, batch, capacity, enc_len))
 
 
 def make_prefill_step(cfg: ModelConfig, mesh=None,
