@@ -2148,8 +2148,11 @@ def lm_train_phase(dev, gpu):
 # LM_SHARD_TOL; (b) h2o-danube-1.8b at full width in bf16 on an f32
 # master, LM_SHARD_FULL_STEPS steps of (batch, tokens a row), each loss
 # within LM_SHARD_FULL_TOL of the unsharded step's; (c) memory plans from
-# meta inits on 80 GB devices; (d) a reduced danube state saved on (4, 1)
-# and recovered onto the (2, 1) plan of two survivors
+# meta inits on 80 GB devices, each expected to fit (the serving plans
+# since the tensor-parallel steps gather one block at a time: before, the
+# whole gathered copy refused jamba and qwen2-vl); (d) a reduced danube
+# state saved on (4, 1) and recovered onto the (2, 1) plan of two
+# survivors
 LM_SHARD_MESHES = ((2, 2), (4, 1))
 LM_SHARD_ARCHS = {"h2o-danube-1.8b": "baseline", "olmoe-1b-7b": "baseline",
                   "mamba2-2.7b": "baseline", "jamba-v0.1-52b": "baseline",
@@ -2368,7 +2371,7 @@ def lm_shard_phase(dev, gpu):
 
     # -- (c) memory plans from meta inits, on 80 GB devices
     plans = []
-    for arch_, kind, shape in LM_SHARD_PLANS:
+    for arch_, kind, shape in LM_SHARD_PLANS:      # each must fit
         cfg_ = registry.get_config(arch_)
         stand = SimpleNamespace(shape={"data": shape[0], "model": shape[1]})
         dt = None if kind == "train" else cfg_.adtype
@@ -2386,6 +2389,9 @@ def lm_shard_phase(dev, gpu):
                       "max_stored_bytes": max(stored),
                       "max_position_bytes": max(need),
                       "verdict_80GB": verdict})
+        if verdict != "fits":
+            fail(f"lm_shard: the {kind} plan of {arch_} on {shape} does "
+                 f"not fit 80 GB: {verdict}")
 
     # -- (d) elastic: a reduced danube state saved on (4, 1), recovered
     # onto the (2, 1) plan of two survivors, one more step
@@ -2438,21 +2444,226 @@ def lm_shard_phase(dev, gpu):
             "plans": plans, "elastic": recovered, **gpu}
 
 
+# the lm_tp phase: the tensor-parallel serving steps (parallel/tp.py) on
+# the one card repeated. (a) every reduced arch in f32 on LM_TP_MESHES
+# (baseline: sequence-parallel prefill; whisper baseline), logits and
+# caches within LM_TP_TOL of unsharded; (b) qwen3-32b at full width in
+# bf16 on (1, 4): one device first (its greedy tokens and each step's
+# logits kept), then the mesh fed the same tokens: each step's logits
+# within LM_TP_FULL_RTOL of the step's largest, and the same greedy token
+# at every step but a near-tie (the one device's top two closer than
+# twice the step's logit difference); peak memory within LM_TP_PEAK_TOL
+# of the plan (api.serving_bytes over the four positions). Two bf16 runs
+# that differ only in the order of f32 sums drift apart with depth, 2.4%
+# of the largest logit at 64 layers (tools/tp_bf16_drift.py), so the
+# tokens of two free-running greedy runs part at the first near-tie
+LM_TP_MESHES = ((1, 4), (2, 2))
+LM_TP_BATCH, LM_TP_SEQ, LM_TP_DECODE = 4, 16, 4
+LM_TP_TOL = 1e-5
+LM_TP_FULL = ("qwen3-32b", 4, 512, 32)     # arch, batch, prompt, greedy
+LM_TP_FULL_RTOL = 5e-2
+LM_TP_PEAK_TOL = 0.10
+
+
+def lm_tp_phase(dev, gpu):
+    """Tensor, expert and sequence-parallel serving on the one card
+    repeated as (1, 4) and (2, 2) meshes (plain PyTorch: no kernel of the
+    port may launch on it)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.common.partitioning import rule_preset
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import api
+    from repro_torch.train import optim
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_lm_f32 import f32_unembed
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 checks in f32
+    K.reset_launch_counts()
+
+    def card_mesh(shape):
+        return Mesh(np.array([dev] * (shape[0] * shape[1]), dtype=object)
+                    .reshape(shape), ("data", "model"))
+
+    def serve(cfg, params, inp, n_gen, mesh=None, rules=None, greedy=False,
+              feed=None):
+        """(prefill logits, each step's logits, tokens fed, prefill ms,
+        decode ms a token, cache): fed ``inp["decode"]``, the greedy
+        tokens, or ``feed`` (B, n_gen)."""
+        b, s = inp["tokens"].shape
+        enc = s if cfg.is_encdec else 0
+        cap = s + n_gen
+        pre, info = api.make_prefill_step(cfg, mesh, rules, capacity=cap,
+                                          batch_size=b, enc_len=enc)
+        dec, _ = api.make_decode_step(cfg, mesh, rules, capacity=cap,
+                                      batch_size=b, enc_len=enc)
+        cache = (api.make_cache(cfg, b, cap, enc, device=dev) if mesh is None
+                 else api.make_cache(cfg, b, cap, enc, rules=rules,
+                                     shardings=info["cache"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first, cache = pre(params, lm_batch(cfg, inp, dev), cache)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        steps, toks = [], []
+        tok = torch.argmax(first, -1)[:, None]
+        t0 = time.perf_counter()
+        for i in range(n_gen):
+            if feed is not None:
+                tok = feed[:, i:i + 1].to(dev)
+            elif not greedy:
+                tok = torch.from_numpy(inp["decode"][:, i:i + 1]).to(dev)
+            toks.append(tok)
+            lg, cache = dec(params, cache, tok, s + i)
+            steps.append(lg)
+            tok = torch.argmax(lg, -1)[:, None]
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / n_gen
+        return first, steps, torch.cat(toks, 1), t_pre * 1e3, t_dec * 1e3, \
+            cache
+
+    def max_err(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    # -- (a) the ten reduced archs in f32: tensor-parallel against one device
+    reduced = {}
+    with f32_unembed():
+        for arch in registry.list_archs():
+            cfg = dataclasses.replace(registry.reduced_config(arch),
+                                      act_dtype="float32")
+            inp = lm_inputs(cfg, LM_TP_BATCH, LM_TP_SEQ, SEED)
+            one_p = api.init_params(cfg, SEED, device=dev)
+            first, steps, _, _, _, one_c = serve(cfg, one_p, inp,
+                                                 LM_TP_DECODE)
+            want = [first] + steps
+            one_c = optim.tree_leaves(one_c)
+            rows = {}
+            for shape in LM_TP_MESHES:
+                mesh, rules = card_mesh(shape), rule_preset("baseline")
+                sp = api.init_params(cfg, SEED, mesh, rules)
+                first, steps, _, _, _, cache = serve(cfg, sp, inp,
+                                                     LM_TP_DECODE, mesh,
+                                                     rules)
+                logit_err = max(max_err(a, b)
+                                for a, b in zip([first] + steps, want))
+                joined = optim.tree_leaves(cache.gather(dev))
+                cache_err = max(float(((a.double() - b.double()).abs() / (
+                    1 + b.double().abs())).max()) for a, b in zip(joined,
+                                                                  one_c))
+                row = {"groups": [len(g.positions) for g in cache.groups],
+                       "split": cache.split, "logit_max_abs_err": logit_err,
+                       "cache_max_rel_err": cache_err}
+                rows["x".join(map(str, shape))] = row
+                if logit_err > LM_TP_TOL or cache_err > LM_TP_TOL:
+                    fail(f"lm_tp[{arch} {shape}]: tensor-parallel against "
+                         f"one device beyond {LM_TP_TOL}: {row}")
+                del sp, cache
+            reduced[arch] = rows
+            del one_p, one_c
+    torch.cuda.empty_cache()
+
+    # -- (b) qwen3-32b at full width in bf16: one device (greedy), then
+    # (1, 4) fed the one device's tokens
+    arch, batch, prompt, n_gen = LM_TP_FULL
+    cfg = registry.get_config(arch)
+    inp = lm_inputs(cfg, batch, prompt, SEED)
+    full = {}
+    mesh, rules = card_mesh((1, 4)), rule_preset("baseline")
+    feed = None
+    for name, m_ in (("one_device", None), ("1x4", mesh)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = (api.init_params(cfg, SEED, device=dev,
+                                  compute_dtype=cfg.adtype) if m_ is None
+                  else api.init_params(cfg, SEED, m_, rules,
+                                       compute_dtype=cfg.adtype))
+        first, steps, toks, t_pre, t_dec, cache = serve(
+            cfg, params, inp, n_gen, m_, rules if m_ else None,
+            greedy=True, feed=feed)
+        torch.cuda.synchronize()
+        feed = toks
+        row = {"prefill_ms": t_pre, "decode_ms_per_token": t_dec,
+               "peak_bytes": torch.cuda.max_memory_allocated(dev),
+               "tokens": toks.cpu(),
+               "logits": [l.float().cpu() for l in [first] + steps]}
+        row["finite"] = all(bool(torch.isfinite(l).all())
+                            for l in row["logits"])
+        if m_ is not None:
+            plan = api.serving_bytes(cfg, m_, rules, cfg.adtype,
+                                     (batch, prompt + n_gen, 0))
+            row["plan_bytes"] = sum(sum(t) for t in plan.values())
+            row["plan_by_term"] = {k: sum(v) for k, v in plan.items()}
+            row["groups"] = [len(g.positions) for g in cache.groups]
+        full[name] = row
+        del params, cache, first, steps
+    torch.cuda.empty_cache()
+    one, tp_ = full["one_device"], full["1x4"]
+    # step i's logits (the prefill's first) pick token i of the one
+    # device's greedy run (the last step's pick is not fed)
+    picks = torch.cat([one["tokens"],
+                       one["logits"][-1].argmax(-1)[:, None]], 1)
+    rel, agree, ties, missed = [], 0, 0, []
+    for i, (a, b) in enumerate(zip(tp_["logits"], one["logits"])):
+        err = (a - b).abs().max(-1).values                  # per row
+        rel.append(float(err.max()) / float(b.abs().max()))
+        top2 = torch.topk(b, 2, -1).values
+        near = (top2[:, 0] - top2[:, 1]) <= 2 * err
+        same = a.argmax(-1) == picks[:, i]
+        agree += int(same.sum())
+        ties += int(near.sum())
+        missed += [(i, r) for r in range(batch) if not same[r]
+                   and not near[r]]
+    peak_err = abs(tp_["peak_bytes"] - tp_["plan_bytes"]) / tp_["plan_bytes"]
+    result = {"arch": arch, "batch": batch, "prompt": prompt,
+              "greedy_tokens": n_gen, "fed": "the one device's tokens",
+              "picks_equal": agree, "picks": batch * (n_gen + 1),
+              "near_ties": ties, "picks_missed_beyond_near_ties": missed,
+              "max_logits_rel_err": max(rel), "prefill_logits_rel_err":
+              rel[0], "last_logits_rel_err": rel[-1],
+              "peak_rel_err_vs_plan": peak_err,
+              "rtol": LM_TP_FULL_RTOL, "peak_tol": LM_TP_PEAK_TOL}
+    for name, row in full.items():
+        result[name] = {k: v for k, v in row.items()
+                        if k not in ("tokens", "logits")}
+    if missed or max(rel) > LM_TP_FULL_RTOL or peak_err > LM_TP_PEAK_TOL \
+            or not (one["finite"] and tp_["finite"]):
+        fail(f"lm_tp[{arch} full]: {result}")
+
+    launches = K.launch_counts()
+    if any(launches.values()):
+        fail(f"lm_tp: the tensor-parallel serving launched a kernel of the "
+             f"port: {launches}")
+    return {"phase": "lm_tp", "seconds": time.perf_counter() - t_phase,
+            "launches": launches, "tol": LM_TP_TOL,
+            "note": "one card repeated as each mesh: the positions share "
+                    "its memory and run one after another",
+            "reduced": reduced, "full": result, **gpu}
+
+
 # the dryrun phase: the children of (a) and (b), started together; (b)
 # is a subset of --all --mesh both (the whole sweep takes minutes on one
-# process): a train cell and the two serving cells the memory plans refuse
+# process): a train cell and two serving cells that the whole gathered
+# copy kept from fitting; since the tensor-parallel steps, only
+# qwen2-vl's decode on (16, 16) does not fit: its cache row (8 KV heads
+# do not split 16 ways), 85.9 GB
 DRYRUN_LM_CELLS = (("whisper-base", "train_4k"),
                    ("jamba-v0.1-52b", "decode_32k"),
                    ("qwen2-vl-72b", "decode_32k"))
-DRYRUN_NOT_FITTING = ("jamba-v0.1-52b", "qwen2-vl-72b")
+DRYRUN_NOT_FITTING = ("qwen2-vl-72b/decode_32k/single",)
 DRYRUN_TIMEOUT_S = 300
 # (c): one position's share of the 4k render step on 256 positions
 DRYRUN_APPS = ("nerf", "gia", "nsdf")
 DRYRUN_PIXELS = (1 << 21) // 256
 # (d): the card's own shapes on a one-position mesh: batch x tokens a row
 # (a train row comes with its labels, as lm_train_phase's rows do)
-DRYRUN_CARD = (("h2o-danube-1.8b", "train", 1, 6144),
-               ("qwen2-7b", "prefill", 4, 512))
+DRYRUN_CARD = (("h2o-danube-1.8b", "train", 1, 6144, None),
+               ("qwen2-7b", "prefill", 4, 512, None),
+               # a tensor-parallel serving cell: the one card as (1, 4),
+               # the whole group counted (dryrun.count_group)
+               ("qwen2-7b", "prefill", 4, 512, (1, 4)))
 DRYRUN_PEAK_TOL = 0.10
 
 
@@ -2507,7 +2718,7 @@ def dryrun_phase(dev, gpu):
     from repro_torch.configs.shapes import ShapeCell
     from repro_torch.core import fields, pipeline
     from repro_torch.launch import dryrun, roofline
-    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.mesh import Mesh, make_production_mesh
     from repro_torch.parallel import api
 
     t_phase = time.perf_counter()
@@ -2519,14 +2730,21 @@ def dryrun_phase(dev, gpu):
 
     # -- (d) LM steps at the card's shapes, counted on meta and run here
     card = {}
-    for arch, step_kind, batch, seq in DRYRUN_CARD:
+    for arch, step_kind, batch, seq, mesh_shape in DRYRUN_CARD:
         cfg = registry.get_config(arch)
         cell = ShapeCell("card", seq, batch, step_kind)
         names = ("tokens", "labels") if step_kind == "train" else ("tokens",)
         specs = {"batch": {n: torch.empty((batch, seq), dtype=torch.int32,
                                           device="meta") for n in names}}
-        counted, _ = dryrun.build_and_count(cfg, cell, dryrun.ONE_POSITION,
-                                            rules, specs=specs)
+        if mesh_shape is None:
+            counted, _ = dryrun.build_and_count(cfg, cell,
+                                                dryrun.ONE_POSITION, rules,
+                                                specs=specs)
+        else:
+            mesh = Mesh(np.array([dev] * int(np.prod(mesh_shape)),
+                                 dtype=object).reshape(mesh_shape),
+                        ("data", "model"))
+            counted = dryrun.count_group(cfg, cell, mesh, rules, specs=specs)
         rec = roofline.summarize(f"{arch}/card", counted, 1, 0.0)
         rng = np.random.default_rng(SEED)
         inputs = {n: torch.from_numpy(rng.integers(
@@ -2541,12 +2759,23 @@ def dryrun_phase(dev, gpu):
 
             def run():
                 return step(state, inputs)
-        else:
+        elif mesh_shape is None:
             params = api.init_params(cfg, SEED, device=dev,
                                      compute_dtype=cfg.adtype)
             cache = api.make_cache(cfg, batch, seq, device=dev)
             step, _ = api.make_prefill_step(cfg, capacity=seq,
                                             batch_size=batch)
+
+            def run():
+                return step(params, inputs, cache)
+        else:
+            params = api.init_params(cfg, SEED, mesh, rules,
+                                     compute_dtype=cfg.adtype)
+            step, info = api.make_prefill_step(cfg, mesh, rules,
+                                               capacity=seq,
+                                               batch_size=batch)
+            cache = api.make_cache(cfg, batch, seq, shardings=info["cache"],
+                                   rules=rules)
 
             def run():
                 return step(params, inputs, cache)
@@ -2565,7 +2794,7 @@ def dryrun_phase(dev, gpu):
         flops = fc.get_total_flops()
         counted_peak = rec["memory_analysis"]["peak_bytes"]
         row = {"batch": batch, "tokens_per_row": seq, "step": step_kind,
-               "counted_peak_bytes": counted_peak,
+               "mesh": mesh_shape, "counted_peak_bytes": counted_peak,
                "max_memory_allocated": peak,
                "peak_rel_err": abs(counted_peak - peak) / peak,
                "counted_matmul_flops": counted["flops"],
@@ -2573,7 +2802,8 @@ def dryrun_phase(dev, gpu):
                "bound_s": rec["bound_s"], "dominant": rec["dominant"],
                "step_ms": step_ms,
                "step_over_bound": step_ms / 1e3 / rec["bound_s"]}
-        card[arch] = row
+        card[arch if mesh_shape is None else
+             f"{arch} {'x'.join(map(str, mesh_shape))}"] = row
         del run, step
         state = params = cache = None
         if row["peak_rel_err"] > DRYRUN_PEAK_TOL or flops != counted["flops"] \
@@ -2655,7 +2885,7 @@ def dryrun_phase(dev, gpu):
                           "dominant": rec["dominant"],
                           "bound_s": rec["bound_s"]}
             if ma["state_bytes"] != plan[rec["position"]] or (
-                    arch in DRYRUN_NOT_FITTING) == ma["fits_h100_80g"]:
+                    key in DRYRUN_NOT_FITTING) == ma["fits_h100_80g"]:
                 fail(f"dryrun[{key}]: state bytes against the plan, or the "
                      f"fit verdict: {cells[key]}")
     shutil.rmtree(work, ignore_errors=True)
@@ -2764,6 +2994,7 @@ def main():
     emit(lm_phase(dev, gpu))
     emit(lm_train_phase(dev, gpu))
     emit(lm_shard_phase(dev, gpu))
+    emit(lm_tp_phase(dev, gpu))
 
     # ----------------------------------------------------------- dryrun
     # the dry run counted on meta in children, its counts held to the card

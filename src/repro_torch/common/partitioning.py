@@ -30,8 +30,11 @@ layout without devices.
 :func:`constrain` and :class:`ActivationSharder` are the models' activation
 hints (``with_sharding_constraint`` in JAX). They leave the value as it is,
 as the JAX constraint does, and record the same fallbacks: in the port a
-step's compute splits the batch over its rows (``parallel/api.py``), so
-an activation's layout is its row's and there is nothing to constrain.
+train step's compute splits the batch over its rows (``parallel/api.py``),
+so an activation's layout is its row's and there is nothing to constrain.
+The serving steps compute over 'model' on each row's tensor-parallel
+group instead (``parallel/tp.py``): their layout is explicit, one tensor a
+rank, and they hint nothing; the sharder carries only the MoE's rows.
 """
 from __future__ import annotations
 

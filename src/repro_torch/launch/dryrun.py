@@ -18,31 +18,39 @@ its arguments and the peak of its live allocations, and the kernels' work
 * **The meshes** are the JAX package's, as stand-ins
   (``launch/mesh.make_production_mesh``): (16, 16) and (2, 16, 16)
   positions, 32 or 64 nodes of 8 H100 SXM cards.
-* **LM cells** count what one position computes. The port's sharded step
-  runs each row of the batch on the row's device with the whole gathered
-  compute copy (``parallel/api``), so a cell counts one row at its local
-  batch (the global batch, or with ``num_microbatches`` a micro-batch,
-  over the rows: ``api.row_positions``) at the row position that holds
-  the most bytes, and records that device's numbers. Its arguments are
-  that position's state as the memory plans give it
-  (``train_state_bytes(mesh=)`` for training: its master, gradient and
-  moment shards, the compute copy of its shards and the gathered copy;
-  ``param_bytes(mesh=)`` for serving, params in the compute dtype), plus
-  its row of the batch (and of the cache). Training counts the cast of
-  its shards, the row's forward and backward on the gathered copy, the
-  row sums into its gradient shards (its own row's slice and one received
-  slice for every other row) and Adam on its shards; with
-  ``num_microbatches`` one micro-batch is counted and its FLOPs, bytes
-  and kernel work taken that many times (the peak is one micro-batch's:
-  the gradient shards that sum them are arguments). The MoE layer sees
-  the row as row 0 of the sharded step (``parallel/sharded.RowContext``):
-  the global token groups and their capacity. On a one-position mesh the
-  cell runs the port's one-device step itself (``api.make_train_step``,
-  ``make_prefill_step``, ``make_decode_step``).
-* **Collectives** come from the layout
-  (``parallel/api.step_collective_bytes``): the gathered compute copy (a
-  step when training; once for serving, recorded under ``once``), the row
-  sums and the serving logits, each priced at NVLink or InfiniBand.
+* **LM cells** count what one position computes, at the position that
+  holds the most bytes, and record that device's numbers.
+  - *Training*: the port's sharded train step runs each row of the batch
+    on the row's device with the whole gathered compute copy
+    (``parallel/api``), so a cell counts one row at its local batch (the
+    global batch, or with ``num_microbatches`` a micro-batch, over the
+    rows: ``api.row_positions``). Its arguments are that position's
+    state as ``train_state_bytes(mesh=)`` gives it (its master, gradient
+    and moment shards, the compute copy of its shards and the gathered
+    copy) plus its row of the batch. It counts the cast of its shards, the
+    row's forward and backward on the gathered copy, the row sums into its
+    gradient shards (its own row's slice and one received slice for every
+    other row) and Adam on its shards; with ``num_microbatches`` one
+    micro-batch is counted and its FLOPs, bytes and kernel work taken that
+    many times (the peak is one micro-batch's: the gradient shards that
+    sum them are arguments).
+  - *Serving*: each row runs on its tensor-parallel group
+    (``parallel/tp.py``), so a cell counts one rank of the first row's
+    group (``api.meta_serving_step``): its arguments are its param shards
+    (bf16), its cache and its row's inputs; each block's slice it gathers
+    is a temporary; the other ranks' collective terms are empty buffers
+    of their size. ``state_bytes`` is its plan, ``param_bytes(mesh=)``
+    (its shards and the largest block's copied slice).
+  The MoE layer sees the row as row 0 of the sharded step
+  (``parallel/sharded.RowContext``): the global token groups and their
+  capacity. On a one-position mesh the cell runs the port's one-device
+  step itself (``api.make_train_step``, ``make_prefill_step``,
+  ``make_decode_step``).
+* **Collectives** (``parallel/api.step_collective_bytes``): training's
+  from the layout (the gathered compute copy and the row sums); serving's
+  tallied in a run of the step on meta tensors (the group's all-reduces,
+  all-gathers and reduce-scatters and the block-wise gathers over
+  'data'); each priced at NVLink or InfiniBand.
 * **Depth.** The port has no ``lax.scan``: one count covers every layer,
   and every record says ``probe_meta: {"probe": "exact"}``, as JAX's
   depth-1 cells do. ``--no-probes`` is accepted and changes nothing.
@@ -79,7 +87,7 @@ from repro_torch.launch.mesh import (MeshShape, make_production_mesh,
                                      mesh_chip_count)
 from repro_torch.models import encdec, lm
 from repro_torch.obs import log as obs_log
-from repro_torch.parallel import api, sharded as sh
+from repro_torch.parallel import api, sharded as sh, tp
 from repro_torch.train import loop, optim
 
 _LOG = obs_log.get_logger("dryrun")
@@ -134,14 +142,19 @@ def _model(cfg):
     return encdec if cfg.is_encdec else lm
 
 
+def _enc_len(cfg, cell: ShapeCell) -> int:
+    """The encoder length of a serving cell's cache (whisper)."""
+    if not cfg.is_encdec:
+        return 0
+    return cell.seq_len if cell.step == "prefill" else min(cell.seq_len,
+                                                           32768)
+
+
 def _serving_inputs(cfg, cell: ShapeCell, batch: int, specs: Dict):
     """(cache tree, step inputs) of a serving step at ``batch`` examples."""
+    cache = api.abstract_cache(cfg, batch, cell.seq_len, _enc_len(cfg, cell))
     if cell.step == "prefill":
-        enc = cell.seq_len if cfg.is_encdec else 0
-        cache = api.abstract_cache(cfg, batch, cell.seq_len, enc)
         return cache, _rows_of(specs["batch"], cell.global_batch // batch)
-    enc = min(cell.seq_len, 32768) if cfg.is_encdec else 0
-    cache = api.abstract_cache(cfg, batch, cell.seq_len, enc)
     return cache, {"tokens": _meta((batch, 1), specs["tokens"].dtype)}
 
 
@@ -223,6 +236,17 @@ def _count_position(cfg, cell: ShapeCell, specs: Dict, mesh,
     """Position ``p``'s share of the sharded step (the module docstring),
     counted."""
     train = cell.step == "train"
+    if not train:
+        local = cell.global_batch // n_rows
+        cache, inp = _serving_inputs(cfg, cell, local, specs)
+        run, state = api.meta_serving_step(cfg, mesh, rules, cell.step, inp,
+                                           n_rows, cell.seq_len,
+                                           _enc_len(cfg, cell), p)
+        with roofline.Counter((state, inp)) as c:
+            out = run()
+        c.outputs(out)
+        return c.result(), api.param_bytes(cfg, cfg.adtype, mesh=mesh,
+                                           rules=rules)[p]
     st = _position_state(cfg, mesh, rules, p, train)
     leaves = []
     _map_states(st, leaves.append)
@@ -232,20 +256,6 @@ def _count_position(cfg, cell: ShapeCell, specs: Dict, mesh,
     sharder = ActivationSharder(mesh, LogicalRules(rules.rules)).for_row(
         sh.RowContext(n_rows), 0)
     model = _model(cfg)
-    if not train:
-        local = cell.global_batch // n_rows
-        cache, inp = _serving_inputs(cfg, cell, local, specs)
-        with roofline.Counter((state_args, gathered, cache, inp)) as c:
-            if cell.step == "prefill":
-                out = model.prefill(gathered, cfg, inp, cache,
-                                    sharder=sharder)
-            else:
-                out = model.decode_step(gathered, cfg, inp["tokens"],
-                                        cell.seq_len - 1, cache,
-                                        sharder=sharder)
-        c.outputs(out)
-        return c.result(), api.param_bytes(cfg, cfg.adtype, mesh=mesh,
-                                           rules=rules)[p]
     nmb = tc.num_microbatches
     row = _rows_of(specs["batch"], nmb * n_rows)
     with roofline.Counter((state_args, gathered, row)) as c:
@@ -284,6 +294,26 @@ def _count_position(cfg, cell: ShapeCell, specs: Dict, mesh,
     return res, api.train_state_bytes(cfg, tc, mesh=mesh, rules=rules)[p]
 
 
+def count_group(cfg, cell: ShapeCell, mesh, rules: LogicalRules,
+                specs: Optional[Dict] = None) -> Dict:
+    """The first row's whole tensor-parallel group of a serving cell,
+    counted on meta tensors as one process that drives the mesh runs it:
+    every rank's shards and cache are arguments (``chip_smoke.py``'s
+    ``dryrun`` holds this count to the card on a mesh of one card)."""
+    specs = specs or registry.input_specs(cfg, cell)
+    n_rows = len(api.row_positions(mesh, rules, cell.global_batch))
+    _, inp = _serving_inputs(cfg, cell, cell.global_batch // n_rows, specs)
+    p = tp.groups(mesh, rules, cell.global_batch)[0][0]
+    run, state = api.meta_serving_step(cfg, mesh, rules, cell.step, inp,
+                                       n_rows, cell.seq_len,
+                                       _enc_len(cfg, cell), p,
+                                       whole_group=True)
+    with roofline.Counter((state, inp)) as c:
+        out = run()
+    c.outputs(out)
+    return c.result()
+
+
 def _scaled(res: Dict, n: int) -> Dict:
     """A micro-batch's count taken ``n`` times (the memory is one
     micro-batch's)."""
@@ -312,17 +342,23 @@ def build_and_count(cfg, shape: Union[str, ShapeCell], mesh,
     train = cell.step == "train"
     split = cell.global_batch // (tc.num_microbatches if train else 1)
     rows = api.row_positions(mesh, rules, split)
-    coll = api.step_collective_bytes(cfg, mesh, rules, split, train=train)
+    coll = api.step_collective_bytes(
+        cfg, mesh, rules, split, train=train, step=cell.step,
+        seq=cell.seq_len, capacity=cell.seq_len, enc_len=_enc_len(cfg, cell))
     if not api._sharded_mesh(mesh):
         res, state = _count_one_device(cfg, cell, specs, tc)
         p = 0
     else:
-        plan = (api.train_state_bytes(cfg, tc, mesh=mesh, rules=rules)
-                if train else
-                api.param_bytes(cfg, cfg.adtype, mesh=mesh, rules=rules))
+        if train:
+            plan = api.train_state_bytes(cfg, tc, mesh=mesh, rules=rules)
+        else:       # every rank of every row's group computes
+            plan = api.param_bytes(cfg, cfg.adtype, mesh=mesh, rules=rules)
+            rows = [q for g in tp.groups(mesh, rules, split) for q in g]
         p = max(rows, key=lambda q: plan[q])
         res, state = _count_position(cfg, cell, specs, mesh, rules, tc, p,
-                                     len(rows))
+                                     len(api.row_positions(mesh, rules,
+                                                           split)))
+        rows = api.row_positions(mesh, rules, split)
     return res, {"position": p, "rows": len(rows),
                  "row_batch": split // len(rows), "state_bytes": int(state),
                  "coll": coll[p]}

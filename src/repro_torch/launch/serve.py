@@ -182,7 +182,8 @@ def serve_lm(arch: str, reduced: bool = True, batch: int = 2,
     ``arch`` (its ``reduced_config`` unless ``reduced=False``) through the
     ``parallel/api`` steps built from the local mesh (its default
     ``(1, 1)`` shape: one device, as the JAX function's ``make_local_mesh()``
-    is; a ``mesh`` of more devices shards the params and splits the batch);
+    is; a ``mesh`` of more devices shards the params, splits the batch and
+    runs each row on its tensor-parallel group: ``parallel/tp.py``);
     logs ``lm_served`` and ``lm_sample``, adds ``lm.prefill``/``lm.decode``
     tracer events, and returns (prefill seconds, decode seconds). The
     params are drawn on the device in the act dtype, with no f32 master
@@ -212,7 +213,8 @@ def serve_lm(arch: str, reduced: bool = True, batch: int = 2,
     params = api.init_params(cfg, seed, mesh, rules,
                              compute_dtype=cfg.adtype)
     cache = api.make_cache(cfg, batch, capacity, enc_len=enc_len,
-                           shardings=dsh.get("cache"), device=dev)
+                           shardings=dsh.get("cache"), device=dev,
+                           rules=rules)
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batch, prompt_len))).to(dev)

@@ -75,11 +75,38 @@ def _proj(x, w):
         x.shape[:-1] + (h, e))
 
 
-def _out_proj(out, wo):
-    """'bshe,hed->bsd'."""
+def _out_proj(out, wo, partial: bool = False):
+    """'bshe,hed->bsd'; ``partial``: the f32 products of a position's
+    heads, one term of a sum over the tensor-parallel group (rounded to
+    the act dtype once, after the sum, as one product over every head
+    rounds)."""
     h, e, d = wo.shape
-    return out.reshape(out.shape[:-2] + (h * e,)) @ wo.to(out.dtype) \
-        .reshape(h * e, d)
+    flat = out.reshape(out.shape[:-2] + (h * e,))
+    w = wo.to(out.dtype).reshape(h * e, d)
+    return layers.matmul_f32(flat, w) if partial else flat @ w
+
+
+def kv_select(cfg: ModelConfig, heads: int, kv_heads: int, rank: int):
+    """The KV heads that a position's ``heads`` query heads (the ``rank``-th
+    block of them) read, of the ``kv_heads`` it holds: None for all of
+    them (the heads whole, or the KV heads split alongside them); when the
+    KV heads fall back whole under split query heads, a slice of them, or
+    a list that repeats one where the local query heads' groups straddle
+    (each run of ``gcd(heads, group)`` query heads reads one KV head)."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if heads == h or kv_heads < kv:
+        return None
+    g = h // kv
+    first, c = rank * heads, math.gcd(heads, g)
+    sel = [(first + j * c) // g for j in range(heads // c)]
+    if sel == list(range(sel[0], sel[0] + len(sel))):
+        return slice(sel[0], sel[-1] + 1)
+    return sel
+
+
+def _take(kv: torch.Tensor, sel) -> torch.Tensor:
+    """The selected KV heads (dim 2) of (B, S, KV, hd)."""
+    return kv if sel is None else kv[:, :, sel]
 
 
 def _project_qkv(params, cfg: ModelConfig, x, kv_x, positions,
@@ -202,14 +229,18 @@ def _attend_maybe_chunked(q, k, v, cfg: ModelConfig,
 
 def attend_full(params, cfg: ModelConfig, x, positions, *,
                 causal: bool = True, kv_x=None, rope: bool = True,
-                sharder=None) -> torch.Tensor:
-    """Training / prefill / cross attention over the full sequence."""
+                sharder=None, kv_sel=None,
+                partial: bool = False) -> torch.Tensor:
+    """Training / prefill / cross attention over the full sequence.
+    ``params`` may be a position's heads (``kv_sel``, ``partial``: the
+    tensor-parallel path, ``models/blocks``)."""
     kv_x = x if kv_x is None else kv_x
     q, k, v = _project_qkv(params, cfg, x, kv_x, positions, rope=rope)
     if sharder is not None:
         q = sharder(q, "batch", "act_seq", "act_heads", "head_dim")
-    out = _attend_maybe_chunked(q, k, v, cfg, causal, sharder=sharder)
-    return _out_proj(out, params["wo"])
+    out = _attend_maybe_chunked(q, _take(k, kv_sel), _take(v, kv_sel), cfg,
+                                causal, sharder=sharder)
+    return _out_proj(out, params["wo"], partial)
 
 
 # ------------------------------------------------------------------ caches
@@ -243,12 +274,16 @@ def _time_positions(positions) -> torch.Tensor:
 
 
 def prefill_into_cache(params, cfg: ModelConfig, x, positions, cache,
-                       sharder=None) -> Tuple[torch.Tensor, Dict]:
+                       sharder=None, kv_sel=None, partial: bool = False
+                       ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence attention that also fills ``cache`` in place (the
-    last ``size`` tokens for a ring cache, rolled so slot = pos % size)."""
+    last ``size`` tokens for a ring cache, rolled so slot = pos % size).
+    ``kv_sel`` and ``partial`` as in :func:`attend_full`: the cache holds
+    every KV head the position computes."""
     q, k, v = _project_qkv(params, cfg, x, x, positions)
-    out = _attend_maybe_chunked(q, k, v, cfg, causal=True, sharder=sharder)
-    y = _out_proj(out, params["wo"])
+    out = _attend_maybe_chunked(q, _take(k, kv_sel), _take(v, kv_sel), cfg,
+                                causal=True, sharder=sharder)
+    y = _out_proj(out, params["wo"], partial)
 
     size = cache["k"].shape[1]
     s = k.shape[1]
@@ -269,11 +304,13 @@ def prefill_into_cache(params, cfg: ModelConfig, x, positions, cache,
 
 
 def decode_step_attn(params, cfg: ModelConfig, x, pos: int, cache,
-                     sharder=None) -> Tuple[torch.Tensor, Dict]:
+                     sharder=None, kv_sel=None, partial: bool = False
+                     ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. x (B, 1, d); ``pos`` a host int (lockstep batch).
 
     Full cache: slot == pos. Ring cache: slot == pos % size; masking is by
-    stored absolute slot positions, so both are one code path."""
+    stored absolute slot positions, so both are one code path. ``kv_sel``
+    and ``partial`` as in :func:`attend_full`."""
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
     if cfg.m_rope_sections is not None:
@@ -288,6 +325,7 @@ def decode_step_attn(params, cfg: ModelConfig, x, pos: int, cache,
     valid = (spos >= 0) & (spos <= pos)
     if cfg.swa_window is not None:
         valid = valid & (spos > pos - cfg.swa_window)
-    out = _grouped_attend(q, cache["k"], cache["v"], valid[None, None, :],
+    out = _grouped_attend(q, _take(cache["k"], kv_sel),
+                          _take(cache["v"], kv_sel), valid[None, None, :],
                           sharder=sharder)
-    return _out_proj(out, params["wo"]), cache
+    return _out_proj(out, params["wo"], partial), cache

@@ -14,6 +14,10 @@ CE's sequence chunks and chunked attention's query blocks always, and
 each encoder and decoder layer under ``cfg.remat``. The JAX package
 checkpoints only the first two here; the per-layer recompute changes
 memory, not the gradients.
+
+``prefill_tp`` and ``decode_step_tp`` serve on a tensor-parallel group as
+``models/lm.py``'s do (heads and ``mlp`` split, the tied table
+vocab-parallel); the cross-attention cache holds each rank's KV heads.
 """
 from __future__ import annotations
 
@@ -25,8 +29,9 @@ import torch
 from repro_torch.common.param import Boxed, KeyGen, normal_init, \
     tree_from_numpy, tree_map, unbox, unstack
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, remat
+from repro_torch.models import attention, blocks, layers, remat
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives as coll
 
 MAX_DEC_POSITIONS = 448
 
@@ -247,3 +252,160 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, pos,
     x = layers.layernorm(params["dec_ln"], x)
     logits = layers.unembed(params["embedding"], x)[:, 0]
     return logits, cache
+
+
+# ------------------------------------------------------ tensor parallelism
+def _attn_tp(tp, cfg: ModelConfig, ps, name: str):
+    """(each rank's KV selection, True when the heads split)."""
+    heads, kv_heads, partial = blocks._heads_tp(cfg, ps, name)
+    return [attention.kv_select(cfg, heads, kv_heads, r)
+            for r in tp.ranks], partial
+
+
+def _mlp_tp(tp, cfg: ModelConfig, ps, xs, ln: str, sp: bool):
+    """The gelu MLP half of a layer on the group, its ``b_down`` added
+    once after the sum."""
+    hs = blocks.whole_seq(tp, [layers.layernorm(p[ln], x)
+                               for p, x in zip(ps, xs)], sp)
+    partial = ps[0]["mlp"]["w_up"].shape[-1] < cfg.d_ff
+    parts = [layers.gelu_mlp(p["mlp"], h, partial=partial)
+             for p, h in zip(ps, hs)]
+    return blocks.mix_into(tp, xs, parts, partial, sp,
+                           [p["mlp"]["b_down"] for p in ps]
+                           if partial else None)
+
+
+def _on_ranks(tp, t: torch.Tensor):
+    return [t.to(tp.devices[r]) for r in tp.ranks]
+
+
+def _seq_slice(tp, xs, sp: bool):
+    if not sp:
+        return xs
+    n = xs[0].shape[1] // tp.size
+    return [x[:, r * n:(r + 1) * n] for r, x in zip(tp.ranks, xs)]
+
+
+def encode_tp(src, cfg: ModelConfig, frames: torch.Tensor, sp: bool):
+    """:func:`encode` on the group; the encoder's output whole on every
+    rank (the decoder's cross-attention reads all of it)."""
+    tp = src.group
+    b, s, _ = frames.shape
+    pe = layers.sinusoidal_positions(s, cfg.d_model, frames.device)
+    xs = _seq_slice(tp, [(f.to(cfg.adtype) + e.to(cfg.adtype)[None])
+                         for f, e in zip(_on_ranks(tp, frames),
+                                         _on_ranks(tp, pe))], sp)
+    positions = _on_ranks(tp, torch.zeros((b, s), dtype=torch.int32,
+                                            device=frames.device))
+    for i in range(cfg.n_layers):
+        ps = src.block(("enc_layers",), i)
+        sel, partial = _attn_tp(tp, cfg, ps, "attn")
+        hs = blocks.whole_seq(tp, [layers.layernorm(p["ln1"], x)
+                                   for p, x in zip(ps, xs)], sp)
+        parts = [attention.attend_full(p["attn"], cfg, h, pos, causal=False,
+                                       kv_sel=k, partial=partial)
+                 for p, h, pos, k in zip(ps, hs, positions, sel)]
+        xs = blocks.mix_into(tp, xs, parts, partial, sp)
+        xs = _mlp_tp(tp, cfg, ps, xs, "ln2", sp)
+        del ps              # this layer's slices, before the next's
+    xs = [layers.layernorm(p, x) for p, x in zip(src.block(("enc_ln",)), xs)]
+    return blocks.whole_seq(tp, xs, sp)
+
+
+def _cross_tp(tp, cfg, ps, hs, caches, i: int, enc=None):
+    """Each rank's cross-attention heads against the encoder's keys and
+    values (written into the cache at prefill, from ``enc``)."""
+    sel, partial = _attn_tp(tp, cfg, ps, "xattn")
+    parts = []
+    for j, (p, h, c, k) in enumerate(zip(ps, hs, caches, sel)):
+        xp = p["xattn"]
+        if enc is not None:
+            c["cross"]["k"][i] = attention._proj(enc[j], xp["wk"])
+            c["cross"]["v"][i] = attention._proj(enc[j], xp["wv"])
+        ck, cv = c["cross"]["k"][i], c["cross"]["v"][i]
+        q = attention._proj(h, xp["wq"])
+        if enc is not None:
+            out = attention._attend_maybe_chunked(
+                q, attention._take(ck, k), attention._take(cv, k), cfg,
+                causal=False)
+        else:
+            mask = torch.ones((1, 1, ck.shape[1]), dtype=torch.bool,
+                              device=h.device)
+            out = attention._grouped_attend(q, attention._take(ck, k),
+                                            attention._take(cv, k), mask)
+        parts.append(attention._out_proj(out, xp["wo"], partial))
+    return parts, partial
+
+
+def prefill_tp(src, cfg: ModelConfig, batch: Dict, caches, sp: bool,
+               sp_enc: bool = False, sharder=None) -> torch.Tensor:
+    """:func:`prefill` on the group of ``src`` (``models/lm.prefill_tp``):
+    ``sp_enc`` splits the encoder's stream, ``sp`` the decoder's."""
+    tp = src.group
+    enc = encode_tp(src, cfg, batch["enc_embeddings"], sp_enc)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    xs = _embed_tp(src, cfg, tokens, sp)
+    xs = [x + e for x, e in zip(xs, _seq_slice(tp, [
+        _dec_positions({"dec_pos": t}, cfg, s)[None] for t in
+        src.block(("dec_pos",))], sp))]
+    positions = _on_ranks(tp, torch.arange(
+        s, dtype=torch.int32, device=tokens.device)[None].expand(b, s))
+    for i in range(cfg.n_layers):
+        ps = src.block(("dec_layers",), i)
+        sel, partial = _attn_tp(tp, cfg, ps, "attn")
+        hs = blocks.whole_seq(tp, [layers.layernorm(p["ln1"], x)
+                                   for p, x in zip(ps, xs)], sp)
+        parts = [attention.prefill_into_cache(
+            p["attn"], cfg, h, pos, _layer(c["self"], i), kv_sel=k,
+            partial=partial)[0]
+            for p, h, pos, c, k in zip(ps, hs, positions, caches, sel)]
+        xs = blocks.mix_into(tp, xs, parts, partial, sp)
+        hs = blocks.whole_seq(tp, [layers.layernorm(p["ln_x"], x)
+                                   for p, x in zip(ps, xs)], sp)
+        parts, partial = _cross_tp(tp, cfg, ps, hs, caches, i, enc)
+        xs = blocks.mix_into(tp, xs, parts, partial, sp)
+        xs = _mlp_tp(tp, cfg, ps, xs, "ln2", sp)
+        del ps
+    last = [x[:, -1:] for x in xs]
+    if sp:
+        last = [x[:, -1:] for x in coll.all_gather(tp, last, 1)]
+    return _logits_tp(src, cfg, last)
+
+
+def _embed_tp(src, cfg: ModelConfig, tokens, sp: bool):
+    tables = [p["table"] for p in src.block(("embedding",))]
+    return layers.embed_tp(src.group, tables, _on_ranks(src.group, tokens),
+                           cfg.adtype, cfg.vocab_size, sp)
+
+
+def _logits_tp(src, cfg: ModelConfig, xs):
+    xs = [layers.layernorm(p, x) for p, x in zip(src.block(("dec_ln",)), xs)]
+    tables = [p["table"] for p in src.block(("embedding",))]
+    return layers.unembed_tp(src.group, tables, xs, cfg.vocab_size)[0][:, 0]
+
+
+def decode_step_tp(src, cfg: ModelConfig, tokens: torch.Tensor, pos,
+                   caches, sharder=None) -> torch.Tensor:
+    """:func:`decode_step` on the group of ``src``: the logits (B, V) on
+    its first rank, ``caches`` updated in place."""
+    tp = src.group
+    pos = int(pos)
+    xs = _embed_tp(src, cfg, tokens, False)
+    xs = [x + t[min(pos, t.shape[0] - 1)][None].to(cfg.adtype)[None]
+          for x, t in zip(xs, src.block(("dec_pos",)))]
+    for i in range(cfg.n_layers):
+        ps = src.block(("dec_layers",), i)
+        sel, partial = _attn_tp(tp, cfg, ps, "attn")
+        hs = [layers.layernorm(p["ln1"], x) for p, x in zip(ps, xs)]
+        parts = [attention.decode_step_attn(
+            p["attn"], cfg, h, pos, _layer(c["self"], i), kv_sel=k,
+            partial=partial)[0]
+            for p, h, c, k in zip(ps, hs, caches, sel)]
+        xs = blocks.mix_into(tp, xs, parts, partial, False)
+        hs = [layers.layernorm(p["ln_x"], x) for p, x in zip(ps, xs)]
+        parts, partial = _cross_tp(tp, cfg, ps, hs, caches, i)
+        xs = blocks.mix_into(tp, xs, parts, partial, False)
+        xs = _mlp_tp(tp, cfg, ps, xs, "ln2", False)
+        del ps
+    return _logits_tp(src, cfg, xs)

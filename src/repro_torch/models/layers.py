@@ -25,7 +25,7 @@ def init_rmsnorm(kg: KeyGen, d: int, dtype=torch.float32,
                            (axis_name,))}
 
 
-def _sumsq_f32(x: torch.Tensor) -> torch.Tensor:
+def sumsq_f32(x: torch.Tensor) -> torch.Tensor:
     """sum(x * x) over the last dim, accumulated in f32 without an f32
     copy of x (the reduction widens each element as it reads it)."""
     if x.dtype == torch.float32:
@@ -34,8 +34,13 @@ def _sumsq_f32(x: torch.Tensor) -> torch.Tensor:
     return n * n
 
 
-def rmsnorm(params, x, eps: float = 1e-6):
-    var = (_sumsq_f32(x) / x.shape[-1])[..., None]
+def rmsnorm(params, x, eps: float = 1e-6, sumsq=None, n=None):
+    """``sumsq`` and ``n``: the f32 sum of squares and the width of the
+    whole dim, when ``x`` is a position's slice of it (the SSM's gated
+    norm under tensor parallelism: the group sums its slices' squares)."""
+    if sumsq is None:
+        sumsq, n = sumsq_f32(x), x.shape[-1]
+    var = (sumsq / n)[..., None]
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * params["scale"].to(x.dtype)
 
@@ -49,7 +54,7 @@ def init_layernorm(kg: KeyGen, d: int, dtype=torch.float32,
 def layernorm(params, x, eps: float = 1e-5):
     n = x.shape[-1]
     mu = (x.sum(-1, dtype=torch.float32) / n)[..., None]
-    ex2 = (_sumsq_f32(x) / n)[..., None]
+    ex2 = (sumsq_f32(x) / n)[..., None]
     var = ex2 - mu * mu
     inv = torch.rsqrt(var + eps)
     y = (x - mu.to(x.dtype)) * inv.to(x.dtype)
@@ -58,7 +63,7 @@ def layernorm(params, x, eps: float = 1e-5):
 
 def head_rmsnorm(scale, x, eps: float = 1e-6):
     """qk-norm: RMSNorm over the head_dim of (B, S, H, hd)."""
-    var = (_sumsq_f32(x) / x.shape[-1])[..., None]
+    var = (sumsq_f32(x) / x.shape[-1])[..., None]
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * scale.to(x.dtype)
 
@@ -73,6 +78,22 @@ def init_linear(kg: KeyGen, d_in: int, d_out: int, axes,
         p["b"] = Boxed(zeros_init(kg(), lead + (d_out,), dtype),
                        tuple(bias_axes or (axes[-1],)))
     return p
+
+
+def matmul_f32(x, w):
+    """``x @ w`` summed and returned in f32 (``w`` in ``x``'s dtype): a
+    position's term of a row-parallel product, rounded to the act dtype
+    only after the tensor-parallel group's sum. bf16 operands on the card
+    (and on meta tensors, for the dry run's count) are one GEMM with an f32
+    output; the CPU widens them (the same products)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda or x2.is_meta:
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        out = x2.float() @ w.float()
+    return out.reshape(x.shape[:-1] + (w.shape[-1],))
 
 
 def linear(params, x, act_dtype=None):
@@ -94,6 +115,34 @@ def init_embedding(kg: KeyGen, vocab: int, d: int, dtype=torch.float32):
 
 def embed(params, ids, act_dtype):
     return params["table"][ids].to(act_dtype)
+
+
+def embed_tp(tp, tables, ids, act_dtype, vocab: int, sp: bool = False):
+    """The embedding on a tensor-parallel group (``parallel/collectives.
+    Group``): ``tables`` each running rank's rows of the (vocab, embed)
+    table, ``ids`` its copy of the (B, S) ids. Vocab-parallel when the
+    rows split: each rank looks up the ids in its rows, zero elsewhere,
+    and the group sums (exact: one term is not zero); with ``sp`` each
+    rank keeps its slice of the sequence. A whole table is looked up on
+    every rank."""
+    from repro_torch.parallel import collectives as coll
+    rows = tables[0].shape[0]
+    if rows == vocab:
+        if sp:
+            n = ids[0].shape[1] // tp.size
+            ids = [i[:, r * n:(r + 1) * n] for r, i in zip(tp.ranks, ids)]
+        return [embed({"table": t}, i, act_dtype)
+                for t, i in zip(tables, ids)]
+    parts = []
+    for r, t, i in zip(tp.ranks, tables, ids):
+        local = i - r * rows
+        mine = (local >= 0) & (local < rows)
+        e = t[local.clamp(0, rows - 1)].to(act_dtype)
+        parts.append(torch.where(mine[..., None], e,
+                                 torch.zeros((), dtype=act_dtype,
+                                             device=e.device)))
+    return (coll.reduce_scatter(tp, parts, 1) if sp
+            else coll.all_reduce(tp, parts))
 
 
 class _Bf16Logits(torch.autograd.Function):
@@ -132,6 +181,17 @@ def unembed(params, x):
     else:
         out = x2.float() @ table.float().t()
     return out.reshape(x.shape[:-1] + (table.shape[0],))
+
+
+def unembed_tp(tp, tables, xs, vocab: int):
+    """Logits on a tensor-parallel group: each rank's vocab columns of the
+    logits (:func:`unembed` against its rows of the table), gathered whole
+    on every rank; a whole table gives every rank the whole logits."""
+    from repro_torch.parallel import collectives as coll
+    parts = [unembed({"table": t}, x) for t, x in zip(tables, xs)]
+    if tables[0].shape[0] == vocab:
+        return parts
+    return coll.all_gather(tp, parts, -1)
 
 
 # ---------------------------------------------------------------- RoPE
@@ -202,7 +262,10 @@ def init_swiglu(kg: KeyGen, d: int, d_ff: int, dtype=torch.float32,
     }
 
 
-def swiglu(params, x, sharder=None):
+def swiglu(params, x, sharder=None, partial: bool = False):
+    """``partial``: ``params`` are a position's ``mlp`` columns (rows of
+    ``w_down``) and the result is its f32 term of the group's sum
+    (:func:`matmul_f32`)."""
     dt = x.dtype
     g = x @ params["w_gate"].to(dt)
     u = x @ params["w_up"].to(dt)
@@ -210,6 +273,8 @@ def swiglu(params, x, sharder=None):
     h = F.silu(g) * u
     if sharder is not None:
         h = sharder(h, "batch", "act_seq", "act_mlp")
+    if partial:
+        return matmul_f32(h, params["w_down"].to(dt))
     return h @ params["w_down"].to(dt)
 
 
@@ -225,10 +290,14 @@ def init_gelu_mlp(kg: KeyGen, d: int, d_ff: int, dtype=torch.float32,
     }
 
 
-def gelu_mlp(params, x, sharder=None):
+def gelu_mlp(params, x, sharder=None, partial: bool = False):
+    """``partial`` as in :func:`swiglu`, without ``b_down``: the caller
+    adds it once, after the group's sum."""
     dt = x.dtype
     h = x @ params["w_up"].to(dt) + params["b_up"].to(dt)
     h = F.gelu(h, approximate="tanh")
     if sharder is not None:
         h = sharder(h, "batch", "act_seq", "act_mlp")
+    if partial:
+        return matmul_f32(h, params["w_down"].to(dt))
     return h @ params["w_down"].to(dt) + params["b_down"].to(dt)

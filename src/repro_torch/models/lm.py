@@ -18,6 +18,13 @@ is recomputed by the backward, so no chunk's (B, c, V) logits are kept.
 ``hidden_states`` takes the period slices with ``common.param.unstack``
 (one ``unbind`` a leaf, one gradient stack in the backward). The serving
 path runs without autograd and recomputes nothing.
+
+``prefill_tp`` and ``decode_step_tp`` serve on a tensor-parallel group
+(``models/blocks``): the params come from a block source (``parallel/
+api``), which hands each running rank its slice of one block at a time
+(``src.block(path, period)``: the embedding, each sub-layer of a period,
+the final norm, the unembedding), and each block's slices are dropped
+once the block has run.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from repro_torch.common.param import Boxed, KeyGen, tree_from_numpy, \
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers, remat
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives as coll
 
 
 def n_periods(cfg: ModelConfig) -> int:
@@ -239,3 +247,74 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = layers.unembed(_unembed_table(params), x)[:, 0]
     return logits, cache
+
+
+# ------------------------------------------------------ tensor parallelism
+def _on_ranks(tp, t: torch.Tensor):
+    """``t`` on each running rank's device."""
+    return [t.to(tp.devices[r]) for r in tp.ranks]
+
+
+def _embed_inputs_tp(src, cfg: ModelConfig, batch: Dict, sp: bool):
+    tp = src.group
+    if "embeddings" in batch:
+        xs = [e.to(cfg.adtype) for e in _on_ranks(tp, batch["embeddings"])]
+        if sp:
+            n = xs[0].shape[1] // tp.size
+            xs = [x[:, r * n:(r + 1) * n] for r, x in zip(tp.ranks, xs)]
+        return xs
+    tables = [p["table"] for p in src.block(("embedding",))]
+    return layers.embed_tp(tp, tables, _on_ranks(tp, batch["tokens"]),
+                           cfg.adtype, cfg.vocab_size, sp)
+
+
+def _logits_tp(src, cfg: ModelConfig, xs):
+    """Final norm and unembedding of each rank's (B, 1, d): the logits
+    (B, V) on rank 0 of the group."""
+    xs = [layers.rmsnorm(p, x, cfg.norm_eps)
+          for p, x in zip(src.block(("final_norm",)), xs)]
+    key = "unembedding" if "unembedding" in src.keys else "embedding"
+    tables = [p["table"] for p in src.block((key,))]
+    return layers.unembed_tp(src.group, tables, xs, cfg.vocab_size)[0][:, 0]
+
+
+def prefill_tp(src, cfg: ModelConfig, batch: Dict, caches, sp: bool,
+               sharder=None) -> torch.Tensor:
+    """:func:`prefill` on the tensor-parallel group of the block source
+    ``src``: ``caches`` one per running rank (its KV or SSM heads), filled
+    in place; ``sp`` splits the stream along the sequence. Returns the
+    last-token logits (B, V) on the group's first rank."""
+    tp = src.group
+    xs = _embed_inputs_tp(src, cfg, batch, sp)
+    inp = batch["embeddings" if "embeddings" in batch else "tokens"]
+    positions = _on_ranks(tp, _positions(cfg, batch, inp.shape[0],
+                                         inp.shape[1], inp.device))
+    period = blocks.block_period(cfg)
+    for i in range(n_periods(cfg)):
+        for p in range(period):
+            xs = blocks.prefill_block_tp(
+                tp, src.block(("blocks", f"sub{p}"), i), cfg, p, xs,
+                positions, [_index(c[f"sub{p}"], i) for c in caches], sp,
+                sharder=_layer_sharder(sharder, i, p))
+    last = [x[:, -1:] for x in xs]
+    if sp:          # the last token is the last rank's
+        last = [x[:, -1:] for x in coll.all_gather(tp, last, 1)]
+    return _logits_tp(src, cfg, last)
+
+
+def decode_step_tp(src, cfg: ModelConfig, tokens: torch.Tensor, pos,
+                   caches, sharder=None) -> torch.Tensor:
+    """:func:`decode_step` on the tensor-parallel group of ``src``: the
+    logits (B, V) on the group's first rank; ``caches`` updated in
+    place."""
+    tp = src.group
+    pos = int(pos)
+    xs = _embed_inputs_tp(src, cfg, {"tokens": tokens}, False)
+    period = blocks.block_period(cfg)
+    for i in range(n_periods(cfg)):
+        for p in range(period):
+            xs = blocks.decode_block_tp(
+                tp, src.block(("blocks", f"sub{p}"), i), cfg, p, xs, pos,
+                [_index(c[f"sub{p}"], i) for c in caches],
+                sharder=_layer_sharder(sharder, i, p))
+    return _logits_tp(src, cfg, xs)

@@ -57,9 +57,17 @@ def moe_capacity(m: MoEConfig, group_size: int) -> int:
     return max(4, int(per * m.capacity_factor))
 
 
-def apply_moe(params, cfg: ModelConfig, x: torch.Tensor, sharder=None
+def apply_moe(params, cfg: ModelConfig, x: torch.Tensor, sharder=None,
+              logits=None, first_expert: int = 0, partial: bool = False
               ) -> Tuple[torch.Tensor, Dict]:
     """x (B, S, d) -> (y (B, S, d), aux metrics as 0-d tensors).
+
+    Expert parallelism (``models/blocks``): ``params`` hold a position's
+    experts, from ``first_expert`` on, ``logits`` are the router's (n, E)
+    f32 logits of every expert (the group gathers its column-parallel
+    pieces), and with ``partial`` the result is the position's f32 term of
+    the group's sum: its experts' picks, weighted, summed over k. Routing,
+    capacity and slots are the whole group's, on every position.
 
     On a sharded step (``sharder.rows`` set) ``x`` is one row of the
     step's batch: the token groups, their capacity and each assignment's
@@ -86,7 +94,8 @@ def apply_moe(params, cfg: ModelConfig, x: torch.Tensor, sharder=None
         sharder(xt.reshape(n_groups, n // n_groups, d)
                 if n % n_groups == 0 else xt[None], "batch", None, None)
 
-    logits = (xt @ params["router"].to(dt)).float()
+    if logits is None:
+        logits = (xt @ params["router"].to(dt)).float()
     probs = torch.softmax(logits, dim=-1)                    # (n, E)
     gate, expert_id = torch.topk(probs, k, dim=-1)           # (n, k)
     gate = gate / gate.sum(-1, keepdim=True)
@@ -111,10 +120,18 @@ def apply_moe(params, cfg: ModelConfig, x: torch.Tensor, sharder=None
     flat_pos = torch.gather(pos, 1, flat_expert[:, None])[:, 0]
     keep = flat_pos < cap
     safe_pos = torch.where(keep, flat_pos, cap - 1)
-    src = torch.where(keep[:, None], xt[token_idx],
+    # the position's experts: the rest of the assignments are others'
+    e_local = params["w_gate"].shape[0]
+    local_expert, mine = flat_expert, keep
+    if e_local < e:
+        local_expert = flat_expert - first_expert
+        mine = keep & (local_expert >= 0) & (local_expert < e_local)
+        local_expert = local_expert.clamp(0, e_local - 1)
+    src = torch.where(mine[:, None], xt[token_idx],
                       torch.zeros((), dtype=dt, device=dev))
-    buf = torch.zeros((n_groups, e, cap, d), dtype=dt, device=dev)
-    buf.index_put_((flat_group, flat_expert, safe_pos), src, accumulate=True)
+    buf = torch.zeros((n_groups, e_local, cap, d), dtype=dt, device=dev)
+    buf.index_put_((flat_group, local_expert, safe_pos), src,
+                   accumulate=True)
     if sharder is not None:   # (G, E, C, d): the token -> expert a2a
         buf = sharder(buf, "batch", "act_expert", None, None)
 
@@ -127,11 +144,13 @@ def apply_moe(params, cfg: ModelConfig, x: torch.Tensor, sharder=None
         out = sharder(out, "batch", "act_expert", None, None)
 
     # combine: each token's k picks, weighted, summed in k order
-    picked = out[flat_group, flat_expert, safe_pos]          # (n*k, d)
-    picked = torch.where(keep[:, None], picked,
+    picked = out[flat_group, local_expert, safe_pos]         # (n*k, d)
+    picked = torch.where(mine[:, None], picked,
                          torch.zeros((), dtype=dt, device=dev))
     weighted = picked * gate.reshape(n * k, 1).to(dt)
-    y = weighted.reshape(n, k, d).sum(1)
+    # a partial term stays f32 for the group's sum
+    y = weighted.reshape(n, k, d)
+    y = y.float().sum(1) if partial else y.sum(1)
 
     counts = onehot.sum(0)
     density = counts.float() / (n * k)

@@ -70,11 +70,16 @@ def init_ssm(kg: KeyGen, cfg: ModelConfig, lead: Tuple[int, ...] = ()
     }
 
 
-def _split_in_proj(cfg: ModelConfig, zxbcdt):
-    s = cfg.ssm
-    di = s.d_inner(cfg.d_model)
-    g = s.n_groups * s.d_state
-    nh = s.n_heads(cfg.d_model)
+def _dims(params, cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(d_inner, heads, n_groups * d_state) of ``params``: the whole
+    block's, or a position's heads under tensor parallelism (its columns
+    of z, x and dt; B and C whole)."""
+    return (params["norm_scale"].shape[-1], params["A_log"].shape[-1],
+            cfg.ssm.n_groups * cfg.ssm.d_state)
+
+
+def _split_in_proj(params, cfg: ModelConfig, zxbcdt):
+    di, nh, g = _dims(params, cfg)
     return torch.split(zxbcdt, [di, di, g, g, nh], dim=-1)
 
 
@@ -168,18 +173,17 @@ def ssd_chunk(cfg: ModelConfig, s: int) -> int:
                 if s % c == 0)
 
 
-def apply_ssm(params, cfg: ModelConfig, x, sharder=None,
-              return_state: bool = False):
-    """Full-sequence Mamba-2 block. x (B, S, d) -> (B, S, d)."""
+def ssm_inner(params, cfg: ModelConfig, x, sharder=None):
+    """The block up to its gated norm: (y (B, S, d_inner), the gate z, the
+    final SSD state, the conv state). ``params`` may be a position's heads
+    (:func:`_dims`)."""
     s_cfg = cfg.ssm
     dt_act = x.dtype
     b, s, d = x.shape
-    di = s_cfg.d_inner(d)
-    nh = s_cfg.n_heads(d)
-    g = s_cfg.n_groups * s_cfg.d_state
+    di, nh, g = _dims(params, cfg)
 
     zxbcdt = x @ params["w_in"].to(dt_act)
-    z, xin, B, C, dtp = _split_in_proj(cfg, zxbcdt)
+    z, xin, B, C, dtp = _split_in_proj(params, cfg, zxbcdt)
     conv_in = torch.cat([xin, B, C], dim=-1)
     conv_out, conv_state = _causal_conv(conv_in, params["conv_w"],
                                         params["conv_b"])
@@ -194,11 +198,28 @@ def apply_ssm(params, cfg: ModelConfig, x, sharder=None,
     y, state = ssd_chunked(xh, dtv, A, Bh, Ch, ssd_chunk(cfg, s),
                            sharder=sharder)
     y = y + params["D"].to(dt_act)[None, None, :, None] * xh
-    y = y.reshape(b, s, di)
-    # gated RMSNorm (mamba2's norm_before_gate=False path)
-    y = layers.rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps)
+    return y.reshape(b, s, di), z, state, conv_state
+
+
+def ssm_out(params, cfg: ModelConfig, y, z, sumsq=None,
+            partial: bool = False):
+    """The gated RMSNorm (mamba2's norm_before_gate=False path) and the out
+    projection. A position's heads (``partial``) take the group's f32 sum
+    of squares over the whole d_inner (``sumsq``) and give their f32 term
+    of the out projection's sum."""
+    n = cfg.ssm.d_inner(cfg.d_model) if sumsq is not None else None
+    y = layers.rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps,
+                       sumsq=sumsq, n=n)
     y = y * F.silu(z)
-    out = y @ params["w_out"].to(dt_act)
+    w = params["w_out"].to(y.dtype)
+    return layers.matmul_f32(y, w) if partial else y @ w
+
+
+def apply_ssm(params, cfg: ModelConfig, x, sharder=None,
+              return_state: bool = False):
+    """Full-sequence Mamba-2 block. x (B, S, d) -> (B, S, d)."""
+    y, z, state, conv_state = ssm_inner(params, cfg, x, sharder=sharder)
+    out = ssm_out(params, cfg, y, z)
     if return_state:
         return out, {"ssm_state": state, "conv_state": conv_state}
     return out
@@ -223,17 +244,17 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, device=None,
     }
 
 
-def decode_step_ssm(params, cfg: ModelConfig, x, cache) -> Tuple:
-    """One-token recurrence. x (B, 1, d); ``cache`` updated in place."""
+def decode_inner(params, cfg: ModelConfig, x, cache):
+    """One-token recurrence up to the gated norm: (y (B, 1, d_inner), z);
+    ``cache`` (a position's heads under tensor parallelism) updated in
+    place."""
     s_cfg = cfg.ssm
     dt_act = x.dtype
     b, _, d = x.shape
-    di = s_cfg.d_inner(d)
-    nh = s_cfg.n_heads(d)
-    g = s_cfg.n_groups * s_cfg.d_state
+    di, nh, g = _dims(params, cfg)
 
     zxbcdt = x @ params["w_in"].to(dt_act)
-    z, xin, B, C, dtp = _split_in_proj(cfg, zxbcdt)
+    z, xin, B, C, dtp = _split_in_proj(params, cfg, zxbcdt)
     conv_in = torch.cat([xin, B, C], dim=-1)               # (B, 1, conv_dim)
     conv_out, conv_state = _causal_conv(conv_in, params["conv_w"],
                                         params["conv_b"],
@@ -257,10 +278,12 @@ def decode_step_ssm(params, cfg: ModelConfig, x, cache) -> Tuple:
         * Bh.float()[:, :, None, :]
     y = torch.einsum("bhpn,bhn->bhp", state, Ch.float())
     y = y + params["D"].float()[None, :, None] * xh.float()
-    y = y.reshape(b, 1, di).to(dt_act)
-    y = layers.rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps)
-    y = y * F.silu(z)
-    out = y @ params["w_out"].to(dt_act)
     cache["ssm_state"].copy_(state)
     cache["conv_state"].copy_(conv_state)
-    return out, cache
+    return y.reshape(b, 1, di).to(dt_act), z
+
+
+def decode_step_ssm(params, cfg: ModelConfig, x, cache) -> Tuple:
+    """One-token recurrence. x (B, 1, d); ``cache`` updated in place."""
+    y, z = decode_inner(params, cfg, x, cache)
+    return ssm_out(params, cfg, y, z), cache

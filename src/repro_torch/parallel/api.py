@@ -39,14 +39,23 @@ On a mesh of more than one device (the LM sharding):
   ``parallel/sharded.Sharded`` leaves, each position holding the slice
   ``NamedSharding.shard_shape`` gives, whose values are the one-device
   init's sliced. Adam's moments and the error feedback are sharded alike.
-* **Compute splits the batch; the model axis only stores.** A step
-  splits its batch over the mesh axes its batch spec gives the batch dim
-  (replicated, one row, when the batch does not divide), into equal rows
-  in the spec's order; each row runs on the first device along the axes
-  the split does not use (``launch/mesh.axes_devices``). Stated
+* **Training splits the batch; the model axis only stores.** A train
+  step splits its batch over the mesh axes its batch spec gives the batch
+  dim (replicated, one row, when the batch does not divide), into equal
+  rows in the spec's order; each row runs on the first device along the
+  axes the split does not use (``launch/mesh.axes_devices``). Stated
   difference: the JAX step also splits compute over 'model' (tensor,
-  expert and sequence parallelism); here 'model' shards storage only
-  (ROADMAP A14.5b).
+  expert and sequence parallelism); here training does not yet (ROADMAP
+  A14.5c).
+* **Serving splits the batch and computes over 'model'.** Each row of a
+  prefill or decode step's batch split runs on its tensor-parallel group,
+  the row's positions along 'model' (``parallel/tp.py``): every position
+  computes its own heads, ``mlp`` columns, vocab rows, experts and SSM
+  heads and the group sums or gathers what GSPMD's collectives would
+  (``parallel/collectives.py``); under ``baseline``/``sp`` the prefill's
+  stream between blocks is split along the sequence. No device holds a
+  whole compute copy: each position gathers its slice of one block at a
+  time, whole along 'data' (FSDP by block), and drops it after the block.
 * **Training** follows ``cast_params_once``: each f32 master shard is cast
   to ``cfg.adtype`` on its own device, and the compute copy is gathered
   whole onto each row's device by ``sharded.gather_for_compute``, whose
@@ -65,25 +74,23 @@ On a mesh of more than one device (the LM sharding):
   load-balance loss is formed from every row's partial sums
   (``parallel/sharded.RowContext``), so the sharded step computes the
   function the JAX step computes, not one with per-row groups.
-* **Serving** gathers the compute copy once per params tree onto each
-  row's device and keeps it there while the tree lives, one copy shared
-  by every prefill and decode step (``compute_copy``): serving params do
-  not change. A cache on a mesh (``make_cache(shardings=)``) is one whole
-  cache per row, split over the batch dim of ``cache_specs`` and whole
-  along 'model' on the row's device (stated difference: JAX shards its
-  model dims too; here they have no compute of their own). Tokens are
-  split as the cache is; ``tok_sharding`` reports JAX's rule.
-* **Memory**: ``train_state_bytes(mesh=)`` and ``param_bytes(mesh=)`` give
-  each position's bytes: its shards, the compute copy of its shards and,
-  once for each device that runs a row, the gathered whole compute copy
-  (gathering one block at a time is ROADMAP A14.5b). ``check_fits(mesh=)`` holds each
+* **Serving caches** (``make_cache(shardings=)``): per row, each rank of
+  its group holds its KV heads (or SSM heads) of the row's batch
+  (``parallel/tp.RowCache``; stated difference: JAX's ``cache_specs``
+  under ``baseline`` puts 'model' on the sequence dim instead). Tokens
+  are split as the cache is; ``tok_sharding`` reports JAX's rule.
+* **Memory**: ``train_state_bytes(mesh=)`` gives each position's bytes
+  when training: its shards, the compute copy of its shards and, once for
+  each device that runs a row, the gathered whole compute copy.
+  ``param_bytes(mesh=)`` gives them when serving (``serving_bytes``): its
+  shards and the largest block's slice the block-wise gather copies onto
+  it (``serving_bytes`` adds a cache). ``check_fits(mesh=)`` holds each
   device's sum (positions sharing a card add up) against its free memory
   or ``device_bytes``.
 """
 from __future__ import annotations
 
 import dataclasses
-import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -99,8 +106,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.mesh import axes_devices
 from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
-from repro_torch.parallel import sharded as sh
+from repro_torch.parallel import collectives as coll, sharded as sh, tp
 from repro_torch.parallel.sharded import Sharded
+from repro_torch.parallel.tp import RowCache
 from repro_torch.train import compression as compression_mod
 from repro_torch.train import loop, optim
 
@@ -304,12 +312,86 @@ def param_bytes(cfg: ModelConfig,
                 mesh=None, rules: Optional[LogicalRules] = None):
     """Bytes of ``init_params(cfg, compute_dtype=)``'s tree, from a
     meta-device init (nothing is allocated). With a mesh of more than one
-    device: each position's bytes when serving, its shards and (on a
-    row's device) the gathered compute copy."""
+    device: each position's bytes when serving, its shards and the largest
+    block's copied slice (:func:`serving_bytes`)."""
     if not _sharded_mesh(mesh):
         return tree_bytes(_init_tree(cfg, KeyGen(0, "meta", compute_dtype)))
-    return _position_bytes(cfg, mesh, rules or DEFAULT_RULES, 1,
-                           compute_dtype, cast=True)
+    return [sum(t) for t in zip(*serving_bytes(
+        cfg, mesh, rules or DEFAULT_RULES, compute_dtype).values())]
+
+
+def _indices(sharding: NamedSharding, shape) -> List:
+    return sharding.indices(tuple(shape))
+
+
+def serving_bytes(cfg: ModelConfig, mesh, rules: LogicalRules,
+                  compute_dtype: Optional[torch.dtype] = None,
+                  cache: Optional[Tuple[int, int, int]] = None
+                  ) -> Dict[str, List[int]]:
+    """Each mesh position's serving bytes, by term: ``shards`` (its param
+    shards as ``init_params(mesh=, compute_dtype=)`` stores them),
+    ``block`` (the largest block's slice that the block-wise gather copies
+    onto it while the block runs: ``parallel/tp.BlockSource``; a slice
+    that is its own shard, in its dtype, is a view and costs nothing) and
+    ``cache`` (its rank's cache of its row, with ``cache`` = (batch,
+    capacity, enc_len)). A position outside every row's group (the batch
+    does not split over 'data') computes nothing: shards only.
+    ``mesh`` needs only ``shape``."""
+    rules = LogicalRules(rules.rules)
+    shapes, specs = param_specs(cfg, mesh, rules, compute_dtype)
+    n = _mesh_size(mesh)
+    out = {"shards": shard_param_bytes(cfg, mesh, rules, compute_dtype),
+           "block": [0] * n, "cache": [0] * n}
+    groups = tp.groups(mesh, rules, n if cache is None else cache[0])
+    size = len(groups[0])
+    a_log = next((sp for path, sp in tp.walk(specs)
+                  if path[-2:] == ("ssm", "A_log")), None)
+    ssm_heads = a_log is not None and tp.ssm_split(
+        cfg, tuple(a_log)[1:], size)
+    blocks = {}
+    for path, leaf in tp.walk(shapes):
+        stacked = path[0] in tp.STACKED
+        key = path[:2] if path[0] == "blocks" else path[:1]
+        spec = tuple(_spec_at(specs, path)) + (None,) * leaf.ndim
+        shape, spec = ((tuple(leaf.shape[1:]), spec[1:leaf.ndim]) if stacked
+                       else (tuple(leaf.shape), spec[:leaf.ndim]))
+        item = (_dtype_size(cfg.adtype) if _casts(leaf, cfg.adtype)
+                else leaf.element_size())
+        own = _indices(NamedSharding(mesh, spec), shape)
+        for g in groups:
+            for rank, p in enumerate(g):
+                region = tp.leaf_region(cfg, path, shape, spec, rank,
+                                        size, ssm_heads)
+                want = [[(0, d)] if r is None else list(r)
+                        for r, d in zip(region, shape)]
+                view = item == leaf.element_size() and all(
+                    len(w) == 1 and w[0] == (s.start, s.stop)
+                    for w, s in zip(want, own[p]))
+                if not view:
+                    nbytes = item * int(np.prod(
+                        [sum(b - a for a, b in w) for w in want]))
+                    blocks.setdefault(p, {}).setdefault(key, 0)
+                    blocks[p][key] += nbytes
+    for p, by_key in blocks.items():
+        out["block"][p] = max(by_key.values())
+    if cache is not None:
+        batch, capacity, enc_len = cache
+        split = tp.splits(cfg, specs, size)
+        per_row = abstract_cache(cfg, batch // len(groups), capacity,
+                                 enc_len)
+        nbytes = sum(int(np.prod(tp.local_cache_shape(
+            cfg, path[-1], leaf.shape, split, size))) * leaf.element_size()
+            for path, leaf in tp.walk(per_row))
+        for g in groups:
+            for p in g:
+                out["cache"][p] = nbytes
+    return out
+
+
+def _spec_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -380,10 +462,13 @@ def check_fits(cfg: ModelConfig, device: DeviceLike = None,
                     else torch.cuda.mem_get_info(d)[0])
             if b > free:
                 what = "train state" if train_cfg is not None else "params"
+                held = ("its positions' shards and the gathered compute "
+                        "copy" if train_cfg is not None else
+                        "its positions' shards and one block's gathered "
+                        "slices")
                 raise MemoryError(
                     f"{cfg.name}: its {what} on mesh {mesh.shape} take "
-                    f"{b / 1e9:.1f} GB on {d} (its positions' shards and "
-                    f"the gathered compute copy), more than the "
+                    f"{b / 1e9:.1f} GB on {d} ({held}), more than the "
                     f"{free / 1e9:.1f} GB free there")
         return
     device = torch.device(device) if device is not None else \
@@ -700,29 +785,40 @@ def batch_row_devices(mesh, rules: Optional[LogicalRules],
 NODE_CARDS = 8
 
 
+def _link(group) -> str:
+    return ("nvlink" if len({q // NODE_CARDS for q in group}) == 1
+            else "ib")
+
+
 def step_collective_bytes(cfg: ModelConfig, mesh,
                           rules: Optional[LogicalRules] = None,
-                          batch: int = 1, *, train: bool = True
-                          ) -> List[Dict]:
-    """The bytes the port's sharded step moves into each mesh position,
-    computed from the layout (nothing runs): a list over positions of
-    ``{"all-gather": bytes a step, "all-reduce": bytes a step, "once":
-    {...}, "links": {kind: "nvlink" | "ib"}}``.
+                          batch: int = 1, *, train: bool = True,
+                          step: str = "decode", seq: int = 1,
+                          capacity: Optional[int] = None,
+                          enc_len: int = 0) -> List[Dict]:
+    """The bytes the port's sharded step moves into each mesh position: a
+    list over positions of ``{"all-gather": bytes a step, "all-reduce":
+    ..., "reduce-scatter": ..., "links": {kind: "nvlink" | "ib"}}``.
+
+    Training, computed from the layout (nothing runs):
 
     * **The gathered compute copy** (all-gather): the whole tree in the
-      compute dtype (``_casts`` leaves narrowed), received once by each
-      device that runs a row (the first row position there: a stand-in
-      mesh's positions are each their own device). Training gathers it
-      every step; serving once for the params tree (``compute_copy``),
-      recorded under ``once``, 0 a step.
-    * **The row sums** (all-reduce, training): each row's gradient of
-      every slice a position holds, added on the position's device in f32,
-      so ``rows x`` its shards' bytes at 4 bytes an element. (The slice
-      crosses in the gradient's dtype on the row's device, the compute
-      dtype for cast leaves; counted here in f32, the dtype it is summed
-      in.)
-    * **The logits** (serving): each row's (rows' batch, vocab) f32 logits
-      gathered onto the first row's device, a step.
+      compute dtype (``_casts`` leaves narrowed), received every step by
+      each device that runs a row (the first row position there: a
+      stand-in mesh's positions are each their own device).
+    * **The row sums** (all-reduce): each row's gradient of every slice a
+      position holds, added on the position's device in f32, so ``rows
+      x`` its shards' bytes at 4 bytes an element. (The slice crosses in
+      the gradient's dtype on the row's device, the compute dtype for cast
+      leaves; counted here in f32, the dtype it is summed in.)
+
+    Serving (``train=False``; ``step`` "prefill" of ``seq`` tokens a row,
+    or "decode" at ``capacity``): what the tensor-parallel step's
+    collectives and block-wise gathers move (``parallel/collectives.
+    tally``), counted in one run of the first row's first rank on meta
+    tensors (:func:`meta_serving_step`) and given to every position of
+    every row's group (their shares are alike); a position outside every
+    group moves nothing.
 
     A collective's group is the positions that send or receive it; it
     crosses NVLink when they all lie in one node of ``NODE_CARDS``
@@ -730,9 +826,22 @@ def step_collective_bytes(cfg: ModelConfig, mesh,
     ``mesh`` needs only ``shape``."""
     rules = rules or DEFAULT_RULES
     n = _mesh_size(mesh)
-    out = [{"all-gather": 0, "all-reduce": 0, "once": {}, "links": {}}
-           for _ in range(n)]
+    out = [{"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
+            "links": {}} for _ in range(n)]
     if not _sharded_mesh(mesh):
+        return out
+    if not train:
+        groups = tp.groups(mesh, rules, batch)
+        p = groups[0][0]
+        run, _ = meta_serving_step(
+            cfg, mesh, rules, step, _meta_inputs(cfg, step, batch // len(
+                groups), seq, enc_len), len(groups), capacity or seq,
+            enc_len, p)
+        with coll.tally() as t:
+            run()
+        for g in groups:
+            for q in g:
+                out[q] = _tally_entry(t, p)
         return out
     shapes, specs = param_specs(cfg, mesh, LogicalRules(rules.rules))
     rows = _row_positions(mesh, rules, batch)
@@ -754,41 +863,113 @@ def step_collective_bytes(cfg: ModelConfig, mesh,
         numel = int(np.prod(sharding.shard_shape(tuple(leaf.shape))))
         for p in range(n):
             shard_f32[p] += numel * 4
-
-    def link(group) -> str:
-        return ("nvlink" if len({q // NODE_CARDS for q in group}) == 1
-                else "ib")
     for p in gathers:
-        kind = "all-gather"
-        if train:
-            out[p][kind] += whole
-        else:
-            out[p]["once"] = {kind: whole}
-        out[p]["links"][kind] = link(owners | {p})
-    if train:
-        for p in range(n):
-            out[p]["all-reduce"] = len(rows) * shard_f32[p]
-            out[p]["links"]["all-reduce"] = link(set(rows) | {p})
-    elif len(rows) > 1:
-        per_row = batch // len(rows) * cfg.vocab_size * 4
-        out[rows[0]]["all-gather"] += (len(rows) - 1) * per_row
-        out[rows[0]]["links"]["all-gather"] = link(set(rows))
+        out[p]["all-gather"] += whole
+        out[p]["links"]["all-gather"] = _link(owners | {p})
+    for p in range(n):
+        out[p]["all-reduce"] = len(rows) * shard_f32[p]
+        out[p]["links"]["all-reduce"] = _link(set(rows) | {p})
     return out
+
+
+def _tally_entry(t: Dict, p: int) -> Dict:
+    """Position ``p``'s :func:`step_collective_bytes` entry from a
+    ``parallel/collectives.tally``."""
+    out = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
+           "links": {}}
+    for kind in ("all-gather", "all-reduce", "reduce-scatter"):
+        if t.get(kind, {}).get(p):
+            out[kind] = t[kind][p]
+            out["links"][kind] = ("ib" if any(
+                _link(sp) == "ib" for sp in t["spans"][kind]) else "nvlink")
+    return out
+
+
+def _meta_inputs(cfg: ModelConfig, step: str, batch: int, seq: int,
+                 enc_len: int) -> Dict:
+    """A row's serving inputs as meta tensors: its tokens (the vision
+    stub's patch embeddings and M-RoPE positions to a prefill; whisper's
+    frame embeddings besides)."""
+    meta = torch.device("meta")
+    if cfg.frontend == "vision" and step == "prefill":
+        return {"embeddings": torch.empty((batch, seq, cfg.d_model),
+                                          dtype=cfg.adtype, device=meta),
+                "positions": torch.empty((3, batch, seq), dtype=torch.int32,
+                                         device=meta)}
+    out = {"tokens": torch.empty((batch, seq if step == "prefill" else 1),
+                                 dtype=torch.int32, device=meta)}
+    if cfg.is_encdec and step == "prefill":
+        out["enc_embeddings"] = torch.empty(
+            (batch, enc_len or seq, cfg.d_model), dtype=cfg.adtype,
+            device=meta)
+    return out
+
+
+def meta_serving_step(cfg: ModelConfig, mesh, rules: LogicalRules,
+                      step: str, inputs: Dict, n_rows: int, capacity: int,
+                      enc_len: int, position: int, whole_group: bool = False):
+    """(run, args): one serving step of the rank at mesh position
+    ``position`` (a rank of a row's tensor-parallel group) on meta
+    tensors: ``run()`` runs it, its group's other ranks stood in for
+    (``parallel/tp``: their shards meta, their collective terms empty
+    buffers), or with ``whole_group`` run too, as a process that drives
+    the mesh runs them; ``args`` are the state of the ranks run, ``[their
+    param shards, their caches]``, which a count holds as arguments
+    besides ``inputs`` (the row's: ``tokens`` (B, S), prefill's other
+    batch leaves, or decode's (B, 1) tokens). The row is the group's; the
+    MoE sees it as row 0 of ``n_rows`` (the global token groups)."""
+    rules = LogicalRules(rules.rules)
+    shapes, specs = param_specs(cfg, mesh, rules, cfg.adtype)
+    params = tp.meta_params(shapes, specs, mesh)
+    row_batch = _batch_size(inputs)
+    groups = tp.groups(mesh, rules, row_batch * n_rows)
+    g = next(g for g in groups if position in g)
+    ranks = None if whole_group else [g.index(position)]
+    group = coll.Group([torch.device("meta")] * len(g), g, ranks)
+    split = tp.splits(cfg, specs, group.size)
+    shapes = abstract_cache(cfg, row_batch, capacity, enc_len)
+    caches = [tp.make_rank_cache(cfg, shapes, split, group.size, "meta")
+              for _ in group.ranks]
+    src = tp.BlockSource(params, cfg, group, cfg.adtype)
+    sharder = ActivationSharder().for_row(sh.RowContext(n_rows), 0)
+    model = encdec if cfg.is_encdec else lm
+    own = [l.shards[g[r]] for r in group.ranks
+           for l in optim.tree_leaves(params)]
+
+    def run():
+        if step == "prefill":
+            return _prefill_tp(cfg, mesh, rules, src, inputs, caches,
+                               sharder)
+        return model.decode_step_tp(src, cfg, inputs["tokens"],
+                                    capacity - 1, caches, sharder=sharder)
+    return run, [own, caches]
 
 
 # ---------------------------------------------------------------- serving
 def make_cache(cfg: ModelConfig, batch: int, capacity: int,
                enc_len: int = 0, shardings=None, *,
-               device: DeviceLike = None):
+               device: DeviceLike = None,
+               rules: Optional[LogicalRules] = None):
     """Properly initialized cache (ring slot positions -1, not zeros) on
     the device (CUDA unless named). With ``shardings`` (``cache_specs``'s,
-    as NamedShardings): a :class:`RowCache`, one whole cache per row of
-    the batch split of the mesh they name."""
+    as NamedShardings): a ``parallel/tp.RowCache``, for each row of the
+    batch split of the mesh they name, each rank of the row's
+    tensor-parallel group its own KV or SSM heads (``rules``: the params'
+    rules, which say what the groups split)."""
     if shardings is not None:
-        devices = _cache_row_devices(shardings)
-        per = batch // len(devices)
-        return RowCache([make_cache(cfg, per, capacity, enc_len, device=d)
-                         for d in devices], devices, _cache_axes(cfg))
+        leaves = tree_leaves(shardings)
+        mesh = leaves[0].mesh
+        entry = next(tuple(l.spec) for l in leaves if len(l.spec) >= 3)[1]
+        groups = [_group(mesh, g) for g in tp.groups_for(mesh, entry)]
+        size = groups[0].size
+        _, pspecs = param_specs(cfg, mesh,
+                                LogicalRules((rules or DEFAULT_RULES).rules))
+        split = tp.splits(cfg, pspecs, size)
+        shapes = abstract_cache(cfg, batch // len(groups), capacity,
+                                enc_len)
+        rows = [[tp.make_rank_cache(cfg, shapes, split, size, d)
+                 for d in g.devices] for g in groups]
+        return RowCache(cfg, rows, groups, _cache_axes(cfg), split)
     dev = resolve_device(device)
     if cfg.is_encdec:
         return encdec.init_dec_cache(cfg, batch, capacity,
@@ -796,71 +977,11 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int,
     return lm.init_cache(cfg, batch, capacity, device=dev)
 
 
-def _cache_row_devices(shardings) -> List[torch.device]:
-    """The rows of a cache's batch split: the spec entry of the batch dim
-    (dim 1, after the stack axis, of every cache leaf of three or more
-    dims)."""
-    leaves = tree_leaves(shardings)
-    spec = next(tuple(s.spec) for s in leaves if len(s.spec) >= 3)
-    return axes_devices(leaves[0].mesh, spec[1])
-
-
-def _batch_dim(axes) -> Optional[int]:
-    return axes.index("batch") if "batch" in axes else None
-
-
-class RowCache:
-    """A cache on a mesh: one whole cache per row of the batch split
-    (``rows[r]`` on ``devices[r]``), updated in place by the steps;
-    ``axes`` are the leaves' logical axes (which dim is the batch)."""
-
-    def __init__(self, rows: List[Dict], devices: List[torch.device],
-                 axes: Dict):
-        self.rows = rows
-        self.devices = devices
-        self.axes = axes
-
-    def gather(self, device: DeviceLike = None) -> Dict:
-        """The whole cache on ``device`` (the first row's by default): the
-        rows' leaves joined along their batch dim; a leaf without one (a
-        ring's slot positions, the same in every row) from row 0."""
-        dev = self.devices[0] if device is None else resolve_device(device)
-
-        def join(axes, *leaves):
-            d = _batch_dim(axes)
-            if d is None:
-                return leaves[0].to(dev)
-            return torch.cat([l.to(dev) for l in leaves], dim=d)
-
-        def walk(axes, parts):
-            if isinstance(axes, dict):
-                return {k: walk(axes[k], [p[k] for p in parts])
-                        for k in axes}
-            return join(axes, *parts)
-        return walk(self.axes, self.rows)
-
-
-# each sharded params tree's gathered compute copies, by (device, dtype),
-# keyed on the tree's first leaf and freed with it
-_COMPUTE_COPIES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
-def compute_copy(params, adtype: torch.dtype, device: torch.device) -> Dict:
-    """The compute copy of the sharded ``params`` tree (cast per shard)
-    whole on ``device``: gathered the first time a step asks for it and
-    then kept while the tree's leaves live, for every step built on it
-    (prefill and decode share it: serving params do not change)."""
-    leaves = tree_leaves(params)
-    entry = _COMPUTE_COPIES.get(leaves[0])
-    if entry is None or len(entry["leaves"]) != len(leaves) or any(
-            ref() is not leaf for ref, leaf in zip(entry["leaves"], leaves)):
-        entry = {"leaves": [weakref.ref(l) for l in leaves], "copies": {}}
-        _COMPUTE_COPIES[leaves[0]] = entry
-    key = (device, adtype)
-    if key not in entry["copies"]:
-        cast = cast_params_for_compute(params, adtype)
-        entry["copies"][key] = tree_map(lambda l: sh.gather(l, device), cast)
-    return entry["copies"][key]
+def _group(mesh, positions: Sequence[int], ranks=None) -> coll.Group:
+    devices = getattr(mesh, "devices", None)
+    return coll.Group([torch.device("meta") if devices is None
+                       else devices[p] for p in positions], positions,
+                      ranks)
 
 
 def tok_sharding(mesh, batch_size: int) -> NamedSharding:
@@ -887,6 +1008,38 @@ def _cache_shapes(cfg: ModelConfig, batch: int, capacity: int,
                     abstract_cache(cfg, batch, capacity, enc_len))
 
 
+def _serve_rows(cfg: ModelConfig, mesh, rules: LogicalRules, params,
+                cache: RowCache, run):
+    """``run(source, row inputs index, caches, sharder)`` for each row of
+    ``cache`` in row order, each on its group's block source; the rows'
+    logits joined on the first row's device (the MoE's token groups are
+    the whole batch's: ``parallel/sharded.RowContext``)."""
+    ctx = sh.RowContext(len(cache.groups))
+    sharder = ActivationSharder()
+    logits = []
+    for r, (group, caches) in enumerate(zip(cache.groups, cache.rows)):
+        src = tp.BlockSource(params, cfg, group, cfg.adtype)
+        out = run(src, r, caches, sharder.for_row(ctx, r))
+        logits.append(out.to(cache.devices[0]))
+    return torch.cat(logits)
+
+
+def _prefill_tp(cfg: ModelConfig, mesh, rules: LogicalRules, src, batch,
+                caches, sharder):
+    """One row's prefill on its group (``models/lm.prefill_tp``)."""
+    model = encdec if cfg.is_encdec else lm
+    key = "tokens" if "tokens" in batch else "embeddings"
+    b, s = batch[key].shape[:2]
+    n = src.group.size
+    sp = tp.seq_parallel(mesh, rules, b, s, n)
+    if cfg.is_encdec:
+        se = batch["enc_embeddings"].shape[1]
+        sp_enc = tp.seq_parallel(mesh, rules, b, se, n)
+        return model.prefill_tp(src, cfg, batch, caches, sp, sp_enc,
+                                sharder=sharder)
+    return model.prefill_tp(src, cfg, batch, caches, sp, sharder=sharder)
+
+
 def make_prefill_step(cfg: ModelConfig, mesh=None,
                       rules: Optional[LogicalRules] = None,
                       batch_shardings=None, example_batch=None,
@@ -898,24 +1051,19 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
     ``cache_shapes`` (shape, dtype per leaf) as the JAX info holds its
     cache's ShapeDtypeStructs. On a mesh of more than one device the
     params are ``init_params(mesh=)``'s, the cache ``make_cache(
-    shardings=info["cache"])``'s, and info holds the JAX ``params`` and
+    shardings=info["cache"])``'s, each row runs on its tensor-parallel
+    group (the module docstring), and info holds the JAX ``params`` and
     ``cache`` shardings too."""
     model = encdec if cfg.is_encdec else lm
     if _sharded_mesh(mesh):
         rules = rules or DEFAULT_RULES
-        sharder = ActivationSharder(mesh, rules)
 
         def sharded_step(params, batch, cache: RowCache):
             rows = split_batch(batch, cache.devices)
-            ctx = sh.RowContext(len(rows))
-            logits = []
-            for r, (dev, piece) in enumerate(zip(cache.devices, rows)):
-                out, _ = model.prefill(compute_copy(params, cfg.adtype, dev),
-                                       cfg, piece,
-                                       cache.rows[r],
-                                       sharder=sharder.for_row(ctx, r))
-                logits.append(out.to(cache.devices[0]))
-            return torch.cat(logits), cache
+            return _serve_rows(cfg, mesh, rules, params, cache, lambda src, r,
+                               caches, sharder: _prefill_tp(
+                                   cfg, mesh, rules, src, rows[r], caches,
+                                   sharder)), cache
 
         return sharded_step, _mesh_serving_info(
             cfg, mesh, rules, batch_size, capacity or 0, enc_len)
@@ -934,25 +1082,19 @@ def make_decode_step(cfg: ModelConfig, mesh=None,
                      enc_len: int = 0) -> Tuple[Callable, Dict]:
     """``decode(params, cache, tokens (B, 1), pos) -> (logits (B, V),
     cache)``; ``pos`` is a host int. On a mesh of more than one device the
-    tokens are split as the cache's rows are, and info holds the JAX
-    ``tok_sharding`` besides the params and cache shardings."""
+    tokens are split as the cache's rows are, each row runs on its
+    tensor-parallel group, and info holds the JAX ``tok_sharding``
+    besides the params and cache shardings."""
     model = encdec if cfg.is_encdec else lm
     if _sharded_mesh(mesh):
         rules = rules or DEFAULT_RULES
-        sharder = ActivationSharder(mesh, rules)
 
         def sharded_step(params, cache: RowCache, tokens, pos):
             rows = split_batch({"tokens": tokens}, cache.devices)
-            ctx = sh.RowContext(len(rows))
-            logits = []
-            for r, (dev, piece) in enumerate(zip(cache.devices, rows)):
-                out, _ = model.decode_step(compute_copy(params, cfg.adtype,
-                                                        dev), cfg,
-                                           piece["tokens"], pos,
-                                           cache.rows[r],
-                                           sharder=sharder.for_row(ctx, r))
-                logits.append(out.to(cache.devices[0]))
-            return torch.cat(logits), cache
+            return _serve_rows(cfg, mesh, rules, params, cache, lambda src, r,
+                               caches, sharder: model.decode_step_tp(
+                                   src, cfg, rows[r]["tokens"], pos, caches,
+                                   sharder=sharder)), cache
 
         info = _mesh_serving_info(cfg, mesh, rules, batch_size, capacity,
                                   enc_len)

@@ -15,6 +15,10 @@ card then holds the sum of its positions.
   device from the one-device init's draws); :func:`gather` and
   :func:`gather_tree` make the whole tensor on one device from the first
   position holding each distinct slice.
+* :func:`gather_region` is the serving steps' block-wise gather: a region
+  of one block of a leaf (per dim, global ranges) for one position, a
+  view of its own shard when that is the region, else copied from the
+  shards that hold it (``parallel/tp.BlockSource``).
 * :func:`gather_for_compute` is the differentiable gather of a sharded
   train step: forward, the whole leaf on a compute device; backward, the
   gradient's slice for every position holding it (copies included),
@@ -27,20 +31,19 @@ card then holds the sum of its positions.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.common.param import LazyLeaf
 from repro_torch.common.partitioning import NamedSharding
+from repro_torch.parallel import collectives as coll
 
 
 class Sharded:
     """A global leaf of ``shape`` as one tensor per mesh position."""
 
-    # weakly referable: the serving steps key a tree's gathered compute
-    # copy on its first leaf (parallel/api.compute_copy)
-    __slots__ = ("sharding", "shape", "shards", "__weakref__")
+    __slots__ = ("sharding", "shape", "shards")
 
     def __init__(self, sharding: NamedSharding, shape: Sequence[int],
                  shards: List[torch.Tensor]):
@@ -128,6 +131,93 @@ def gather(leaf, device: torch.device) -> torch.Tensor:
     indices = leaf.indices()
     for p in leaf.owners():
         out[indices[p]].copy_(leaf.shards[p])
+    return out
+
+
+def _segments(have: slice, want) -> List[Tuple[int, int, int]]:
+    """(source start, stop, destination start) of the global ``want``
+    ranges (a list of (start, stop), laid end to end in the destination)
+    that the slice ``have`` holds, the source relative to ``have``."""
+    out, dst = [], 0
+    for a, b in want:
+        lo, hi = max(a, have.start), min(b, have.stop)
+        if lo < hi:
+            out.append((lo - have.start, hi - have.start, dst + lo - a))
+        dst += b - a
+    return out
+
+
+def region_copies(leaf: Sharded, region, position: int,
+                  prefer: Sequence[int] = ()) -> List[Tuple]:
+    """How position ``position`` makes ``region`` of ``leaf`` (per dim a
+    list of global (start, stop) ranges, or None for the whole dim): a
+    list of (source position, source index, destination index), one for
+    each distinct slice that holds part of the region, each taken from the
+    position itself when it holds that slice, else from the first of
+    ``prefer`` that does, else from the slice's first holder."""
+    indices = leaf.indices()
+    want = [[(0, n)] if r is None else list(r)
+            for r, n in zip(region, leaf.shape)]
+    holders: Dict = {}
+    for q, idx in enumerate(indices):
+        holders.setdefault(tuple((s.start, s.stop) for s in idx),
+                           []).append(q)
+    out = []
+    for key, qs in holders.items():
+        src = next((q for q in [position, *prefer] if q in qs), qs[0])
+        segs = [_segments(s, w) for s, w in zip(indices[src], want)]
+        if not all(segs):
+            continue
+        for parts in _product(segs):
+            out.append((src, tuple(slice(a, b) for a, b, _ in parts),
+                        tuple(slice(d, d + b - a) for a, b, d in parts)))
+    return out
+
+
+def _product(lists):
+    if not lists:
+        return [()]
+    return [(x,) + rest for x in lists[0] for rest in _product(lists[1:])]
+
+
+def region_shape(leaf: Sharded, region) -> Tuple[int, ...]:
+    return tuple(n if r is None else sum(b - a for a, b in r)
+                 for r, n in zip(region, leaf.shape))
+
+
+def gather_region(leaf: Sharded, region, position: int,
+                  device: torch.device, dtype: torch.dtype,
+                  block: Optional[int] = None,
+                  prefer: Sequence[int] = ()) -> torch.Tensor:
+    """``region`` of ``leaf`` (of its slice ``block`` along the stack dim,
+    when given; the region then names the remaining dims) in ``dtype`` on
+    ``device``, for position ``position``: a view of its own shard when
+    that is the region and no cast is needed, else a new tensor filled
+    from the shards that hold it (:func:`region_copies`)."""
+    if block is not None:
+        inner = Sharded(NamedSharding(leaf.sharding.mesh,
+                                      tuple(leaf.sharding.spec)[1:]),
+                        leaf.shape[1:], [s[block] for s in leaf.shards])
+        return gather_region(inner, region, position, device, dtype,
+                             prefer=prefer)
+    copies = region_copies(leaf, region, position, prefer)
+    if (len(copies) == 1 and copies[0][0] == position
+            and leaf.dtype == dtype
+            and leaf.shards[position].device == device
+            and region_shape(leaf, region) == tuple(
+                leaf.shards[position].shape)):
+        return leaf.shards[position]
+    out = torch.empty(region_shape(leaf, region), dtype=dtype,
+                      device=device)
+    received = 0
+    for src, sidx, didx in copies:
+        piece = leaf.shards[src][sidx]
+        out[didx].copy_(piece)
+        if src != position:
+            received += piece.numel() * piece.element_size()
+    if received:      # the block-wise gather's share of the all-gathers
+        coll.record("all-gather", {position: received},
+                    [position] + [c[0] for c in copies])
     return out
 
 

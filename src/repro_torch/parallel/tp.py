@@ -1,0 +1,361 @@
+"""Tensor, expert and sequence parallelism of the sharded serving steps
+(``parallel/api``), on the port's one-process meshes.
+
+A row of a serving step's batch split (``api.row_positions``) runs on a
+tensor-parallel group: the mesh positions along 'model' at the row's
+coordinates (:func:`groups`), or the row's position alone when the batch
+split itself uses 'model' (whisper's ``tinydp``). Each rank of the group
+computes its own part (``models/blocks``: heads, ``mlp``, vocab, experts
+and SSM heads split; the rest whole) and the ranks exchange what
+``parallel/collectives`` moves.
+
+* **Block-wise gathers.** :class:`BlockSource` hands each rank its slice
+  of one block at a time (the embedding, each sub-layer of a period, the
+  final norm, the unembedding): the leaf's 'model' chunk for the rank
+  along a dim whose spec names 'model' (:func:`leaf_region`), whole along
+  the rest, so a dim sharded over 'data' ('embed', FSDP) is gathered
+  from the positions along 'data'. A rank whose own shard is the region
+  takes a view (no copy); a leaf the compute copy narrows is cast as it
+  is gathered. The model code drops a block's slices once it has run.
+  The SSM's ``w_in`` (``[z | x | B | C | dt]``) and ``conv_w``/``conv_b``
+  (``[x | B | C]``) are stored as the JAX package stores them, a
+  contiguous 'model' chunk that is not one range of heads: a rank gathers
+  its heads' columns of z, x and dt and the whole B and C (stated
+  difference: GSPMD reshards the activations instead).
+* **Every decision comes from the leaves' own specs**
+  (``common/partitioning.divisible_fallback``): a dim that fell back is
+  whole on every rank and computed whole there, as GSPMD computes it.
+* **Caches** (:class:`RowCache`): each rank holds its KV heads (the cache
+  whole along them when ``kv_heads`` falls back) or its SSM heads (its
+  conv state's x columns and the whole B and C), and the row's share of
+  the batch. Stated difference: JAX's ``cache_specs`` under ``baseline``
+  puts 'model' on the cache's sequence dim; here the sequence dim stays
+  whole, since each rank attends its own heads.
+* **Counting** (:func:`meta_params`, ``api.meta_serving_step``): one rank
+  of one group on meta tensors, the other ranks' shards meta stand-ins
+  and their collective terms empty buffers (``launch/dryrun.py``,
+  ``api.step_collective_bytes``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common.partitioning import (LogicalRules, NamedSharding,
+                                             divisible_fallback)
+from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharded import Sharded, gather_region
+
+# the subtrees whose leaves are stacked over layers (one block a slice)
+STACKED = ("blocks", "enc_layers", "dec_layers")
+MODEL = "model"
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def groups_for(mesh, batch_entry) -> List[List[int]]:
+    """The positions of each row's group, in row order, for a batch split
+    over the spec entry ``batch_entry``: the positions along 'model' at the
+    row's coordinates (0 along the other axes the split does not use), or
+    the row's position alone when the split uses 'model' or the mesh has
+    no 'model' axis."""
+    names = list(mesh.shape)
+    shape = tuple(mesh.shape.values())
+    used = _axes(batch_entry)
+    pos = np.arange(math.prod(shape)).reshape(shape)
+    index = tuple(slice(None) if a in used else 0 for a in names)
+    kept = [a for a in names if a in used]
+    rows = [int(p) for p in np.asarray(pos[index]).transpose(
+        [kept.index(a) for a in used]).reshape(-1)]
+    if MODEL not in mesh.shape or MODEL in used:
+        return [[p] for p in rows]
+    axis = names.index(MODEL)
+    out = []
+    for p in rows:
+        coord = list(np.unravel_index(p, shape))
+        group = []
+        for m in range(mesh.shape[MODEL]):
+            coord[axis] = m
+            group.append(int(np.ravel_multi_index(coord, shape)))
+        out.append(group)
+    return out
+
+
+def batch_entry(mesh, rules: LogicalRules, batch: int):
+    """The spec entry of a batch of ``batch`` examples (a scratch rule
+    set: a step records no fallback of its own)."""
+    return divisible_fallback(mesh, (batch,), ("batch",),
+                              LogicalRules(rules.rules))[0]
+
+
+def groups(mesh, rules: LogicalRules, batch: int) -> List[List[int]]:
+    return groups_for(mesh, batch_entry(mesh, rules, batch))
+
+
+def seq_parallel(mesh, rules: LogicalRules, batch: int, seq: int,
+                 size: int) -> bool:
+    """True when a (batch, seq, embed) stream splits its sequence over
+    'model' (the rules' 'act_seq', and ``seq`` divides), on a group of
+    more than one rank."""
+    spec = divisible_fallback(mesh, (batch, seq, 1),
+                              ("batch", "act_seq", "act_embed"),
+                              LogicalRules(rules.rules))
+    return size > 1 and MODEL in _axes(spec[1])
+
+
+def _chunk(n: int, rank: int, size: int) -> List[Tuple[int, int]]:
+    k = n // size
+    return [(rank * k, (rank + 1) * k)]
+
+
+def ssm_split(cfg: ModelConfig, a_log_spec, size: int) -> bool:
+    """True when a group of ``size`` ranks splits the SSM by heads: the
+    heads divide (``A_log``'s 'model' entry) and one B/C group is shared
+    by every head."""
+    return (size > 1 and cfg.ssm.n_groups == 1
+            and MODEL in _axes(tuple(a_log_spec)[-1]))
+
+
+def _ssm_region(cfg: ModelConfig, name: str, shape, split: bool, rank: int,
+                size: int):
+    if not split:
+        return (None,) * len(shape)
+    di = cfg.ssm.d_inner(cfg.d_model)
+    nh = cfg.ssm.n_heads(cfg.d_model)
+    g = cfg.ssm.n_groups * cfg.ssm.d_state
+    x = _chunk(di, rank, size)[0]
+    heads = _chunk(nh, rank, size)
+    if name == "w_in":        # [z | x | B | C | dt]
+        cols = [x, (di + x[0], di + x[1]), (2 * di, 2 * di + 2 * g)] + [
+            (2 * di + 2 * g + a, 2 * di + 2 * g + b) for a, b in heads]
+        return (None, cols)
+    if name in ("conv_w", "conv_b"):    # [x | B | C]
+        cols = [x, (di, di + 2 * g)]
+        return (None, cols) if name == "conv_w" else (cols,)
+    if name in ("A_log", "D", "dt_bias"):
+        return (heads,)
+    if name == "norm_scale":
+        return ([x],)
+    if name == "w_out":
+        return ([x], None)
+    raise KeyError(name)
+
+
+def leaf_region(cfg: ModelConfig, path: Tuple[str, ...], shape, spec,
+                rank: int, size: int, ssm_heads: bool = False):
+    """Rank ``rank``'s region of a block's leaf (``shape`` and ``spec``
+    without the stack dim): per dim, its ranges, or None for the whole
+    dim. The SSM's leaves take their heads' columns when ``ssm_heads``."""
+    if "ssm" in path:
+        return _ssm_region(cfg, path[-1], shape, ssm_heads, rank, size)
+    out = []
+    for n, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        axes = _axes(entry)
+        if size > 1 and MODEL in axes:
+            if axes[0] != MODEL:
+                raise NotImplementedError(
+                    f"{path}: 'model' must be the major axis of {entry}")
+            out.append(_chunk(n, rank, size))
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def _casts(leaf, adtype: torch.dtype) -> bool:
+    return (leaf.dtype == torch.float32 and len(leaf.shape) >= 2
+            and adtype != torch.float32)
+
+
+def walk(tree, path=()):
+    """(path, leaf) pairs of a dict tree, or the one pair of a leaf."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from walk(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _rebuild(tree, fn, path=()):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, fn, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _ssm_spec(tree):
+    """The spec of the first SSM ``A_log`` leaf under ``tree`` (None
+    without one)."""
+    for path, leaf in walk(tree):
+        if path[-2:] == ("ssm", "A_log"):
+            return leaf.sharding.spec
+    return None
+
+
+class BlockSource:
+    """Each running rank's slice of one block of the ``Sharded`` params
+    tree ``params`` (the module docstring), in the compute dtype
+    ``adtype``, for the group ``group``."""
+
+    def __init__(self, params, cfg: ModelConfig, group: coll.Group,
+                 adtype: torch.dtype):
+        self.params, self.cfg, self.group = params, cfg, group
+        self.adtype = adtype
+        self.keys = set(params)
+        spec = _ssm_spec(params)
+        self.ssm_heads = spec is not None and ssm_split(
+            cfg, tuple(spec)[1:], group.size)
+        mesh = next(iter(walk(params)))[1].sharding.mesh
+        # a rank's pieces come from its own 'model' column first
+        self._prefer = {}
+        if MODEL in mesh.shape:
+            shape = tuple(mesh.shape.values())
+            axis = list(mesh.shape).index(MODEL)
+            coords = np.unravel_index(np.arange(math.prod(shape)), shape)
+            for p in group.positions:
+                m = coords[axis][p]
+                self._prefer[p] = [int(q) for q in
+                                   np.nonzero(coords[axis] == m)[0]]
+
+    def block(self, path: Tuple[str, ...], index: Optional[int] = None
+              ) -> List:
+        """Each running rank's slice of the subtree at ``path`` (its stack
+        slice ``index`` for a stacked subtree)."""
+        tree = self.params
+        for k in path:
+            tree = tree[k]
+        out = []
+        for r in self.group.ranks:
+            p = self.group.positions[r]
+
+            def take(sub, leaf: Sharded, r=r, p=p):
+                spec = tuple(leaf.sharding.spec) + (None,) * leaf.ndim
+                shape, spec = ((leaf.shape[1:], spec[1:leaf.ndim])
+                               if index is not None else
+                               (leaf.shape, spec[:leaf.ndim]))
+                region = leaf_region(self.cfg, path + sub, shape, spec, r,
+                                     self.group.size, self.ssm_heads)
+                dtype = self.adtype if _casts(leaf, self.adtype) \
+                    else leaf.dtype
+                return gather_region(leaf, region, p, self.group.devices[r],
+                                     dtype, block=index,
+                                     prefer=self._prefer.get(p, ()))
+            out.append(_rebuild(tree, take))
+        return out
+
+
+# ------------------------------------------------------------------ caches
+def splits(cfg: ModelConfig, pspecs, size: int) -> Dict[str, bool]:
+    """Which cache dims a group of ``size`` ranks splits: the KV heads
+    (the attention ``wk``'s 'kv_heads' entry) and the SSM heads."""
+    kv = ssm = False
+    for path, spec in walk(pspecs):
+        if path[-1] == "wk" and size > 1:
+            kv = kv or MODEL in _axes((tuple(spec) + (None,) * 4)[2])
+        if path[-2:] == ("ssm", "A_log"):
+            ssm = ssm_split(cfg, tuple(spec)[1:], size)
+    return {"kv": kv, "ssm": ssm}
+
+
+def local_cache_shape(cfg: ModelConfig, name: str, shape, split, size: int
+                      ) -> Tuple[int, ...]:
+    """A rank's shape of a (stacked) cache leaf ``name`` of the global
+    ``shape`` (its batch already the row's)."""
+    shape = list(shape)
+    if name in ("k", "v") and split["kv"]:
+        shape[-2] //= size
+    elif name == "ssm_state" and split["ssm"]:
+        shape[2] //= size
+    elif name == "conv_state" and split["ssm"]:
+        di = cfg.ssm.d_inner(cfg.d_model)
+        shape[-1] = di // size + (shape[-1] - di)
+    return tuple(shape)
+
+
+def make_rank_cache(cfg: ModelConfig, shapes, split, size: int,
+                    device) -> Dict:
+    """A rank's cache from the one-device cache's meta tree ``shapes``
+    (the row's batch): zeros, ring slots -1 (empty)."""
+    def make(path, leaf):
+        shape = local_cache_shape(cfg, path[-1], leaf.shape, split, size)
+        if path[-1] == "slot_pos":
+            return torch.full(shape, -1, dtype=leaf.dtype, device=device)
+        return torch.zeros(shape, dtype=leaf.dtype, device=device)
+    return _rebuild(shapes, make)
+
+
+def _join_ranks(cfg: ModelConfig, name: str, parts, split, size: int):
+    """A cache leaf whole along the dims the group split."""
+    if name in ("k", "v") and split["kv"]:
+        return torch.cat(parts, dim=-2)
+    if name == "ssm_state" and split["ssm"]:
+        return torch.cat(parts, dim=2)
+    if name == "conv_state" and split["ssm"]:
+        n = cfg.ssm.d_inner(cfg.d_model) // size
+        return torch.cat([p[..., :n] for p in parts] + [parts[0][..., n:]],
+                         dim=-1)
+    return parts[0]
+
+
+class RowCache:
+    """A cache on a mesh: ``rows[r][k]`` is rank ``k``'s cache of row
+    ``r`` (on ``groups[r].devices[k]``), updated in place by the steps;
+    ``axes`` are the leaves' logical axes (which dim is the batch),
+    ``split`` which dims the groups split."""
+
+    def __init__(self, cfg: ModelConfig, rows: List[List[Dict]],
+                 groups: List[coll.Group], axes: Dict, split: Dict):
+        self.cfg = cfg
+        self.rows = rows
+        self.groups = groups
+        self.axes = axes
+        self.split = split
+
+    @property
+    def devices(self) -> List[torch.device]:
+        """Each row's device (its group's first rank's)."""
+        return [g.devices[0] for g in self.groups]
+
+    def gather(self, device=None) -> Dict:
+        """The whole cache on ``device`` (the first row's by default): each
+        row's ranks joined along the dims they split, the rows along
+        their batch dim; a leaf without one (a ring's slot positions, the
+        same in every row) from row 0."""
+        dev = self.devices[0] if device is None else torch.device(device)
+
+        def walk(axes, parts, name):
+            if isinstance(axes, dict):
+                return {k: walk(axes[k], [[p[k] for p in row]
+                                          for row in parts], k)
+                        for k in axes}
+            rows = [_join_ranks(self.cfg, name, [t.to(dev) for t in row],
+                                self.split, len(row)) for row in parts]
+            if "batch" not in axes:
+                return rows[0]
+            return torch.cat(rows, dim=axes.index("batch"))
+        return walk(self.axes, self.rows, None)
+
+
+# ------------------------------------------------------------ the count
+def meta_params(shapes, specs, mesh) -> Dict:
+    """A ``Sharded`` tree of meta shards, one per position of ``mesh``
+    (a stand-in: its positions have no devices)."""
+    def make(_, leaf, spec):
+        sharding = NamedSharding(mesh, spec)
+        shard = sharding.shard_shape(tuple(leaf.shape))
+        return Sharded(sharding, tuple(leaf.shape), [
+            torch.empty(shard, dtype=leaf.dtype, device="meta")
+            for _ in range(math.prod(mesh.shape.values()))])
+    return _zip(shapes, specs, make)
+
+
+def _zip(a, b, fn, path=()):
+    if isinstance(a, dict):
+        return {k: _zip(a[k], b[k], fn, path + (k,)) for k in a}
+    return fn(path, a, b)

@@ -16,8 +16,9 @@ unembedding widened to f32 on both sides (``tests/torch_lm_parity.py``):
     ``jax.value_and_grad`` of the train step's loss (the compute cast on
     the params' shardings, the activation hints on) on the first batch,
     as ``grad/<arch><keystr path>``;
-  * yi-6b's sharded prefill and ``DECODE`` teacher-forced decode steps
-    (the params in the ``.npz`` as ``serve/params<keystr path>``);
+  * the sharded prefill and ``DECODE`` teacher-forced decode steps of
+    ``SERVE_ARCHS`` (yi-6b as ``serve/params<keystr path>`` and
+    ``serve/logits``, the others under ``serve/<arch>/``);
   * danube's train state after its steps, saved with the JAX checkpoint
     store next to the ``.npz`` (``<out>.ckpt/``), and its params in the
     ``.npz`` (``ckpt<keystr path>``), for the cross-package restore.
@@ -47,6 +48,8 @@ STEPS = 4
 TRAIN_ARCHS = ("h2o-danube-1.8b", "olmoe-1b-7b")
 TOPK_ARCH = "h2o-danube-1.8b"
 SERVE_ARCH = "yi-6b"
+# the tensor-parallel serving oracles: dense, MoE (expert parallel), SSM
+SERVE_ARCHS = (SERVE_ARCH, "olmoe-1b-7b", "mamba2-2.7b")
 CKPT_ARCH = "h2o-danube-1.8b"
 
 
@@ -92,12 +95,16 @@ def _grads(arch, mesh, out):
     _flat(grads, f"grad/{arch}", out)
 
 
-def _serve(mesh, out):
-    cfg, _ = P.configs(SERVE_ARCH)
+def serve_prefix(arch):
+    return "serve" if arch == SERVE_ARCH else f"serve/{arch}"
+
+
+def _serve(mesh, out, arch):
+    cfg, _ = P.configs(arch)
     inp = P.inputs(cfg)
     np_params = P._np(unbox(jlm.init_lm(jax.random.PRNGKey(P.SEED),
                                         cfg))[0])
-    _flat(np_params, "serve/params", out)
+    _flat(np_params, serve_prefix(arch) + "/params", out)
     params = jax.tree.map(jnp.asarray, np_params)
     cap = P.S + P.DECODE
     pre, psh = japi.make_prefill_step(cfg, mesh, capacity=cap,
@@ -112,7 +119,7 @@ def _serve(mesh, out):
         logits, cache = dec(params, cache, inp["decode"][:, i:i + 1],
                             jnp.int32(P.S + i))
         steps.append(np.asarray(logits))
-    out["serve/logits"] = np.stack(steps)
+    out[serve_prefix(arch) + "/logits"] = np.stack(steps)
 
 
 def _flat(tree, prefix, out):
@@ -137,7 +144,8 @@ def main(out_path):
         rows, _ = _train(TOPK_ARCH, mesh, compression="topk")
         for k, v in rows.items():
             out[f"topk/{TOPK_ARCH}/{k}"] = v
-        _serve(mesh, out)
+        for arch in SERVE_ARCHS:
+            _serve(mesh, out, arch)
     np.savez(out_path, **out)
 
 

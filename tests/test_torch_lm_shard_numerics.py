@@ -178,14 +178,15 @@ def test_topk_compression_matches(ref):
                for l in optim.tree_leaves(state["efb"]))
 
 
-def test_sharded_prefill_and_decode(ref):
-    """yi-6b in f32: the sharded prefill and ``DECODE`` teacher-forced
-    decode steps against ``lm.prefill``/``lm.decode_step`` on one device
-    and against JAX's sharded steps; the row caches joined equal the
-    one-device cache."""
-    _, cfg = P.configs(R.SERVE_ARCH)
-    np_params = _unflat(ref, "serve/params")
-    params = tlm.from_jax_params(np_params, cfg, device="cpu")
+def _serve_against(ref, arch):
+    """``arch`` in f32: the sharded (tensor-parallel) prefill and ``DECODE``
+    teacher-forced decode steps against ``lm.prefill``/``lm.decode_step``
+    on one device and against JAX's sharded steps; the rows' caches joined
+    equal the one-device cache. Returns the cache."""
+    _, cfg = P.configs(arch)
+    prefix = R.serve_prefix(arch)
+    params = tlm.from_jax_params(_unflat(ref, prefix + "/params"), cfg,
+                                 device="cpu")
     mesh, rules = mesh22(), rule_preset("baseline")
     inp = P.inputs(cfg)
     cap = P.S + P.DECODE
@@ -196,9 +197,6 @@ def test_sharded_prefill_and_decode(ref):
     assert tuple(dinfo["tok_sharding"].spec) == ("data", None)
     sparams = sharded_params(cfg, params, mesh, rules)
     cache = api.make_cache(cfg, P.B, cap, shardings=info["cache"])
-    assert len(cache.rows) == 2 and all(
-        l.shape[1] == 1 for l in optim.tree_leaves(cache.rows[0])
-        if l.ndim > 2)
     one = api.make_cache(cfg, P.B, cap, device="cpu")
     toks = torch.from_numpy(inp["tokens"])
     with P.f32_unembed():
@@ -212,51 +210,82 @@ def test_sharded_prefill_and_decode(ref):
             outs.append((got, want))
     for i, (got, want) in enumerate(outs):
         assert torch.allclose(got, want, atol=SELF_TOL, rtol=0), i
-        np.testing.assert_allclose(got.numpy(), ref["serve/logits"][i],
+        np.testing.assert_allclose(got.numpy(), ref[prefix + "/logits"][i],
                                    atol=P.TOL, rtol=P.TOL)
     joined = cache.gather(CPU)
     for a, b in zip(optim.tree_leaves(joined), optim.tree_leaves(one)):
         assert torch.allclose(a.float(), b.float(), atol=SELF_TOL, rtol=0)
+    return cache
 
 
-def test_prefill_and_decode_share_one_gathered_copy(monkeypatch):
-    """Serving a sharded tree through a prefill and decode steps gathers
-    its compute copy once for each device that runs a row (here the one
-    CPU), shared by both step builders, and the memory plan counts that
-    one copy."""
+def test_sharded_prefill_and_decode(ref):
+    """yi-6b (``R.SERVE_ARCH``) on (2, 2): two rows of two-rank groups,
+    each rank's cache its row's half of the batch and its own KV head (the
+    two KV heads split one a rank)."""
+    cache = _serve_against(ref, R.SERVE_ARCH)
+    assert len(cache.rows) == 2 and all(len(r) == 2 for r in cache.rows)
+    assert cache.split == {"kv": True, "ssm": False}
+    assert all(l.shape[1] == 1 and l.shape[3] == 1
+               for rank in cache.rows[0] for l in optim.tree_leaves(rank)
+               if l.ndim > 2)
+
+
+@pytest.mark.parametrize("arch", R.SERVE_ARCHS[1:])
+def test_tensor_parallel_serving_matches_jax(ref, arch):
+    """The expert-parallel MoE (olmoe) and the SSM split by heads (mamba2)
+    on (2, 2), against JAX's sharded steps and the port's one device."""
+    cache = _serve_against(ref, arch)
+    assert cache.split["ssm"] == (arch == "mamba2-2.7b")
+
+
+def test_prefill_and_decode_gather_block_by_block(monkeypatch):
+    """Serving a sharded tree gathers no leaf whole and keeps no copy: each
+    rank's slices come one block at a time (the embedding, each period's
+    sub-layers, the final norm, the unembedding) and are dropped before
+    the next block's are gathered; a leaf sharded over 'model' reaches a
+    rank as its chunk only. The plan holds the shards plus the largest
+    block's copied slices, far below the whole compute copy."""
+    import weakref
+    from repro_torch.parallel import tp
     cfg = tregistry.reduced_config("yi-6b")
     mesh, rules = mesh22(), rule_preset("baseline")
     params = api.init_params(cfg, 0, mesh, rules)
-    n_leaves = len(optim.tree_leaves(params))
     pre, info = api.make_prefill_step(cfg, mesh, rules, capacity=8,
                                       batch_size=2)
     dec, _ = api.make_decode_step(cfg, mesh, rules, capacity=8, batch_size=2)
-    gathered = []
-    real_gather = sh.gather
-    monkeypatch.setattr(sh, "gather",
-                        lambda leaf, d: gathered.append(d) or
-                        real_gather(leaf, d))
+    monkeypatch.setattr(sh, "gather", lambda *a: pytest.fail("whole gather"))
+    live, calls = [], []
+    real = tp.gather_region
+
+    def gather_region(leaf, region, position, device, dtype, block=None,
+                      prefer=()):
+        out = real(leaf, region, position, device, dtype, block=block,
+                   prefer=prefer)
+        key = (id(leaf) if block is None else None, block)
+        alive = {k for r, k in live if r() is not None}
+        assert alive <= {key}, (alive, key)      # only this block's
+        whole = leaf.shape[1:] if block is not None else leaf.shape
+        if "model" in leaf.sharding.spec:
+            assert out.numel() < int(np.prod(whole))
+        if all(out.data_ptr() != s.data_ptr() for s in leaf.shards):
+            live.append((weakref.ref(out), key))
+        calls.append(key)
+        return out
+    monkeypatch.setattr(tp, "gather_region", gather_region)
     cache = api.make_cache(cfg, 2, 8, shardings=info["cache"])
     toks = torch.zeros((2, 4), dtype=torch.int64)
     _, cache = pre(params, {"tokens": toks}, cache)
     for i in range(3):
         _, cache = dec(params, cache, toks[:, :1], 4 + i)
-    assert len(cache.rows) == 2
-    assert gathered == [CPU] * n_leaves
-    # a second tree gets its own copy
-    other = api.init_params(cfg, 1, mesh, rules)
-    dec(other, cache, toks[:, :1], 7)
-    assert len(gathered) == 2 * n_leaves
-    # the plan holds one gathered copy for the one device, two for a
-    # stand-in mesh whose rows run on two devices
-    shards = api.shard_param_bytes(cfg, mesh, rules,
-                                   compute_dtype=cfg.adtype)
-    whole = api.param_bytes(cfg, cfg.adtype)
+    assert calls and all(r() is None for r, _ in live)
+    parts = api.serving_bytes(cfg, mesh, rules, cfg.adtype)
     need = api.param_bytes(cfg, cfg.adtype, mesh=mesh, rules=rules)
-    assert sum(need) - sum(shards) == whole
-    stand_in = type("StandIn", (), {"shape": mesh.shape})()
-    need = api.param_bytes(cfg, cfg.adtype, mesh=stand_in, rules=rules)
-    assert sum(need) - sum(shards) == 2 * whole
+    whole = api.param_bytes(cfg, cfg.adtype)
+    assert need == [a + b + c for a, b, c in zip(*parts.values())]
+    assert parts["shards"] == api.shard_param_bytes(cfg, mesh, rules,
+                                                    cfg.adtype)
+    assert 0 < max(parts["block"]) < whole / cfg.n_layers
+    assert sum(parts["cache"]) == 0
 
 
 def _unflat(ref, prefix):
