@@ -2344,17 +2344,16 @@ def lm_shard_phase(dev, gpu):
                "losses": torch.stack(losses).tolist()}
         if m_ is not None:
             n_rows = len(api.batch_row_devices(m_, rules, batch))
-            n_gathers = len(set(api.batch_row_devices(m_, rules, batch)))
-            coll = api.step_collective_bytes(cfg, m_, rules, batch)
+            coll = api.step_collective_bytes(cfg, m_, rules, batch,
+                                             seq=seq)
             row.update({
-                "rows": n_rows, "gathers_a_step": n_gathers,
-                # computed from the leaves' shapes, not counted in the run:
-                # the gathered compute copies, and each row's gradient
-                # slice for every position (copies included), in f32
-                "gather_bytes_a_step_from_shapes": sum(
-                    c["all-gather"] for c in coll),
-                "row_sum_bytes_a_step_from_shapes": sum(
-                    c["all-reduce"] for c in coll),
+                "rows": n_rows,
+                # counted on meta tensors (one rank, given to every rank
+                # of every row's group), not measured in the run: the
+                # groups' collectives and the block gathers with their
+                # backward's reduce-scatters, summed over the positions
+                **{f"{k}_bytes_a_step_counted": sum(c[k] for c in coll)
+                   for k in ("all-gather", "all-reduce", "reduce-scatter")},
                 "position_bytes": sh.shard_bytes(state),
                 "note": "the four positions share one card: its peak holds "
                         "them all, not a per-device saving"})
@@ -2457,12 +2456,30 @@ def lm_shard_phase(dev, gpu):
 # that differ only in the order of f32 sums drift apart with depth, 2.4%
 # of the largest logit at 64 layers (tools/tp_bf16_drift.py), so the
 # tokens of two free-running greedy runs part at the first near-tie
+#
+# Then the train step on the groups (ROADMAP A14.5c), after (c0) ROADMAP C4:
+# qwen2-7b at full width in f32 served on (1, 4) against one device
+# (prefill LM_TP_F32's batch x prompt, its decode steps fed the one
+# device's greedy tokens): each step's logits within LM_TP_F32_RTOL of its
+# largest. (c) every reduced arch in f32 on LM_TP_MESHES: the loss and
+# every gradient leaf within LM_TP_TOL of one device. (d) h2o-danube-1.8b
+# at full width, LM_TP_TRAIN's batch x tokens: the f32 loss and every
+# gradient leaf on (1, 4) within LM_TP_F32_RTOL of the leaf's largest
+# against one device; then LM_TP_TRAIN_STEPS bf16 steps of
+# build_train_step on one device, (1, 4) and (2, 2), each on the same
+# batch: finite, falling, the
+# meshes' peak memory within LM_TP_PEAK_TOL of the plan summed over the
+# card's positions (api.train_state_bytes, as check_fits adds them)
 LM_TP_MESHES = ((1, 4), (2, 2))
 LM_TP_BATCH, LM_TP_SEQ, LM_TP_DECODE = 4, 16, 4
 LM_TP_TOL = 1e-5
 LM_TP_FULL = ("qwen3-32b", 4, 512, 32)     # arch, batch, prompt, greedy
 LM_TP_FULL_RTOL = 5e-2
 LM_TP_PEAK_TOL = 0.10
+LM_TP_F32 = ("qwen2-7b", 4, 512, 8)        # arch, batch, prompt, decode
+LM_TP_F32_RTOL = 1e-4
+LM_TP_TRAIN = ("h2o-danube-1.8b", 1, 2048)   # arch, batch, tokens a row
+LM_TP_TRAIN_STEPS = 3
 
 
 def lm_tp_phase(dev, gpu):
@@ -2632,15 +2649,188 @@ def lm_tp_phase(dev, gpu):
             or not (one["finite"] and tp_["finite"]):
         fail(f"lm_tp[{arch} full]: {result}")
 
+    c4 = lm_tp_f32_serving(dev, card_mesh, serve)
+    train = lm_tp_train(dev, card_mesh)
+
     launches = K.launch_counts()
     if any(launches.values()):
-        fail(f"lm_tp: the tensor-parallel serving launched a kernel of the "
+        fail(f"lm_tp: the tensor-parallel steps launched a kernel of the "
              f"port: {launches}")
     return {"phase": "lm_tp", "seconds": time.perf_counter() - t_phase,
             "launches": launches, "tol": LM_TP_TOL,
             "note": "one card repeated as each mesh: the positions share "
                     "its memory and run one after another",
-            "reduced": reduced, "full": result, **gpu}
+            "reduced": reduced, "full": result, "f32_serving": c4,
+            **train, **gpu}
+
+
+def lm_tp_f32_serving(dev, card_mesh, serve):
+    """(c0) ROADMAP C4: full-width tensor parallelism in f32, qwen2-7b
+    served on (1, 4) against one device, fed the one device's greedy
+    tokens: each step's logits within LM_TP_F32_RTOL of its largest."""
+    import torch
+    from repro_torch.common.partitioning import rule_preset
+    from repro_torch.configs import registry
+    from repro_torch.parallel import api
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_lm_f32 import f32_unembed
+
+    arch, batch, prompt, n_gen = LM_TP_F32
+    cfg = dataclasses.replace(registry.get_config(arch), act_dtype="float32")
+    inp = lm_inputs(cfg, batch, prompt, SEED)
+    mesh, rules = card_mesh((1, 4)), rule_preset("baseline")
+    runs, feed = {}, None
+    with f32_unembed():
+        for name, m_ in (("one_device", None), ("1x4", mesh)):
+            torch.cuda.empty_cache()
+            params = (api.init_params(cfg, SEED, device=dev) if m_ is None
+                      else api.init_params(cfg, SEED, m_, rules))
+            first, steps, toks, t_pre, t_dec, cache = serve(
+                cfg, params, inp, n_gen, m_, rules if m_ else None,
+                greedy=True, feed=feed)
+            feed = toks
+            runs[name] = {"logits": [first] + steps, "prefill_ms": t_pre,
+                          "decode_ms_per_token": t_dec}
+            del params, cache
+    torch.cuda.empty_cache()
+    rel = [float((a - b).abs().max()) / float(b.abs().max())
+           for a, b in zip(runs["1x4"]["logits"],
+                           runs["one_device"]["logits"])]
+    out = {"arch": arch, "batch": batch, "prompt": prompt,
+           "decode_steps": n_gen, "fed": "the one device's tokens",
+           "max_logits_rel_err": max(rel), "rtol": LM_TP_F32_RTOL,
+           **{name: {k: v for k, v in r.items() if k != "logits"}
+              for name, r in runs.items()}}
+    if not max(rel) <= LM_TP_F32_RTOL:
+        fail(f"lm_tp[{arch} f32 full]: (1, 4) against one device: {out}")
+    return out
+
+
+def lm_tp_train(dev, card_mesh):
+    """(c) the reduced archs' tensor-parallel train step in f32 against one
+    device; (d) full-width danube: the f32 gradient on (1, 4), then bf16
+    steps on one device, (1, 4) and (2, 2) (the comment above LM_TP_MESHES)."""
+    import math
+    import torch
+    from repro_torch.common.partitioning import rule_preset
+    from repro_torch.configs import registry
+    from repro_torch.data import tokens as tdata
+    from repro_torch.parallel import api, sharded as sh
+    from repro_torch.train import optim
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_lm_f32 import f32_unembed
+    rules = rule_preset("baseline")
+
+    def leaf_errs(g, want):
+        """(max abs error, max error over the leaf's largest) of the
+        sharded gradient ``g`` against ``want``, leaf by leaf."""
+        abs_err, rel_err = 0.0, 0.0
+        for a, b in zip(optim.tree_leaves(g), optim.tree_leaves(want)):
+            d = float((sh.gather(a, dev).double() - b.double()).abs().max())
+            abs_err = max(abs_err, d)
+            rel_err = max(rel_err, d / max(float(b.abs().max()), 1e-30))
+        return abs_err, rel_err
+
+    # -- (c) the ten reduced archs in f32
+    reduced = {}
+    with f32_unembed():
+        for arch in registry.list_archs():
+            cfg = dataclasses.replace(registry.reduced_config(arch),
+                                      act_dtype="float32")
+            src = tdata.SyntheticTokens(tdata.DataConfig(
+                cfg.vocab_size, LM_TP_SEQ + 1, LM_TP_BATCH, seed=SEED))
+            batch = lm_token_batch(cfg, src, 0, dev)
+            (l1, _), g1 = api.make_value_and_grad(cfg)(
+                api.init_params(cfg, SEED, device=dev), batch)
+            rows = {}
+            for shape in LM_TP_MESHES:
+                mesh = card_mesh(shape)
+                (l, _), g = api.make_value_and_grad(cfg, mesh, rules)(
+                    api.init_params(cfg, SEED, mesh, rules), batch)
+                grad_err, _ = leaf_errs(g, g1)
+                row = {"loss_abs_err": abs(float(l) - float(l1)),
+                       "grad_max_abs_err": grad_err}
+                rows["x".join(map(str, shape))] = row
+                if not (row["loss_abs_err"] <= LM_TP_TOL
+                        and grad_err <= LM_TP_TOL):
+                    fail(f"lm_tp[{arch} {shape} train]: against one device "
+                         f"beyond {LM_TP_TOL}: {row}")
+                del g
+            reduced[arch] = rows
+            del g1
+    torch.cuda.empty_cache()
+
+    # -- (d) full-width danube: the f32 gradient on (1, 4)
+    arch, batch, seq = LM_TP_TRAIN
+    src = tdata.SyntheticTokens(tdata.DataConfig(
+        registry.get_config(arch).vocab_size, seq + 1, batch, seed=SEED))
+    cfg = dataclasses.replace(registry.get_config(arch), act_dtype="float32")
+    b0 = lm_token_batch(cfg, src, 0, dev)
+    mesh14 = card_mesh((1, 4))
+    with f32_unembed():
+        (l1, _), g1 = api.make_value_and_grad(cfg)(
+            api.init_params(cfg, SEED, device=dev), b0)
+        torch.cuda.empty_cache()
+        (l, _), g = api.make_value_and_grad(cfg, mesh14, rules)(
+            api.init_params(cfg, SEED, mesh14, rules), b0)
+    abs_err, rel_err = leaf_errs(g, g1)
+    f32 = {"loss": float(l), "loss_abs_err": abs(float(l) - float(l1)),
+           "grad_max_abs_err": abs_err, "grad_max_err_over_leaf_max":
+           rel_err, "rtol": LM_TP_F32_RTOL}
+    del g, g1
+    torch.cuda.empty_cache()
+    if not (rel_err <= LM_TP_F32_RTOL and abs(float(l) - float(l1))
+            <= LM_TP_F32_RTOL * abs(float(l1))):
+        fail(f"lm_tp[{arch} f32 train (1, 4)]: against one device: {f32}")
+
+    # -- (d) then bf16 steps on one device, (1, 4) and (2, 2)
+    cfg = registry.get_config(arch)
+    tc = api.TrainConfig()
+    # one batch at every step: the loss falls by a descent step's, not by
+    # the next batch's luck
+    b0 = lm_token_batch(cfg, src, 0, dev)
+    steps = {}
+    for name, shape in (("one_device", None), ("1x4", (1, 4)),
+                        ("2x2", (2, 2))):
+        m_ = card_mesh(shape) if shape else None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = (api.init_params(cfg, SEED, device=dev, train_cfg=tc)
+                  if m_ is None else
+                  api.init_params(cfg, SEED, m_, rules, train_cfg=tc))
+        state = api.make_train_state(params)
+        step, _ = api.make_train_step(cfg, m_, rules if m_ else None,
+                                      train_cfg=tc)
+        losses, times = [], []
+        for b in [b0] * LM_TP_TRAIN_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        plan = (api.train_state_bytes(cfg, tc) if m_ is None else
+                sum(api.train_state_bytes(cfg, tc, mesh=m_, rules=rules)))
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps[name] = {"losses": losses, "step_ms": times,
+                       "peak_bytes": peak, "plan_bytes": plan,
+                       "peak_rel_err_vs_plan": abs(peak - plan) / plan}
+        del params, state, m
+    torch.cuda.empty_cache()
+    one_ms = min(steps["one_device"]["step_ms"][1:])
+    for name, row in steps.items():
+        row["ms_over_one_device"] = min(row["step_ms"][1:]) / one_ms
+        ok = all(math.isfinite(x) for x in row["losses"]) and \
+            row["losses"][-1] < row["losses"][0]
+        if not ok or (name != "one_device" and row["peak_rel_err_vs_plan"]
+                      > LM_TP_PEAK_TOL):
+            fail(f"lm_tp[{arch} bf16 train {name}]: losses not finite or "
+                 f"not falling, or the peak beyond {LM_TP_PEAK_TOL} of the "
+                 f"plan: {row}")
+    return {"train_reduced": reduced,
+            "train_full": {"arch": arch, "batch": batch, "tokens_per_row":
+                           seq, "f32_1x4": f32, "bf16_steps": steps,
+                           "peak_tol": LM_TP_PEAK_TOL}}
 
 
 # the dryrun phase: the children of (a) and (b), started together; (b)
@@ -2663,7 +2853,12 @@ DRYRUN_CARD = (("h2o-danube-1.8b", "train", 1, 6144, None),
                ("qwen2-7b", "prefill", 4, 512, None),
                # a tensor-parallel serving cell: the one card as (1, 4),
                # the whole group counted (dryrun.count_group)
-               ("qwen2-7b", "prefill", 4, 512, (1, 4)))
+               ("qwen2-7b", "prefill", 4, 512, (1, 4)),
+               # a tensor-parallel train cell: the one card as (2, 2), two
+               # rows of two ranks, the whole mesh counted
+               # (dryrun.count_mesh_train); full width, since at reduced
+               # size the peak (tens of MB) is within the cuBLAS workspace
+               ("h2o-danube-1.8b", "train", 2, 2048, (2, 2)))
 DRYRUN_PEAK_TOL = 0.10
 
 
@@ -2744,7 +2939,11 @@ def dryrun_phase(dev, gpu):
             mesh = Mesh(np.array([dev] * int(np.prod(mesh_shape)),
                                  dtype=object).reshape(mesh_shape),
                         ("data", "model"))
-            counted = dryrun.count_group(cfg, cell, mesh, rules, specs=specs)
+            counted = (dryrun.count_mesh_train(cfg, cell, mesh_shape, rules,
+                                               specs=specs)
+                       if step_kind == "train" else
+                       dryrun.count_group(cfg, cell, mesh, rules,
+                                          specs=specs))
         rec = roofline.summarize(f"{arch}/card", counted, 1, 0.0)
         rng = np.random.default_rng(SEED)
         inputs = {n: torch.from_numpy(rng.integers(
@@ -2753,9 +2952,13 @@ def dryrun_phase(dev, gpu):
         torch.cuda.empty_cache()
         if step_kind == "train":
             tc = api.TrainConfig()
-            state = api.make_train_state(api.init_params(
-                cfg, SEED, device=dev, train_cfg=tc))
-            step, _ = api.make_train_step(cfg, train_cfg=tc)
+            state = api.make_train_state(
+                api.init_params(cfg, SEED, device=dev, train_cfg=tc)
+                if mesh_shape is None else
+                api.init_params(cfg, SEED, mesh, rules, train_cfg=tc))
+            step, _ = api.make_train_step(
+                cfg, None if mesh_shape is None else mesh, rules,
+                train_cfg=tc)
 
             def run():
                 return step(state, inputs)

@@ -20,20 +20,19 @@ its arguments and the peak of its live allocations, and the kernels' work
   positions, 32 or 64 nodes of 8 H100 SXM cards.
 * **LM cells** count what one position computes, at the position that
   holds the most bytes, and record that device's numbers.
-  - *Training*: the port's sharded train step runs each row of the batch
-    on the row's device with the whole gathered compute copy
-    (``parallel/api``), so a cell counts one row at its local batch (the
-    global batch, or with ``num_microbatches`` a micro-batch, over the
-    rows: ``api.row_positions``). Its arguments are that position's
-    state as ``train_state_bytes(mesh=)`` gives it (its master, gradient
-    and moment shards, the compute copy of its shards and the gathered
-    copy) plus its row of the batch. It counts the cast of its shards, the
-    row's forward and backward on the gathered copy, the row sums into its
-    gradient shards (its own row's slice and one received slice for every
-    other row) and Adam on its shards; with ``num_microbatches`` one
-    micro-batch is counted and its FLOPs, bytes and kernel work taken that
-    many times (the peak is one micro-batch's: the gradient shards that
-    sum them are arguments).
+  - *Training*: each row runs on its tensor-parallel group
+    (``parallel/tp.py``), so a cell counts one rank of the first row's
+    group (``api.meta_train_step``) at its row's local batch (the global
+    batch, or with ``num_microbatches`` a micro-batch, over the rows:
+    ``api.row_positions``): its arguments are its f32 master, ``mu`` and
+    ``nu`` shards and its row of the batch; it counts the cast of its
+    shards, the row's forward and backward with each block's slices
+    gathered (twice under full remat) and their gradients added into its
+    buffers, and Adam on its shards; the other ranks' collective terms
+    are empty buffers of their size. ``state_bytes`` is its plan,
+    ``train_state_bytes(mesh=)``. With ``num_microbatches`` one
+    micro-batch is counted and its FLOPs, bytes, kernel work and
+    collectives taken that many times (the peak is one micro-batch's).
   - *Serving*: each row runs on its tensor-parallel group
     (``parallel/tp.py``), so a cell counts one rank of the first row's
     group (``api.meta_serving_step``): its arguments are its param shards
@@ -46,11 +45,11 @@ its arguments and the peak of its live allocations, and the kernels' work
   capacity. On a one-position mesh the cell runs the port's one-device
   step itself (``api.make_train_step``, ``make_prefill_step``,
   ``make_decode_step``).
-* **Collectives** (``parallel/api.step_collective_bytes``): training's
-  from the layout (the gathered compute copy and the row sums); serving's
-  tallied in a run of the step on meta tensors (the group's all-reduces,
-  all-gathers and reduce-scatters and the block-wise gathers over
-  'data'); each priced at NVLink or InfiniBand.
+* **Collectives** (``parallel/api.step_collective_bytes``): tallied in
+  the run of the step on meta tensors (the group's all-reduces,
+  all-gathers and reduce-scatters, the block-wise gathers over 'data'
+  and, in training, their backward's reduce-scatters); each priced at
+  NVLink or InfiniBand.
 * **Depth.** The port has no ``lax.scan``: one count covers every layer,
   and every record says ``probe_meta: {"probe": "exact"}``, as JAX's
   depth-1 cells do. ``--no-probes`` is accepted and changes nothing.
@@ -78,8 +77,7 @@ from typing import Dict, Optional, Union
 
 import torch
 
-from repro_torch.common.partitioning import (ActivationSharder, LogicalRules,
-                                             NamedSharding, rule_preset)
+from repro_torch.common.partitioning import LogicalRules, rule_preset
 from repro_torch.configs import registry
 from repro_torch.configs.shapes import SHAPES, ShapeCell, shape_applicable
 from repro_torch.launch import roofline
@@ -87,7 +85,7 @@ from repro_torch.launch.mesh import (MeshShape, make_production_mesh,
                                      mesh_chip_count)
 from repro_torch.models import encdec, lm
 from repro_torch.obs import log as obs_log
-from repro_torch.parallel import api, sharded as sh, tp
+from repro_torch.parallel import api, collectives as pcoll, tp
 from repro_torch.train import loop, optim
 
 _LOG = obs_log.get_logger("dryrun")
@@ -190,46 +188,6 @@ def _count_one_device(cfg, cell: ShapeCell, specs: Dict,
     return c.result(), api.param_bytes(cfg, cfg.adtype)
 
 
-def _position_state(cfg, mesh, rules: LogicalRules, p: int, train: bool):
-    """Position ``p``'s own state, leaf by leaf, as meta tensors laid out
-    as ``api.train_state_bytes`` / ``param_bytes`` count it: its shard
-    (f32 master, or serving params in the compute dtype), the shard's
-    compute copy where the cast narrows it, the gathered whole compute
-    copy and, for training, Adam's moments and the gradient's shard; and
-    the index of its slice."""
-    dt = None if train else cfg.adtype
-    shapes, specs = api.param_specs(cfg, mesh, LogicalRules(rules.rules), dt)
-
-    def leaf_state(leaf, spec):
-        sharding = NamedSharding(mesh, spec)
-        shard = sharding.shard_shape(tuple(leaf.shape))
-        narrow = api._casts(leaf, cfg.adtype)
-        st = {"shard": _meta(shard, leaf.dtype),
-              "cast": _meta(shard, cfg.adtype) if narrow else None,
-              "whole": _meta(leaf.shape, cfg.adtype if narrow
-                             else leaf.dtype),
-              "index": sharding.indices(tuple(leaf.shape))[p]}
-        if train:
-            st.update(mu=_meta(shard, torch.float32),
-                      nu=_meta(shard, torch.float32),
-                      grad=_meta(shard, torch.float32))
-        return st
-    return _zip_tree(shapes, specs, leaf_state)
-
-
-def _zip_tree(a, b, fn):
-    if isinstance(a, dict):
-        return {k: _zip_tree(a[k], b[k], fn) for k in a}
-    return fn(a, b)
-
-
-def _map_states(tree, fn):
-    """``fn`` over the leaf states of :func:`_position_state`'s tree."""
-    if "shard" in tree:
-        return fn(tree)
-    return {k: _map_states(v, fn) for k, v in tree.items()}
-
-
 def _count_position(cfg, cell: ShapeCell, specs: Dict, mesh,
                     rules: LogicalRules, tc: api.TrainConfig, p: int,
                     n_rows: int):
@@ -247,50 +205,17 @@ def _count_position(cfg, cell: ShapeCell, specs: Dict, mesh,
         c.outputs(out)
         return c.result(), api.param_bytes(cfg, cfg.adtype, mesh=mesh,
                                            rules=rules)[p]
-    st = _position_state(cfg, mesh, rules, p, train)
-    leaves = []
-    _map_states(st, leaves.append)
-    gathered = _map_states(st, lambda l: l["whole"])
-    state_args = [[l[k] for k in ("shard", "cast", "mu", "nu", "grad")
-                   if l.get(k) is not None] for l in leaves]
-    sharder = ActivationSharder(mesh, LogicalRules(rules.rules)).for_row(
-        sh.RowContext(n_rows), 0)
-    model = _model(cfg)
     nmb = tc.num_microbatches
     row = _rows_of(specs["batch"], nmb * n_rows)
-    with roofline.Counter((state_args, gathered, row)) as c:
-        for l in leaves:                       # the cast of its shards
-            if l["cast"] is not None:
-                l["cast"].copy_(l["shard"])
-        pairs = []
-
-        def trainable(l):
-            t = l["whole"].detach().requires_grad_(True)
-            pairs.append((l, t))
-            return t
-        copy = _map_states(st, trainable)
-        with torch.enable_grad():
-            loss, _ = model.loss_fn(copy, cfg, row, sharder=sharder)
-            grads = torch.autograd.grad(loss, [t for _, t in pairs],
-                                        allow_unused=True,
-                                        materialize_grads=True)
-        del loss, copy
-        # the row sums: its own row's slice, then one received slice for
-        # every other row, added in f32 on its device
-        for (l, _), g in zip(pairs, grads):
-            l["grad"].copy_(g[l["index"]].to(torch.float32))
-            for _ in range(n_rows - 1):
-                l["grad"].add_(torch.empty_like(l["grad"]))
-        del pairs, grads
-        keys = range(len(leaves))
-        optim.adam_update(
-            {i: leaves[i]["grad"] for i in keys},
-            optim.AdamState(step=0, mu={i: leaves[i]["mu"] for i in keys},
-                            nu={i: leaves[i]["nu"] for i in keys}),
-            {i: leaves[i]["shard"] for i in keys}, tc.optimizer)
+    run, state = api.meta_train_step(cfg, mesh, rules, row, n_rows, p, tc)
+    with pcoll.tally() as moved, roofline.Counter((state, row)) as c:
+        run()
     res = c.result()
     if nmb > 1:
         res = _scaled(res, nmb)
+        moved = {k: ({q: n * nmb for q, n in v.items()} if k != "spans"
+                     else v) for k, v in moved.items()}
+    res["coll"] = api._tally_entry(moved, p)
     return res, api.train_state_bytes(cfg, tc, mesh=mesh, rules=rules)[p]
 
 
@@ -310,6 +235,39 @@ def count_group(cfg, cell: ShapeCell, mesh, rules: LogicalRules,
                                        whole_group=True)
     with roofline.Counter((state, inp)) as c:
         out = run()
+    c.outputs(out)
+    return c.result()
+
+
+@dataclasses.dataclass(frozen=True)
+class _MetaMesh(MeshShape):
+    """A stand-in mesh whose every position is the meta device: a step
+    driven on it allocates nothing."""
+
+    @property
+    def devices(self):
+        return [torch.device("meta")] * self.size
+
+
+def count_mesh_train(cfg, cell: ShapeCell, shape, rules: LogicalRules,
+                     specs: Optional[Dict] = None,
+                     train_cfg: Optional[api.TrainConfig] = None) -> Dict:
+    """A train cell's whole step on a mesh of ``shape`` ((data, model)),
+    counted on meta tensors as one process that drives the mesh runs it:
+    every row on its group, every rank (``api.make_train_step`` on a mesh
+    of meta devices); every position's master, ``mu`` and ``nu`` shards
+    are arguments (``chip_smoke.py``'s ``dryrun`` holds this count to the
+    card on a mesh of one card)."""
+    specs = specs or registry.input_specs(cfg, cell)
+    mesh = _MetaMesh(("data", "model"), tuple(shape))
+    shapes, pspecs = api.param_specs(cfg, mesh, rules)
+    state = api.make_train_state(tp.meta_params(shapes, pspecs, mesh))
+    step, _ = api.make_train_step(cfg, mesh, rules, train_cfg=train_cfg)
+    shards = [s for tree in (state["params"], state["opt"].mu,
+                             state["opt"].nu)
+              for leaf in optim.tree_leaves(tree) for s in leaf.shards]
+    with roofline.Counter((shards, specs["batch"])) as c:
+        out = step(state, specs["batch"])
     c.outputs(out)
     return c.result()
 
@@ -342,26 +300,28 @@ def build_and_count(cfg, shape: Union[str, ShapeCell], mesh,
     train = cell.step == "train"
     split = cell.global_batch // (tc.num_microbatches if train else 1)
     rows = api.row_positions(mesh, rules, split)
-    coll = api.step_collective_bytes(
-        cfg, mesh, rules, split, train=train, step=cell.step,
-        seq=cell.seq_len, capacity=cell.seq_len, enc_len=_enc_len(cfg, cell))
     if not api._sharded_mesh(mesh):
         res, state = _count_one_device(cfg, cell, specs, tc)
         p = 0
+        coll = api.step_collective_bytes(cfg, mesh, rules, split)[p]
     else:
-        if train:
-            plan = api.train_state_bytes(cfg, tc, mesh=mesh, rules=rules)
-        else:       # every rank of every row's group computes
-            plan = api.param_bytes(cfg, cfg.adtype, mesh=mesh, rules=rules)
-            rows = [q for g in tp.groups(mesh, rules, split) for q in g]
-        p = max(rows, key=lambda q: plan[q])
+        # every rank of every row's group computes
+        plan = (api.train_state_bytes(cfg, tc, mesh=mesh, rules=rules)
+                if train else
+                api.param_bytes(cfg, cfg.adtype, mesh=mesh, rules=rules))
+        p = max((q for g in tp.groups(mesh, rules, split) for q in g),
+                key=lambda q: plan[q])
         res, state = _count_position(cfg, cell, specs, mesh, rules, tc, p,
-                                     len(api.row_positions(mesh, rules,
-                                                           split)))
-        rows = api.row_positions(mesh, rules, split)
+                                     len(rows))
+        coll = res.pop("coll", None)
+        if coll is None:
+            coll = api.step_collective_bytes(
+                cfg, mesh, rules, split, train=False, step=cell.step,
+                seq=cell.seq_len, capacity=cell.seq_len,
+                enc_len=_enc_len(cfg, cell))[p]
     return res, {"position": p, "rows": len(rows),
                  "row_batch": split // len(rows), "state_bytes": int(state),
-                 "coll": coll[p]}
+                 "coll": coll}
 
 
 def lower_cell(arch: str, shape: str, multi_pod: bool,

@@ -16,8 +16,11 @@ thread while the previous chunk runs. The engine's one host read a chunk
 ``--data`` and ``--model`` build the mesh with ``launch/mesh.
 make_local_mesh`` (which clamps to the devices there are, as the JAX
 function does); on a mesh of more than one device the train state is
-sharded (``parallel/api``); the engine copies each whole batch to the
-mesh's first device and the step moves each row to its device.
+sharded and each row of the batch trains on its tensor-parallel group
+along 'model' (``parallel/api``: heads, ``mlp``, vocab, experts and SSM
+heads split, one block's slices gathered at a time); the engine copies
+each whole batch to the mesh's first device and the step moves each row
+to its group.
 
 It differs from the JAX launcher in two places:
 
@@ -25,7 +28,8 @@ It differs from the JAX launcher in two places:
     first device; without a GPU the default raises, it does not fall
     back.
   * A model whose train state (16 bytes a parameter and the compute copy;
-    on a mesh, each device's shards and the gathered compute copy) does
+    on a mesh, each device's shards, their compute copy and one block's
+    gathered slices with their gradient: ``api.train_state_bytes``) does
     not fit is refused with ``MemoryError`` before anything is drawn.
 
 As in the JAX package, whisper (an encoder-decoder, whose batches need
@@ -116,8 +120,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--data", type=int, default=1)
-    ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--data", type=int, default=1,
+                    help="mesh positions along 'data' (batch rows, FSDP)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="mesh positions along 'model' (each row's "
+                         "tensor-parallel group)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--chunk-steps", type=int, default=16)

@@ -5,8 +5,8 @@ Heterogeneous stacks (jamba) are grouped into repeating *periods*: the
 layer pattern within a period is static structure, and the model loops
 over periods with each sub-layer's parameters stacked over them.
 
-``prefill_block_tp`` and ``decode_block_tp`` are the serving blocks of a
-tensor-parallel group (``parallel/collectives.Group``): lists with one
+``apply_block_tp`` (training), ``prefill_block_tp`` and
+``decode_block_tp`` (serving) are the blocks of a tensor-parallel group (``parallel/collectives.Group``): lists with one
 entry per running rank of the group (params, residual stream, caches),
 each rank's params its own slice (``parallel/api``). A mixer or FFN whose
 split dim (heads, SSM heads, ``mlp``, experts) divides over the group
@@ -193,10 +193,13 @@ def _ssm_tp(tp, ps, cfg, hs, caches=None):
 def ffn_tp(tp, ps, cfg: ModelConfig, layer_idx: int, xs, sp: bool,
            sharder=None):
     """The block's FFN half on the group (``mlp`` column/row-parallel, the
-    MoE's experts split): the new residual stream."""
+    MoE's experts split): (the new residual stream, the MoE's aux of the
+    first running rank). The router logits are gathered whole on every
+    rank, so every rank forms the same load-balance term; its gradient
+    reaches each rank's router columns through the gather's backward."""
     ffn = cfg.ffn_kind(layer_idx)
     if ffn == "none":
-        return xs
+        return xs, {}
     hs = whole_seq(tp, [layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
                         for p, x in zip(ps, xs)], sp)
     if ffn == "moe":
@@ -207,15 +210,17 @@ def ffn_tp(tp, ps, cfg: ModelConfig, layer_idx: int, xs, sp: bool,
                   for p, h in zip(ps, hs)]
         if partial:
             logits = coll.all_gather(tp, logits, -1)
-        parts = [moe_lib.apply_moe(p["moe"], cfg, h, sharder=sharder,
-                                   logits=lg, first_expert=r * e_local,
-                                   partial=partial)[0]
-                 for r, p, h, lg in zip(tp.ranks, ps, hs, logits)]
+        outs = [moe_lib.apply_moe(p["moe"], cfg, h, sharder=sharder,
+                                  logits=lg, first_expert=r * e_local,
+                                  partial=partial)
+                for r, p, h, lg in zip(tp.ranks, ps, hs, logits)]
+        parts, aux = [y for y, _ in outs], outs[0][1]
     else:
         partial = ps[0]["mlp"]["w_gate"].shape[-1] < cfg.d_ff
         parts = [layers.swiglu(p["mlp"], h, partial=partial)
                  for p, h in zip(ps, hs)]
-    return mix_into(tp, xs, parts, partial, sp)
+        aux = {}
+    return mix_into(tp, xs, parts, partial, sp), aux
 
 
 def prefill_block_tp(tp, ps, cfg: ModelConfig, layer_idx: int, xs,
@@ -239,6 +244,27 @@ def prefill_block_tp(tp, ps, cfg: ModelConfig, layer_idx: int, xs,
             cache["ssm_state"].copy_(st)
             cache["conv_state"].copy_(conv)
     xs = mix_into(tp, xs, parts, partial, sp)
+    return ffn_tp(tp, ps, cfg, layer_idx, xs, sp, sharder)[0]
+
+
+def apply_block_tp(tp, ps, cfg: ModelConfig, layer_idx: int, xs,
+                   positions, sp: bool, sharder=None):
+    """:func:`apply_block` on the group: :func:`prefill_block_tp` without a
+    cache (each rank's heads through ``attention.attend_full``, its SSM
+    heads without states). Returns (the new stream, the first running
+    rank's aux)."""
+    hs = whole_seq(tp, [layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
+                        for p, x in zip(ps, xs)], sp)
+    if cfg.layer_kind(layer_idx) == "attn":
+        heads, kv_heads, partial = _heads_tp(cfg, ps, "attn")
+        parts = [attention.attend_full(
+            p["attn"], cfg, h, pos,
+            kv_sel=attention.kv_select(cfg, heads, kv_heads, r),
+            partial=partial)
+            for r, p, h, pos in zip(tp.ranks, ps, hs, positions)]
+    else:
+        parts, partial, _ = _ssm_tp(tp, ps, cfg, hs)
+    xs = mix_into(tp, xs, parts, partial, sp)
     return ffn_tp(tp, ps, cfg, layer_idx, xs, sp, sharder)
 
 
@@ -258,4 +284,4 @@ def decode_block_tp(tp, ps, cfg: ModelConfig, layer_idx: int, xs, pos: int,
     else:
         parts, partial, _ = _ssm_tp(tp, ps, cfg, hs, caches)
     xs = mix_into(tp, xs, parts, partial, False)
-    return ffn_tp(tp, ps, cfg, layer_idx, xs, False, sharder)
+    return ffn_tp(tp, ps, cfg, layer_idx, xs, False, sharder)[0]

@@ -286,9 +286,27 @@ def _seq_slice(tp, xs, sp: bool):
     return [x[:, r * n:(r + 1) * n] for r, x in zip(tp.ranks, xs)]
 
 
-def encode_tp(src, cfg: ModelConfig, frames: torch.Tensor, sp: bool):
+def _enc_layer_tp(src, cfg: ModelConfig, i: int, positions, sp: bool,
+                  *xs):
+    """Encoder layer ``i`` on the group, its slices gathered inside (and
+    dropped when it returns, before the next layer's)."""
+    tp = src.group
+    ps = src.block(("enc_layers",), i)
+    sel, partial = _attn_tp(tp, cfg, ps, "attn")
+    hs = blocks.whole_seq(tp, [layers.layernorm(p["ln1"], x)
+                               for p, x in zip(ps, xs)], sp)
+    parts = [attention.attend_full(p["attn"], cfg, h, pos, causal=False,
+                                   kv_sel=k, partial=partial)
+             for p, h, pos, k in zip(ps, hs, positions, sel)]
+    xs = blocks.mix_into(tp, list(xs), parts, partial, sp)
+    return tuple(_mlp_tp(tp, cfg, ps, xs, "ln2", sp))
+
+
+def encode_tp(src, cfg: ModelConfig, frames: torch.Tensor, sp: bool,
+              policy: str = "none"):
     """:func:`encode` on the group; the encoder's output whole on every
-    rank (the decoder's cross-attention reads all of it)."""
+    rank (the decoder's cross-attention reads all of it). ``policy``: the
+    remat policy of each layer (training: ``cfg.remat``)."""
     tp = src.group
     b, s, _ = frames.shape
     pe = layers.sinusoidal_positions(s, cfg.d_model, frames.device)
@@ -298,16 +316,8 @@ def encode_tp(src, cfg: ModelConfig, frames: torch.Tensor, sp: bool):
     positions = _on_ranks(tp, torch.zeros((b, s), dtype=torch.int32,
                                             device=frames.device))
     for i in range(cfg.n_layers):
-        ps = src.block(("enc_layers",), i)
-        sel, partial = _attn_tp(tp, cfg, ps, "attn")
-        hs = blocks.whole_seq(tp, [layers.layernorm(p["ln1"], x)
-                                   for p, x in zip(ps, xs)], sp)
-        parts = [attention.attend_full(p["attn"], cfg, h, pos, causal=False,
-                                       kv_sel=k, partial=partial)
-                 for p, h, pos, k in zip(ps, hs, positions, sel)]
-        xs = blocks.mix_into(tp, xs, parts, partial, sp)
-        xs = _mlp_tp(tp, cfg, ps, xs, "ln2", sp)
-        del ps              # this layer's slices, before the next's
+        xs = remat.maybe_remat(functools.partial(
+            _enc_layer_tp, src, cfg, i, positions, sp), policy)(*xs)
     xs = [layers.layernorm(p, x) for p, x in zip(src.block(("enc_ln",)), xs)]
     return blocks.whole_seq(tp, xs, sp)
 
@@ -371,6 +381,62 @@ def prefill_tp(src, cfg: ModelConfig, batch: Dict, caches, sp: bool,
     if sp:
         last = [x[:, -1:] for x in coll.all_gather(tp, last, 1)]
     return _logits_tp(src, cfg, last)
+
+
+def _dec_layer_tp(src, cfg: ModelConfig, i: int, positions, sp: bool,
+                  n: int, *args):
+    """Decoder layer ``i`` on the group without a cache (training): the
+    ranks' streams ``args[:n]`` and the encoder's output ``args[n:]``,
+    each rank its self and cross attention heads."""
+    tp = src.group
+    xs, enc = list(args[:n]), args[n:]
+    ps = src.block(("dec_layers",), i)
+    sel, partial = _attn_tp(tp, cfg, ps, "attn")
+    hs = blocks.whole_seq(tp, [layers.layernorm(p["ln1"], x)
+                               for p, x in zip(ps, xs)], sp)
+    parts = [attention.attend_full(p["attn"], cfg, h, pos, kv_sel=k,
+                                   partial=partial)
+             for p, h, pos, k in zip(ps, hs, positions, sel)]
+    xs = blocks.mix_into(tp, xs, parts, partial, sp)
+    sel, partial = _attn_tp(tp, cfg, ps, "xattn")
+    hs = blocks.whole_seq(tp, [layers.layernorm(p["ln_x"], x)
+                               for p, x in zip(ps, xs)], sp)
+    parts = [attention.attend_full(p["xattn"], cfg, h, pos, causal=False,
+                                   kv_x=e, rope=False, kv_sel=k,
+                                   partial=partial)
+             for p, h, pos, e, k in zip(ps, hs, positions, enc, sel)]
+    xs = blocks.mix_into(tp, xs, parts, partial, sp)
+    return tuple(_mlp_tp(tp, cfg, ps, xs, "ln2", sp))
+
+
+def loss_fn_tp(src, cfg: ModelConfig, batch: Dict, sp: bool,
+               sp_enc: bool = False, sharder=None):
+    """:func:`loss_fn` on the group of ``src`` (built with gradient
+    buffers: ``models/lm.loss_fn_tp``): the encoder and each decoder
+    layer under ``cfg.remat``, then the vocab-parallel CE against the
+    tied table. ``sp_enc`` splits the encoder's stream, ``sp`` the
+    decoder's. Returns (the CE on the group's first running rank, {})."""
+    from repro_torch.models.lm import chunked_cross_entropy_tp
+    tp = src.group
+    enc = encode_tp(src, cfg, batch["enc_embeddings"], sp_enc, cfg.remat)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    xs = _embed_tp(src, cfg, tokens, sp)
+    xs = [x + e for x, e in zip(xs, _seq_slice(tp, [
+        _dec_positions({"dec_pos": t}, cfg, s)[None] for t in
+        src.block(("dec_pos",))], sp))]
+    positions = _on_ranks(tp, torch.arange(
+        s, dtype=torch.int32, device=tokens.device)[None].expand(b, s))
+    for i in range(cfg.n_layers):
+        xs = remat.maybe_remat(functools.partial(
+            _dec_layer_tp, src, cfg, i, positions, sp, len(xs)),
+            cfg.remat)(*xs, *enc)
+    xs = [layers.layernorm(p, x) for p, x in zip(src.block(("dec_ln",)), xs)]
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], 1)
+    tables = [p["table"] for p in src.block(("embedding",))]
+    ce = chunked_cross_entropy_tp(tp, xs, tables, labels, s - 1,
+                                  cfg.vocab_size, sp)
+    return ce, {}
 
 
 def _embed_tp(src, cfg: ModelConfig, tokens, sp: bool):

@@ -80,17 +80,39 @@ def init_linear(kg: KeyGen, d_in: int, d_out: int, axes,
     return p
 
 
+class _F32Out(torch.autograd.Function):
+    """(N, k) @ (k, M) of bf16 operands -> (N, M) f32 on the card: one bf16
+    GEMM with an f32 output (``torch.mm(out_dtype=)``, which has no
+    autograd formula of its own). The backward's two products are bf16
+    GEMMs summing in f32, with the f32 cotangent rounded to bf16 first, as
+    the JAX reference's default-precision products on a TPU round it; the
+    CPU path keeps it in f32."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        gb = g.to(x2.dtype)
+        gx = torch.mm(gb, w.t()) if ctx.needs_input_grad[0] else None
+        gw = torch.mm(x2.t(), gb) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 def matmul_f32(x, w):
     """``x @ w`` summed and returned in f32 (``w`` in ``x``'s dtype): a
     position's term of a row-parallel product, rounded to the act dtype
     only after the tensor-parallel group's sum. bf16 operands on the card
     (and on meta tensors, for the dry run's count) are one GEMM with an f32
-    output; the CPU widens them (the same products)."""
+    output (``_F32Out``); the CPU widens them (the same products)."""
     if x.dtype == torch.float32:
         return x @ w
     x2 = x.reshape(-1, x.shape[-1])
     if x2.is_cuda or x2.is_meta:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
+        out = _F32Out.apply(x2, w)
     else:
         out = x2.float() @ w.float()
     return out.reshape(x.shape[:-1] + (w.shape[-1],))
@@ -145,39 +167,18 @@ def embed_tp(tp, tables, ids, act_dtype, vocab: int, sp: bool = False):
             else coll.all_reduce(tp, parts))
 
 
-class _Bf16Logits(torch.autograd.Function):
-    """(N, d) bf16 @ (V, d)^T bf16 -> (N, V) f32 on the card: one bf16 GEMM
-    with an f32 output (``torch.mm(out_dtype=)``, which has no autograd
-    formula of its own). The backward's two products are bf16 GEMMs
-    summing in f32, with the f32 cotangent rounded to bf16 first, as the
-    JAX reference's default-precision products on a TPU round it; the CPU
-    path keeps it in f32."""
-
-    @staticmethod
-    def forward(ctx, x2, table):
-        ctx.save_for_backward(x2, table)
-        return torch.mm(x2, table.t(), out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        x2, table = ctx.saved_tensors
-        gb = g.to(torch.bfloat16)
-        gx = torch.mm(gb, table) if ctx.needs_input_grad[0] else None
-        gt = torch.mm(gb.t(), x2) if ctx.needs_input_grad[1] else None
-        return gx, gt
-
-
 def unembed(params, x):
     """Logits against the (vocab, embed) table; f32 for the softmax. Both
     operands are rounded to bf16 and the products summed in f32, as the
     JAX function's bf16 einsum with an f32 result: on the card one bf16
-    GEMM with an f32 output (on meta tensors too, so the dry run counts the
-    card's product), on the CPU the same bf16 values widened."""
+    GEMM with an f32 output (``_F32Out``; on meta tensors too, so the dry
+    run counts the card's product), on the CPU the same bf16 values
+    widened."""
     table = params["table"].to(torch.bfloat16)
     xb = x.to(torch.bfloat16)
     x2 = xb.reshape(-1, xb.shape[-1])
     if x2.is_cuda or x2.is_meta:
-        out = _Bf16Logits.apply(x2, table)
+        out = _F32Out.apply(x2, table.t())
     else:
         out = x2.float() @ table.float().t()
     return out.reshape(x.shape[:-1] + (table.shape[0],))

@@ -302,6 +302,130 @@ def prefill_tp(src, cfg: ModelConfig, batch: Dict, caches, sp: bool,
     return _logits_tp(src, cfg, last)
 
 
+def _ce_chunk_tp(tp, vocab: int, sp: bool, n: int, *args):
+    """One chunk of :func:`chunked_cross_entropy_tp`: each running rank's
+    summed CE of the chunk (the same value on every rank)."""
+    xs, tables, labels, valid = (list(args[i * n:(i + 1) * n])
+                                 for i in range(4))
+    if sp:
+        xs = coll.all_gather(tp, xs, 1)
+    logits = [layers.unembed({"table": t}, x) for t, x in zip(tables, xs)]
+    rows = tables[0].shape[0]
+    if rows == vocab:           # a whole table: every rank the whole CE
+        lse = [torch.logsumexp(l, -1) for l in logits]
+        gold = [torch.gather(l, -1, lb[..., None])[..., 0]
+                for l, lb in zip(logits, labels)]
+    else:
+        lse = coll.all_gather(tp, [torch.logsumexp(l, -1)[..., None]
+                                   for l in logits], -1)
+        lse = [torch.logsumexp(v, -1) for v in lse]
+        mine = []
+        for r, l, lb in zip(tp.ranks, logits, labels):
+            local = lb - r * rows
+            own = (local >= 0) & (local < rows)
+            g = torch.gather(l, -1, local.clamp(0, rows - 1)[..., None])
+            mine.append(torch.where(own, g[..., 0], torch.zeros(
+                (), dtype=g.dtype, device=g.device)))
+        gold = coll.all_reduce(tp, mine)
+    return tuple(torch.sum(torch.where(v, z - g, torch.zeros(
+        (), dtype=z.dtype, device=z.device)))
+        for z, g, v in zip(lse, gold, valid))
+
+
+def chunked_cross_entropy_tp(tp, xs, tables, labels: torch.Tensor,
+                             n_valid: int, vocab: int, sp: bool,
+                             seq_chunk: int = 512) -> torch.Tensor:
+    """:func:`chunked_cross_entropy` on a tensor-parallel group, the
+    vocab split: ``xs`` each running rank's final states (B, S, d), or
+    its slice of the sequence under ``sp``; ``tables`` each rank's rows of
+    the (vocab, embed) table; ``labels`` (B, S) the label of every
+    position of the whole sequence, of which the first ``n_valid`` count
+    (the last has none when the labels are the shifted tokens). For each
+    chunk each rank computes its vocab columns' f32 logits and their
+    logsumexp, the group gathers the (B, c) values and combines them, and
+    the gold logit comes from the rank owning the label, zero elsewhere,
+    summed over the group: the logits are never whole on a rank. Under
+    ``sp`` each chunk takes a slice of every rank's sequence, gathered
+    (a chunk of ``c`` positions a rank). A table that does not split
+    gives every rank the whole CE. Each chunk is recomputed by the
+    backward. Returns the mean CE on the group's first running rank."""
+    b, s_local = xs[0].shape[:2]
+    n = len(xs)
+    per = max(1, seq_chunk // tp.size) if sp else seq_chunk
+    c = next(cc for cc in range(min(per, s_local), 0, -1)
+             if s_local % cc == 0)
+    devices = [x.device for x in xs]
+    seq = torch.arange(s_local * (tp.size if sp else 1),
+                       device=labels.device)
+    total = None
+    for j in range(0, s_local, c):
+        if sp:
+            idx = torch.cat([seq[q * s_local + j:q * s_local + j + c]
+                             for q in range(tp.size)])
+        else:
+            idx = seq[j:j + c]
+        lab = labels[:, idx].long()
+        ok = (idx < n_valid)[None].expand(b, -1)
+        part = remat.checkpoint(
+            functools.partial(_ce_chunk_tp, tp, vocab, sp, n),
+            *[x[:, j:j + c] for x in xs], *tables,
+            *[lab.to(d) for d in devices], *[ok.to(d) for d in devices])
+        total = part[0] if total is None else total + part[0]
+    return total / (b * n_valid)
+
+
+def _block_tp(src, cfg: ModelConfig, i: int, p: int, positions, sp: bool,
+              sharder, *xs):
+    """Period ``i``'s sub-layer ``p`` on the group, its slices gathered
+    inside (a checkpointed block gathers them again in the backward):
+    (the new stream, one per rank, then the first rank's MoE aux
+    loss)."""
+    out, aux = blocks.apply_block_tp(
+        src.group, src.block(("blocks", f"sub{p}"), i), cfg, p, list(xs),
+        positions, sp, sharder=sharder)
+    return (*out, aux.get("moe_aux_loss", torch.zeros(
+        (), dtype=torch.float32, device=out[0].device)))
+
+
+def loss_fn_tp(src, cfg: ModelConfig, batch: Dict, sp: bool, sharder=None
+               ) -> Tuple[torch.Tensor, Dict]:
+    """:func:`loss_fn` on the tensor-parallel group of the block source
+    ``src`` (built with gradient buffers: a train step): the embedding,
+    each block under ``cfg.remat`` with its slices gathered inside the
+    recomputed function (the backward gathers them again), the final
+    norm and the vocab-parallel CE (:func:`chunked_cross_entropy_tp`).
+    ``sp`` splits the stream along the sequence. Returns (the loss, its
+    ``ce`` and ``moe_aux_loss``), on the group's first running rank (the
+    MoE's aux summed over the layers as that rank formed it)."""
+    tp = src.group
+    xs = _embed_inputs_tp(src, cfg, batch, sp)
+    inp = batch["embeddings" if "embeddings" in batch else "tokens"]
+    b, s = inp.shape[:2]
+    positions = _on_ranks(tp, _positions(cfg, batch, b, s, inp.device))
+    aux_sum = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    for i in range(n_periods(cfg)):
+        for p in range(blocks.block_period(cfg)):
+            fn = remat.maybe_remat(functools.partial(
+                _block_tp, src, cfg, i, p, positions, sp,
+                _layer_sharder(sharder, i, p)), cfg.remat)
+            *xs, aux = fn(*xs)
+            aux_sum = aux_sum + aux
+    xs = [layers.rmsnorm(p, x, cfg.norm_eps)
+          for p, x in zip(src.block(("final_norm",)), xs)]
+    if "labels" in batch:
+        labels, n_valid = batch["labels"], s
+    else:
+        tok = batch["tokens"]
+        labels = torch.cat([tok[:, 1:], torch.zeros_like(tok[:, :1])], 1)
+        n_valid = s - 1
+    key = "unembedding" if "unembedding" in src.keys else "embedding"
+    tables = [p["table"] for p in src.block((key,))]
+    ce = chunked_cross_entropy_tp(tp, xs, tables, labels, n_valid,
+                                  cfg.vocab_size, sp)
+    loss = ce + 0.01 * aux_sum / max(cfg.n_layers, 1)
+    return loss, {"ce": ce, "moe_aux_loss": aux_sum}
+
+
 def decode_step_tp(src, cfg: ModelConfig, tokens: torch.Tensor, pos,
                    caches, sharder=None) -> torch.Tensor:
     """:func:`decode_step` on the tensor-parallel group of ``src``: the

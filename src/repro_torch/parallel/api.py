@@ -39,36 +39,35 @@ On a mesh of more than one device (the LM sharding):
   ``parallel/sharded.Sharded`` leaves, each position holding the slice
   ``NamedSharding.shard_shape`` gives, whose values are the one-device
   init's sliced. Adam's moments and the error feedback are sharded alike.
-* **Training splits the batch; the model axis only stores.** A train
-  step splits its batch over the mesh axes its batch spec gives the batch
-  dim (replicated, one row, when the batch does not divide), into equal
-  rows in the spec's order; each row runs on the first device along the
-  axes the split does not use (``launch/mesh.axes_devices``). Stated
-  difference: the JAX step also splits compute over 'model' (tensor,
-  expert and sequence parallelism); here training does not yet (ROADMAP
-  A14.5c).
-* **Serving splits the batch and computes over 'model'.** Each row of a
-  prefill or decode step's batch split runs on its tensor-parallel group,
-  the row's positions along 'model' (``parallel/tp.py``): every position
+* **Both steps split the batch and compute over 'model'.** A step
+  splits its batch over the mesh axes its batch spec gives the batch dim
+  (replicated, one row, when the batch does not divide), into equal rows
+  in the spec's order. Each row runs on its tensor-parallel group, the
+  row's positions along 'model' (``parallel/tp.py``): every position
   computes its own heads, ``mlp`` columns, vocab rows, experts and SSM
   heads and the group sums or gathers what GSPMD's collectives would
-  (``parallel/collectives.py``); under ``baseline``/``sp`` the prefill's
-  stream between blocks is split along the sequence. No device holds a
-  whole compute copy: each position gathers its slice of one block at a
-  time, whole along 'data' (FSDP by block), and drops it after the block.
-* **Training** follows ``cast_params_once``: each f32 master shard is cast
-  to ``cfg.adtype`` on its own device, and the compute copy is gathered
-  whole onto each row's device by ``sharded.gather_for_compute``, whose
-  backward hands each position its slice of the row's gradient. The rows'
-  forwards run first, in row order; then each row's backward in row
-  order, its gradients added to the sum of the rows before on the owning
-  shard's device; the sum is divided by the number of rows, as
-  ``train/loop.data_parallel_grad_fn`` does (``make_value_and_grad``
-  returns these gradients). With ``num_microbatches`` each micro-batch
-  (the JAX step's: a contiguous slice of the global batch) goes through
-  all of this in turn, and the micro-batches are summed in order and
-  divided (``train/loop.accumulated_value_and_grad``). Compression and Adam run shard-locally; the clip's global norm
-  counts each distinct slice once.
+  (``parallel/collectives.py``); under ``baseline``/``sp`` the stream
+  between blocks is split along the sequence. No device holds a whole
+  compute copy: each position gathers its slice of one block at a time,
+  whole along 'data' (FSDP by block), and drops it after the block.
+* **Training** (``make_value_and_grad``): each f32 master shard is cast
+  to ``cfg.adtype`` once a step on its own device (``cast_params_once``);
+  each row's loss runs on its group (``models/lm.loss_fn_tp``), each
+  block under ``cfg.remat`` with its slices gathered inside the
+  recomputed function, so the backward gathers them again, and the CE
+  vocab-parallel, its logits never whole on a rank. The backward of a
+  block's gather adds the slice's gradient, in f32, into the gradient
+  buffers of the positions holding it (a reduce-scatter over 'data';
+  every copy of a replicated slice gets the same sum, so the copies stay
+  bit-equal under Adam). The rows run in row order: without a MoE each
+  row's backward right after its forward; with one, every forward first
+  (the load-balance density needs every row's counts). The sum is
+  divided by the number of rows, as ``train/loop.data_parallel_grad_fn``
+  does. With ``num_microbatches`` each micro-batch (the JAX step's: a
+  contiguous slice of the global batch) goes through all of this in
+  turn, and the micro-batches are summed in order and divided
+  (``train/loop.accumulated_value_and_grad``). Compression and Adam run
+  shard-locally; the clip's global norm counts each distinct slice once.
 * **The MoE layer keeps the global batch's token groups**: a row's
   capacity slots continue the counts of the rows before it, and the
   load-balance loss is formed from every row's partial sums
@@ -80,13 +79,14 @@ On a mesh of more than one device (the LM sharding):
   under ``baseline`` puts 'model' on the sequence dim instead). Tokens
   are split as the cache is; ``tok_sharding`` reports JAX's rule.
 * **Memory**: ``train_state_bytes(mesh=)`` gives each position's bytes
-  when training: its shards, the compute copy of its shards and, once for
-  each device that runs a row, the gathered whole compute copy.
-  ``param_bytes(mesh=)`` gives them when serving (``serving_bytes``): its
-  shards and the largest block's slice the block-wise gather copies onto
-  it (``serving_bytes`` adds a cache). ``check_fits(mesh=)`` holds each
-  device's sum (positions sharing a card add up) against its free memory
-  or ``device_bytes``.
+  when training (``train_bytes``): its shards with their gradients and
+  moments, the compute copy of its shards, the final norm's and the
+  unembedding's slices (kept from the forward to the backward), and the
+  largest block's copied slice with that slice's gradient. ``param_bytes(mesh=)`` gives
+  them when serving (``serving_bytes``): its shards and the largest
+  block's copied slice (``serving_bytes`` adds a cache).
+  ``check_fits(mesh=)`` holds each device's sum (positions sharing a card
+  add up) against its free memory or ``device_bytes``.
 """
 from __future__ import annotations
 
@@ -234,37 +234,23 @@ def _casts(leaf, adtype: torch.dtype) -> bool:
 
 def _position_bytes(cfg: ModelConfig, mesh, rules: LogicalRules,
                     per_param: int, compute_dtype: Optional[torch.dtype],
-                    cast: bool, gathered: bool = True) -> List[int]:
+                    cast: bool) -> List[int]:
     """Each mesh position's bytes: ``per_param`` bytes for every byte of
     its param shards (params, and for training gradients, moments, error
-    feedback), the compute copy of its shards (``cast``) and, with
-    ``gathered``, the whole gathered compute copy once per device that
-    runs a row (on the first row position there; a stand-in mesh's
-    positions are each their own device), as the steps gather it."""
+    feedback) and, with ``cast``, the compute copy of its shards."""
     shapes, specs = param_specs(cfg, mesh, LogicalRules(rules.rules),
                                 compute_dtype)
     n = _mesh_size(mesh)
     out = [0] * n
-    whole = 0
     for leaf, spec in zip(optim.tree_leaves(shapes),
                           optim.tree_leaves(specs)):
         numel = int(np.prod(NamedSharding(mesh, spec).shard_shape(
             tuple(leaf.shape))))
         item = leaf.element_size()
         narrow = cast and _casts(leaf, cfg.adtype)
-        citem = _dtype_size(cfg.adtype) if narrow else item
+        extra = numel * _dtype_size(cfg.adtype) if narrow else 0
         for p in range(n):
-            out[p] += per_param * numel * item + (numel * citem if narrow
-                                                  else 0)
-        whole += leaf.numel() * citem
-    if gathered:
-        devices = getattr(mesh, "devices", None)
-        seen = set()
-        for p in _row_positions(mesh, rules):
-            dev = p if devices is None else devices[p]
-            if dev not in seen:
-                seen.add(dev)
-                out[p] += whole
+            out[p] += per_param * numel * item + extra
     return out
 
 
@@ -277,7 +263,7 @@ def shard_param_bytes(cfg: ModelConfig, mesh,
     package), from a meta init; ``mesh`` needs only ``shape`` (a stand-in
     plans a mesh this process does not have)."""
     return _position_bytes(cfg, mesh, rules or DEFAULT_RULES, 1,
-                           compute_dtype, cast=False, gathered=False)
+                           compute_dtype, cast=False)
 
 
 def _row_positions(mesh, rules: LogicalRules,
@@ -324,31 +310,26 @@ def _indices(sharding: NamedSharding, shape) -> List:
     return sharding.indices(tuple(shape))
 
 
-def serving_bytes(cfg: ModelConfig, mesh, rules: LogicalRules,
-                  compute_dtype: Optional[torch.dtype] = None,
-                  cache: Optional[Tuple[int, int, int]] = None
-                  ) -> Dict[str, List[int]]:
-    """Each mesh position's serving bytes, by term: ``shards`` (its param
-    shards as ``init_params(mesh=, compute_dtype=)`` stores them),
-    ``block`` (the largest block's slice that the block-wise gather copies
-    onto it while the block runs: ``parallel/tp.BlockSource``; a slice
-    that is its own shard, in its dtype, is a view and costs nothing) and
-    ``cache`` (its rank's cache of its row, with ``cache`` = (batch,
-    capacity, enc_len)). A position outside every row's group (the batch
-    does not split over 'data') computes nothing: shards only.
-    ``mesh`` needs only ``shape``."""
-    rules = LogicalRules(rules.rules)
+def _slice_bytes(cfg: ModelConfig, mesh, rules: LogicalRules,
+                 compute_dtype: Optional[torch.dtype], batch: int,
+                 cast_shards: bool = False) -> List[Dict]:
+    """For each position, the bytes of each block's slice that the
+    block-wise gather copies onto it (``parallel/tp.BlockSource``), by
+    block (a sub-layer of the stacked blocks, or a top-level subtree), in
+    the compute dtype where the compute copy narrows the leaf: a slice
+    that is its own shard, in its dtype, is a view and costs nothing.
+    ``cast_shards``: the gather reads shards already cast (a train step's
+    compute copy), so its own shard is a view whatever the master's
+    dtype. A position outside every row's group of a batch of ``batch``
+    copies nothing."""
     shapes, specs = param_specs(cfg, mesh, rules, compute_dtype)
-    n = _mesh_size(mesh)
-    out = {"shards": shard_param_bytes(cfg, mesh, rules, compute_dtype),
-           "block": [0] * n, "cache": [0] * n}
-    groups = tp.groups(mesh, rules, n if cache is None else cache[0])
+    out = [{} for _ in range(_mesh_size(mesh))]
+    groups = tp.groups(mesh, rules, batch)
     size = len(groups[0])
     a_log = next((sp for path, sp in tp.walk(specs)
                   if path[-2:] == ("ssm", "A_log")), None)
     ssm_heads = a_log is not None and tp.ssm_split(
         cfg, tuple(a_log)[1:], size)
-    blocks = {}
     for path, leaf in tp.walk(shapes):
         stacked = path[0] in tp.STACKED
         key = path[:2] if path[0] == "blocks" else path[:1]
@@ -364,17 +345,49 @@ def serving_bytes(cfg: ModelConfig, mesh, rules: LogicalRules,
                                         size, ssm_heads)
                 want = [[(0, d)] if r is None else list(r)
                         for r, d in zip(region, shape)]
-                view = item == leaf.element_size() and all(
+                view = (cast_shards or item == leaf.element_size()) and all(
                     len(w) == 1 and w[0] == (s.start, s.stop)
                     for w, s in zip(want, own[p]))
                 if not view:
-                    nbytes = item * int(np.prod(
+                    out[p][key] = out[p].get(key, 0) + item * int(np.prod(
                         [sum(b - a for a, b in w) for w in want]))
-                    blocks.setdefault(p, {}).setdefault(key, 0)
-                    blocks[p][key] += nbytes
-    for p, by_key in blocks.items():
-        out["block"][p] = max(by_key.values())
+    return out
+
+
+def train_held_keys(cfg: ModelConfig):
+    """The slices a train step's forward keeps for its backward besides
+    its activations: the final norm's and the unembedding table's (the
+    CE's chunks read the table again in the backward), and whisper's
+    encoder norm (every decoder layer reads its output)."""
+    if cfg.is_encdec:
+        return {("enc_ln",), ("dec_ln",), ("embedding",)}
+    return {("final_norm",),
+            ("embedding",) if cfg.tie_embeddings else ("unembedding",)}
+
+
+def serving_bytes(cfg: ModelConfig, mesh, rules: LogicalRules,
+                  compute_dtype: Optional[torch.dtype] = None,
+                  cache: Optional[Tuple[int, int, int]] = None
+                  ) -> Dict[str, List[int]]:
+    """Each mesh position's serving bytes, by term: ``shards`` (its param
+    shards as ``init_params(mesh=, compute_dtype=)`` stores them),
+    ``block`` (the largest block's slice that the block-wise gather copies
+    onto it while the block runs: :func:`_slice_bytes`) and ``cache``
+    (its rank's cache of its row, with ``cache`` = (batch, capacity,
+    enc_len)). A position outside every row's group (the batch does not
+    split over 'data') computes nothing: shards only. ``mesh`` needs only
+    ``shape``."""
+    rules = LogicalRules(rules.rules)
+    n = _mesh_size(mesh)
+    batch = n if cache is None else cache[0]
+    out = {"shards": shard_param_bytes(cfg, mesh, rules, compute_dtype),
+           "block": [max(b.values(), default=0) for b in _slice_bytes(
+               cfg, mesh, rules, compute_dtype, batch)],
+           "cache": [0] * n}
     if cache is not None:
+        _, specs = param_specs(cfg, mesh, rules, compute_dtype)
+        groups = tp.groups(mesh, rules, batch)
+        size = len(groups[0])
         batch, capacity, enc_len = cache
         split = tp.splits(cfg, specs, size)
         per_row = abstract_cache(cfg, batch // len(groups), capacity,
@@ -413,14 +426,13 @@ def train_state_bytes(cfg: ModelConfig,
     meta-device init: the params, their gradients and Adam's ``mu`` and
     ``nu`` (16 bytes a parameter in f32), the error feedback with
     compression (4 more) and the compute copy the step casts. With a mesh
-    of more than one device: a list, each position's bytes of its shards
-    and their compute copy, and on a row's device the gathered compute
-    copy."""
+    of more than one device: a list, each position's bytes
+    (:func:`train_bytes` summed)."""
     tc = train_cfg or TrainConfig()
     per = 4 + (tc.compression is not None)
     if _sharded_mesh(mesh):
-        return _position_bytes(cfg, mesh, rules or DEFAULT_RULES, per, None,
-                               cast=tc.cast_params_once)
+        return [sum(t) for t in zip(*train_bytes(
+            cfg, tc, mesh=mesh, rules=rules).values())]
     tree = _init_tree(cfg, KeyGen(0, "meta"))
     need = per * tree_bytes(tree)
     if tc.cast_params_once and cfg.adtype != torch.float32:
@@ -428,6 +440,34 @@ def train_state_bytes(cfg: ModelConfig,
         need += sum(a.numel() * item for a in tree_leaves(tree)
                     if a.dtype == torch.float32 and a.ndim >= 2)
     return int(need)
+
+
+def train_bytes(cfg: ModelConfig, train_cfg: Optional[TrainConfig] = None,
+                *, mesh, rules: Optional[LogicalRules] = None
+                ) -> Dict[str, List[int]]:
+    """Each mesh position's train bytes besides its activations, by term:
+    ``state`` (its f32 param shards with their gradient, ``mu`` and ``nu``:
+    16 bytes a parameter, 20 with compression's error feedback), ``cast``
+    (the compute copy of its shards, cast at the step's start), ``held``
+    (the slices the forward keeps for the backward: the final norm's and
+    the unembedding's, :func:`train_held_keys`), ``block`` (the largest
+    other block's slice the block-wise gather copies onto it,
+    :func:`_slice_bytes`) and ``block_grad`` (that slice's gradient while
+    the backward holds it: the same bytes). There is no whole copy.
+    ``mesh`` needs only ``shape``."""
+    tc = train_cfg or TrainConfig()
+    rules = LogicalRules((rules or DEFAULT_RULES).rules)
+    per = 4 + (tc.compression is not None)
+    held_keys = train_held_keys(cfg)
+    slices = _slice_bytes(cfg, mesh, rules, None, _mesh_size(mesh),
+                          cast_shards=tc.cast_params_once)
+    block = [max((n for k, n in b.items() if k not in held_keys),
+                 default=0) for b in slices]
+    return {"state": _position_bytes(cfg, mesh, rules, per, None, cast=False),
+            "cast": _position_bytes(cfg, mesh, rules, 0, None,
+                                    cast=tc.cast_params_once),
+            "held": [sum(b.get(k, 0) for k in held_keys) for b in slices],
+            "block": block, "block_grad": list(block)}
 
 
 def check_fits(cfg: ModelConfig, device: DeviceLike = None,
@@ -462,8 +502,9 @@ def check_fits(cfg: ModelConfig, device: DeviceLike = None,
                     else torch.cuda.mem_get_info(d)[0])
             if b > free:
                 what = "train state" if train_cfg is not None else "params"
-                held = ("its positions' shards and the gathered compute "
-                        "copy" if train_cfg is not None else
+                held = ("its positions' shards, their compute copy and "
+                        "one block's gathered slices with their gradient"
+                        if train_cfg is not None else
                         "its positions' shards and one block's gathered "
                         "slices")
                 raise MemoryError(
@@ -607,68 +648,93 @@ def _moe_row_losses(cfg: ModelConfig, ctx: sh.RowContext, auxes: List,
     return losses, aux_loss
 
 
+def _loss_tp(cfg: ModelConfig, mesh, rules: LogicalRules, src, batch,
+             sharder):
+    """One row's loss on its group (``models/lm.loss_fn_tp``), its
+    streams split along the sequence where the rules and the length
+    allow (``parallel/tp.seq_parallel``)."""
+    key = "tokens" if "tokens" in batch else "embeddings"
+    b, s = batch[key].shape[:2]
+    n = src.group.size
+    sp = tp.seq_parallel(mesh, rules, b, s, n)
+    if cfg.is_encdec:
+        se = batch["enc_embeddings"].shape[1]
+        return encdec.loss_fn_tp(src, cfg, batch, sp, tp.seq_parallel(
+            mesh, rules, b, se, n), sharder=sharder)
+    return lm.loss_fn_tp(src, cfg, batch, sp, sharder=sharder)
+
+
+def _compute_shard(master: torch.Tensor, leaf, cfg: ModelConfig,
+                   tc: TrainConfig) -> torch.Tensor:
+    """A master shard's compute copy (cast where ``cast_params_once``
+    narrows the leaf), a leaf of autograd: the block gathers read it and
+    send its gradient to the step's buffers."""
+    t = master.detach()
+    if tc.cast_params_once and _casts(leaf, cfg.adtype):
+        t = t.to(cfg.adtype)
+    return t.requires_grad_(True)
+
+
 def _sharded_value_and_grad(cfg: ModelConfig, mesh, rules: LogicalRules,
                             tc: TrainConfig) -> Callable:
     """``(params, batch) -> ((loss, aux), grads)`` of one (micro-)batch on
-    a mesh: the batch split into rows, the compute copy cast per shard and
-    gathered once onto each row's device, every row's forward in row
-    order, then every row's backward in row order, summed on the owning
-    shards' devices and divided by the number of rows. The gradients are
-    ``Sharded`` leaves laid out as the params."""
-    loss_fn = _loss_for(cfg)
-    sharder = ActivationSharder(mesh, rules)
+    a mesh (the module docstring): the batch split into rows, each master
+    shard cast once on its device, each row's loss on its tensor-parallel
+    group reading one block's slices at a time, the gradients added in
+    f32 into buffers laid out as the params and divided by the number of
+    rows. Without a MoE each row's backward runs right after its forward,
+    so no row's activations outlive it; with one, the load-balance
+    density needs every row's counts first, so the forwards all run
+    before the backwards. The gradients are ``Sharded`` leaves laid out
+    as the params."""
+    sharder = ActivationSharder()
 
     def grad_fn(params, batch):
-        devices = _row_devices(mesh, rules, _batch_size(batch))
+        groups = [_group(mesh, g)
+                  for g in tp.groups(mesh, rules, _batch_size(batch))]
+        devices = [g.devices[0] for g in groups]
         rows = split_batch(batch, devices)
-        n_rows = len(devices)
+        n_rows = len(groups)
         home = devices[0]
         leaves, rebuild = _flatten(params)
-        masters = [[s.detach().requires_grad_(True) for s in leaf.shards]
-                   for leaf in leaves]
+        grads = [Sharded(l.sharding, l.shape,
+                         [torch.zeros_like(m) for m in l.shards])
+                 for l in leaves]
+        compute = rebuild([Sharded(l.sharding, l.shape, [
+            _compute_shard(m, l, cfg, tc) for m in l.shards])
+            for l in leaves])
         ctx = sh.RowContext(n_rows)
-        copies: Dict = {}
         losses, auxes = [], []
         with torch.enable_grad():
-            compute = [[m.to(cfg.adtype) if tc.cast_params_once
-                        and _casts(leaf, cfg.adtype) else m for m in ms]
-                       for leaf, ms in zip(leaves, masters)]
-            for r, (dev, piece) in enumerate(zip(devices, rows)):
-                if dev not in copies:       # one gathered copy per device
-                    copies[dev] = rebuild([
-                        sh.gather_for_compute(leaf, comp, dev)
-                        for leaf, comp in zip(leaves, compute)])
-                loss, aux = loss_fn(copies[dev], cfg, piece,
-                                    sharder=sharder.for_row(ctx, r))
+            for r, (group, piece) in enumerate(zip(groups, rows)):
+                src = tp.BlockSource(compute, cfg, group, cfg.adtype,
+                                     rebuild(grads))
+                loss, aux = _loss_tp(cfg, mesh, rules, src, piece,
+                                     sharder.for_row(ctx, r))
+                if cfg.moe is None:
+                    loss.backward()
+                    loss = loss.detach()
+                    aux = {k: v.detach() for k, v in aux.items()}
                 losses.append(loss)
                 auxes.append(aux)
             # a device divisor: a CUDA divide by a Python number multiplies
             # by its reciprocal (data_parallel_grad_fn divides so too)
             k = {d: torch.full((), float(n_rows), device=d)
-                 for d in dict.fromkeys([home] + [m.device for ms in masters
-                                                  for m in ms])}
+                 for d in dict.fromkeys([home] + [m.device for l in leaves
+                                                  for m in l.shards])}
             out_aux = {n: sum(a[n].detach().to(home) for a in auxes) / k[home]
                        for n, v in auxes[0].items()
                        if isinstance(v, torch.Tensor) and v.ndim == 0}
-            if ctx.stats:
+            if cfg.moe is not None:
                 losses, out_aux["moe_aux_loss"] = _moe_row_losses(
                     cfg, ctx, auxes, devices)
-            flat = [m for ms in masters for m in ms]
-            acc = None
-            for loss in losses:
-                # the casts and gathers are shared by the rows
-                g = torch.autograd.grad(loss, flat, retain_graph=True,
-                                        allow_unused=True,
-                                        materialize_grads=True)
-                acc = list(g) if acc is None else [
-                    a + b for a, b in zip(acc, g)]
+                for loss in losses:
+                    loss.backward()
+        del ctx, auxes, compute
         total = sum(l.detach().to(home) for l in losses) / k[home]
-        grads, i = [], 0
-        for leaf, ms in zip(leaves, masters):
-            grads.append(Sharded(leaf.sharding, leaf.shape,
-                                 [a / k[a.device]
-                                  for a in acc[i:i + len(ms)]]))
-            i += len(ms)
+        for g in grads:
+            for t in g.shards:
+                t.div_(k[t.device])
         return (total, out_aux), rebuild(grads)
 
     return grad_fn
@@ -800,25 +866,20 @@ def step_collective_bytes(cfg: ModelConfig, mesh,
     list over positions of ``{"all-gather": bytes a step, "all-reduce":
     ..., "reduce-scatter": ..., "links": {kind: "nvlink" | "ib"}}``.
 
-    Training, computed from the layout (nothing runs):
-
-    * **The gathered compute copy** (all-gather): the whole tree in the
-      compute dtype (``_casts`` leaves narrowed), received every step by
-      each device that runs a row (the first row position there: a
-      stand-in mesh's positions are each their own device).
-    * **The row sums** (all-reduce): each row's gradient of every slice a
-      position holds, added on the position's device in f32, so ``rows
-      x`` its shards' bytes at 4 bytes an element. (The slice crosses in
-      the gradient's dtype on the row's device, the compute dtype for cast
-      leaves; counted here in f32, the dtype it is summed in.)
-
-    Serving (``train=False``; ``step`` "prefill" of ``seq`` tokens a row,
-    or "decode" at ``capacity``): what the tensor-parallel step's
+    Both steps run each row on its tensor-parallel group, and what their
     collectives and block-wise gathers move (``parallel/collectives.
-    tally``), counted in one run of the first row's first rank on meta
-    tensors (:func:`meta_serving_step`) and given to every position of
-    every row's group (their shares are alike); a position outside every
-    group moves nothing.
+    tally``) is counted in one run of the first row's first rank on meta
+    tensors and given to every position of every row's group (their
+    shares are alike); a position outside every group moves nothing.
+    Training (``seq`` tokens a row; :func:`meta_train_step`): the group's
+    all-reduces, all-gathers and reduce-scatters of the forward, the
+    recomputed forward and the backward, the block gathers over 'data'
+    (twice per block under full remat) and their backward's
+    reduce-scatters, which hand each slice's gradient to the positions
+    that hold it (counted as the bytes the rank sends back, which the
+    layout's symmetry makes the bytes each position receives). Serving
+    (``train=False``; ``step`` "prefill" of ``seq`` tokens a row, or
+    "decode" at ``capacity``; :func:`meta_serving_step`).
 
     A collective's group is the positions that send or receive it; it
     crosses NVLink when they all lie in one node of ``NODE_CARDS``
@@ -830,45 +891,20 @@ def step_collective_bytes(cfg: ModelConfig, mesh,
             "links": {}} for _ in range(n)]
     if not _sharded_mesh(mesh):
         return out
-    if not train:
-        groups = tp.groups(mesh, rules, batch)
-        p = groups[0][0]
-        run, _ = meta_serving_step(
-            cfg, mesh, rules, step, _meta_inputs(cfg, step, batch // len(
-                groups), seq, enc_len), len(groups), capacity or seq,
-            enc_len, p)
-        with coll.tally() as t:
-            run()
-        for g in groups:
-            for q in g:
-                out[q] = _tally_entry(t, p)
-        return out
-    shapes, specs = param_specs(cfg, mesh, LogicalRules(rules.rules))
-    rows = _row_positions(mesh, rules, batch)
-    devices = getattr(mesh, "devices", None)
-    gathers, seen = [], set()
-    for p in rows:
-        dev = p if devices is None else devices[p]
-        if dev not in seen:
-            seen.add(dev)
-            gathers.append(p)
-    whole, owners = 0, set()
-    shard_f32 = [0] * n
-    for leaf, spec in zip(optim.tree_leaves(shapes), optim.tree_leaves(specs)):
-        sharding = NamedSharding(mesh, spec)
-        item = (_dtype_size(cfg.adtype) if _casts(leaf, cfg.adtype)
-                else leaf.element_size())
-        whole += leaf.numel() * item
-        owners.update(sharding.owners(tuple(leaf.shape)))
-        numel = int(np.prod(sharding.shard_shape(tuple(leaf.shape))))
-        for p in range(n):
-            shard_f32[p] += numel * 4
-    for p in gathers:
-        out[p]["all-gather"] += whole
-        out[p]["links"]["all-gather"] = _link(owners | {p})
-    for p in range(n):
-        out[p]["all-reduce"] = len(rows) * shard_f32[p]
-        out[p]["links"]["all-reduce"] = _link(set(rows) | {p})
+    groups = tp.groups(mesh, rules, batch)
+    p = groups[0][0]
+    inputs = _meta_inputs(cfg, "train" if train else step,
+                          batch // len(groups), seq, enc_len)
+    if train:
+        run, _ = meta_train_step(cfg, mesh, rules, inputs, len(groups), p)
+    else:
+        run, _ = meta_serving_step(cfg, mesh, rules, step, inputs,
+                                   len(groups), capacity or seq, enc_len, p)
+    with coll.tally() as t:
+        run()
+    for g in groups:
+        for q in g:
+            out[q] = _tally_entry(t, p)
     return out
 
 
@@ -887,18 +923,24 @@ def _tally_entry(t: Dict, p: int) -> Dict:
 
 def _meta_inputs(cfg: ModelConfig, step: str, batch: int, seq: int,
                  enc_len: int) -> Dict:
-    """A row's serving inputs as meta tensors: its tokens (the vision
-    stub's patch embeddings and M-RoPE positions to a prefill; whisper's
-    frame embeddings besides)."""
+    """A row's inputs as meta tensors (``configs/registry.input_specs``'
+    row): its tokens (the vision stub's patch embeddings and M-RoPE
+    positions to a prefill, and labels to a train step; whisper's frame
+    embeddings besides)."""
     meta = torch.device("meta")
-    if cfg.frontend == "vision" and step == "prefill":
-        return {"embeddings": torch.empty((batch, seq, cfg.d_model),
-                                          dtype=cfg.adtype, device=meta),
-                "positions": torch.empty((3, batch, seq), dtype=torch.int32,
-                                         device=meta)}
-    out = {"tokens": torch.empty((batch, seq if step == "prefill" else 1),
+    full = step in ("prefill", "train")
+    if cfg.frontend == "vision" and full:
+        out = {"embeddings": torch.empty((batch, seq, cfg.d_model),
+                                         dtype=cfg.adtype, device=meta),
+               "positions": torch.empty((3, batch, seq), dtype=torch.int32,
+                                        device=meta)}
+        if step == "train":
+            out["labels"] = torch.empty((batch, seq), dtype=torch.int32,
+                                        device=meta)
+        return out
+    out = {"tokens": torch.empty((batch, seq if full else 1),
                                  dtype=torch.int32, device=meta)}
-    if cfg.is_encdec and step == "prefill":
+    if cfg.is_encdec and full:
         out["enc_embeddings"] = torch.empty(
             (batch, enc_len or seq, cfg.d_model), dtype=cfg.adtype,
             device=meta)
@@ -943,6 +985,62 @@ def meta_serving_step(cfg: ModelConfig, mesh, rules: LogicalRules,
         return model.decode_step_tp(src, cfg, inputs["tokens"],
                                     capacity - 1, caches, sharder=sharder)
     return run, [own, caches]
+
+
+def meta_train_step(cfg: ModelConfig, mesh, rules: LogicalRules,
+                    inputs: Dict, n_rows: int, position: int,
+                    train_cfg: Optional[TrainConfig] = None):
+    """(run, args): one train step of the rank at mesh position
+    ``position`` (a rank of a row's tensor-parallel group) on meta
+    tensors, as :func:`meta_serving_step` serves one: the cast of its
+    master shards, its row's forward and backward (``inputs``: the row's
+    batch) with the block-wise gathers, the gradient added into its
+    buffers and divided by the rows, and Adam on its shards. Its group's
+    other ranks are stood in for (their shards, compute copies and
+    gradient buffers meta tensors made before the count). ``args`` are
+    its state: [its f32 master shards, Adam's ``mu``, ``nu``], which a
+    count holds as arguments; the gradient buffers and the cast are the step's own. The
+    MoE sees the row as row 0 of ``n_rows`` and forms its load-balance
+    term from the row's counts."""
+    rules = LogicalRules(rules.rules)
+    tc = train_cfg or TrainConfig()
+    shapes, specs = param_specs(cfg, mesh, rules)
+    params = tp.meta_params(shapes, specs, mesh)
+    groups = tp.groups(mesh, rules, _batch_size(inputs) * n_rows)
+    g = next(g for g in groups if position in g)
+    group = coll.Group([torch.device("meta")] * len(g), g,
+                       [g.index(position)])
+    leaves, rebuild = _flatten(params)
+    own = [l.shards[position] for l in leaves]
+    # the other positions' compute copies and gradient buffers
+    stand = [(torch.empty_like(m, dtype=cfg.adtype if tc.cast_params_once
+                               and _casts(l, cfg.adtype) else m.dtype)
+              .requires_grad_(), torch.empty_like(m))
+             for l, m in zip(leaves, own)]
+    mu = [torch.empty_like(m) for m in own]
+    nu = [torch.empty_like(m) for m in own]
+
+    def run():
+        comp, bufs = [], []
+        for l, m, (c0, g0) in zip(leaves, own, stand):
+            cs, gs = [c0] * len(l.shards), [g0] * len(l.shards)
+            cs[position] = _compute_shard(m, l, cfg, tc)
+            gs[position] = torch.zeros_like(m)
+            comp.append(Sharded(l.sharding, l.shape, cs))
+            bufs.append(Sharded(l.sharding, l.shape, gs))
+        src = tp.BlockSource(rebuild(comp), cfg, group, cfg.adtype,
+                             rebuild(bufs))
+        sharder = ActivationSharder().for_row(sh.RowContext(n_rows), 0)
+        with torch.enable_grad():
+            loss, _ = _loss_tp(cfg, mesh, rules, src, inputs, sharder)
+            loss.backward()
+        del loss, src, comp
+        grads = [b.shards[position].div_(float(n_rows)) for b in bufs]
+        return optim.adam_update(
+            dict(enumerate(grads)), optim.AdamState(
+                step=0, mu=dict(enumerate(mu)), nu=dict(enumerate(nu))),
+            dict(enumerate(own)), tc.optimizer)
+    return run, [own, mu, nu]
 
 
 # ---------------------------------------------------------------- serving

@@ -4,7 +4,7 @@ one process that drives a whole mesh (``launch/mesh.Mesh``: no
 as every position).
 
 A :class:`Group` is the mesh positions that compute one row of a sharded
-serving step together: one per coordinate of the 'model' axis, in that
+step together: one per coordinate of the 'model' axis, in that
 order (``parallel/api``), each with its device. Every collective takes one
 tensor per rank of the group, in rank order, and returns one per rank, on
 the rank's device:

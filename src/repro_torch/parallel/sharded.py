@@ -15,15 +15,14 @@ card then holds the sum of its positions.
   device from the one-device init's draws); :func:`gather` and
   :func:`gather_tree` make the whole tensor on one device from the first
   position holding each distinct slice.
-* :func:`gather_region` is the serving steps' block-wise gather: a region
-  of one block of a leaf (per dim, global ranges) for one position, a
-  view of its own shard when that is the region, else copied from the
-  shards that hold it (``parallel/tp.BlockSource``).
-* :func:`gather_for_compute` is the differentiable gather of a sharded
-  train step: forward, the whole leaf on a compute device; backward, the
-  gradient's slice for every position holding it (copies included),
-  moved to that position's device, so every copy of a replicated slice
-  gets the same gradient and stays equal to the others under Adam.
+* :func:`gather_region` is the steps' block-wise gather: a region of one
+  block of a leaf (per dim, global ranges) for one position, a view of
+  its own shard when that is the region, else copied from the shards
+  that hold it (``parallel/tp.BlockSource``). Given gradient buffers it
+  is differentiable: its backward adds the region's gradient into the
+  buffer of every position holding each piece (a reduce-scatter; every
+  copy of a replicated slice gets the same sum, so the copies stay equal
+  under Adam), so no device ever holds a whole leaf in a train step.
 * :class:`RowContext` carries the rows of one sharded forward for the one
   layer whose result depends on other rows' tokens: the MoE's capacity
   slots count the assignments of the whole token group, which the JAX
@@ -185,40 +184,107 @@ def region_shape(leaf: Sharded, region) -> Tuple[int, ...]:
                  for r, n in zip(region, leaf.shape))
 
 
+def _holders(leaf: Sharded) -> Dict[int, List[int]]:
+    """For each position, every position holding the same slice of
+    ``leaf`` (itself included), in position order."""
+    by_slice: Dict = {}
+    for q, idx in enumerate(leaf.indices()):
+        by_slice.setdefault(tuple((s.start, s.stop) for s in idx),
+                            []).append(q)
+    return {q: qs for qs in by_slice.values() for q in qs}
+
+
+class _GatherRegion(torch.autograd.Function):
+    """The block-wise gather with a way back. Forward: the region, a view
+    of the source when it is the position's own shard (``view``), else a
+    new tensor filled from the sources. Backward: each source's pieces of
+    the region's gradient added, in the buffers' dtype on their devices,
+    into the gradient buffer of every position holding that slice (the
+    step's gradients; the sources themselves get none), so every copy of
+    a replicated slice gets the same sum."""
+
+    @staticmethod
+    def forward(ctx, plan, sink, *sources):
+        ctx.copies, ctx.sink = plan[3], sink
+        out = _region(plan, sources)
+        return out.view_as(out) if plan[4] else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        buffers, position, holders, srcs = ctx.sink
+        sent, span = 0, {position}
+        for i, sidx, didx in ctx.copies:
+            piece = grad[didx]
+            for q in holders[srcs[i]]:
+                buf = buffers.shards[q]
+                buf[sidx] += piece.to(buf.device, buf.dtype)
+                if q != position:
+                    sent += piece.numel() * piece.element_size()
+                    span.add(q)
+        if sent:      # the gathers' dual: what this rank sends back, which
+            # the layout's symmetry makes what each position receives
+            coll.record("reduce-scatter", {position: sent}, sorted(span))
+        return (None, None) + (None,) * len(srcs)
+
+
+def _region(plan, sources) -> torch.Tensor:
+    """The region a gather ``plan`` makes of its ``sources``: the one
+    source itself when it is the region (``view``), else a new tensor."""
+    shape, dtype, device, copies, view = plan
+    if view:
+        return sources[0]
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i, sidx, didx in copies:
+        out[didx].copy_(sources[i][sidx])
+    return out
+
+
 def gather_region(leaf: Sharded, region, position: int,
                   device: torch.device, dtype: torch.dtype,
                   block: Optional[int] = None,
-                  prefer: Sequence[int] = ()) -> torch.Tensor:
+                  prefer: Sequence[int] = (),
+                  grad: Optional[Sharded] = None) -> torch.Tensor:
     """``region`` of ``leaf`` (of its slice ``block`` along the stack dim,
     when given; the region then names the remaining dims) in ``dtype`` on
     ``device``, for position ``position``: a view of its own shard when
     that is the region and no cast is needed, else a new tensor filled
-    from the shards that hold it (:func:`region_copies`)."""
+    from the shards that hold it (:func:`region_copies`).
+
+    With ``grad`` (a ``Sharded`` of gradient buffers laid out as
+    ``leaf``) and autograd recording, the gather is differentiable
+    (``_GatherRegion``): the backward adds the region's gradient into the
+    buffers of the positions that hold it (a reduce-scatter over the axes
+    the gather spans, each copy of a slice getting the whole sum), and
+    records it in ``parallel/collectives.tally`` as the forward records
+    its all-gather."""
     if block is not None:
-        inner = Sharded(NamedSharding(leaf.sharding.mesh,
-                                      tuple(leaf.sharding.spec)[1:]),
-                        leaf.shape[1:], [s[block] for s in leaf.shards])
-        return gather_region(inner, region, position, device, dtype,
-                             prefer=prefer)
+        def inner(t: Sharded) -> Sharded:
+            return Sharded(NamedSharding(t.sharding.mesh,
+                                         tuple(t.sharding.spec)[1:]),
+                           t.shape[1:], [s[block] for s in t.shards])
+        return gather_region(inner(leaf), region, position, device, dtype,
+                             prefer=prefer,
+                             grad=None if grad is None else inner(grad))
     copies = region_copies(leaf, region, position, prefer)
-    if (len(copies) == 1 and copies[0][0] == position
+    view = (len(copies) == 1 and copies[0][0] == position
             and leaf.dtype == dtype
             and leaf.shards[position].device == device
             and region_shape(leaf, region) == tuple(
-                leaf.shards[position].shape)):
-        return leaf.shards[position]
-    out = torch.empty(region_shape(leaf, region), dtype=dtype,
-                      device=device)
-    received = 0
-    for src, sidx, didx in copies:
-        piece = leaf.shards[src][sidx]
-        out[didx].copy_(piece)
-        if src != position:
-            received += piece.numel() * piece.element_size()
+                leaf.shards[position].shape))
+    received = sum(leaf.shards[src][sidx].numel() * leaf.dtype.itemsize
+                   for src, sidx, _ in copies if src != position)
     if received:      # the block-wise gather's share of the all-gathers
         coll.record("all-gather", {position: received},
                     [position] + [c[0] for c in copies])
-    return out
+    srcs = list(dict.fromkeys(src for src, _, _ in copies))
+    plan = (region_shape(leaf, region), dtype, device,
+            [(srcs.index(src), sidx, didx) for src, sidx, didx in copies],
+            view)
+    sources = [leaf.shards[q] for q in srcs]
+    if grad is None or not torch.is_grad_enabled():
+        return _region(plan, sources)
+    return _GatherRegion.apply(plan, (grad, position, _holders(leaf), srcs),
+                               *sources)
 
 
 def gather_tree(tree, device: torch.device):
@@ -232,35 +298,6 @@ def gather_tree(tree, device: torch.device):
     if isinstance(tree, (Sharded, torch.Tensor)):
         return gather(tree, device)
     return tree
-
-
-class _Gather(torch.autograd.Function):
-    """Forward: the whole leaf on ``device`` from its owners' shards.
-    Backward: each position's slice of the gradient on its device."""
-
-    @staticmethod
-    def forward(ctx, layout, device, *shards):
-        shape, indices, owners = layout
-        out = torch.empty(shape, dtype=shards[0].dtype, device=device)
-        for p in owners:
-            out[indices[p]].copy_(shards[p])
-        ctx.layout = layout
-        ctx.shard_devices = [s.device for s in shards]
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        _, indices, _ = ctx.layout
-        return (None, None, *(grad[idx].to(dev) for idx, dev
-                              in zip(indices, ctx.shard_devices)))
-
-
-def gather_for_compute(leaf: Sharded, shards: Sequence[torch.Tensor],
-                       device: torch.device) -> torch.Tensor:
-    """The differentiable gather of ``shards`` (``leaf``'s layout, e.g.
-    the compute copy of its master shards) onto ``device``."""
-    layout = (leaf.shape, leaf.indices(), leaf.owners())
-    return _Gather.apply(layout, device, *shards)
 
 
 def shard_bytes(tree) -> List[int]:

@@ -1,7 +1,8 @@
-"""Tensor, expert and sequence parallelism of the sharded serving steps
-(``parallel/api``), on the port's one-process meshes.
+"""Tensor, expert and sequence parallelism of the sharded steps
+(``parallel/api``: serving and training), on the port's one-process
+meshes.
 
-A row of a serving step's batch split (``api.row_positions``) runs on a
+A row of a step's batch split (``api.row_positions``) runs on a
 tensor-parallel group: the mesh positions along 'model' at the row's
 coordinates (:func:`groups`), or the row's position alone when the batch
 split itself uses 'model' (whisper's ``tinydp``). Each rank of the group
@@ -16,7 +17,12 @@ and SSM heads split; the rest whole) and the ranks exchange what
   the rest, so a dim sharded over 'data' ('embed', FSDP) is gathered
   from the positions along 'data'. A rank whose own shard is the region
   takes a view (no copy); a leaf the compute copy narrows is cast as it
-  is gathered. The model code drops a block's slices once it has run.
+  is gathered (a train step hands it shards cast already). The model
+  code drops a block's slices once it has run. In a train step the
+  slices carry a way back: the gather's backward adds each slice's
+  gradient into the step's buffers on the positions holding it
+  (``sharded.gather_region``), and a block under remat gathers its
+  slices again in the backward.
   The SSM's ``w_in`` (``[z | x | B | C | dt]``) and ``conv_w``/``conv_b``
   (``[x | B | C]``) are stored as the JAX package stores them, a
   contiguous 'model' chunk that is not one range of heads: a rank gathers
@@ -31,10 +37,10 @@ and SSM heads split; the rest whole) and the ranks exchange what
   the batch. Stated difference: JAX's ``cache_specs`` under ``baseline``
   puts 'model' on the cache's sequence dim; here the sequence dim stays
   whole, since each rank attends its own heads.
-* **Counting** (:func:`meta_params`, ``api.meta_serving_step``): one rank
-  of one group on meta tensors, the other ranks' shards meta stand-ins
-  and their collective terms empty buffers (``launch/dryrun.py``,
-  ``api.step_collective_bytes``).
+* **Counting** (:func:`meta_params`, ``api.meta_serving_step``,
+  ``api.meta_train_step``): one rank of one group on meta tensors, the
+  other ranks' shards meta stand-ins and their collective terms empty
+  buffers (``launch/dryrun.py``, ``api.step_collective_bytes``).
 """
 from __future__ import annotations
 
@@ -201,11 +207,16 @@ def _ssm_spec(tree):
 class BlockSource:
     """Each running rank's slice of one block of the ``Sharded`` params
     tree ``params`` (the module docstring), in the compute dtype
-    ``adtype``, for the group ``group``."""
+    ``adtype``, for the group ``group``. With ``grads`` (a tree of
+    ``Sharded`` gradient buffers laid out as ``params``: a train step) the
+    slices are differentiable: the backward of each block's gather adds
+    its gradient into the buffers of the positions holding it
+    (``sharded.gather_region``)."""
 
     def __init__(self, params, cfg: ModelConfig, group: coll.Group,
-                 adtype: torch.dtype):
+                 adtype: torch.dtype, grads=None):
         self.params, self.cfg, self.group = params, cfg, group
+        self.grads = grads
         self.adtype = adtype
         self.keys = set(params)
         spec = _ssm_spec(params)
@@ -227,14 +238,20 @@ class BlockSource:
               ) -> List:
         """Each running rank's slice of the subtree at ``path`` (its stack
         slice ``index`` for a stacked subtree)."""
-        tree = self.params
+        tree, gtree = self.params, self.grads
         for k in path:
             tree = tree[k]
+            gtree = None if gtree is None else gtree[k]
         out = []
         for r in self.group.ranks:
             p = self.group.positions[r]
 
             def take(sub, leaf: Sharded, r=r, p=p):
+                grad = None
+                if gtree is not None:
+                    grad = gtree
+                    for k in sub:
+                        grad = grad[k]
                 spec = tuple(leaf.sharding.spec) + (None,) * leaf.ndim
                 shape, spec = ((leaf.shape[1:], spec[1:leaf.ndim])
                                if index is not None else
@@ -245,7 +262,8 @@ class BlockSource:
                     else leaf.dtype
                 return gather_region(leaf, region, p, self.group.devices[r],
                                      dtype, block=index,
-                                     prefer=self._prefer.get(p, ()))
+                                     prefer=self._prefer.get(p, ()),
+                                     grad=grad)
             out.append(_rebuild(tree, take))
         return out
 

@@ -15,7 +15,7 @@ unembedding widened to f32 on both sides (``tests/torch_lm_parity.py``):
   * the same two archs' loss and every gradient leaf of
     ``jax.value_and_grad`` of the train step's loss (the compute cast on
     the params' shardings, the activation hints on) on the first batch,
-    as ``grad/<arch><keystr path>``;
+    as ``grad/<arch><keystr path>``, and those of ``GRAD_ARCHS``;
   * the sharded prefill and ``DECODE`` teacher-forced decode steps of
     ``SERVE_ARCHS`` (yi-6b as ``serve/params<keystr path>`` and
     ``serve/logits``, the others under ``serve/<arch>/``);
@@ -46,6 +46,8 @@ from tests import torch_lm_parity as P  # noqa: E402
 
 STEPS = 4
 TRAIN_ARCHS = ("h2o-danube-1.8b", "olmoe-1b-7b")
+# gradient leaves only (no train curve): the SSM split by heads
+GRAD_ARCHS = ("mamba2-2.7b",)
 TOPK_ARCH = "h2o-danube-1.8b"
 SERVE_ARCH = "yi-6b"
 # the tensor-parallel serving oracles: dense, MoE (expert parallel), SSM
@@ -140,6 +142,8 @@ def main(out_path):
                 ckpt = out_path + ".ckpt"
                 jstore.save(state, STEPS, ckpt)
                 _flat(state["params"], "ckpt", out)
+            _grads(arch, mesh, out)
+        for arch in GRAD_ARCHS:
             _grads(arch, mesh, out)
         rows, _ = _train(TOPK_ARCH, mesh, compression="topk")
         for k, v in rows.items():

@@ -35,7 +35,7 @@ from repro_torch.core import pipeline as tpipeline
 from repro_torch.data import scenes as tscenes
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import Mesh, MeshShape, make_production_mesh
-from repro_torch.parallel import api, sharded as sh
+from repro_torch.parallel import api, collectives as pcoll
 from repro_torch.train import optim
 from tests.conftest import small_field_config
 from tests.torch_lm_parity import one_torch_thread  # noqa: F401
@@ -231,10 +231,14 @@ def test_argument_bytes_against_jax(ref):
     """Reduced danube's train cell on (2, 2), one position: the JAX
     step's arguments are its param, mu and nu shards, the step counter
     and its batch shard (the batch spec splits tokens over 'data' and
-    the sequence over 'model'). The port's are ``train_state_bytes``
-    (those shards, the gradient's shard, the compute copy of its shards
-    and the gathered compute copy) and its row's whole sequence. The
-    difference is exactly those terms."""
+    the sequence over 'model'). The port's are its master, mu and nu
+    shards and its row's whole sequence (every rank of the row's group
+    reads the row's tokens); its state, ``train_state_bytes``, adds the
+    gradient's shard, the compute copy of its shards, the final norm's
+    and unembedding's slices the forward keeps for the backward and the
+    largest block's copied slice with that slice's gradient, which the
+    step makes. The difference is exactly the batch terms and the
+    counter."""
     (arch, jax_args), = ref["argument_bytes"].items()
     b, s = ref["train"]
     cfg = registry.reduced_config(arch)
@@ -248,8 +252,9 @@ def test_argument_bytes_against_jax(ref):
                for l, sp in zip(optim.tree_leaves(shapes),
                                 optim.tree_leaves(specs))
                if l.ndim >= 2)
-    gathered = api.step_collective_bytes(cfg, mesh, DEFAULT_RULES, b)[p][
-        "all-gather"]
+    terms = api.train_bytes(cfg, mesh=mesh)
+    block, held = terms["block"][p], terms["held"][p]
+    assert 0 < block < shard and 0 < held < shard
     tokens = torch.empty((b, s), dtype=torch.int32, device="meta")
     tspec = api.batch_specs(cfg, {"tokens": tokens}, mesh,
                             DEFAULT_RULES)["tokens"]
@@ -257,55 +262,40 @@ def test_argument_bytes_against_jax(ref):
         (b, s)))) * 4
     row = b // meta["rows"] * s * 4
     assert meta["state_bytes"] == api.train_state_bytes(
-        cfg, mesh=mesh)[p] == 4 * shard + cast + gathered
-    assert counted["argument_bytes"] == meta["state_bytes"] + row
+        cfg, mesh=mesh)[p] == 4 * shard + cast + held + 2 * block
+    assert counted["argument_bytes"] == 3 * shard + row
     assert jax_args == 3 * shard + 4 + jax_batch
-    assert counted["argument_bytes"] - jax_args == \
-        shard + cast + gathered + row - jax_batch - 4
+    assert counted["argument_bytes"] - jax_args == row - jax_batch - 4
 
 
-def test_step_collective_bytes_against_a_cpu_mesh(monkeypatch):
-    """Reduced danube in f32 on a CPU (2, 2) mesh, one train step: the
-    bytes ``gather_for_compute`` places on the row devices, and the
-    gradient slices its backward hands each position, against
-    ``step_collective_bytes`` (one CPU: one gathered copy)."""
+def test_step_collective_bytes_against_a_cpu_mesh():
+    """Reduced danube in f32 on a CPU (2, 2) mesh, one train step: what
+    its group collectives, block gathers and their backward's
+    reduce-scatters tally at each position, against
+    ``step_collective_bytes`` (the first row's first rank counted on meta
+    tensors), on the mesh and on a stand-in of its shape."""
     cfg = dataclasses.replace(registry.reduced_config("h2o-danube-1.8b"),
                               act_dtype="float32")
     mesh = Mesh(np.array([CPU] * 4, dtype=object).reshape(2, 2),
                 ("data", "model"))
-    gathered, sliced = [], [0] * 4
-    real_gather, real_bwd = sh.gather_for_compute, sh._Gather.backward
-
-    def gather(leaf, shards, device):
-        out = real_gather(leaf, shards, device)
-        gathered.append(out.numel() * out.element_size())
-        return out
-
-    def backward(ctx, grad):
-        out = real_bwd(ctx, grad)
-        for p, g in enumerate(out[2:]):
-            sliced[p] += g.numel() * g.element_size()
-        return out
-    monkeypatch.setattr(sh, "gather_for_compute", gather)
-    monkeypatch.setattr(sh._Gather, "backward", staticmethod(backward))
-    batch = 4
+    batch, seq = 4, 16
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (batch, 16)))
+        0, cfg.vocab_size, (batch, seq)))
     state = api.make_train_state(api.init_params(cfg, 0, mesh,
                                                  DEFAULT_RULES))
-    api.make_train_step(cfg, mesh, DEFAULT_RULES)[0](state,
-                                                     {"tokens": tokens})
-    coll = api.step_collective_bytes(cfg, mesh, DEFAULT_RULES, batch)
-    assert sum(gathered) == sum(c["all-gather"] for c in coll) > 0
-    assert sliced == [c["all-reduce"] for c in coll]
-    assert coll[0]["links"] == {"all-gather": "nvlink",
-                                "all-reduce": "nvlink"}
-    # a stand-in mesh: each row position its own device, one copy each
-    stand = api.step_collective_bytes(cfg, MeshShape(("data", "model"),
-                                                     (2, 2)),
-                                      DEFAULT_RULES, batch)
-    assert [c["all-gather"] for c in stand] == [sum(gathered), 0,
-                                                sum(gathered), 0]
+    with pcoll.tally() as moved:
+        api.make_train_step(cfg, mesh, DEFAULT_RULES)[0](state,
+                                                         {"tokens": tokens})
+    want = api.step_collective_bytes(cfg, mesh, DEFAULT_RULES, batch,
+                                     seq=seq)
+    assert [api._tally_entry(moved, p) for p in range(4)] == want
+    assert all(want[0][k] > 0 for k in ("all-gather", "all-reduce",
+                                        "reduce-scatter"))
+    assert want[0]["links"] == dict.fromkeys(
+        ("all-gather", "all-reduce", "reduce-scatter"), "nvlink")
+    assert api.step_collective_bytes(
+        cfg, MeshShape(("data", "model"), (2, 2)), DEFAULT_RULES, batch,
+        seq=seq) == want
 
 
 # ------------------------------------------------------------- the CLI

@@ -121,14 +121,15 @@ def test_sharded_training_matches_jax_and_one_device(ref, arch):
     assert rows[-1]["loss"] < rows[0]["loss"]
 
 
-@pytest.mark.parametrize("arch", R.TRAIN_ARCHS)
+@pytest.mark.parametrize("arch", R.TRAIN_ARCHS + R.GRAD_ARCHS)
 def test_sharded_gradients_match_leaf_for_leaf(ref, arch):
-    """Every gradient leaf of the sharded loss (gathered from its shards)
-    against the port's one-device gradient and ``jax.value_and_grad`` on
-    JAX's (2, 2) mesh, on the first batch: a leaf whose gradient is
-    counted once per copy, or the load-balance gradient to olmoe's router
-    lost across the rows, shows here even where the global norm hides
-    it."""
+    """Every gradient leaf of the sharded (tensor-parallel) loss, gathered
+    from its shards, against the port's one-device gradient and
+    ``jax.value_and_grad`` on JAX's (2, 2) mesh, on the first batch: a
+    leaf whose gradient is counted once per copy, the load-balance
+    gradient to olmoe's router lost across the rows or ranks, or an SSM
+    head's (mamba2, split by heads) shows here even where the global norm
+    hides it."""
     cfg, _, params = P.port_train_params(arch)
     mesh, rules = mesh22(), rule_preset("baseline")
     batch = {k: torch.from_numpy(v)
@@ -258,9 +259,9 @@ def test_prefill_and_decode_gather_block_by_block(monkeypatch):
     real = tp.gather_region
 
     def gather_region(leaf, region, position, device, dtype, block=None,
-                      prefer=()):
+                      prefer=(), grad=None):
         out = real(leaf, region, position, device, dtype, block=block,
-                   prefer=prefer)
+                   prefer=prefer, grad=grad)
         key = (id(leaf) if block is None else None, block)
         alive = {k for r, k in live if r() is not None}
         assert alive <= {key}, (alive, key)      # only this block's

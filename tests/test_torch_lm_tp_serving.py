@@ -99,9 +99,9 @@ class _BlockWatch:
         monkeypatch.setattr(tp.BlockSource, "block", keyed)
 
     def __call__(self, leaf, region, position, device, dtype, block=None,
-                 prefer=()):
+                 prefer=(), grad=None):
         out = self.real(leaf, region, position, device, dtype, block=block,
-                        prefer=prefer)
+                        prefer=prefer, grad=grad)
         key = self.key
         alive = {k for r, k in self.live if r() is not None}
         assert alive <= {key}, (alive, key)
