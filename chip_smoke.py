@@ -85,7 +85,7 @@ JSON line:
            steps' logits, against the unsharded ones on the card within
            LM_SHARD_TOL, the sharded init equal to the one-device init
            sliced, every shard in ``shard_shape``; h2o-danube-1.8b at full
-           width in bf16 on an f32 master, 6 steps of 2 x 3072 tokens on
+           width in bf16 on an f32 master, 4 steps of 2 x 3072 tokens on
            (2, 2) and unsharded on the same batches: ms a step, tokens/s,
            peak memory, the gather and row-sum bytes a step (computed
            from the leaves' shapes), each loss
@@ -101,8 +101,8 @@ JSON line:
            train_4k and jamba-v0.1-52b's and qwen2-vl-72b's decode_32k (a
            subset of ``--all``, which takes minutes): no failure, each
            record's state bytes equal ``train_state_bytes(mesh=)`` /
-           ``param_bytes(mesh=)`` on the same stand-in mesh, jamba and
-           qwen2-vl not fitting 80 GB; (c) nerf_hash, gia_hash and
+           ``param_bytes(mesh=)`` on the same stand-in mesh, every one
+           fitting 80 GB; (c) nerf_hash, gia_hash and
            nsdf_hash render one position's 8,192 pixels of the 4k camera
            through ``pipeline.make_render_step`` here: each kernel's
            launches equal the record's, the device ms at least its
@@ -445,7 +445,7 @@ LM_TRAIN_WINDOW = 4
 # its 4096 window, so the backward runs chunked attention's sliced keys
 LM_TRAIN_FULL = {"h2o-danube-1.8b": (1, 6144), "mamba2-2.7b": (4, 1024),
                  "whisper-base": (4, 512)}
-LM_TRAIN_STEPS = 16
+LM_TRAIN_STEPS = 8
 # the full-width gradient check: danube in f32 at a small batch, the
 # directional derivative along the normalised gradient against a central
 # difference of the loss, relative; the step moves the loss by about
@@ -2161,7 +2161,7 @@ LM_SHARD_STEPS = 3
 LM_SHARD_BATCH, LM_SHARD_SEQ, LM_SHARD_DECODE = 4, 16, 4
 LM_SHARD_TOL = 1e-5
 LM_SHARD_FULL = ("h2o-danube-1.8b", 2, 3072)
-LM_SHARD_FULL_STEPS = 6
+LM_SHARD_FULL_STEPS = 4
 LM_SHARD_FULL_TOL = 2e-2
 LM_SHARD_PLANS = (("olmoe-1b-7b", "train", (4, 1)),
                   ("olmoe-1b-7b", "train", (2, 2)),
@@ -2470,15 +2470,29 @@ def lm_shard_phase(dev, gpu):
 # batch: finite, falling, the
 # meshes' peak memory within LM_TP_PEAK_TOL of the plan summed over the
 # card's positions (api.train_state_bytes, as check_fits adds them)
+#
+# (e) the serving cache in cache_specs' layout (ROADMAP A14.5d): yi-6b at
+# full width in f32 on (1, 8), its 4 KV heads not splitting 8 ways, so
+# each rank holds its chunk of the positions for every KV head (before:
+# the whole row's cache on every rank); LM_TP_SEQ_CACHE's prompt, then
+# its decode steps fed the one device's greedy tokens: each step's
+# logits within LM_TP_F32_RTOL of its largest; the peak while decoding
+# (the shards and the cache, what the plan counts) within LM_TP_PEAK_TOL
+# of api.serving_bytes summed over the card's positions. The prefill's
+# peak is printed beside it: its f32 activations (each rank's gathered
+# stream and f32 row-parallel terms, the ranks in turn) are not in the
+# plan. The cache length (prompt + steps) must divide 8 to split
 LM_TP_MESHES = ((1, 4), (2, 2))
 LM_TP_BATCH, LM_TP_SEQ, LM_TP_DECODE = 4, 16, 4
 LM_TP_TOL = 1e-5
-LM_TP_FULL = ("qwen3-32b", 4, 512, 32)     # arch, batch, prompt, greedy
+LM_TP_FULL = ("qwen3-32b", 4, 512, 8)      # arch, batch, prompt, greedy
 LM_TP_FULL_RTOL = 5e-2
 LM_TP_PEAK_TOL = 0.10
 LM_TP_F32 = ("qwen2-7b", 4, 512, 8)        # arch, batch, prompt, decode
 LM_TP_F32_RTOL = 1e-4
 LM_TP_TRAIN = ("h2o-danube-1.8b", 1, 2048)   # arch, batch, tokens a row
+# arch, batch, prompt, decode steps, mesh
+LM_TP_SEQ_CACHE = ("yi-6b", 1, 8192, 8, (1, 8))
 LM_TP_TRAIN_STEPS = 3
 
 
@@ -2571,7 +2585,7 @@ def lm_tp_phase(dev, gpu):
                     1 + b.double().abs())).max()) for a, b in zip(joined,
                                                                   one_c))
                 row = {"groups": [len(g.positions) for g in cache.groups],
-                       "split": cache.split, "logit_max_abs_err": logit_err,
+                       "kv_seq": cache.kv_seq, "logit_max_abs_err": logit_err,
                        "cache_max_rel_err": cache_err}
                 rows["x".join(map(str, shape))] = row
                 if logit_err > LM_TP_TOL or cache_err > LM_TP_TOL:
@@ -2650,6 +2664,7 @@ def lm_tp_phase(dev, gpu):
         fail(f"lm_tp[{arch} full]: {result}")
 
     c4 = lm_tp_f32_serving(dev, card_mesh, serve)
+    seq_cache = lm_tp_seq_cache(dev, card_mesh)
     train = lm_tp_train(dev, card_mesh)
 
     launches = K.launch_counts()
@@ -2661,7 +2676,7 @@ def lm_tp_phase(dev, gpu):
             "note": "one card repeated as each mesh: the positions share "
                     "its memory and run one after another",
             "reduced": reduced, "full": result, "f32_serving": c4,
-            **train, **gpu}
+            "seq_cache": seq_cache, **train, **gpu}
 
 
 def lm_tp_f32_serving(dev, card_mesh, serve):
@@ -2703,6 +2718,107 @@ def lm_tp_f32_serving(dev, card_mesh, serve):
               for name, r in runs.items()}}
     if not max(rel) <= LM_TP_F32_RTOL:
         fail(f"lm_tp[{arch} f32 full]: (1, 4) against one device: {out}")
+    return out
+
+
+def lm_tp_seq_cache(dev, card_mesh):
+    """(e) yi-6b in f32 on (1, 8), its cache split along the sequence,
+    against one device (the comment above LM_TP_MESHES)."""
+    import torch
+    from repro_torch.common.partitioning import rule_preset
+    from repro_torch.configs import registry
+    from repro_torch.parallel import api
+    from repro_torch.train.optim import tree_leaves
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_lm_f32 import f32_unembed
+
+    arch, batch, prompt, n_dec, shape = LM_TP_SEQ_CACHE
+    cfg = dataclasses.replace(registry.get_config(arch), act_dtype="float32")
+    inp = lm_inputs(cfg, batch, prompt, SEED)
+    mesh, rules = card_mesh(shape), rule_preset("baseline")
+    mesh_name = "x".join(map(str, shape))
+    cap = prompt + n_dec
+    runs, feed = {}, None
+    with f32_unembed():
+        for name, m_ in (("one_device", None), (mesh_name, mesh)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            r_ = rules if m_ is not None else None
+            params = (api.init_params(cfg, SEED, device=dev) if m_ is None
+                      else api.init_params(cfg, SEED, m_, rules))
+            pre, info = api.make_prefill_step(cfg, m_, r_, capacity=cap,
+                                              batch_size=batch)
+            dec, _ = api.make_decode_step(cfg, m_, r_, capacity=cap,
+                                          batch_size=batch)
+            cache = (api.make_cache(cfg, batch, cap, device=dev)
+                     if m_ is None else
+                     api.make_cache(cfg, batch, cap, rules=rules,
+                                    shardings=info["cache"]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first, cache = pre(params, lm_batch(cfg, inp, dev), cache)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            prefill_peak = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            logits, toks = [first.float().cpu()], []
+            tok = torch.argmax(first, -1)[:, None]
+            t0 = time.perf_counter()
+            for i in range(n_dec):
+                if feed is not None:
+                    tok = feed[:, i:i + 1].to(dev)
+                toks.append(tok)
+                lg, cache = dec(params, cache, tok, prompt + i)
+                logits.append(lg.float().cpu())
+                tok = torch.argmax(lg, -1)[:, None]
+            torch.cuda.synchronize()
+            row = {"prefill_ms": t_pre * 1e3,
+                   "decode_ms_per_token":
+                       (time.perf_counter() - t0) / n_dec * 1e3,
+                   "prefill_peak_bytes": prefill_peak,
+                   "decode_peak_bytes": torch.cuda.max_memory_allocated(dev),
+                   "logits": logits}
+            if m_ is None:
+                row["cache_bytes"] = sum(t.numel() * t.element_size()
+                                         for t in tree_leaves(cache))
+            else:
+                plan = api.serving_bytes(cfg, m_, rules, cfg.adtype,
+                                         (batch, cap, 0))
+                row.update({
+                    "plan_bytes": sum(sum(t) for t in plan.values()),
+                    "plan_by_term": {k: sum(v) for k, v in plan.items()},
+                    "cache_bytes": sum(t.numel() * t.element_size()
+                                       for rank in cache.rows[0]
+                                       for t in tree_leaves(rank)),
+                    "layout": {k: str(v) for k, v in
+                               cache.layout["sub0"].items()}})
+            runs[name] = row
+            feed = torch.cat(toks, 1)
+            del params, cache, first, lg
+    torch.cuda.empty_cache()
+    one, tp_ = runs["one_device"], runs[mesh_name]
+    rel = [float((a - b).abs().max()) / float(b.abs().max())
+           for a, b in zip(tp_["logits"], one["logits"])]
+    peak_err = abs(tp_["decode_peak_bytes"] - tp_["plan_bytes"]) \
+        / tp_["plan_bytes"]
+    out = {"arch": arch, "batch": batch, "prompt": prompt,
+           "decode_steps": n_dec, "mesh": mesh_name,
+           "fed": "the one device's tokens",
+           "max_logits_rel_err": max(rel), "rtol": LM_TP_F32_RTOL,
+           "decode_peak_rel_err_vs_plan": peak_err,
+           "peak_tol": LM_TP_PEAK_TOL,
+           # the layout before: every rank the whole row (the KV heads,
+           # 4, do not split 8 ways)
+           "cache_bytes_whole_on_every_rank":
+               one["cache_bytes"] * shape[1],
+           **{name: {k: v for k, v in r.items() if k != "logits"}
+              for name, r in runs.items()}}
+    finite = all(bool(torch.isfinite(l).all())
+                 for r in runs.values() for l in r["logits"])
+    if not (max(rel) <= LM_TP_F32_RTOL and peak_err <= LM_TP_PEAK_TOL
+            and finite and tp_["layout"]["k"] == "2"
+            and tp_["cache_bytes"] == one["cache_bytes"]):
+        fail(f"lm_tp[{arch} f32 {mesh_name} sequence-split cache]: {out}")
     return out
 
 
@@ -2836,13 +2952,14 @@ def lm_tp_train(dev, card_mesh):
 # the dryrun phase: the children of (a) and (b), started together; (b)
 # is a subset of --all --mesh both (the whole sweep takes minutes on one
 # process): a train cell and two serving cells that the whole gathered
-# copy kept from fitting; since the tensor-parallel steps, only
-# qwen2-vl's decode on (16, 16) does not fit: its cache row (8 KV heads
-# do not split 16 ways), 85.9 GB
+# copy kept from fitting; all fit since the tensor-parallel steps and the
+# cache split along the sequence (qwen2-vl's decode on (16, 16): its
+# 85.9 GB cache row, whose 8 KV heads do not split 16 ways, is 5.4 GB a
+# device)
 DRYRUN_LM_CELLS = (("whisper-base", "train_4k"),
                    ("jamba-v0.1-52b", "decode_32k"),
                    ("qwen2-vl-72b", "decode_32k"))
-DRYRUN_NOT_FITTING = ("qwen2-vl-72b/decode_32k/single",)
+DRYRUN_NOT_FITTING = ()
 DRYRUN_TIMEOUT_S = 300
 # (c): one position's share of the 4k render step on 256 positions
 DRYRUN_APPS = ("nerf", "gia", "nsdf")

@@ -47,9 +47,10 @@ its arguments and the peak of its live allocations, and the kernels' work
   ``make_decode_step``).
 * **Collectives** (``parallel/api.step_collective_bytes``): tallied in
   the run of the step on meta tensors (the group's all-reduces,
-  all-gathers and reduce-scatters, the block-wise gathers over 'data'
-  and, in training, their backward's reduce-scatters); each priced at
-  NVLink or InfiniBand.
+  all-gathers and reduce-scatters, the all-to-alls of a cache split
+  along the sequence, the block-wise gathers over 'data' and, in
+  training, their backward's reduce-scatters); each priced at NVLink or
+  InfiniBand.
 * **Depth.** The port has no ``lax.scan``: one count covers every layer,
   and every record says ``probe_meta: {"probe": "exact"}``, as JAX's
   depth-1 cells do. ``--no-probes`` is accepted and changes nothing.

@@ -21,6 +21,17 @@ Caches are updated in place and returned (the JAX steps donate theirs):
 the ring cache's slot is ``pos % size`` and masking reads the stored
 absolute slot positions (-1 = empty), so full and ring caches share one
 decode path.
+
+On a tensor-parallel group whose cache is split along the sequence
+(``parallel/tp.cache_layout``: each rank a contiguous chunk of the
+positions, or of the ring's slots, for every KV head),
+:func:`prefill_seq_tp` writes each rank's chunk and :func:`decode_seq_tp`
+attends as a split softmax: each rank scores its own slots, the group
+combines the chunks' maxima and sums of exponentials in f32
+(:func:`combine_stats`), and each rank's slots' probabilities, rounded
+to the act dtype as the one-device softmax's are, weight its values in
+an f32 term that the group sums in rank order. A rank whose chunk holds
+no visible slot contributes exactly 0.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ from repro_torch.common.param import Boxed, KeyGen, ones_init, \
     scaled_init, zeros_init
 from repro_torch.models import layers, remat
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives as coll
 
 NEG_INF = -1e30
 
@@ -285,22 +297,30 @@ def prefill_into_cache(params, cfg: ModelConfig, x, positions, cache,
                                 causal=True, sharder=sharder)
     y = _out_proj(out, params["wo"], partial)
 
-    size = cache["k"].shape[1]
-    s = k.shape[1]
-    pos_seq = _time_positions(positions).to(torch.int32)
-    if s >= size:           # keep the trailing window, rotated
-        roll = s % size
-        cache["k"].copy_(torch.roll(k[:, -size:], roll, dims=1))
-        cache["v"].copy_(torch.roll(v[:, -size:], roll, dims=1))
-        cache["slot_pos"].copy_(torch.roll(pos_seq[-size:], roll))
-    else:
-        cache["k"][:, :s] = k
-        cache["k"][:, s:] = 0
-        cache["v"][:, :s] = v
-        cache["v"][:, s:] = 0
-        cache["slot_pos"][:s] = pos_seq
-        cache["slot_pos"][s:] = -1
+    image = cache_image(k, v, _time_positions(positions).to(torch.int32),
+                        cache["k"].shape[1])
+    for name, t in zip(("k", "v", "slot_pos"), image):
+        cache[name].copy_(t)
     return y, cache
+
+
+def _valid(cfg: ModelConfig, spos, pos: int):
+    """The slots a token at ``pos`` sees: filled, not after it, and in
+    the window."""
+    valid = (spos >= 0) & (spos <= pos)
+    if cfg.swa_window is not None:
+        valid = valid & (spos > pos - cfg.swa_window)
+    return valid
+
+
+def _token_positions(cfg: ModelConfig, x, pos: int) -> torch.Tensor:
+    """The positions of one decoded token of each example of ``x``
+    (M-RoPE's three streams alike)."""
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                           device=x.device)
+    if cfg.m_rope_sections is not None:
+        positions = positions[None].expand((3,) + positions.shape)
+    return positions
 
 
 def decode_step_attn(params, cfg: ModelConfig, x, pos: int, cache,
@@ -311,21 +331,196 @@ def decode_step_attn(params, cfg: ModelConfig, x, pos: int, cache,
     Full cache: slot == pos. Ring cache: slot == pos % size; masking is by
     stored absolute slot positions, so both are one code path. ``kv_sel``
     and ``partial`` as in :func:`attend_full`."""
-    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                           device=x.device)
-    if cfg.m_rope_sections is not None:
-        positions = positions[None].expand((3,) + positions.shape)
-    q, k, v = _project_qkv(params, cfg, x, x, positions)
+    q, k, v = _project_qkv(params, cfg, x, x, _token_positions(cfg, x, pos))
     size = cache["k"].shape[1]
     slot = pos % size
     cache["k"][:, slot:slot + 1] = k
     cache["v"][:, slot:slot + 1] = v
     cache["slot_pos"][slot] = pos
-    spos = cache["slot_pos"]
-    valid = (spos >= 0) & (spos <= pos)
-    if cfg.swa_window is not None:
-        valid = valid & (spos > pos - cfg.swa_window)
+    valid = _valid(cfg, cache["slot_pos"], pos)
     out = _grouped_attend(q, _take(cache["k"], kv_sel),
                           _take(cache["v"], kv_sel), valid[None, None, :],
                           sharder=sharder)
     return _out_proj(out, params["wo"], partial), cache
+
+
+# ------------------------------------------- the sequence-split cache
+def cache_image(k, v, pos_seq, size: int):
+    """The (k, v, slot_pos) that a prefill of ``k.shape[1]`` tokens at
+    positions ``pos_seq`` leaves in a cache of ``size`` slots: the trailing
+    window rolled so slot = pos % size (:func:`prefill_into_cache`), or
+    the prompt followed by zeros and empty (-1) slots."""
+    s = k.shape[1]
+    if s >= size:
+        roll = s % size
+        return (torch.roll(k[:, -size:], roll, dims=1),
+                torch.roll(v[:, -size:], roll, dims=1),
+                torch.roll(pos_seq[-size:], roll))
+    pad = (k.shape[0], size - s) + tuple(k.shape[2:])
+    return (torch.cat([k, k.new_zeros(pad)], 1),
+            torch.cat([v, v.new_zeros(pad)], 1),
+            torch.cat([pos_seq, pos_seq.new_full((size - s,), -1)]))
+
+
+def _write_chunks(cfg: ModelConfig, tp, caches, ks, vs, pos_seq) -> None:
+    """Each rank's chunk of a prefill's cache contents into its cache:
+    ``ks``, ``vs`` each rank's keys and values (B, S, KV heads it
+    computes, hd). When the ranks split the KV heads, an all-to-all hands
+    each rank its positions of every head; when each computes every
+    head, it keeps its own positions."""
+    n = caches[0]["k"].shape[1]
+    size = n * tp.size
+    imgs = [cache_image(k, v, pos_seq.to(k.device), size)
+            for k, v in zip(ks, vs)]
+    ks, vs = [i[0] for i in imgs], [i[1] for i in imgs]
+    if ks[0].shape[2] < cfg.n_kv_heads:
+        ks = coll.all_to_all(tp, ks, 1, 2)
+        vs = coll.all_to_all(tp, vs, 1, 2)
+    else:
+        ks = [k.narrow(1, r * n, n) for r, k in zip(tp.ranks, ks)]
+        vs = [v.narrow(1, r * n, n) for r, v in zip(tp.ranks, vs)]
+    for r, c, k, v, img in zip(tp.ranks, caches, ks, vs, imgs):
+        c["k"].copy_(k)
+        c["v"].copy_(v)
+        if "slot_pos" in c:
+            c["slot_pos"].copy_(img[2].narrow(0, r * n, n))
+
+
+def prefill_seq_tp(tp, ps, cfg: ModelConfig, hs, positions, caches,
+                   partial: bool, encs=None) -> list:
+    """:func:`prefill_into_cache` of each rank of the group ``tp`` (its
+    attention params ``ps``, normed stream ``hs`` and ``positions``)
+    into caches split along the sequence: each rank attends the freshly
+    projected keys and values of its heads (as the one-device prefill
+    does), then writes its chunk. With ``encs`` (the encoder's output,
+    one per rank, whole) it is the cross-attention, its cache the
+    encoder positions. Returns each rank's output (the f32 term of the
+    group's sum when ``partial``)."""
+    heads, kv_heads = ps[0]["wq"].shape[1], ps[0]["wk"].shape[1]
+    cross = encs is not None
+    parts, ks, vs = [], [], []
+    for r, p, h, pos, e in zip(tp.ranks, ps, hs, positions, encs or hs):
+        q, k, v = _project_qkv(p, cfg, h, e, pos, rope=not cross)
+        sel = kv_select(cfg, heads, kv_heads, r)
+        out = _attend_maybe_chunked(q, _take(k, sel), _take(v, sel), cfg,
+                                    causal=not cross)
+        parts.append(_out_proj(out, p["wo"], partial))
+        ks.append(k)
+        vs.append(v)
+    pos_seq = (torch.arange(ks[0].shape[1], device=ks[0].device) if cross
+               else _time_positions(positions[0]))
+    _write_chunks(cfg, tp, caches, ks, vs, pos_seq.to(torch.int32))
+    return parts
+
+
+def chunk_scores(q, k, valid):
+    """One rank's scores of a one-token query against its own slots: q
+    (B, 1, H, hd) every query head, k (B, n, KV, hd) its chunk, valid (n,)
+    bool (None: every slot). Returns the (B, KV, H / KV, n) f32 scores,
+    scaled and masked as in :func:`_grouped_attend`, and the chunk's
+    (maximum score, sum of its exponentials) per head, (B, H, 2) f32: a
+    chunk with no visible slot gives (NEG_INF, 0)."""
+    b, _, h, hd = q.shape
+    kv = k.shape[2]
+    s = torch.matmul(q.reshape(b, kv, h // kv, hd).float(),
+                     k.permute(0, 2, 3, 1).float()) / math.sqrt(hd)
+    if valid is not None:
+        s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    if valid is not None:
+        e = torch.where(valid, e, 0.0)
+    return s, torch.cat([m, e.sum(-1, keepdim=True)], -1).reshape(b, h, 2)
+
+
+def combine_stats(stats: torch.Tensor):
+    """(R, B, H, 2) chunk statistics of :func:`chunk_scores` in rank order
+    -> the row's maximum ``M = max_r m_r`` and sum of exponentials
+    ``L = sum_r exp(m_r - M) l_r`` (summed in rank order), each (B, H)."""
+    m = stats[..., 0]
+    top = m.amax(0)
+    return top, _rank_sum(torch.exp(m - top) * stats[..., 1])
+
+
+def chunk_output(s, valid, top, den, v, dtype) -> torch.Tensor:
+    """One rank's f32 term (B, H, hd) of the attention output: its slots'
+    probabilities ``exp(s - M) / L``, rounded to ``dtype`` as the
+    one-device softmax's are, times its values ``v`` (B, n, KV, hd),
+    summed in f32. The group's sum of the terms is the output."""
+    b, kv, g, _ = s.shape
+    p = torch.exp(s - top.reshape(b, kv, g, 1))
+    if valid is not None:
+        p = torch.where(valid, p, 0.0)
+    p = (p / torch.where(den > 0, den, 1.0).reshape(b, kv, g, 1)).to(dtype)
+    return torch.matmul(p.float(), v.permute(0, 2, 1, 3).float()).reshape(
+        b, kv * g, -1)
+
+
+def _rank_sum(x: torch.Tensor) -> torch.Tensor:
+    acc = x[0]
+    for r in range(1, x.shape[0]):
+        acc = acc + x[r]
+    return acc
+
+
+def _split_softmax_tp(tp, qs, caches, valids, heads: int):
+    """Each rank's (B, 1, h, hd) attention output from the ranks' queries
+    ``qs`` (B, 1, h, hd) and their chunks: the queries of every head
+    gathered (when the ranks split them); each rank's chunk statistics
+    gathered and combined into the row's maximum and sum; each rank's
+    term of the output, from its slots' probabilities; and the terms of
+    the rank's heads from every rank summed in rank order (an all-to-all
+    of the terms; an all-gather when every rank computes every head)."""
+    split = qs[0].shape[2] < heads
+    if split:
+        qs = coll.all_gather(tp, qs, 2)
+    scored = [chunk_scores(q, c["k"], ok)
+              for q, c, ok in zip(qs, caches, valids)]
+    stats = coll.all_gather(tp, [st[None] for _, st in scored], 0)
+    terms = [chunk_output(s, ok, *combine_stats(st), c["v"], q.dtype)[None]
+             for (s, _), st, ok, c, q in zip(scored, stats, valids, caches,
+                                             qs)]
+    terms = (coll.all_to_all(tp, terms, 2, 0) if split
+             else coll.all_gather(tp, terms, 0))
+    return [_rank_sum(t)[:, None] for t in terms]
+
+
+def decode_seq_tp(tp, ps, cfg: ModelConfig, hs, pos: int, caches,
+                  partial: bool) -> list:
+    """:func:`decode_step_attn` of each rank of the group ``tp`` on caches
+    split along the sequence: the new token's keys and values of every
+    KV head (gathered when the ranks split them) go to the rank owning
+    slot ``pos % size``, which alone writes it; then the split softmax
+    over every rank's chunk, masked by its slot positions. Returns each
+    rank's output (the f32 term of the group's sum when ``partial``)."""
+    qs, ks, vs = [], [], []
+    for p, h in zip(ps, hs):
+        q, k, v = _project_qkv(p, cfg, h, h, _token_positions(cfg, h, pos))
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+    if ks[0].shape[2] < cfg.n_kv_heads:
+        ks = coll.all_gather(tp, ks, 2)
+        vs = coll.all_gather(tp, vs, 2)
+    n = caches[0]["k"].shape[1]
+    owner, i = divmod(pos % (n * tp.size), n)
+    for r, c, k, v in zip(tp.ranks, caches, ks, vs):
+        if r == owner:
+            c["k"][:, i:i + 1] = k
+            c["v"][:, i:i + 1] = v
+            c["slot_pos"][i] = pos
+    outs = _split_softmax_tp(tp, qs, caches, [
+        _valid(cfg, c["slot_pos"], pos) for c in caches], cfg.n_heads)
+    return [_out_proj(o.to(h.dtype), p["wo"], partial)
+            for p, h, o in zip(ps, hs, outs)]
+
+
+def cross_decode_seq_tp(tp, ps, cfg: ModelConfig, hs, caches,
+                        partial: bool) -> list:
+    """One token's cross-attention of each rank's heads over the encoder
+    positions split along the sequence (``caches``: the ranks' cross
+    caches of one layer): the split softmax with no mask."""
+    qs = [_proj(h, p["wq"]) for p, h in zip(ps, hs)]
+    outs = _split_softmax_tp(tp, qs, caches, [None] * len(qs), cfg.n_heads)
+    return [_out_proj(o.to(h.dtype), p["wo"], partial)
+            for p, h, o in zip(ps, hs, outs)]

@@ -224,13 +224,20 @@ def ffn_tp(tp, ps, cfg: ModelConfig, layer_idx: int, xs, sp: bool,
 
 
 def prefill_block_tp(tp, ps, cfg: ModelConfig, layer_idx: int, xs,
-                     positions, caches, sp: bool, sharder=None):
+                     positions, caches, sp: bool, sharder=None,
+                     kv_seq: bool = False):
     """:func:`prefill_block` on the group (the module docstring):
-    ``positions`` and ``caches`` one per rank, each cache the rank's KV
-    heads or SSM heads, filled in place. Returns the new stream."""
+    ``positions`` and ``caches`` one per rank, each cache the rank's shard
+    (``parallel/tp.cache_layout``: its chunk of the positions when
+    ``kv_seq``, else its KV heads or all of them; its SSM heads), filled
+    in place. Returns the new stream."""
     hs = whole_seq(tp, [layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
                         for p, x in zip(ps, xs)], sp)
-    if cfg.layer_kind(layer_idx) == "attn":
+    if cfg.layer_kind(layer_idx) == "attn" and kv_seq:
+        partial = _heads_tp(cfg, ps, "attn")[2]
+        parts = attention.prefill_seq_tp(tp, [p["attn"] for p in ps], cfg,
+                                         hs, positions, caches, partial)
+    elif cfg.layer_kind(layer_idx) == "attn":
         heads, kv_heads, partial = _heads_tp(cfg, ps, "attn")
         parts = [attention.prefill_into_cache(
             p["attn"], cfg, h, pos, cache,
@@ -269,12 +276,17 @@ def apply_block_tp(tp, ps, cfg: ModelConfig, layer_idx: int, xs,
 
 
 def decode_block_tp(tp, ps, cfg: ModelConfig, layer_idx: int, xs, pos: int,
-                    caches, sharder=None):
+                    caches, sharder=None, kv_seq: bool = False):
     """:func:`decode_block` on the group: one token, the stream whole on
-    every rank (a sequence of one does not split)."""
+    every rank (a sequence of one does not split); ``kv_seq`` as in
+    :func:`prefill_block_tp`."""
     hs = [layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
           for p, x in zip(ps, xs)]
-    if cfg.layer_kind(layer_idx) == "attn":
+    if cfg.layer_kind(layer_idx) == "attn" and kv_seq:
+        partial = _heads_tp(cfg, ps, "attn")[2]
+        parts = attention.decode_seq_tp(tp, [p["attn"] for p in ps], cfg,
+                                        hs, pos, caches, partial)
+    elif cfg.layer_kind(layer_idx) == "attn":
         heads, kv_heads, partial = _heads_tp(cfg, ps, "attn")
         parts = [attention.decode_step_attn(
             p["attn"], cfg, h, pos, cache,

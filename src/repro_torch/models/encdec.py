@@ -17,7 +17,9 @@ memory, not the gradients.
 
 ``prefill_tp`` and ``decode_step_tp`` serve on a tensor-parallel group as
 ``models/lm.py``'s do (heads and ``mlp`` split, the tied table
-vocab-parallel); the cross-attention cache holds each rank's KV heads.
+vocab-parallel); each rank's self- and cross-attention caches are its
+shards (``parallel/tp.cache_layout``): under ``baseline`` its chunk of
+the positions, attended as ``models/attention``'s split softmax.
 """
 from __future__ import annotations
 
@@ -322,10 +324,22 @@ def encode_tp(src, cfg: ModelConfig, frames: torch.Tensor, sp: bool,
     return blocks.whole_seq(tp, xs, sp)
 
 
-def _cross_tp(tp, cfg, ps, hs, caches, i: int, enc=None):
+def _cross_tp(tp, cfg, ps, hs, caches, i: int, enc=None,
+              seq: bool = False):
     """Each rank's cross-attention heads against the encoder's keys and
-    values (written into the cache at prefill, from ``enc``)."""
+    values (written into the cache at prefill, from ``enc``); ``seq``:
+    the cache splits the encoder positions (``attention``'s split
+    softmax)."""
     sel, partial = _attn_tp(tp, cfg, ps, "xattn")
+    if seq:
+        xps = [p["xattn"] for p in ps]
+        cross = [_layer(c["cross"], i) for c in caches]
+        if enc is not None:
+            return attention.prefill_seq_tp(
+                tp, xps, cfg, hs, [None] * len(hs), cross, partial,
+                enc), partial
+        return attention.cross_decode_seq_tp(tp, xps, cfg, hs, cross,
+                                             partial), partial
     parts = []
     for j, (p, h, c, k) in enumerate(zip(ps, hs, caches, sel)):
         xp = p["xattn"]
@@ -348,10 +362,14 @@ def _cross_tp(tp, cfg, ps, hs, caches, i: int, enc=None):
 
 
 def prefill_tp(src, cfg: ModelConfig, batch: Dict, caches, sp: bool,
-               sp_enc: bool = False, sharder=None) -> torch.Tensor:
+               sp_enc: bool = False, sharder=None, kv_seq=None
+               ) -> torch.Tensor:
     """:func:`prefill` on the group of ``src`` (``models/lm.prefill_tp``):
-    ``sp_enc`` splits the encoder's stream, ``sp`` the decoder's."""
+    ``sp_enc`` splits the encoder's stream, ``sp`` the decoder's;
+    ``kv_seq`` says whether the ``self`` and ``cross`` caches split the
+    sequence."""
     tp = src.group
+    kv_seq = kv_seq or {}
     enc = encode_tp(src, cfg, batch["enc_embeddings"], sp_enc)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -366,14 +384,20 @@ def prefill_tp(src, cfg: ModelConfig, batch: Dict, caches, sp: bool,
         sel, partial = _attn_tp(tp, cfg, ps, "attn")
         hs = blocks.whole_seq(tp, [layers.layernorm(p["ln1"], x)
                                    for p, x in zip(ps, xs)], sp)
-        parts = [attention.prefill_into_cache(
-            p["attn"], cfg, h, pos, _layer(c["self"], i), kv_sel=k,
-            partial=partial)[0]
-            for p, h, pos, c, k in zip(ps, hs, positions, caches, sel)]
+        if kv_seq.get("self"):
+            parts = attention.prefill_seq_tp(
+                tp, [p["attn"] for p in ps], cfg, hs, positions,
+                [_layer(c["self"], i) for c in caches], partial)
+        else:
+            parts = [attention.prefill_into_cache(
+                p["attn"], cfg, h, pos, _layer(c["self"], i), kv_sel=k,
+                partial=partial)[0]
+                for p, h, pos, c, k in zip(ps, hs, positions, caches, sel)]
         xs = blocks.mix_into(tp, xs, parts, partial, sp)
         hs = blocks.whole_seq(tp, [layers.layernorm(p["ln_x"], x)
                                    for p, x in zip(ps, xs)], sp)
-        parts, partial = _cross_tp(tp, cfg, ps, hs, caches, i, enc)
+        parts, partial = _cross_tp(tp, cfg, ps, hs, caches, i, enc,
+                                   kv_seq.get("cross", False))
         xs = blocks.mix_into(tp, xs, parts, partial, sp)
         xs = _mlp_tp(tp, cfg, ps, xs, "ln2", sp)
         del ps
@@ -452,10 +476,12 @@ def _logits_tp(src, cfg: ModelConfig, xs):
 
 
 def decode_step_tp(src, cfg: ModelConfig, tokens: torch.Tensor, pos,
-                   caches, sharder=None) -> torch.Tensor:
+                   caches, sharder=None, kv_seq=None) -> torch.Tensor:
     """:func:`decode_step` on the group of ``src``: the logits (B, V) on
-    its first rank, ``caches`` updated in place."""
+    its first rank, ``caches`` updated in place; ``kv_seq`` as in
+    :func:`prefill_tp`."""
     tp = src.group
+    kv_seq = kv_seq or {}
     pos = int(pos)
     xs = _embed_tp(src, cfg, tokens, False)
     xs = [x + t[min(pos, t.shape[0] - 1)][None].to(cfg.adtype)[None]
@@ -464,13 +490,19 @@ def decode_step_tp(src, cfg: ModelConfig, tokens: torch.Tensor, pos,
         ps = src.block(("dec_layers",), i)
         sel, partial = _attn_tp(tp, cfg, ps, "attn")
         hs = [layers.layernorm(p["ln1"], x) for p, x in zip(ps, xs)]
-        parts = [attention.decode_step_attn(
-            p["attn"], cfg, h, pos, _layer(c["self"], i), kv_sel=k,
-            partial=partial)[0]
-            for p, h, c, k in zip(ps, hs, caches, sel)]
+        if kv_seq.get("self"):
+            parts = attention.decode_seq_tp(
+                tp, [p["attn"] for p in ps], cfg, hs, pos,
+                [_layer(c["self"], i) for c in caches], partial)
+        else:
+            parts = [attention.decode_step_attn(
+                p["attn"], cfg, h, pos, _layer(c["self"], i), kv_sel=k,
+                partial=partial)[0]
+                for p, h, c, k in zip(ps, hs, caches, sel)]
         xs = blocks.mix_into(tp, xs, parts, partial, False)
         hs = [layers.layernorm(p["ln_x"], x) for p, x in zip(ps, xs)]
-        parts, partial = _cross_tp(tp, cfg, ps, hs, caches, i)
+        parts, partial = _cross_tp(tp, cfg, ps, hs, caches, i,
+                                   seq=kv_seq.get("cross", False))
         xs = blocks.mix_into(tp, xs, parts, partial, False)
         xs = _mlp_tp(tp, cfg, ps, xs, "ln2", False)
         del ps

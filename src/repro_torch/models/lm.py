@@ -279,11 +279,14 @@ def _logits_tp(src, cfg: ModelConfig, xs):
 
 
 def prefill_tp(src, cfg: ModelConfig, batch: Dict, caches, sp: bool,
-               sharder=None) -> torch.Tensor:
+               sharder=None, kv_seq=None) -> torch.Tensor:
     """:func:`prefill` on the tensor-parallel group of the block source
-    ``src``: ``caches`` one per running rank (its KV or SSM heads), filled
-    in place; ``sp`` splits the stream along the sequence. Returns the
-    last-token logits (B, V) on the group's first rank."""
+    ``src``: ``caches`` one per running rank (its shard of the cache),
+    filled in place; ``sp`` splits the stream along the sequence;
+    ``kv_seq`` which sub-layers' caches split the sequence
+    (``parallel/tp.kv_seq``). Returns the last-token logits (B, V) on the
+    group's first rank."""
+    kv_seq = kv_seq or {}
     tp = src.group
     xs = _embed_inputs_tp(src, cfg, batch, sp)
     inp = batch["embeddings" if "embeddings" in batch else "tokens"]
@@ -295,7 +298,8 @@ def prefill_tp(src, cfg: ModelConfig, batch: Dict, caches, sp: bool,
             xs = blocks.prefill_block_tp(
                 tp, src.block(("blocks", f"sub{p}"), i), cfg, p, xs,
                 positions, [_index(c[f"sub{p}"], i) for c in caches], sp,
-                sharder=_layer_sharder(sharder, i, p))
+                sharder=_layer_sharder(sharder, i, p),
+                kv_seq=kv_seq.get(f"sub{p}", False))
     last = [x[:, -1:] for x in xs]
     if sp:          # the last token is the last rank's
         last = [x[:, -1:] for x in coll.all_gather(tp, last, 1)]
@@ -427,11 +431,12 @@ def loss_fn_tp(src, cfg: ModelConfig, batch: Dict, sp: bool, sharder=None
 
 
 def decode_step_tp(src, cfg: ModelConfig, tokens: torch.Tensor, pos,
-                   caches, sharder=None) -> torch.Tensor:
+                   caches, sharder=None, kv_seq=None) -> torch.Tensor:
     """:func:`decode_step` on the tensor-parallel group of ``src``: the
     logits (B, V) on the group's first rank; ``caches`` updated in
-    place."""
+    place; ``kv_seq`` as in :func:`prefill_tp`."""
     tp = src.group
+    kv_seq = kv_seq or {}
     pos = int(pos)
     xs = _embed_inputs_tp(src, cfg, {"tokens": tokens}, False)
     period = blocks.block_period(cfg)
@@ -440,5 +445,6 @@ def decode_step_tp(src, cfg: ModelConfig, tokens: torch.Tensor, pos,
             xs = blocks.decode_block_tp(
                 tp, src.block(("blocks", f"sub{p}"), i), cfg, p, xs, pos,
                 [_index(c[f"sub{p}"], i) for c in caches],
-                sharder=_layer_sharder(sharder, i, p))
+                sharder=_layer_sharder(sharder, i, p),
+                kv_seq=kv_seq.get(f"sub{p}", False))
     return _logits_tp(src, cfg, xs)

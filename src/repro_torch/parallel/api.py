@@ -74,9 +74,11 @@ On a mesh of more than one device (the LM sharding):
   (``parallel/sharded.RowContext``), so the sharded step computes the
   function the JAX step computes, not one with per-row groups.
 * **Serving caches** (``make_cache(shardings=)``): per row, each rank of
-  its group holds its KV heads (or SSM heads) of the row's batch
-  (``parallel/tp.RowCache``; stated difference: JAX's ``cache_specs``
-  under ``baseline`` puts 'model' on the sequence dim instead). Tokens
+  its group holds the shard that ``cache_specs`` gives its position
+  (``parallel/tp.RowCache``, ``tp.cache_layout``): under ``baseline`` its
+  chunk of the positions for every KV head, the KV heads where the
+  length does not divide the group or under ``nosp``; the SSM's state
+  its heads (its conv state: stated difference, ``parallel/tp``). Tokens
   are split as the cache is; ``tok_sharding`` reports JAX's rule.
 * **Memory**: ``train_state_bytes(mesh=)`` gives each position's bytes
   when training (``train_bytes``): its shards with their gradients and
@@ -326,8 +328,7 @@ def _slice_bytes(cfg: ModelConfig, mesh, rules: LogicalRules,
     out = [{} for _ in range(_mesh_size(mesh))]
     groups = tp.groups(mesh, rules, batch)
     size = len(groups[0])
-    a_log = next((sp for path, sp in tp.walk(specs)
-                  if path[-2:] == ("ssm", "A_log")), None)
+    a_log = tp.a_log_spec(specs)
     ssm_heads = a_log is not None and tp.ssm_split(
         cfg, tuple(a_log)[1:], size)
     for path, leaf in tp.walk(shapes):
@@ -373,8 +374,9 @@ def serving_bytes(cfg: ModelConfig, mesh, rules: LogicalRules,
     shards as ``init_params(mesh=, compute_dtype=)`` stores them),
     ``block`` (the largest block's slice that the block-wise gather copies
     onto it while the block runs: :func:`_slice_bytes`) and ``cache``
-    (its rank's cache of its row, with ``cache`` = (batch, capacity,
-    enc_len)). A position outside every row's group (the batch does not
+    (its rank's shard of its row's cache, as ``cache_specs`` places it:
+    ``tp.cache_layout``, with ``cache`` = (batch, capacity, enc_len)).
+    A position outside every row's group (the batch does not
     split over 'data') computes nothing: shards only. ``mesh`` needs only
     ``shape``."""
     rules = LogicalRules(rules.rules)
@@ -385,20 +387,31 @@ def serving_bytes(cfg: ModelConfig, mesh, rules: LogicalRules,
                cfg, mesh, rules, compute_dtype, batch)],
            "cache": [0] * n}
     if cache is not None:
-        _, specs = param_specs(cfg, mesh, rules, compute_dtype)
         groups = tp.groups(mesh, rules, batch)
-        size = len(groups[0])
         batch, capacity, enc_len = cache
-        split = tp.splits(cfg, specs, size)
-        per_row = abstract_cache(cfg, batch // len(groups), capacity,
-                                 enc_len)
+        shapes, layout = _rank_cache_plan(cfg, mesh, rules, batch,
+                                          len(groups), capacity, enc_len)
+        size = len(groups[0])
         nbytes = sum(int(np.prod(tp.local_cache_shape(
-            cfg, path[-1], leaf.shape, split, size))) * leaf.element_size()
-            for path, leaf in tp.walk(per_row))
+            cfg, leaf.shape, _spec_at(layout, path), size)))
+            * leaf.element_size() for path, leaf in tp.walk(shapes))
         for g in groups:
             for p in g:
                 out["cache"][p] = nbytes
     return out
+
+
+def _rank_cache_plan(cfg: ModelConfig, mesh, rules: LogicalRules,
+                     batch: int, n_rows: int, capacity: int, enc_len: int):
+    """(a row's one-device cache as a meta tree, each leaf's layout on
+    the row's group) for a batch of ``batch`` examples in ``n_rows`` rows:
+    the layout read from ``cache_specs`` (``tp.cache_layout``)."""
+    rules = LogicalRules(rules.rules)
+    _, cspecs = cache_specs(cfg, mesh, rules, batch, capacity, enc_len)
+    _, pspecs = param_specs(cfg, mesh, rules)
+    size = len(tp.groups(mesh, rules, batch)[0])
+    return (abstract_cache(cfg, batch // n_rows, capacity, enc_len),
+            tp.cache_layout(cfg, cspecs, pspecs, size))
 
 
 def _spec_at(tree, path):
@@ -849,6 +862,8 @@ def batch_row_devices(mesh, rules: Optional[LogicalRules],
 # the cards of one node, joined by NVLink (H100 SXM: 8), in consecutive
 # mesh positions
 NODE_CARDS = 8
+# the kinds of ``parallel/collectives.tally``
+COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
 
 
 def _link(group) -> str:
@@ -864,7 +879,8 @@ def step_collective_bytes(cfg: ModelConfig, mesh,
                           enc_len: int = 0) -> List[Dict]:
     """The bytes the port's sharded step moves into each mesh position: a
     list over positions of ``{"all-gather": bytes a step, "all-reduce":
-    ..., "reduce-scatter": ..., "links": {kind: "nvlink" | "ib"}}``.
+    ..., "reduce-scatter": ..., "all-to-all": ..., "links": {kind:
+    "nvlink" | "ib"}}``.
 
     Both steps run each row on its tensor-parallel group, and what their
     collectives and block-wise gathers move (``parallel/collectives.
@@ -879,7 +895,10 @@ def step_collective_bytes(cfg: ModelConfig, mesh,
     that hold it (counted as the bytes the rank sends back, which the
     layout's symmetry makes the bytes each position receives). Serving
     (``train=False``; ``step`` "prefill" of ``seq`` tokens a row, or
-    "decode" at ``capacity``; :func:`meta_serving_step`).
+    "decode" at ``capacity``; :func:`meta_serving_step`: the group's sums
+    and gathers, a sequence-split cache's all-to-alls, those of prefill
+    from the KV-head ranks to the position ranks, and those of decode's
+    partial softmax to the ranks of its heads).
 
     A collective's group is the positions that send or receive it; it
     crosses NVLink when they all lie in one node of ``NODE_CARDS``
@@ -887,8 +906,8 @@ def step_collective_bytes(cfg: ModelConfig, mesh,
     ``mesh`` needs only ``shape``."""
     rules = rules or DEFAULT_RULES
     n = _mesh_size(mesh)
-    out = [{"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
-            "links": {}} for _ in range(n)]
+    out = [{**dict.fromkeys(COLL_KINDS, 0), "links": {}}
+           for _ in range(n)]
     if not _sharded_mesh(mesh):
         return out
     groups = tp.groups(mesh, rules, batch)
@@ -911,9 +930,8 @@ def step_collective_bytes(cfg: ModelConfig, mesh,
 def _tally_entry(t: Dict, p: int) -> Dict:
     """Position ``p``'s :func:`step_collective_bytes` entry from a
     ``parallel/collectives.tally``."""
-    out = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
-           "links": {}}
-    for kind in ("all-gather", "all-reduce", "reduce-scatter"):
+    out = {**dict.fromkeys(COLL_KINDS, 0), "links": {}}
+    for kind in COLL_KINDS:
         if t.get(kind, {}).get(p):
             out[kind] = t[kind][p]
             out["links"][kind] = ("ib" if any(
@@ -968,10 +986,11 @@ def meta_serving_step(cfg: ModelConfig, mesh, rules: LogicalRules,
     g = next(g for g in groups if position in g)
     ranks = None if whole_group else [g.index(position)]
     group = coll.Group([torch.device("meta")] * len(g), g, ranks)
-    split = tp.splits(cfg, specs, group.size)
-    shapes = abstract_cache(cfg, row_batch, capacity, enc_len)
-    caches = [tp.make_rank_cache(cfg, shapes, split, group.size, "meta")
+    shapes, layout = _rank_cache_plan(cfg, mesh, rules, row_batch * n_rows,
+                                      n_rows, capacity, enc_len)
+    caches = [tp.make_rank_cache(cfg, shapes, layout, group.size, "meta")
               for _ in group.ranks]
+    kv_seq = tp.kv_seq(layout)
     src = tp.BlockSource(params, cfg, group, cfg.adtype)
     sharder = ActivationSharder().for_row(sh.RowContext(n_rows), 0)
     model = encdec if cfg.is_encdec else lm
@@ -981,9 +1000,10 @@ def meta_serving_step(cfg: ModelConfig, mesh, rules: LogicalRules,
     def run():
         if step == "prefill":
             return _prefill_tp(cfg, mesh, rules, src, inputs, caches,
-                               sharder)
+                               sharder, kv_seq)
         return model.decode_step_tp(src, cfg, inputs["tokens"],
-                                    capacity - 1, caches, sharder=sharder)
+                                    capacity - 1, caches, sharder=sharder,
+                                    kv_seq=kv_seq)
     return run, [own, caches]
 
 
@@ -1052,8 +1072,9 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int,
     the device (CUDA unless named). With ``shardings`` (``cache_specs``'s,
     as NamedShardings): a ``parallel/tp.RowCache``, for each row of the
     batch split of the mesh they name, each rank of the row's
-    tensor-parallel group its own KV or SSM heads (``rules``: the params'
-    rules, which say what the groups split)."""
+    tensor-parallel group the shard its sharding gives its position
+    (``tp.cache_layout``; ``rules``: the params' rules, which say how
+    the SSM splits)."""
     if shardings is not None:
         leaves = tree_leaves(shardings)
         mesh = leaves[0].mesh
@@ -1062,12 +1083,13 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int,
         size = groups[0].size
         _, pspecs = param_specs(cfg, mesh,
                                 LogicalRules((rules or DEFAULT_RULES).rules))
-        split = tp.splits(cfg, pspecs, size)
+        layout = tp.cache_layout(
+            cfg, tree_map(lambda l: l.spec, shardings), pspecs, size)
         shapes = abstract_cache(cfg, batch // len(groups), capacity,
                                 enc_len)
-        rows = [[tp.make_rank_cache(cfg, shapes, split, size, d)
+        rows = [[tp.make_rank_cache(cfg, shapes, layout, size, d)
                  for d in g.devices] for g in groups]
-        return RowCache(cfg, rows, groups, _cache_axes(cfg), split)
+        return RowCache(cfg, rows, groups, _cache_axes(cfg), layout)
     dev = resolve_device(device)
     if cfg.is_encdec:
         return encdec.init_dec_cache(cfg, batch, capacity,
@@ -1108,7 +1130,8 @@ def _cache_shapes(cfg: ModelConfig, batch: int, capacity: int,
 
 def _serve_rows(cfg: ModelConfig, mesh, rules: LogicalRules, params,
                 cache: RowCache, run):
-    """``run(source, row inputs index, caches, sharder)`` for each row of
+    """``run(source, row inputs index, caches, sharder, kv_seq)`` for each
+    row of
     ``cache`` in row order, each on its group's block source; the rows'
     logits joined on the first row's device (the MoE's token groups are
     the whole batch's: ``parallel/sharded.RowContext``)."""
@@ -1117,13 +1140,13 @@ def _serve_rows(cfg: ModelConfig, mesh, rules: LogicalRules, params,
     logits = []
     for r, (group, caches) in enumerate(zip(cache.groups, cache.rows)):
         src = tp.BlockSource(params, cfg, group, cfg.adtype)
-        out = run(src, r, caches, sharder.for_row(ctx, r))
+        out = run(src, r, caches, sharder.for_row(ctx, r), cache.kv_seq)
         logits.append(out.to(cache.devices[0]))
     return torch.cat(logits)
 
 
 def _prefill_tp(cfg: ModelConfig, mesh, rules: LogicalRules, src, batch,
-                caches, sharder):
+                caches, sharder, kv_seq):
     """One row's prefill on its group (``models/lm.prefill_tp``)."""
     model = encdec if cfg.is_encdec else lm
     key = "tokens" if "tokens" in batch else "embeddings"
@@ -1134,8 +1157,9 @@ def _prefill_tp(cfg: ModelConfig, mesh, rules: LogicalRules, src, batch,
         se = batch["enc_embeddings"].shape[1]
         sp_enc = tp.seq_parallel(mesh, rules, b, se, n)
         return model.prefill_tp(src, cfg, batch, caches, sp, sp_enc,
-                                sharder=sharder)
-    return model.prefill_tp(src, cfg, batch, caches, sp, sharder=sharder)
+                                sharder=sharder, kv_seq=kv_seq)
+    return model.prefill_tp(src, cfg, batch, caches, sp, sharder=sharder,
+                            kv_seq=kv_seq)
 
 
 def make_prefill_step(cfg: ModelConfig, mesh=None,
@@ -1159,9 +1183,9 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
         def sharded_step(params, batch, cache: RowCache):
             rows = split_batch(batch, cache.devices)
             return _serve_rows(cfg, mesh, rules, params, cache, lambda src, r,
-                               caches, sharder: _prefill_tp(
+                               caches, sharder, kv_seq: _prefill_tp(
                                    cfg, mesh, rules, src, rows[r], caches,
-                                   sharder)), cache
+                                   sharder, kv_seq)), cache
 
         return sharded_step, _mesh_serving_info(
             cfg, mesh, rules, batch_size, capacity or 0, enc_len)
@@ -1190,9 +1214,9 @@ def make_decode_step(cfg: ModelConfig, mesh=None,
         def sharded_step(params, cache: RowCache, tokens, pos):
             rows = split_batch({"tokens": tokens}, cache.devices)
             return _serve_rows(cfg, mesh, rules, params, cache, lambda src, r,
-                               caches, sharder: model.decode_step_tp(
+                               caches, sharder, kv_seq: model.decode_step_tp(
                                    src, cfg, rows[r]["tokens"], pos, caches,
-                                   sharder=sharder)), cache
+                                   sharder=sharder, kv_seq=kv_seq)), cache
 
         info = _mesh_serving_info(cfg, mesh, rules, batch_size, capacity,
                                   enc_len)

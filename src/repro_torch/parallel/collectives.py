@@ -12,13 +12,17 @@ the rank's device:
 * :func:`all_gather` joins the ranks' tensors along ``dim``;
 * :func:`all_reduce` sums them;
 * :func:`reduce_scatter` sums them and hands rank ``r`` the ``r``-th of
-  ``size`` equal pieces along ``dim``.
+  ``size`` equal pieces along ``dim``;
+* :func:`all_to_all` cuts each rank's tensor into ``size`` equal pieces
+  along ``split_dim`` and hands rank ``r`` every rank's ``r``-th piece,
+  joined along ``cat_dim`` in rank order.
 
 A sum is taken in rank order (``((x0 + x1) + x2) + ...``, each term moved
 to the receiving rank's device), so it is deterministic and bit-equal on
 every rank. Each collective is a ``torch.autograd.Function`` whose
 backward is its Megatron dual, the transpose of its forward: all-gather
-and reduce-scatter are each other's, all-reduce is its own.
+and reduce-scatter are each other's, all-reduce is its own, and
+all-to-all's is the all-to-all with its two dims swapped.
 
 A group that counts one position of a mesh no process drives
 (``launch/dryrun.py``, on meta tensors) runs only some of its ranks
@@ -66,7 +70,8 @@ def tally():
     """Within the block every collective adds the bytes it moves into each
     running rank (those it receives from the other ranks) to the yielded
     dict: ``{kind: {rank's position: bytes}}``, kinds ``all-gather``,
-    ``all-reduce`` and ``reduce-scatter``, and under ``"spans"`` the
+    ``all-reduce``, ``reduce-scatter`` and ``all-to-all``, and under
+    ``"spans"`` the
     positions each kind joined (``{kind: {sorted positions}}``)."""
     out: Dict = {}
     _TALLIES.append(out)
@@ -155,6 +160,20 @@ def _scatter(group: Group, xs, dim: int) -> List[torch.Tensor]:
                     group.devices[r]) for r in group.ranks]
 
 
+def _exchange(group: Group, xs, split_dim: int, cat_dim: int
+              ) -> List[torch.Tensor]:
+    every = _every_rank(group, xs)
+    n = every[0].shape[split_dim] // group.size
+    if n * group.size != every[0].shape[split_dim]:
+        raise ValueError(f"dim {split_dim} of {tuple(every[0].shape)} does "
+                         f"not split over {group.size} ranks")
+    _record(group, "all-to-all",
+            [sum(_nbytes(x) for q, x in enumerate(every) if q != r)
+             // group.size for r in group.ranks])
+    return [torch.cat([x.narrow(split_dim, r * n, n).to(group.devices[r])
+                       for x in every], dim=cat_dim) for r in group.ranks]
+
+
 class _AllGather(torch.autograd.Function):
     # autograd hands a backward zeros for an unused output (the default
     # materialize_grads), so every gradient is a tensor
@@ -190,6 +209,19 @@ class _ReduceScatter(torch.autograd.Function):
         return (None, None, *_gather(ctx.group, gs, ctx.dim))
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, split_dim, cat_dim, *xs):
+        ctx.group, ctx.dims = group, (split_dim, cat_dim)
+        return tuple(_exchange(group, xs, split_dim, cat_dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        split_dim, cat_dim = ctx.dims
+        return (None, None, None,
+                *_exchange(ctx.group, gs, cat_dim, split_dim))
+
+
 def all_gather(group: Group, xs: Sequence[torch.Tensor],
                dim: int) -> List[torch.Tensor]:
     """Every rank's tensors joined along ``dim``, on each running rank."""
@@ -214,3 +246,12 @@ def reduce_scatter(group: Group, xs: Sequence[torch.Tensor],
     if group.size == 1:
         return list(xs)
     return list(_ReduceScatter.apply(group, dim, *xs))
+
+
+def all_to_all(group: Group, xs: Sequence[torch.Tensor], split_dim: int,
+               cat_dim: int) -> List[torch.Tensor]:
+    """Rank ``r``'s ``r``-th piece along ``split_dim`` of every rank's
+    tensor, joined along ``cat_dim`` in rank order."""
+    if group.size == 1:
+        return list(xs)
+    return list(_AllToAll.apply(group, split_dim, cat_dim, *xs))

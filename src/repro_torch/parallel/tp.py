@@ -31,12 +31,19 @@ and SSM heads split; the rest whole) and the ranks exchange what
 * **Every decision comes from the leaves' own specs**
   (``common/partitioning.divisible_fallback``): a dim that fell back is
   whole on every rank and computed whole there, as GSPMD computes it.
-* **Caches** (:class:`RowCache`): each rank holds its KV heads (the cache
-  whole along them when ``kv_heads`` falls back) or its SSM heads (its
-  conv state's x columns and the whole B and C), and the row's share of
-  the batch. Stated difference: JAX's ``cache_specs`` under ``baseline``
-  puts 'model' on the cache's sequence dim; here the sequence dim stays
-  whole, since each rank attends its own heads.
+* **Caches** (:class:`RowCache`): each rank's leaf is the shard that
+  JAX's ``cache_specs`` gives its position (:func:`cache_layout`): under
+  ``baseline`` its contiguous chunk of the positions (or ring slots) for
+  every KV head, when the cache length divides the group; else its KV
+  heads when they divide; else the whole leaf; and the row's share of
+  the batch. A sequence-split cache is filled by prefill with each rank's
+  chunk (exchanged from the KV-head ranks by an all-to-all, or sliced
+  where every rank computes every KV head), and decode attends it as a
+  split softmax: each rank's partial over its own slots, combined across
+  the group in f32 (``models/attention``). The SSM's state holds the
+  rank's heads; its conv state the rank's x columns and the whole B and
+  C (stated difference: JAX's shard is a contiguous chunk of
+  ``[x | B | C]``, which would cost a gather every decode step).
 * **Counting** (:func:`meta_params`, ``api.meta_serving_step``,
   ``api.meta_train_step``): one rank of one group on meta tensors, the
   other ranks' shards meta stand-ins and their collective terms empty
@@ -269,55 +276,82 @@ class BlockSource:
 
 
 # ------------------------------------------------------------------ caches
-def splits(cfg: ModelConfig, pspecs, size: int) -> Dict[str, bool]:
-    """Which cache dims a group of ``size`` ranks splits: the KV heads
-    (the attention ``wk``'s 'kv_heads' entry) and the SSM heads."""
-    kv = ssm = False
-    for path, spec in walk(pspecs):
-        if path[-1] == "wk" and size > 1:
-            kv = kv or MODEL in _axes((tuple(spec) + (None,) * 4)[2])
-        if path[-2:] == ("ssm", "A_log"):
-            ssm = ssm_split(cfg, tuple(spec)[1:], size)
-    return {"kv": kv, "ssm": ssm}
+# a conv state's layout when the SSM splits by heads: its x columns and
+# the whole B and C (the module docstring)
+CONV = "conv"
 
 
-def local_cache_shape(cfg: ModelConfig, name: str, shape, split, size: int
+def cache_layout(cfg: ModelConfig, cspecs, pspecs, size: int) -> Dict:
+    """Each cache leaf's layout on a group of ``size`` ranks, from the
+    cache's specs ``cspecs`` (``api.cache_specs``): the dim whose entry
+    names 'model' (the sequence or the KV heads), of which rank ``r``
+    holds the range ``[r * n, (r + 1) * n)``, ``n`` the dim over
+    ``size``; None for a leaf whole on every rank. The SSM's leaves
+    follow the params' split (``ssm_split`` of ``A_log``'s spec in
+    ``pspecs``): ``ssm_state`` its heads' dim, ``conv_state`` ``CONV``."""
+    spec = a_log_spec(pspecs)
+    ssm = spec is not None and ssm_split(cfg, tuple(spec)[1:], size)
+
+    def one(path, entry):
+        if path[-1] == "ssm_state":
+            return 2 if ssm else None
+        if path[-1] == "conv_state":
+            return CONV if ssm else None
+        if size == 1:
+            return None
+        return next((d for d, e in enumerate(tuple(entry))
+                     if MODEL in _axes(e)), None)
+    return _rebuild(cspecs, one)
+
+
+def a_log_spec(specs):
+    """The spec of the first SSM ``A_log`` leaf of a spec tree (None
+    without one)."""
+    return next((spec for path, spec in walk(specs)
+                 if path[-2:] == ("ssm", "A_log")), None)
+
+
+def kv_seq(layout: Dict) -> Dict[str, bool]:
+    """For each attention cache of a layout (``lm``'s ``sub{p}``,
+    ``encdec``'s ``self`` and ``cross``), True when its keys and values
+    (``(layers, batch, seq, kv_heads, head_dim)``) are split along the
+    sequence."""
+    return {k: node.get("k") == 2 for k, node in layout.items()}
+
+
+def local_cache_shape(cfg: ModelConfig, shape, layout, size: int
                       ) -> Tuple[int, ...]:
-    """A rank's shape of a (stacked) cache leaf ``name`` of the global
-    ``shape`` (its batch already the row's)."""
+    """A rank's shape of a (stacked) cache leaf of the global ``shape``
+    (its batch already the row's) and the leaf's ``layout``."""
     shape = list(shape)
-    if name in ("k", "v") and split["kv"]:
-        shape[-2] //= size
-    elif name == "ssm_state" and split["ssm"]:
-        shape[2] //= size
-    elif name == "conv_state" and split["ssm"]:
+    if layout == CONV:
         di = cfg.ssm.d_inner(cfg.d_model)
         shape[-1] = di // size + (shape[-1] - di)
+    elif layout is not None:
+        shape[layout] //= size
     return tuple(shape)
 
 
-def make_rank_cache(cfg: ModelConfig, shapes, split, size: int,
+def make_rank_cache(cfg: ModelConfig, shapes, layout, size: int,
                     device) -> Dict:
     """A rank's cache from the one-device cache's meta tree ``shapes``
-    (the row's batch): zeros, ring slots -1 (empty)."""
-    def make(path, leaf):
-        shape = local_cache_shape(cfg, path[-1], leaf.shape, split, size)
+    (the row's batch) and its ``layout``: zeros, ring slots -1 (empty)."""
+    def make(path, leaf, lay):
+        shape = local_cache_shape(cfg, leaf.shape, lay, size)
         if path[-1] == "slot_pos":
             return torch.full(shape, -1, dtype=leaf.dtype, device=device)
         return torch.zeros(shape, dtype=leaf.dtype, device=device)
-    return _rebuild(shapes, make)
+    return _zip(shapes, layout, make)
 
 
-def _join_ranks(cfg: ModelConfig, name: str, parts, split, size: int):
-    """A cache leaf whole along the dims the group split."""
-    if name in ("k", "v") and split["kv"]:
-        return torch.cat(parts, dim=-2)
-    if name == "ssm_state" and split["ssm"]:
-        return torch.cat(parts, dim=2)
-    if name == "conv_state" and split["ssm"]:
+def _join_ranks(cfg: ModelConfig, parts, layout, size: int):
+    """A cache leaf whole along the dim its ranks split."""
+    if layout == CONV:
         n = cfg.ssm.d_inner(cfg.d_model) // size
         return torch.cat([p[..., :n] for p in parts] + [parts[0][..., n:]],
                          dim=-1)
+    if layout is not None:
+        return torch.cat(parts, dim=layout)
     return parts[0]
 
 
@@ -325,39 +359,44 @@ class RowCache:
     """A cache on a mesh: ``rows[r][k]`` is rank ``k``'s cache of row
     ``r`` (on ``groups[r].devices[k]``), updated in place by the steps;
     ``axes`` are the leaves' logical axes (which dim is the batch),
-    ``split`` which dims the groups split."""
+    ``layout`` each leaf's split (:func:`cache_layout`), so that each
+    rank's leaf is the shard ``cache_specs`` gives its position."""
 
     def __init__(self, cfg: ModelConfig, rows: List[List[Dict]],
-                 groups: List[coll.Group], axes: Dict, split: Dict):
+                 groups: List[coll.Group], axes: Dict, layout: Dict):
         self.cfg = cfg
         self.rows = rows
         self.groups = groups
         self.axes = axes
-        self.split = split
+        self.layout = layout
 
     @property
     def devices(self) -> List[torch.device]:
         """Each row's device (its group's first rank's)."""
         return [g.devices[0] for g in self.groups]
 
+    @property
+    def kv_seq(self) -> Dict[str, bool]:
+        return kv_seq(self.layout)
+
     def gather(self, device=None) -> Dict:
         """The whole cache on ``device`` (the first row's by default): each
-        row's ranks joined along the dims they split, the rows along
+        row's ranks joined along the dim they split, the rows along
         their batch dim; a leaf without one (a ring's slot positions, the
         same in every row) from row 0."""
         dev = self.devices[0] if device is None else torch.device(device)
 
-        def walk(axes, parts, name):
+        def walk(axes, layout, parts):
             if isinstance(axes, dict):
-                return {k: walk(axes[k], [[p[k] for p in row]
-                                          for row in parts], k)
+                return {k: walk(axes[k], layout[k],
+                                [[p[k] for p in row] for row in parts])
                         for k in axes}
-            rows = [_join_ranks(self.cfg, name, [t.to(dev) for t in row],
-                                self.split, len(row)) for row in parts]
+            rows = [_join_ranks(self.cfg, [t.to(dev) for t in row], layout,
+                                len(row)) for row in parts]
             if "batch" not in axes:
                 return rows[0]
             return torch.cat(rows, dim=axes.index("batch"))
-        return walk(self.axes, self.rows, None)
+        return walk(self.axes, self.layout, self.rows)
 
 
 # ------------------------------------------------------------ the count

@@ -18,7 +18,10 @@ unembedding widened to f32 on both sides (``tests/torch_lm_parity.py``):
     as ``grad/<arch><keystr path>``, and those of ``GRAD_ARCHS``;
   * the sharded prefill and ``DECODE`` teacher-forced decode steps of
     ``SERVE_ARCHS`` (yi-6b as ``serve/params<keystr path>`` and
-    ``serve/logits``, the others under ``serve/<arch>/``);
+    ``serve/logits``, the others under ``serve/<arch>/``), and each mesh
+    position's shard of every cache leaf after the prefill and after the
+    last decode step (``.../cache/<prefill|decode>/<position><keystr
+    path>``, positions in row-major order of the mesh);
   * danube's train state after its steps, saved with the JAX checkpoint
     store next to the ``.npz`` (``<out>.ckpt/``), and its params in the
     ``.npz`` (``ckpt<keystr path>``), for the cross-package restore.
@@ -116,12 +119,25 @@ def _serve(mesh, out, arch):
     params = jax.device_put(params, psh["params"])
     cache = japi.make_cache(cfg, P.B, cap, shardings=psh["cache"])
     logits, cache = pre(params, {"tokens": inp["tokens"]}, cache)
+    _shards(mesh, cache, serve_prefix(arch) + "/cache/prefill", out)
     steps = [np.asarray(logits)]
     for i in range(P.DECODE):
         logits, cache = dec(params, cache, inp["decode"][:, i:i + 1],
                             jnp.int32(P.S + i))
         steps.append(np.asarray(logits))
+    _shards(mesh, cache, serve_prefix(arch) + "/cache/decode", out)
     out[serve_prefix(arch) + "/logits"] = np.stack(steps)
+
+
+def _shards(mesh, tree, prefix, out):
+    """Each mesh position's shard of every leaf of ``tree``, as
+    ``prefix/<position><keystr path>``."""
+    devices = list(mesh.devices.flat)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        for shard in leaf.addressable_shards:
+            p = devices.index(shard.device)
+            out[f"{prefix}/{p}{jax.tree_util.keystr(path)}"] = \
+                np.asarray(shard.data)
 
 
 def _flat(tree, prefix, out):

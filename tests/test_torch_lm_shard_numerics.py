@@ -183,7 +183,8 @@ def _serve_against(ref, arch):
     """``arch`` in f32: the sharded (tensor-parallel) prefill and ``DECODE``
     teacher-forced decode steps against ``lm.prefill``/``lm.decode_step``
     on one device and against JAX's sharded steps; the rows' caches joined
-    equal the one-device cache. Returns the cache."""
+    equal the one-device cache. Returns (the cache, a copy of its ranks'
+    leaves after the prefill)."""
     _, cfg = P.configs(arch)
     prefix = R.serve_prefix(arch)
     params = tlm.from_jax_params(_unflat(ref, prefix + "/params"), cfg,
@@ -202,6 +203,8 @@ def _serve_against(ref, arch):
     toks = torch.from_numpy(inp["tokens"])
     with P.f32_unembed():
         got, cache = pre(sparams, {"tokens": toks}, cache)
+        prefilled = [[optim.tree_map(torch.clone, t) for t in row]
+                     for row in cache.rows]
         want, one = tlm.prefill(params, cfg, {"tokens": toks}, one)
         outs = [(got, want)]
         for i in range(P.DECODE):
@@ -216,17 +219,19 @@ def _serve_against(ref, arch):
     joined = cache.gather(CPU)
     for a, b in zip(optim.tree_leaves(joined), optim.tree_leaves(one)):
         assert torch.allclose(a.float(), b.float(), atol=SELF_TOL, rtol=0)
-    return cache
+    return cache, prefilled
 
 
 def test_sharded_prefill_and_decode(ref):
     """yi-6b (``R.SERVE_ARCH``) on (2, 2): two rows of two-rank groups,
-    each rank's cache its row's half of the batch and its own KV head (the
-    two KV heads split one a rank)."""
-    cache = _serve_against(ref, R.SERVE_ARCH)
+    each rank's cache its row's half of the batch and, as JAX's
+    ``cache_specs`` places it under ``baseline``, its half of the 24
+    positions for both KV heads."""
+    cache, _ = _serve_against(ref, R.SERVE_ARCH)
     assert len(cache.rows) == 2 and all(len(r) == 2 for r in cache.rows)
-    assert cache.split == {"kv": True, "ssm": False}
-    assert all(l.shape[1] == 1 and l.shape[3] == 1
+    assert cache.layout == {"sub0": {"k": 2, "v": 2, "slot_pos": 1}}
+    assert cache.kv_seq == {"sub0": True}
+    assert all(l.shape[1] == 1 and l.shape[2] == 12 and l.shape[3] == 2
                for rank in cache.rows[0] for l in optim.tree_leaves(rank)
                if l.ndim > 2)
 
@@ -235,8 +240,48 @@ def test_sharded_prefill_and_decode(ref):
 def test_tensor_parallel_serving_matches_jax(ref, arch):
     """The expert-parallel MoE (olmoe) and the SSM split by heads (mamba2)
     on (2, 2), against JAX's sharded steps and the port's one device."""
-    cache = _serve_against(ref, arch)
-    assert cache.split["ssm"] == (arch == "mamba2-2.7b")
+    cache, _ = _serve_against(ref, arch)
+    ssm = arch == "mamba2-2.7b"
+    assert (cache.layout["sub0"].get("ssm_state") == 2) == ssm
+    assert cache.kv_seq == {"sub0": not ssm}
+
+
+@pytest.mark.parametrize("arch", R.SERVE_ARCHS)
+def test_cache_shards_match_jax(ref, arch):
+    """Each mesh position's cache leaves on (2, 2), after the prefill and
+    after the last decode step, against the JAX array's addressable shard
+    on the same position: the same shape and values within 1e-4. The
+    conv state (stated difference) holds the rank's x columns and the
+    whole B and C of JAX's state, joined from its shards along 'model'."""
+    from repro_torch.parallel import tp
+    _, cfg = P.configs(arch)
+    cache, prefilled = _serve_against(ref, arch)
+    prefix = R.serve_prefix(arch) + "/cache"
+    di = cfg.ssm.d_inner(cfg.d_model) if cfg.ssm is not None else 0
+    n_checked = 0
+    for when, rows in (("prefill", prefilled), ("decode", cache.rows)):
+        for group, ranks in zip(cache.groups, rows):
+            for k, (p, tree) in enumerate(zip(group.positions, ranks)):
+                jax_tree = _unflat(ref, f"{prefix}/{when}/{p}")
+                for path, leaf in tp.walk(tree):
+                    want = jax_tree
+                    for key in path:
+                        want = want[key]
+                    if path[-1] == "conv_state":
+                        col = [_unflat(ref, f"{prefix}/{when}/{q}")
+                               for q in group.positions]
+                        whole = np.concatenate([t[path[0]][path[1]]
+                                                for t in col], -1)
+                        n = di // group.size
+                        want = np.concatenate(
+                            [whole[..., k * n:(k + 1) * n],
+                             whole[..., di:]], -1)
+                    assert tuple(leaf.shape) == want.shape, (when, p, path)
+                    np.testing.assert_allclose(
+                        leaf.float().numpy(), want.astype(np.float32),
+                        atol=P.TOL, rtol=P.TOL, err_msg=f"{when} {p} {path}")
+                    n_checked += 1
+    assert n_checked == 2 * 4 * len(optim.tree_leaves(cache.rows[0][0]))
 
 
 def test_prefill_and_decode_gather_block_by_block(monkeypatch):

@@ -6,10 +6,14 @@ Every reduced arch, under ``baseline`` (sequence-parallel prefill) and
 ``nosp`` (whisper: ``tinydp``, groups of one, and ``baseline``), in f32:
 the prefill and teacher-forced decode logits within 1e-5 of the port's
 one-device steps and the joined caches within 1e-5 (plus 1e-5 of their
-size: the SSM states reach tens); no leaf gathered whole, each block's
-slices dropped before the next block's are gathered. The KV heads fall
-back whole at reduced size on four ranks (2 KV heads), and a config whose
-query heads straddle their KV groups is served too. The collectives'
+size: the SSM states reach tens); each rank's cache leaf the shard that
+``cache_specs`` gives its position (under ``baseline`` a chunk of the
+positions for every KV head, decoded as a split softmax; under ``nosp``
+the KV heads where they divide), also where the cache length does not
+divide the group, for a ring cache and with empty chunks; no leaf
+gathered whole, each block's slices dropped before the next block's are
+gathered. A config whose query heads straddle their KV groups is served
+too. The collectives'
 backward is each one's transpose (gradcheck); the counted matrix FLOPs of
 one rank of qwen3-32b's published config on (1, 4) are a quarter of the
 one-device step's; the memory plans serve jamba-v0.1-52b and
@@ -24,7 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.common.partitioning import rule_preset
+from repro_torch.common.partitioning import LogicalRules, NamedSharding, \
+    rule_preset
 from repro_torch.configs import registry
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.mesh import Mesh, MeshShape
@@ -44,28 +49,31 @@ def _mesh(shape):
                 ("data", "model"))
 
 
-def _inputs(cfg):
+def _inputs(cfg, s=S, decode=DECODE, enc=None):
     rng = np.random.default_rng(0)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + DECODE)))
-    batch = {"tokens": toks[:, :S]}
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, s + decode)))
+    batch = {"tokens": toks[:, :s]}
     if cfg.is_encdec:
         batch["enc_embeddings"] = torch.from_numpy(rng.standard_normal(
-            (B, S, cfg.d_model)).astype(np.float32))
+            (B, enc or s, cfg.d_model)).astype(np.float32))
     if cfg.frontend == "vision":
-        pos = np.broadcast_to(np.arange(S, dtype=np.int32), (3, B, S)).copy()
+        pos = np.broadcast_to(np.arange(s, dtype=np.int32), (3, B, s)).copy()
         pos[1] //= 2
         pos[2] %= 4
         batch = {"embeddings": torch.from_numpy(rng.standard_normal(
-            (B, S, cfg.d_model)).astype(np.float32)),
+            (B, s, cfg.d_model)).astype(np.float32)),
             "positions": torch.from_numpy(pos)}
-    return batch, [toks[:, S + i:S + i + 1] for i in range(DECODE)]
+    return batch, [toks[:, s + i:s + i + 1] for i in range(decode)]
 
 
-def _serve(cfg, params, mesh=None, rules=None):
-    """(logits of the prefill and each decode step, the cache)."""
-    enc = S if cfg.is_encdec else 0
-    cap = S + DECODE
-    batch, steps = _inputs(cfg)
+def _serve(cfg, params, mesh=None, rules=None, s=S, decode=DECODE,
+           enc=None):
+    """(logits of the prefill and each decode step, the cache): a prompt
+    of ``s`` tokens (whisper: ``enc`` encoder frames, ``s`` by default),
+    then ``decode`` steps, in a cache of ``s + decode``."""
+    enc = (enc or s) if cfg.is_encdec else 0
+    cap = s + decode
+    batch, steps = _inputs(cfg, s, decode, enc)
     pre, info = api.make_prefill_step(cfg, mesh, rules, capacity=cap,
                                       batch_size=B, enc_len=enc)
     dec, _ = api.make_decode_step(cfg, mesh, rules, capacity=cap,
@@ -76,8 +84,40 @@ def _serve(cfg, params, mesh=None, rules=None):
     with f32_unembed():
         out = [pre(params, batch, cache)[0]]
         for i, t in enumerate(steps):
-            out.append(dec(params, cache, t, S + i)[0])
+            out.append(dec(params, cache, t, s + i)[0])
     return out, cache
+
+
+def _assert_shards(cfg, mesh, rules, cache, one, cap, enc):
+    """Each rank's KV, slot-position and cross-attention leaf is the shard
+    ``cache_specs`` gives its mesh position: its shape and the one-device
+    cache's values at the shard's indices. Returns the layouts seen."""
+    shapes, specs = api.cache_specs(cfg, mesh, LogicalRules(rules.rules), B,
+                                    cap, enc)
+    seen = set()
+    for group, ranks in zip(cache.groups, cache.rows):
+        for p, tree in zip(group.positions, ranks):
+            for path, leaf in tp.walk(tree):
+                if path[-1] in ("ssm_state", "conv_state"):
+                    continue
+                want, spec, shape = one, specs, shapes
+                for k in path:
+                    want, spec, shape = want[k], spec[k], shape[k]
+                sharding = NamedSharding(mesh, spec)
+                assert tuple(leaf.shape) == sharding.shard_shape(
+                    shape.shape), (p, path, spec)
+                want = want[sharding.indices(shape.shape)[p]]
+                assert torch.allclose(leaf.float(), want.float(), atol=TOL,
+                                      rtol=TOL), (p, path)
+                seen.add((path[0], path[-1], _layout(cache, path)))
+    return seen
+
+
+def _layout(cache, path):
+    node = cache.layout
+    for k in path:
+        node = node[k]
+    return node
 
 
 class _BlockWatch:
@@ -157,6 +197,15 @@ def test_tp_serving_matches_one_device(one_device, monkeypatch, arch, shape,
                     optim.tree_leaves(one)):
         assert a.shape == b.shape
         assert torch.allclose(a.float(), b.float(), atol=TOL, rtol=TOL)
+    enc = S if cfg.is_encdec else 0
+    seen = _assert_shards(cfg, mesh, rules, cache, one, S + DECODE, enc)
+    # the cache length (20) divides every group: baseline splits the
+    # sequence, nosp the KV heads where they divide (olmoe: 4), tinydp
+    # (groups of one) nothing
+    want = {"baseline": 2, "tinydp": None}.get(
+        preset, 3 if cfg.n_kv_heads % shape[1] == 0 else None)
+    kv = {lay for _, name, lay in seen if name == "k"}
+    assert kv == {want} or (not kv and arch == "mamba2-2.7b")
     size = 1 if preset == "tinydp" else shape[1]
     assert [len(g.positions) for g in cache.groups] == \
         [size] * (4 // size if preset == "tinydp" else shape[0])
@@ -174,7 +223,9 @@ def test_query_heads_straddling_their_kv_groups(monkeypatch):
     """Six query heads over three KV heads on two ranks: each rank's three
     query heads read KV heads (0, 0, 1) and (1, 2, 2), which fall back
     whole (three do not split two ways); the steps still equal one
-    device's."""
+    device's, with the cache split along the sequence (``baseline``: the
+    prefill attends each rank's selection) and whole (``nosp``: decode
+    too)."""
     cfg = dataclasses.replace(registry.reduced_config("yi-6b"),
                               act_dtype="float32", n_heads=6, n_kv_heads=3,
                               head_dim=16)
@@ -188,12 +239,101 @@ def test_query_heads_straddling_their_kv_groups(monkeypatch):
     params = api.init_params(cfg, 0, device="cpu")
     want, _ = _serve(cfg, params)
     mesh = Mesh([[CPU, CPU]], ("data", "model"))
-    rules = rule_preset("baseline")
+    for preset, layout in (("baseline", 2), ("nosp", None)):
+        rules = rule_preset(preset)
+        got, cache = _serve(cfg, api.init_params(cfg, 0, mesh, rules), mesh,
+                            rules)
+        assert cache.layout["sub0"]["k"] == layout
+        for a, b in zip(got, want):
+            assert torch.allclose(a, b, atol=TOL, rtol=0)
+
+
+# (arch, mesh, preset, prompt, decode steps, encoder frames, the k
+# layouts): a cache of 21 does not divide 4 (2 KV heads neither: whole)
+# or 2 (the heads split); danube's ring of 16 slots under an 18-token
+# prompt (rolled by 2), split along its slots or its heads; a 3-token
+# prompt in a cache of 8 on 4 ranks (two slots a rank: ranks 2 and 3
+# hold nothing at the first decode step, rank 2's first slot comes at the
+# third); qwen2-vl's M-RoPE the same way; whisper's cross cache of 18
+# encoder frames (heads) beside a self cache of 20 (sequence).
+LAYOUT_CASES = [
+    ("yi-6b", (1, 4), "baseline", 16, 5, None, {None}),
+    ("yi-6b", (2, 2), "baseline", 16, 5, None, {3}),
+    ("h2o-danube-1.8b", (1, 4), "baseline", 18, 4, None, {2}),
+    ("h2o-danube-1.8b", (2, 2), "nosp", 18, 4, None, {3}),
+    ("yi-6b", (1, 4), "baseline", 3, 5, None, {2}),
+    ("qwen2-vl-72b", (1, 4), "baseline", 3, 5, None, {2}),
+    ("whisper-base", (1, 4), "baseline", 16, 4, 18, {2, 3}),
+]
+
+
+@pytest.mark.parametrize("arch,shape,preset,s,decode,enc,kv", LAYOUT_CASES,
+                         ids=[f"{c[0]}-{c[1][0]}x{c[1][1]}-{c[2]}-{c[3]}+"
+                              f"{c[4]}" for c in LAYOUT_CASES])
+def test_tp_serving_cache_layouts(arch, shape, preset, s, decode, enc, kv):
+    """The cache's fallbacks, a ring cache and empty chunks: logits and the
+    gathered cache within 1e-5 of one device, each rank's leaves the
+    shards ``cache_specs`` gives its position, the layouts as stated."""
+    cfg = dataclasses.replace(registry.reduced_config(arch),
+                              act_dtype="float32")
+    params = api.init_params(cfg, 0, device="cpu")
+    want, one = _serve(cfg, params, s=s, decode=decode, enc=enc)
+    mesh, rules = _mesh(shape), rule_preset(preset)
     got, cache = _serve(cfg, api.init_params(cfg, 0, mesh, rules), mesh,
-                        rules)
-    assert cache.split["kv"] is False
-    for a, b in zip(got, want):
-        assert torch.allclose(a, b, atol=TOL, rtol=0)
+                        rules, s=s, decode=decode, enc=enc)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.isfinite(a).all()
+        assert torch.allclose(a, b, atol=TOL, rtol=0), (
+            i, float((a - b).abs().max()))
+    for a, b in zip(optim.tree_leaves(cache.gather(CPU)),
+                    optim.tree_leaves(one)):
+        assert torch.allclose(a.float(), b.float(), atol=TOL, rtol=TOL)
+    seen = _assert_shards(cfg, mesh, rules, cache, one, s + decode,
+                          (enc or s) if cfg.is_encdec else 0)
+    assert {lay for _, name, lay in seen if name == "k"} == kv
+    if cfg.swa_window:      # a ring of the window's slots
+        assert cache.gather(CPU)["sub0"]["slot_pos"].shape[-1] == \
+            cfg.swa_window < s + decode
+
+
+# ---------------------------------------------------- the split softmax
+def test_combined_partials_equal_one_softmax():
+    """Four ranks' chunks (two of them masked entirely, one partly): their
+    statistics combined and their terms summed equal one softmax over the
+    concatenated keys within 1e-6, with no NaN; a chunk masked entirely
+    gives (NEG_INF, 0) and a zero term, and leaving it out changes
+    nothing."""
+    from repro_torch.models import attention
+    g = torch.Generator().manual_seed(0)
+    b, h, kv, hd, n = 2, 8, 2, 16, 5
+    q = torch.randn((b, 1, h, hd), generator=g)
+    ks = [torch.randn((b, n, kv, hd), generator=g) * 3 for _ in range(4)]
+    vs = [torch.randn((b, n, kv, hd), generator=g) for _ in range(4)]
+    valid = [torch.tensor([True, True, False, True, True]),
+             torch.zeros(n, dtype=torch.bool),
+             torch.tensor([False, True, False, False, False]),
+             torch.zeros(n, dtype=torch.bool)]
+
+    def split(ranks):
+        scored = [attention.chunk_scores(q, ks[r], valid[r]) for r in ranks]
+        top, den = attention.combine_stats(torch.stack([st for _, st in
+                                                        scored]))
+        terms = [attention.chunk_output(s, valid[r], top, den, vs[r],
+                                        q.dtype)
+                 for r, (s, _) in zip(ranks, scored)]
+        return scored, terms, attention._rank_sum(torch.stack(terms))
+
+    scored, terms, got = split(range(4))
+    assert bool((scored[1][1][..., 0] == attention.NEG_INF).all())
+    assert bool((scored[1][1][..., 1] == 0).all())
+    assert torch.equal(terms[1], torch.zeros((b, h, hd)))
+    mask = torch.cat(valid)
+    want = attention._grouped_attend(q, torch.cat(ks, 1), torch.cat(vs, 1),
+                                     mask[None, None])[:, 0]
+    assert torch.isfinite(got).all()
+    assert torch.allclose(got, want, atol=1e-6, rtol=0), float(
+        (got - want).abs().max())
+    assert torch.allclose(got, split([0, 2])[2], atol=1e-7, rtol=0)
 
 
 # ------------------------------------------------------------ collectives
@@ -208,14 +348,16 @@ def _xs(shape, n=3, seed=0):
 
 
 @pytest.mark.parametrize("name", ["all_gather", "all_reduce",
-                                  "reduce_scatter"])
+                                  "reduce_scatter", "all_to_all"])
 def test_collective_backward_is_its_transpose(name):
     """gradcheck of each collective's autograd Function: all-gather and
-    reduce-scatter are each other's backward, all-reduce its own."""
+    reduce-scatter are each other's backward, all-reduce its own,
+    all-to-all its own with the two dims swapped."""
     group = _group()
     fn = {"all_gather": lambda *x: coll.all_gather(group, x, 1),
           "all_reduce": lambda *x: coll.all_reduce(group, x),
-          "reduce_scatter": lambda *x: coll.reduce_scatter(group, x, 1)}
+          "reduce_scatter": lambda *x: coll.reduce_scatter(group, x, 1),
+          "all_to_all": lambda *x: coll.all_to_all(group, x, 1, 2)}
     xs = _xs((2, 6, 3))
     assert torch.autograd.gradcheck(lambda *x: tuple(fn[name](*x)), xs)
 
@@ -240,9 +382,15 @@ def test_collectives_sum_in_rank_order_on_every_rank():
         range(4), 3 * nbytes)
     assert t["reduce-scatter"] == dict.fromkeys(range(4), 3 * nbytes // 4)
     assert t["spans"]["all-gather"] == {(0, 1, 2, 3)}
+    with coll.tally() as t:
+        ex = coll.all_to_all(group, xs, 1, 0)
+    assert all(torch.equal(e, torch.cat([x[:, 2 * r:2 * r + 2] for x in xs]))
+               for r, e in enumerate(ex))
+    assert t["all-to-all"] == dict.fromkeys(range(4), 3 * nbytes // 4)
     one = coll.Group([torch.device("meta")] * 4, ranks=[2])
     meta = [torch.empty((2, 8, 5), device="meta")]
     assert coll.all_gather(one, meta, 1)[0].shape == (2, 32, 5)
+    assert coll.all_to_all(one, meta, 1, 0)[0].shape == (8, 2, 5)
     with pytest.raises(ValueError, match="meta"):
         coll.all_reduce(one, [xs[0]])
 
@@ -331,3 +479,68 @@ def test_dry_run_serving_cell_counts_one_rank():
     assert meta["coll"] == api.step_collective_bytes(
         cfg, mesh, rule_preset("baseline"), 4, train=False, step="decode",
         capacity=32)[p]
+
+
+# ------------------------------------------------------- the cache plan
+def _shard_bytes(cfg, mesh, rules, batch, cap, enc):
+    """Each position's bytes of ``cache_specs``' shards (JAX's layout),
+    with the conv state as the port holds it (its rank's x columns and
+    the whole B and C: the stated difference)."""
+    shapes, specs = api.cache_specs(cfg, mesh, LogicalRules(rules.rules),
+                                    batch, cap, enc)
+    size = mesh.shape["model"]
+    out = [0] * (mesh.shape["data"] * size)
+    for path, leaf in tp.walk(shapes):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        shard = list(NamedSharding(mesh, spec).shard_shape(leaf.shape))
+        if path[-1] == "conv_state" and shard[-1] < leaf.shape[-1]:
+            di = cfg.ssm.d_inner(cfg.d_model)
+            shard[-1] = di // size + leaf.shape[-1] - di
+        for p in range(len(out)):
+            out[p] += int(np.prod(shard)) * leaf.element_size()
+    return out
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "h2o-danube-1.8b", "jamba-v0.1-52b",
+                                  "whisper-base"])
+def test_serving_bytes_cache_term_is_the_shards_of_cache_specs(arch):
+    """``serving_bytes``' cache term at each position of a row's group is
+    the sum of the bytes of the shards ``cache_specs`` gives it, on (1, 4)
+    and (2, 2), at a length that divides the group and one that does not,
+    under each preset its serving test uses."""
+    cfg = registry.reduced_config(arch)
+    for shape in MESHES:
+        stand = SimpleNamespace(shape={"data": shape[0], "model": shape[1]})
+        for preset in _presets(cfg):
+            rules = rule_preset(preset)
+            for cap in (20, 21):
+                enc = cap if cfg.is_encdec else 0
+                got = api.serving_bytes(cfg, stand, rules, cfg.adtype,
+                                        (B, cap, enc))["cache"]
+                want = _shard_bytes(cfg, stand, rules, B, cap, enc)
+                for g in tp.groups(stand, rules, B):
+                    for p in g:
+                        assert got[p] == want[p], (shape, preset, cap, p)
+
+
+def test_qwen2_vl_decode_32k_fits_on_16x16():
+    """The dry run's qwen2-vl-72b decode_32k cell on (16, 16): the cache
+    of a row (8 examples x 32,768 positions x 8 KV heads x 128 x 80
+    layers, K and V, bf16: 85.9 GB) is split along its positions, 5.37 GB
+    a device, and the cell fits 80 GB (it did not when the 8 KV heads,
+    which do not split 16 ways, were each rank's whole)."""
+    cfg = registry.get_config("qwen2-vl-72b")
+    mesh = MeshShape(("data", "model"), (16, 16))
+    rules = rule_preset("baseline")
+    plan = api.serving_bytes(cfg, mesh, rules, cfg.adtype, (128, 32768, 0))
+    row = 80 * 2 * 8 * 32768 * 8 * 128 * 2
+    slots = 80 * 2048 * 4                   # each rank's slot positions
+    assert max(plan["cache"]) == min(plan["cache"]) == row // 16 + slots
+    rec = dryrun.lower_cell("qwen2-vl-72b", "decode_32k", False,
+                            verbose=False)
+    mem = rec["memory_analysis"]
+    assert mem["fits_h100_80g"], mem
+    assert mem["argument_bytes"] < 8e9
+    assert rec["collectives"]["all-to-all"] > 0
