@@ -164,10 +164,14 @@ JSON line:
            the first step's gradients against the fused route's
            (TRAIN_PARITY_TOL)
   trace    the serve engine with the process tracer off (no event) and on,
-           async (4 events a request), 8 rounds of 20 requests each, in
-           turns (off, on, on, off, ...): the median p50 with it on within
+           8 rounds of 20 requests each, in turns (off, on, on, off, ...):
+           on, each request's 4 serve.<phase> spans, its serve.tile device
+           interval and each phase it names as a host span and a device
+           interval, all with its req, and serve.backpressure at most once
+           a request past max_inflight; the median p50 with it on within
            the off rounds' spread (or 20% of their median); the host cost
-           of one tracer event; annotate's calls a request and their cost;
+           of one tracer event and of the tracer in the engine a request;
+           annotate's calls a request and their cost;
            one torch.profiler window (CPU + CUDA) that must show the
            encode_mlp, mlp, raymarch and composite ranges, with the device
            time under each; a training run's engine snapshot, validated
@@ -280,7 +284,7 @@ JSON line:
            bound of the uninterrupted run's
   launch   ``python -m repro_torch.launch.serve`` in a child process, four
            times: at its defaults (gia, hash, 2^14 tables, 150 steps, 2
-           scenes, 8 requests), ``--app nerf --occupancy --trace-sync``,
+           scenes, 8 requests), ``--app nerf --occupancy``,
            ``--app nsdf --quant int8`` and ``--shard`` (its 1 x 1 local
            mesh; it must serve as many requests as the defaults), each
            with ``--trace-out`` and
@@ -312,6 +316,7 @@ failure exits non-zero before that line.
 Run from the root of a checkout: ``python3 chip_smoke.py``. Needs one CUDA
 GPU and the CUDA toolkit (nvcc); imports nothing of JAX.
 """
+import collections
 import contextlib
 import dataclasses
 import io
@@ -767,13 +772,14 @@ finally:
 
 
 def annotate_calls(run):
-    """Calls of ``obs.trace.annotate`` that ``run()`` makes, counted
-    through every module of the port that imported it."""
+    """Calls of ``obs.trace.annotate`` that ``run()`` makes, by phase name
+    (a ``collections.Counter``), counted through every module of the port
+    that imported it."""
     from repro_torch.obs import trace as ttrace
-    real, n = ttrace.annotate, [0]
+    real, n = ttrace.annotate, collections.Counter()
 
     def counting(name):
-        n[0] += 1
+        n[name] += 1
         return real(name)
     mods = [m for name, m in list(sys.modules.items())
             if name.startswith("repro_torch.")
@@ -785,7 +791,7 @@ def annotate_calls(run):
     finally:
         for m in mods:
             m.annotate = real
-    return n[0]
+    return n
 
 
 def dir_bytes(path):
@@ -3816,10 +3822,14 @@ def main():
     # ------------------------------------------------------------ trace
     # The process tracer and the profiler ranges on the serve engine:
     # rounds of PROFILE_REQUESTS requests with the tracer off (no event)
-    # and on, async (4 events a request), in turns; the calls to annotate
-    # a request makes and their host cost; one torch.profiler window
-    # (CPU + CUDA) with the phases as ranges and the device time under
-    # each; a training run's engine snapshot.
+    # and on, in turns: on, each request has its 4 serve.<phase> spans,
+    # its serve.tile device interval and each phase it names (counted
+    # with the tracer off) as a host span and a device interval, all
+    # carrying its req, and a serve.backpressure span at most; the calls
+    # to annotate a request makes and their host cost; the tracer's host
+    # time in the engine; one torch.profiler window (CPU + CUDA) with the
+    # phases as ranges and the device time under each; a training run's
+    # engine snapshot.
     window = reqs[:PROFILE_REQUESTS]
 
     def run_window():
@@ -3827,7 +3837,12 @@ def main():
         engine.flush()
         return 1e3 * statistics.median(t.latency_s for t in tickets)
 
-    p50s, counts_on = {"off": [], "on": []}, []
+    phase_calls = annotate_calls(run_window)
+    want = {f"serve/serve.{ph}": len(window) for ph in SERVE_PHASES}
+    want["device:serve/serve.tile"] = len(window)
+    for ph, k in phase_calls.items():
+        want[f"phase/{ph}"] = want[f"device:phase/{ph}"] = k
+    p50s, counts_on, waits_on = {"off": [], "on": []}, [], []
     try:
         for i in range(TRACE_ROUNDS):        # off, on, on, off, off, on, ...
             for mode in ("off", "on") if i % 2 == 0 else ("on", "off"):
@@ -3836,16 +3851,31 @@ def main():
                     ttrace.TRACER.enable()
                 p50s[mode].append(run_window())
                 ttrace.TRACER.disable()
-                names = [e["name"] for e in ttrace.TRACER.events()]
-                if mode == "off" and names:
-                    fail(f"trace: the disabled tracer recorded {len(names)} "
+                evs = ttrace.TRACER.events()
+                if mode == "off" and evs:
+                    fail(f"trace: the disabled tracer recorded {len(evs)} "
                          "events")
                 if mode == "on":
-                    counts_on.append({n: names.count(n) for n in set(names)})
+                    counts = collections.Counter(
+                        f"{e['cat']}/{e['name']}" for e in evs)
+                    waits = [e["args"]["req"] for e in evs
+                             if e["name"] == "serve.backpressure"]
+                    del counts["serve/serve.backpressure"]
+                    counts_on.append(dict(counts))
+                    waits_on.append(len(waits))
+                    reqs_on = {e["args"].get("req") for e in evs}
+                    if len(reqs_on) != len(window) or None in reqs_on:
+                        fail(f"trace: a round's events carry the ids "
+                             f"{sorted(reqs_on, key=str)}, want one each of "
+                             f"{len(window)} requests")
+                    if len(set(waits)) != len(waits) or len(waits) > len(
+                            window) - engine.max_inflight:
+                        fail(f"trace: serve.backpressure for the requests "
+                             f"{waits}: at most one each past max_inflight "
+                             f"{engine.max_inflight}")
     finally:
         ttrace.TRACER.disable()
         ttrace.TRACER.clear()
-    want = {f"serve.{ph}": len(window) for ph in SERVE_PHASES}
     if any(c != want for c in counts_on):
         fail(f"trace: events per round {counts_on}, want {want}")
     off_med = statistics.median(p50s["off"])
@@ -3854,27 +3884,44 @@ def main():
     if abs(statistics.median(p50s["on"]) - off_med) > bound:
         fail(f"trace: p50 with the tracer on {p50s['on']} is not within "
              f"{bound} ms of off {p50s['off']}")
-    # the tracer's host time where the engine calls it: add_event timed in
-    # one more window with the tracer on (its 4 events a request)
-    spent, real_add = [0.0], ttrace.TRACER.add_event
+    # the tracer's host time where the engine calls it, in one more window
+    # with the tracer on: every entry point of the tracer, its spans and
+    # its scopes timed (its events, phase spans, device events and
+    # intervals), a call inside another once
+    spent, depth = [0.0], [0]
 
-    def timed_add(*args, **kwargs):
-        t_add = time.perf_counter()
-        real_add(*args, **kwargs)
-        spent[0] += time.perf_counter() - t_add
-    ttrace.TRACER.add_event = timed_add      # shadows the method
+    def timed(fn):
+        def call(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
+            depth[0] += 1
+            t_in = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[0] += time.perf_counter() - t_in
+                depth[0] -= 1
+        return call
+    patched = [(cls, name, getattr(cls, name)) for cls, names in (
+        (ttrace.Tracer, ("span", "phase", "scope", "add_event",
+                         "device_event", "add_interval")),
+        (ttrace._Span, ("__enter__", "__exit__")),
+        (ttrace._Scope, ("__enter__", "__exit__"))) for name in names]
+    for cls, name, fn in patched:
+        setattr(cls, name, timed(fn))
     ttrace.TRACER.enable()
     try:
         run_window()
     finally:
         ttrace.TRACER.disable()
-        del ttrace.TRACER.add_event
+        for cls, name, fn in patched:
+            setattr(cls, name, fn)
         ttrace.TRACER.clear()
     in_situ_ms = 1e3 * spent[0] / len(window)
     if ttrace.annotate("a") is not ttrace.annotate("b"):
         fail("trace: annotate is not the shared null context without a "
              "profiler")
-    calls = annotate_calls(run_window) / len(window)
+    calls = sum(phase_calls.values()) / len(window)
     t0 = time.perf_counter()
     for _ in range(100_000):
         with ttrace.annotate("encode"):
@@ -3915,6 +3962,7 @@ def main():
           "rounds": TRACE_ROUNDS, "p50_ms_off": p50s["off"],
           "p50_ms_on": p50s["on"], "p50_bound_ms": bound,
           "events_per_round_on": counts_on[0],
+          "backpressure_per_round_on": waits_on,
           "annotate_calls_per_request": calls,
           "annotate_us_per_call": annotate_us,
           "annotate_host_ms_per_request": calls * annotate_us / 1e3,
@@ -4544,15 +4592,14 @@ def main():
     # The launcher as a user starts it, ``python -m
     # repro_torch.launch.serve``, in a child process three times: at its
     # defaults (gia, hash, 2^14 tables, 150 steps, 2 scenes, 8 requests),
-    # nerf culled with synced spans, nsdf with int8 tables; each traced
+    # nerf culled, nsdf with int8 tables; each traced
     # and with a metrics snapshot. The child writes its kernels' launch
     # counts to a file at exit.
     launch_dir = os.path.join(ROOT, "build", "chip_smoke_launch")
     shutil.rmtree(launch_dir, ignore_errors=True)
     os.makedirs(launch_dir)
     launch_runs = {"defaults": [],
-                   "nerf_occupancy": ["--app", "nerf", "--occupancy",
-                                      "--trace-sync"],
+                   "nerf_occupancy": ["--app", "nerf", "--occupancy"],
                    "nsdf_int8": ["--app", "nsdf", "--quant", "int8"],
                    "defaults_shard": ["--shard"]}
     launch_launches = dict.fromkeys(K.launch_counts(), 0)

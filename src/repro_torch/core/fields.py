@@ -30,6 +30,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.fused_field import ops as ff_ops
 from repro_torch.kernels.fused_mlp import ops as mlp_ops
 from repro_torch.kernels.hashgrid import ops as hashgrid_ops
+from repro_torch.obs.trace import annotate
 from repro_torch.quant.api import maybe_dequant_mlp
 from repro_torch.quant.calibrate import MLP_WEIGHT_KEYS
 from repro_torch.quant.qtypes import QuantSpec
@@ -241,7 +242,9 @@ def apply_field(params: Dict, cfg: FieldConfig, points: torch.Tensor,
     (``fused_mlp/ops.mlp``, the ``mlp_fwd`` kernel) reads them back, one
     launch per head (nerf: the density MLP, then the colour MLP). The
     wrappers carry the phases (``encode_mlp`` fused; ``encode``, ``mlp``
-    unfused) and are differentiable, so the route trains.
+    unfused) and are differentiable, so the route trains. What nerf and
+    nvr do after the field call (activations; nerf's colour input, colour
+    MLP and output) is the ``head`` phase.
 
     Returns: nerf/nvr -> (B, 4) [rgb, sigma]; gia -> (B, 3); nsdf -> (B, 1).
     """
@@ -257,18 +260,20 @@ def apply_field(params: Dict, cfg: FieldConfig, points: torch.Tensor,
 
     if cfg.app == "nerf":
         dfeat = grid_mlp(params["density_mlp"], cfg.density_mlp)
-        sigma = torch.exp(dfeat[:, :1])        # instant-NGP exp activation
-        color_in = torch.cat([enc.sh_encode(dirs), dfeat], dim=-1)
-        rgb = torch.sigmoid(mlp_ops.mlp(maybe_dequant_mlp(params["mlp"]),
-                                        color_in, cfg.mlp))
-        return torch.cat([rgb, sigma], dim=-1)
+        with annotate("head"):
+            sigma = torch.exp(dfeat[:, :1])    # instant-NGP exp activation
+            color_in = torch.cat([enc.sh_encode(dirs), dfeat], dim=-1)
+            rgb = torch.sigmoid(mlp_ops.mlp(maybe_dequant_mlp(params["mlp"]),
+                                            color_in, cfg.mlp))
+            return torch.cat([rgb, sigma], dim=-1)
 
     out = grid_mlp(params["mlp"], cfg.mlp)
     if cfg.app == "gia":
         return torch.sigmoid(out)
     if cfg.app == "nvr":
-        return torch.cat([torch.sigmoid(out[:, :3]), torch.exp(out[:, 3:])],
-                         dim=-1)
+        with annotate("head"):
+            return torch.cat([torch.sigmoid(out[:, :3]),
+                              torch.exp(out[:, 3:])], dim=-1)
     return out  # nsdf: signed distance
 
 

@@ -291,9 +291,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome-trace JSON of the run here "
                          "(enables the span tracer)")
-    ap.add_argument("--trace-sync", action="store_true",
-                    help="device-sync at span close for device-complete "
-                         "phase times (slower; implies --trace-out use)")
     ap.add_argument("--metrics-out", default=None,
                     help="write the engine metrics snapshot JSON here")
     ap.add_argument("--device", default="cuda",
@@ -304,8 +301,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.trace_out or args.trace_sync:
-        TRACER.enable(sync=args.trace_sync)
+    if args.trace_out:
+        TRACER.enable()
     if args.mode == "render":
         serve_render(args.app, args.encoding,
                      train_steps=args.train_steps, n_requests=args.requests,

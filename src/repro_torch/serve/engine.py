@@ -27,8 +27,15 @@
     ``n_traces_total``), and the submit-to-retire latency histogram that
     ``stats()``'s p50/p99 read (warmup excluded). While the process tracer
     (``obs.trace.TRACER``) is enabled the same phases become
-    ``serve.<phase>`` Chrome-trace events; disabled (the default) the
-    submit path reads the clock as it always does and adds no device sync.
+    ``serve.<phase>`` spans, the wait in ``submit`` for the oldest ticket
+    becomes ``serve.backpressure``, the tile's ``annotate`` phases (those
+    the tracer's ``phases`` names) are spans with device intervals, and
+    ``serve.tile`` is a device interval from the tile's first enqueued op
+    to its completion event: every span of a request carries its
+    engine-assigned ``req`` id.
+    Disabled (the default) the submit path reads the clock as it always
+    does, creates no timing event and adds no device sync; traced, no span
+    waits on the device either.
   * **Pixel-parallel sharding.** With ``mesh`` (a
     ``launch.mesh.Mesh`` that holds the engine's device) each tile splits
     over the mesh's ``field_batch`` shards (``serve/sharding.py``): every
@@ -43,6 +50,7 @@ allocators, outside the latency statistics), then submit requests.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -59,6 +67,8 @@ from repro_torch.obs.trace import TRACER
 from repro_torch.quant.api import is_quantized_field
 from repro_torch.serve import sharding
 
+# the scope of an untraced tile: enters nothing
+_NO_SCOPE = contextlib.nullcontext()
 
 @dataclasses.dataclass(frozen=True)
 class BucketKey:
@@ -112,8 +122,9 @@ class Ticket:
     def __init__(self, engine: "RenderEngine", host_out: torch.Tensor,
                  event: Optional[torch.cuda.Event], n_valid: int,
                  t_submit: float, warmup: bool, bucket_idx: int = 0,
-                 host_aux: Optional[torch.Tensor] = None):
+                 host_aux: Optional[torch.Tensor] = None, req: int = 0):
         self._engine = engine
+        self.req = req                     # the engine-assigned request id
         self._host_out = host_out          # filled once `event` completes
         self._host_aux = host_aux          # (shards, 3) sample rows, likewise
         self._event = event                # None on the CPU: already done
@@ -140,9 +151,9 @@ class Ticket:
             if not self._warmup:
                 self._engine._record(self.latency_s, self._n, t_done)
                 self._engine._record_phase(self._bidx, "block",
-                                           t_block0, t_done)
+                                           t_block0, t_done, req=self.req)
                 self._engine._record_phase(self._bidx, "slice",
-                                           t_done, t_slice)
+                                           t_done, t_slice, req=self.req)
                 if self._host_aux is not None:
                     self._engine._record_aux(self._host_aux.numpy().astype(
                         np.float64).sum(axis=0))
@@ -196,6 +207,7 @@ class RenderEngine:
         self._buckets: Dict[BucketKey, _Bucket] = {}
         self._scene_bucket: Dict[str, BucketKey] = {}
         self._inflight: collections.deque = collections.deque()
+        self._next_req = 0                   # the next request's id
         self._lat: List[float] = []          # exact latencies
         self._pixels = 0
         self._t_first: Optional[float] = None
@@ -320,30 +332,41 @@ class RenderEngine:
         fn = self._get_fn(key)
         stacked = self._get_stacked(key)
         sid = bucket.order.index(req.scene)
+        rid = self._next_req
+        self._next_req += 1
+        tracing = TRACER.enabled
         t0 = time.perf_counter()
         if not _warmup and self._t_first is None:
             self._t_first = t0
-        ids_dev = padded.to(self.device, non_blocking=True)
-        mask = torch.arange(tp, device=self.device) < n
-        out = fn(stacked, sid, req.camera, ids_dev, mask, n)
+        # the tile's phases carry its id; its first op opens ``serve.tile``
+        ev0 = TRACER.device_event(self.device) if tracing and cuda else None
+        with TRACER.scope(self.device, req=rid) if tracing else _NO_SCOPE:
+            ids_dev = padded.to(self.device, non_blocking=True)
+            mask = torch.arange(tp, device=self.device) < n
+            out = fn(stacked, sid, req.camera, ids_dev, mask, n)
         rgb, aux = out if bucket.with_aux else (out, None)
         event = None
         if cuda:
             host_out = _pinned_copy(rgb)
             host_aux = None if aux is None else _pinned_copy(aux)
-            # on the device the shards' pixels came together on
-            event = torch.cuda.Event()
+            # on the device the shards' pixels came together on; traced, it
+            # closes the tile's ``serve.tile`` interval
+            event = torch.cuda.Event(enable_timing=tracing)
             event.record(torch.cuda.current_stream(rgb.device))
+            if tracing and rgb.device == self.device:
+                TRACER.add_interval("serve.tile", self.device, ev0, event,
+                                    cat="serve", bucket=bucket.idx, req=rid)
         else:
             host_out, host_aux = rgb, aux
         t_dispatched = time.perf_counter()
         if not _warmup:
             # host-side phase timings only: nothing here waits on the device
             self._record_phase(bucket.idx, "submit", t_prep0, t0,
-                               scene=req.scene)
-            self._record_phase(bucket.idx, "dispatch", t0, t_dispatched)
+                               scene=req.scene, req=rid)
+            self._record_phase(bucket.idx, "dispatch", t0, t_dispatched,
+                               req=rid)
         ticket = Ticket(self, host_out, event, n, t0, warmup=_warmup,
-                        bucket_idx=bucket.idx, host_aux=host_aux)
+                        bucket_idx=bucket.idx, host_aux=host_aux, req=rid)
         self._inflight.append(ticket)
         # retire already-finished work first so its recorded latency is
         # the device completion, not however long the caller sat on it
@@ -352,7 +375,12 @@ class RenderEngine:
         # keep at most max_inflight megabatches queued: request N+1 is
         # enqueued above *before* this waits on N-k
         while len(self._inflight) > self.max_inflight:
+            t_wait = time.perf_counter()
             self._inflight.popleft().result()
+            if tracing:
+                TRACER.add_event("serve.backpressure", t_wait,
+                                 time.perf_counter(), cat="serve",
+                                 bucket=bucket.idx, req=rid)
         return ticket
 
     def flush(self):

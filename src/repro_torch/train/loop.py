@@ -40,9 +40,12 @@ On the card ``encode_bwd`` (fields) and the embedding gather's backward
 order, so two runs, resumed or not, differ by that rounding.
 
 Observability and health, as in the JAX engine: the engine owns a metrics
-``Registry`` (its own, or the caller's ``metrics_registry``); each chunk,
-after its one host read, records a ``train.chunk`` event while the
-process tracer is enabled, a ``train.step_s`` histogram sample and the
+``Registry`` (its own, or the caller's ``metrics_registry``); while the
+process tracer is enabled each step is a ``train.step`` span (the host
+enqueue of the step, with its index) holding the ``forward``,
+``backward`` and ``adam`` phases, each with its device interval; each
+chunk, after its one host read, records a ``train.chunk`` event while the
+tracer is enabled, a ``train.step_s`` histogram sample and the
 ``train.steps`` counter, logs a ``chunk`` row at debug level (``train``
 logger), then beats the ``HeartbeatMonitor``, records the step time with
 the ``StragglerDetector`` (whose per-host histograms are the registry's
@@ -76,7 +79,7 @@ from repro_torch.data.tokens import Prefetcher
 from repro_torch.launch.mesh import replicate, shard_devices, shard_rows
 from repro_torch.obs import log as obs_log
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.obs.trace import TRACER
+from repro_torch.obs.trace import TRACER, annotate
 from repro_torch.parallel.sharded import Sharded, map_sharded
 from repro_torch.runtime.health import (FailurePolicy, HeartbeatMonitor,
                                         StragglerDetector)
@@ -129,11 +132,13 @@ def value_and_grad(loss_fn: Callable, params, batch, has_aux: bool = False
     aux's tensors detached, as ``jax.value_and_grad(has_aux=True)``."""
     views = optim.tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        out = loss_fn(views, batch)
+        with annotate("forward"):
+            out = loss_fn(views, batch)
         loss, aux = out if has_aux else (out, None)
         flat = optim.tree_leaves(views)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True,
-                                    materialize_grads=True)
+        with annotate("backward"):
+            grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                        materialize_grads=True)
     by_id = {id(v): g for v, g in zip(flat, grads)}
     grads = optim.tree_map(lambda v: by_id[id(v)], views)
     if has_aux:
@@ -285,8 +290,9 @@ def make_scanned_step(loss_fn: Callable, opt_cfg: optim.AdamConfig, *,
                 knobs)
             grads = {**grads, **sub}
             new_state["efb"] = cstate["efb"]
-        params, opt, metrics = optim.adam_update(grads, state["opt"],
-                                                 params, opt_cfg)
+        with annotate("adam"):
+            params, opt, metrics = optim.adam_update(grads, state["opt"],
+                                                     params, opt_cfg)
         metrics["loss"] = loss
         metrics["psnr"] = -10.0 * torch.log10(torch.clamp(loss, min=1e-12))
         new_state["params"], new_state["opt"] = params, opt
@@ -421,16 +427,20 @@ class TrainEngine:
         step_hist = self.obs.histogram("train.step_s")
         steps_ctr = self.obs.counter("train.steps")
         for s0, n in plan:
+            tracing = TRACER.enabled
             t0 = time.perf_counter()
             rows = []
             for i, batch in enumerate(self._batches(s0, n, prefetch)):
-                state, metrics = self.step_fn(state, s0 + i, batch)
+                if tracing:
+                    state, metrics = self._traced_step(state, s0 + i, batch)
+                else:
+                    state, metrics = self.step_fn(state, s0 + i, batch)
                 rows.append(metrics)
             on_device, values = _read_metrics(rows)
             dt = time.perf_counter() - t0
             # the read above is the chunk's sync point, so the event and
             # the histogram cover device completion with no wait of their own
-            if TRACER.enabled:
+            if tracing:
                 TRACER.add_event("train.chunk", t0, t0 + dt, cat="train",
                                  start=s0, n_steps=n, host=self.host)
             step_hist.record(dt / n)
@@ -461,6 +471,15 @@ class TrainEngine:
                 self.events.append(ev)
                 self.on_event(ev)
         return state, history
+
+    def _traced_step(self, state, step: int, batch):
+        """One step under the tracer: the ``train.step`` span (the host
+        enqueue of the step) in a scope that gives the step's phases
+        (``forward``, ``backward``, ``adam``) its index and the state's
+        device."""
+        with TRACER.scope(_first_tensor(state).device, step=step), \
+                TRACER.span("train.step", cat="train"):
+            return self.step_fn(state, step, batch)
 
 
 # repro: sync-boundary the chunk's one host read of every step's metrics

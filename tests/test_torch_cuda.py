@@ -1031,22 +1031,150 @@ def test_profiler_sees_the_phases_on_card(dev):
     assert annotate("x") is annotate("y")
 
 
+def _traced_engine(dev, app, max_inflight):
+    """A card engine serving one small ``app`` scene in 256-pixel tiles
+    (nsdf: 4 sphere-tracing steps), warmed up."""
+    cfg = _enc_field(app, "hash")
+    settings = pipeline.RenderSettings(tile_pixels=256, n_samples=8,
+                                       sphere_steps=4)
+    engine = RenderEngine(settings, max_inflight=max_inflight, device=dev)
+    engine.add_scene("a", cfg, _u11_params(cfg, 3))
+    engine.warmup()
+    return engine, scenes.orbit_camera(16, 16, 0.3)
+
+
 @pytest.mark.cuda
-def test_synced_span_waits_for_the_device(dev):
-    """A synced span bound to a card tensor closes after the work queued
-    before it is done; an async one closes without waiting."""
-    from repro_torch.obs.trace import Tracer
-    for sync in (True, False):
-        tr = Tracer()
-        tr.enable(sync=sync)
-        torch.cuda.synchronize()
-        with tr.span("s") as sp:
-            torch.cuda._sleep(50_000_000)       # tens of ms of spinning
-            after = torch.cuda.Event()
-            sp.bind(torch.ones(1, device=dev))
-            after.record()
-        assert after.query() == sync
-        torch.cuda.synchronize()
+@pytest.mark.parametrize("app", ["nerf", "nsdf"])
+def test_traced_tiles_nest_their_phases_and_submit_never_syncs(dev, app,
+                                                               monkeypatch):
+    """Four tiles submitted with nothing retired, untraced and then traced:
+    ``submit`` calls no synchronize either way. Traced, every device
+    interval of a request (its phases) lies inside that request's
+    ``serve.tile`` interval, the tiles follow each other on the stream,
+    and each phase interval has its host span."""
+    from repro_torch.obs.trace import TRACER
+    from repro_torch.serve import RenderRequest
+    from repro_torch.serve import engine as eng_mod
+    engine, cam = _traced_engine(dev, app, max_inflight=8)
+    syncs = []
+
+    def count_syncs():
+        monkeypatch.setattr(torch.cuda, "synchronize",
+                            lambda *a, **k: syncs.append("device"))
+        for cls in (torch.cuda.Event, torch.cuda.Stream):
+            monkeypatch.setattr(cls, "synchronize",
+                                lambda self: syncs.append(
+                                    type(self).__name__))
+        monkeypatch.setattr(eng_mod.Ticket, "is_ready", lambda self: False)
+    try:
+        for traced in (False, True):
+            if traced:
+                TRACER.clear()
+                TRACER.enable()
+            count_syncs()
+            tickets = [engine.submit(RenderRequest("a", cam, np.arange(256)))
+                       for _ in range(4)]
+            monkeypatch.undo()
+            assert syncs == [], (traced, syncs)
+            engine.flush()
+        spans = TRACER.spans_ns()
+    finally:
+        TRACER.disable()
+        TRACER.clear()
+    tiles = {sp.args["req"]: sp for sp in spans if sp.name == "serve.tile"}
+    assert sorted(tiles) == [t.req for t in tickets]
+    order = [tiles[t.req] for t in tickets]
+    for a, b in zip(order, order[1:]):
+        assert a.end <= b.start
+    phases = [sp for sp in spans if sp.device is not None
+              and sp.name != "serve.tile"]
+    want = {"raymarch", "encode_mlp"} | (
+        {"head", "mlp", "composite"} if app == "nerf" else set())
+    assert want <= {sp.name for sp in phases}
+    for sp in phases:
+        tile = tiles[sp.args["req"]]
+        assert tile.start <= sp.start <= sp.end <= tile.end, (sp, tile)
+    host = {(sp.name, sp.args["req"]) for sp in spans if sp.device is None
+            and sp.cat == "phase"}
+    assert {(sp.name, sp.args["req"]) for sp in phases} == host
+
+
+@pytest.mark.cuda
+def test_device_intervals_line_up_with_the_profilers_kernels(dev):
+    """Traced under ``torch.profiler`` (CUDA activity only, as the
+    benchmark's device trace), each ``field_fwd`` kernel lies inside an
+    ``encode_mlp`` device interval within 0.1 ms: the intervals are on the
+    kineto events' clock. The timing events and the phases' ranges add no
+    device event of their own."""
+    from repro_torch.obs.trace import TRACER
+    from repro_torch.serve import RenderRequest
+    engine, cam = _traced_engine(dev, "nerf", max_inflight=2)
+    torch.cuda.synchronize()
+    TRACER.clear()
+    TRACER.enable()
+    try:
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            for r in range(4):
+                engine.submit(RenderRequest("a", cam, np.arange(256)))
+            engine.flush()
+            torch.cuda.synchronize()
+        spans = TRACER.spans_ns()
+        # each anchor's host bracket (ns), reported when a kernel lies off
+        widths = {i: [a[2] for a in v] for i, v in TRACER._anchors.items()}
+    finally:
+        TRACER.disable()
+        TRACER.clear()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [(ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
+              for ev in prof.profiler.kineto_results.events()
+              if ev.device_type() == cuda and not ev.is_user_annotation()]
+    names = {n for n, _, _ in events}
+    assert not names & {"head", "encode_mlp", "raymarch", "composite",
+                        "mlp", "serve.tile"}
+    kernels = [e for e in events if "field_fwd" in e[0]]
+    fields_iv = [sp for sp in spans if sp.name == "encode_mlp"
+                 and sp.device is not None]
+    assert len(kernels) == len(fields_iv) == 4
+    for (_, s, e), iv in zip(sorted(kernels, key=lambda k: k[1]),
+                             sorted(fields_iv, key=lambda i: i.start)):
+        assert iv.start - 100_000 <= s <= e <= iv.end + 100_000, (
+            s, e, iv, widths)
+
+
+@pytest.mark.cuda
+def test_traced_train_steps_order_their_phases_on_card(dev):
+    """A traced chunk of a nerf training step on the card: each step's
+    ``forward``, ``backward`` and ``adam`` device intervals follow each
+    other on the stream."""
+    from repro_torch.obs.trace import TRACER
+    cfg = _enc_field("nerf", "hash")
+    params = fields.to_device(_u11_params(cfg, 5), dev)
+    step_fn = tloop.make_scanned_step(
+        lambda p, b: torch.mean((fields.apply_field(
+            p, cfg, b["x"], b["d"]) - 0.5) ** 2), toptim.AdamConfig(lr=1e-2))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand(4096, 3, device=dev, generator=gen)
+    d = torch.nn.functional.normalize(
+        torch.rand(4096, 3, device=dev, generator=gen) - 0.5, dim=-1)
+    engine = tloop.TrainEngine(tloop.EngineConfig(steps=3, chunk_steps=3),
+                               step_fn, batch_fn=lambda s: {"x": x, "d": d})
+    state = tloop.init_train_state(params)
+    TRACER.clear()
+    TRACER.enable()
+    try:
+        engine.run(state)
+        spans = TRACER.spans_ns()
+    finally:
+        TRACER.disable()
+        TRACER.clear()
+    for step in range(3):
+        iv = {sp.name: sp for sp in spans if sp.device is not None
+              and sp.args.get("step") == step
+              and sp.name in ("forward", "backward", "adam")}
+        assert iv["forward"].end <= iv["backward"].start
+        assert iv["backward"].end <= iv["adam"].start
 
 
 @pytest.mark.cuda

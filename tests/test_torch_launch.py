@@ -2,7 +2,8 @@
 against the JAX package's ``repro.launch.serve``, on the CPU.
 
 The launchers build the same field configs, take the same flags (but
-``--use-pallas``, which the port drops, and ``--device``, which it adds),
+``--use-pallas`` and ``--trace-sync``, which the port drops, and
+``--device``, which it adds),
 and a tiny run of each logs the same events with the same keys. What the
 port has not ported raises.
 """
@@ -78,7 +79,9 @@ def _parser_of(main, monkeypatch):
 def test_parser_flags_are_jax_minus_use_pallas_plus_device(monkeypatch):
     jflags = _parser_of(jserve.main, monkeypatch)
     tflags = _parser_of(tserve.main, monkeypatch)
-    assert set(jflags) - set(tflags) == {"use_pallas"}
+    # --trace-sync: the port's spans never wait on the device; its
+    # device intervals give device completion without a wait
+    assert set(jflags) - set(tflags) == {"use_pallas", "trace_sync"}
     # --full: the JAX --reduced is on by default and cannot be turned off
     assert set(tflags) - set(jflags) == {"device", "full"}
     for dest in set(jflags) & set(tflags):

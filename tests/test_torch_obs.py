@@ -8,6 +8,7 @@ one simulated clock must be the same in both packages; the engines'
 metrics snapshots must validate and carry the JAX engines' keys for the
 same scenes, stream and steps.
 """
+import contextlib
 import copy
 import dataclasses
 import io
@@ -42,6 +43,7 @@ from repro_torch.obs import metrics as tmetrics
 from repro_torch.obs import trace as ttrace
 from repro_torch.runtime import health as thealth
 from repro_torch.serve import RenderEngine, RenderRequest
+from repro_torch.serve import engine as tengine
 from repro_torch.train import loop as tloop
 from repro_torch.train import optim as toptim
 from tests.conftest import small_field_config
@@ -148,8 +150,8 @@ def test_chrome_trace_matches_jax(tmp_path):
 def test_disabled_tracer_hands_out_shared_null_span():
     tr = ttrace.Tracer()
     assert tr.span("a") is tr.span("b") is ttrace._NULL_SPAN
-    with tr.span("a") as sp:
-        assert sp.bind(42) == 42
+    with tr.span("a"):
+        pass
     tr.add_event("x", 0.0, 1.0)
     assert tr.events() == [] and not ttrace.TRACER.enabled
 
@@ -191,26 +193,6 @@ def test_span_nesting_matches_jax():
     assert shapes[0] == shapes[1]
 
 
-def test_synced_span_waits_only_when_synced(monkeypatch):
-    """A synced span waits at close on its bound value; an async one never
-    calls the wait; a CPU tensor creates no CUDA event."""
-    waits = []
-    real = ttrace._wait_for
-    monkeypatch.setattr(ttrace, "_wait_for",
-                        lambda v: (waits.append(v), real(v)))
-    monkeypatch.setattr(torch.cuda, "Event", None)   # any use would raise
-    x = torch.ones(3)
-    for sync in (False, True):
-        tr = ttrace.Tracer()
-        tr.enable(sync=sync)
-        with tr.span("s") as sp:
-            sp.bind({"a": [x, (x,)]})
-        with tr.span("unbound"):
-            pass
-    assert len(waits) == 1 and waits[0]["a"][0] is x
-    assert list(ttrace._cuda_tensors({"a": [x, (x,)], "b": 3})) == []
-
-
 def test_time_fn_is_a_median_of_timed_calls():
     calls = []
     t = ttrace.time_fn(lambda a: calls.append(a) or torch.ones(2) * a, 3,
@@ -247,6 +229,114 @@ def test_annotate_names_the_phases_under_the_profiler(fused):
     want |= {"encode_mlp"} if fused else {"encode"}
     assert want <= names
     assert ("encode_mlp" in names) == fused
+
+
+def test_spans_ns_puts_host_stamps_on_clock_realtime():
+    """A span stamped on ``perf_counter`` comes out of ``spans_ns()`` at
+    the ``time.time_ns()`` of its start and end, within 1 ms, its
+    duration kept to the nanosecond; a host span has no device."""
+    tr = ttrace.Tracer()
+    tr.enable()
+    t0, ns0 = ttrace.time.perf_counter(), ttrace.time.time_ns()
+    tr.add_event("serve.submit", t0, t0 + 0.25, cat="serve", req=3)
+    with tr.span("outer"):
+        ns1 = ttrace.time.time_ns()
+    (a, b) = tr.spans_ns()
+    assert (a.name, a.cat, a.args, a.device) == ("serve.submit", "serve",
+                                                 {"req": 3}, None)
+    assert abs(a.start - ns0) < 1_000_000
+    assert abs((a.end - a.start) - 250_000_000) <= 1
+    assert b.name == "outer" and abs(b.start - ns1) < 1_000_000
+    tr.clear()
+    assert tr.spans_ns() == []
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_annotate_records_phase_spans_while_the_tracer_is_enabled(
+        tracers, profiled):
+    """With the tracer enabled ``annotate`` is a ``phase`` span carrying
+    its scope's args and its parent, with or without a profiler (under one
+    it is a profiler range too); on the CPU it makes no device interval.
+    With the tracer and the profiler off it is the one shared null context
+    again."""
+    _, ttr = tracers
+    ttr.enable()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    prof = torch.profiler.profile(activities=acts) if profiled else None
+    with prof or contextlib.nullcontext():
+        with ttr.scope("cpu", req=7):
+            with ttrace.annotate("head"):
+                with ttrace.annotate("mlp"):
+                    pass
+        with ttrace.annotate("adam"):
+            pass
+    got = [(e["name"], e["cat"], e["args"]) for e in ttr.events()]
+    assert got == [
+        ("mlp", "phase", {"depth": 1, "parent": "head", "req": 7}),
+        ("head", "phase", {"depth": 0, "parent": "", "req": 7}),
+        ("adam", "phase", {"depth": 0, "parent": ""})]
+    assert all(sp.device is None for sp in ttr.spans_ns())
+    if profiled:
+        assert {"head", "mlp", "adam"} <= {e.name for e in prof.events()}
+    ttr.disable()
+    assert ttrace.annotate("head") is ttrace.annotate("adam") \
+        is ttrace._NULL_CONTEXT
+
+
+def test_a_scope_gives_its_spans_args_and_restores_the_outer(tracers):
+    """Spans opened in a scope carry its args (a span's own args added);
+    an inner scope replaces the outer one until it closes; a disabled
+    tracer's scope is the shared null context."""
+    _, ttr = tracers
+    assert ttr.scope("cpu", req=1) is ttrace._NULL_CONTEXT
+    ttr.enable()
+    with ttr.scope("cpu", req=1):
+        with ttr.scope("cpu", step=5):
+            with ttr.span("s", cat="train"):
+                pass
+        assert ttr._local.scope == (torch.device("cpu"), {"req": 1})
+        with ttr.span("t", cat="serve", bucket=0):
+            pass
+    assert ttr._local.scope is None
+    assert [e["args"] for e in ttr.events()] == [
+        {"depth": 0, "parent": "", "step": 5},
+        {"depth": 0, "parent": "", "req": 1, "bucket": 0}]
+
+
+def test_device_phases_limit_the_device_intervals(tracers):
+    """``enable(phases=...)`` records the named phases alone, each with a
+    device interval in a CUDA scope (a CPU scope gives none); the others
+    are what ``annotate`` is with the tracer off, the shared null context
+    without a profiler and a profiler range under one. ``enable()``
+    records every phase again. No CUDA is touched: the spans are made,
+    not entered."""
+    _, ttr = tracers
+    ttr.enable(phases=("head",))
+    with ttr.scope("cuda:0", req=1):
+        assert ttrace.annotate("head")._device == torch.device("cuda", 0)
+        assert ttrace.annotate("mlp") is ttrace._NULL_CONTEXT
+    with ttr.scope("cpu", req=1):
+        assert ttrace.annotate("head")._device is None
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        with ttrace.annotate("mlp"):
+            pass
+    assert "mlp" in {e.name for e in prof.events()}
+    assert ttr.events() == []
+    ttr.enable()
+    with ttr.scope("cuda:0", req=1):
+        assert ttrace.annotate("mlp")._device == torch.device("cuda", 0)
+
+
+def test_a_missing_device_event_counts_as_dropped():
+    """A device interval whose event could not be made (a full buffer)
+    is dropped and counted; nothing is recorded while disabled."""
+    tr = ttrace.Tracer(max_events=1)
+    tr.add_interval("x", "cuda", None, None)
+    assert tr.dropped == 0
+    tr.enable()
+    tr.add_interval("x", "cuda", None, None)
+    assert tr.dropped == 1 and tr.spans_ns() == []
 
 
 # ---------------------------------------------------------------- export
@@ -423,6 +513,14 @@ def _serve_stream(pkg):
     return engine
 
 
+def _arg_keys(events):
+    """The arg keys of each event name in Chrome-trace records."""
+    keys = {}
+    for e in events:
+        keys.setdefault(e["name"], set()).update(e["args"])
+    return keys
+
+
 def _shape(snap):
     """A snapshot's names, counter values and histogram counts."""
     return ({k: v for k, v in snap["counters"].items()}, sorted(
@@ -433,9 +531,11 @@ def _shape(snap):
 def test_engine_snapshot_has_the_jax_engines_keys(tracers):
     """The same scenes and stream: the port engine's snapshot validates and
     has the JAX engine's counters, gauges and histograms with the same
-    counts; with the tracers enabled both emit the same serve events (4
-    a request, warmup excluded) with the same args, in the order each
-    retires its requests."""
+    counts; with the tracers enabled the port's events, restricted to the
+    JAX engine's event names and to each name's arg keys, are the JAX
+    engine's serve events (4 a request, warmup excluded), in the order
+    each retires its requests. The port adds spans and args (its phases,
+    ``serve.tile``, ``req``) that the JAX engine does not have."""
     jtr, ttr = tracers
     jtr.enable()
     ttr.enable()
@@ -448,9 +548,12 @@ def test_engine_snapshot_has_the_jax_engines_keys(tracers):
     for key in js:
         assert key in ts, key
 
+    keys = _arg_keys(jtr.events())
+
     def events(tr):     # retire order follows the device: compare as sets
-        return sorted((e["name"], e["cat"], sorted(e["args"].items()))
-                      for e in tr.events())
+        return sorted((e["name"], e["cat"], sorted(
+            (k, v) for k, v in e["args"].items() if k in keys[e["name"]]))
+            for e in tr.events() if e["name"] in keys)
     assert events(ttr) == events(jtr)
     names = [e[0] for e in events(ttr)]
     for phase in ("submit", "dispatch", "block", "slice"):
@@ -459,15 +562,91 @@ def test_engine_snapshot_has_the_jax_engines_keys(tracers):
 
 def test_disabled_tracer_adds_nothing_to_the_submit_path(monkeypatch):
     """With the process tracer disabled the engine never reaches
-    ``add_event``, and records no event."""
+    ``add_event``, a scope, a span, a phase or a device event, creates no
+    CUDA event, and records no event: neither for the gia stream nor for
+    nerf tiles, whose phases run ``annotate``."""
     assert not ttrace.TRACER.enabled
 
     def boom(*a, **k):
-        raise AssertionError("add_event called while disabled")
-    monkeypatch.setattr(ttrace.TRACER, "add_event", boom)
+        raise AssertionError("the tracer was reached while disabled")
+    for name in ("add_event", "add_interval", "device_event", "scope",
+                 "span", "phase"):
+        monkeypatch.setattr(ttrace.TRACER, name, boom)
+    monkeypatch.setattr(torch.cuda, "Event", boom)
     engine = _serve_stream("torch")
     assert engine.stats()["n_requests"] == 12
+    engine, cam = _nerf_engine(max_inflight=1)
+    for r in range(3):
+        engine.submit(RenderRequest("n0", cam, np.arange(16)))
+    engine.flush()
     assert ttrace.TRACER.events() == []
+
+
+def _nerf_engine(max_inflight):
+    """A CPU engine serving one tiny nerf scene in tiles of 16 pixels."""
+    cfg = tfields.make_field_config("nerf", "hash")
+    ct = cfg.with_grid(dataclasses.replace(cfg.grid, log2_table_size=10,
+                                           n_levels=2))
+    engine = RenderEngine(tpipeline.RenderSettings(tile_pixels=16,
+                                                   n_samples=4),
+                          max_inflight=max_inflight, device="cpu")
+    engine.add_scene("n0", ct, tfields.init_field(
+        ct, torch.Generator().manual_seed(0), "cpu"))
+    engine.warmup()
+    return engine, tscenes.orbit_camera(4, 4, 0.0)
+
+
+def test_every_span_of_a_request_carries_its_req(tracers):
+    """Traced on the CPU, each request's engine spans and tile phases carry
+    its engine-assigned ``req``: the engine spans once a request, the
+    phases (``raymarch``, ``encode_mlp``, ``head`` with the colour ``mlp``
+    inside, ``composite``) under their parents. Tickets carry their
+    ids."""
+    _, ttr = tracers
+    engine, cam = _nerf_engine(max_inflight=2)
+    ttr.enable()
+    tickets = [engine.submit(RenderRequest("n0", cam, np.arange(16)))
+               for _ in range(3)]
+    engine.flush()
+    spans = ttr.spans_ns()
+    reqs = [t.req for t in tickets]
+    assert reqs == [1, 2, 3]               # the warmup's request was 0
+    by_req = {}
+    for sp in spans:
+        by_req.setdefault(sp.args["req"], []).append(sp)
+    assert sorted(by_req) == reqs
+    for r in reqs:
+        names = [sp.name for sp in by_req[r]]
+        for phase in ("submit", "dispatch", "block", "slice"):
+            assert names.count(f"serve.{phase}") == 1
+        assert {"raymarch", "encode_mlp", "head", "mlp",
+                "composite"} <= set(names)
+        parents = {sp.name: sp.args.get("parent") for sp in by_req[r]
+                   if sp.cat == "phase"}
+        assert parents["mlp"] == "head"
+        assert "serve.backpressure" not in names
+
+
+@pytest.mark.parametrize("ready", [True, False])
+def test_backpressure_span_appears_when_tiles_queue_up(tracers,
+                                                       monkeypatch, ready):
+    """``serve.backpressure`` is the wait in ``submit`` for the oldest
+    ticket while more than ``max_inflight`` are queued, carrying the id of
+    the request that waited: none while every tile is done at once (the
+    CPU), one for each request past ``max_inflight`` while tiles stay
+    pending."""
+    _, ttr = tracers
+    engine, cam = _nerf_engine(max_inflight=2)
+    if not ready:
+        monkeypatch.setattr(tengine.Ticket, "is_ready", lambda self: False)
+    ttr.enable()
+    tickets = [engine.submit(RenderRequest("n0", cam, np.arange(16)))
+               for _ in range(5)]
+    engine.flush()
+    waits = [e["args"]["req"] for e in ttr.events()
+             if e["name"] == "serve.backpressure"]
+    ids = [t.req for t in tickets]
+    assert waits == ([] if ready else ids[2:])
 
 
 # --------------------------------------------------------- train engine
@@ -503,8 +682,10 @@ def test_train_engine_metrics_trace_and_logs_match_jax(tracers, capsys,
                                                       monkeypatch):
     """Ten steps in chunks of 4: both engines' snapshots have the same
     names and counts (train.step_s, train.steps, health.step_s.host0,
-    health.silent_hosts), the same train.chunk events and the same debug
-    ``chunk`` log records but their times."""
+    health.silent_hosts), the same train.chunk events (the port's events
+    restricted to the JAX engine's event names and arg keys: the port adds
+    its step spans and phases) and the same debug ``chunk`` log records
+    but their times."""
     jtr, ttr = tracers
     jtr.enable()
     ttr.enable()
@@ -519,8 +700,10 @@ def test_train_engine_metrics_trace_and_logs_match_jax(tracers, capsys,
             assert r.pop("step_ms") >= 0
         logs.append(recs)
         shapes.append(_shape(eng.obs.snapshot()))
-        events.append([(e["name"], e["cat"], e["args"])
-                       for e in tr.events()])
+        keys = _arg_keys(jtr.events())
+        events.append([(e["name"], e["cat"], {
+            k: v for k, v in e["args"].items() if k in keys[e["name"]]})
+            for e in tr.events() if e["name"] in keys])
         assert eng.events == [] and eng.host == "host0"
     assert shapes[0] == shapes[1] == (
         {"train.steps": 10}, ["health.silent_hosts"],
@@ -552,3 +735,45 @@ def test_train_engine_failure_event_matches_jax(capsys):
                                       ("dead", ("ghost",), 5)]
     assert out[0][1] == out[1][1] and len(out[1][1]) == 2
     assert out[1][1][0]["level"] == "warning"
+
+
+def test_each_train_step_holds_forward_backward_and_adam(tracers):
+    """Traced, each step of the port's engine is one ``train.step`` span
+    with its index, whose children are the ``forward``, ``backward`` and
+    ``adam`` phases carrying the same index, inside their chunk's
+    ``train.chunk``."""
+    _, ttr = tracers
+    ttr.enable()
+    _toy_train("torch", steps=6, chunk=4)
+    spans = ttr.spans_ns()
+    steps = [sp for sp in spans if sp.name == "train.step"]
+    assert [sp.args["step"] for sp in steps] == list(range(6))
+    for step in steps:
+        kids = [sp for sp in spans if sp.cat == "phase"
+                and sp.args.get("step") == step.args["step"]]
+        assert sorted(sp.name for sp in kids) == ["adam", "backward",
+                                                  "forward"]
+        for sp in kids:
+            assert sp.args["parent"] == "train.step"
+            assert step.start <= sp.start <= sp.end <= step.end
+    chunks = [sp for sp in spans if sp.name == "train.chunk"]
+    assert [sp.args["start"] for sp in chunks] == [0, 4]
+    for step in steps:
+        chunk = chunks[step.args["step"] // 4]
+        assert chunk.start <= step.start <= step.end <= chunk.end
+
+
+def test_disabled_tracer_adds_nothing_to_the_train_step(monkeypatch):
+    """With the process tracer disabled the training engine never reaches
+    the tracer and creates no CUDA event."""
+    assert not ttrace.TRACER.enabled
+
+    def boom(*a, **k):
+        raise AssertionError("the tracer was reached while disabled")
+    for name in ("add_event", "add_interval", "device_event", "scope",
+                 "span", "phase"):
+        monkeypatch.setattr(ttrace.TRACER, name, boom)
+    monkeypatch.setattr(torch.cuda, "Event", boom)
+    eng = _toy_train("torch", steps=6, chunk=4)
+    assert eng.obs.snapshot()["counters"]["train.steps"] == 6
+    assert ttrace.TRACER.events() == []
