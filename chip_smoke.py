@@ -140,6 +140,11 @@ JSON line:
            by max error over the gradient's max abs value, with its atomic
            adds (B x L x 2^d x F) and one index_add_ of the precomputed
            rows as the PyTorch yardstick
+     head  nerf's colour head at a 720p tile's rows (460,800 rays x 32
+           samples, the benchmark's nerf_hash.frames_720p): the one-launch
+           head (mlp_fwd_head) against the op-by-op head on the card to
+           1e-6, and the device time of each beside the head's counted
+           bound, with mlp_fwd alone on the (B, 32) colour input
   unfused  the unfused route, encode_fwd then mlp_fwd, for nerf's f32, int8
            and fp8 tables and gia's f32 and int8 ones, against the fused
            kernel (the paper's fused-vs-unfused comparison), with both
@@ -1606,6 +1611,75 @@ def lm_launcher(argv):
     recs = [json.loads(l) for l in out.stdout.splitlines()
             if l.startswith("{")]
     return out.returncode, recs, out.stderr, time.perf_counter() - t0
+
+
+HEAD_RAYS = 460_800    # a 1280x720 frame's tile in nerf_hash.frames_720p
+HEAD_TOL = 1e-6        # one-launch head vs op-by-op head: the same f32 ops
+
+
+def head_phase(dev, gpu):
+    """Nerf's colour head at a 720p tile's rows (``HEAD_RAYS`` rays x
+    ``N_SAMPLES``; each ray's direction repeated over its samples, as the
+    tile repeats it): ``mlp_ops.nerf_head`` (``mlp_fwd_head``, one launch,
+    counted once as ``mlp_fwd``) against ``mlp_ops.plain_head`` (exp, the
+    SH, the colour input's cat, ``mlp_fwd``, sigmoid, cat) to HEAD_TOL; the
+    device time of each, the head's counted bound, and ``mlp_fwd`` alone on
+    the (B, 32) colour input with its own bound. Random f32 inputs: the
+    density features N(0, 1), the weights N(0, 1/fan_in)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import fields
+    from repro_torch.core.encoding import sh_encode
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels.fused_mlp import ops as mlp_ops
+    from repro_torch.launch.roofline import H100_SXM, kernel_ops_s
+    cfg = fields.make_field_config("nerf", "hash").mlp
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = HEAD_RAYS * N_SAMPLES
+    dfeat = torch.randn((n, 16), generator=gen, device=dev)
+    d = torch.randn((HEAD_RAYS, 3), generator=gen, device=dev)
+    dirs = torch.repeat_interleave(d / d.norm(dim=-1, keepdim=True),
+                                   N_SAMPLES, dim=0)
+    w = {k: torch.randn(s, generator=gen, device=dev) / float(np.sqrt(s[-2]))
+         for k, s in fields._mlp_shapes(cfg).items()}
+    before = K.launch_counts()
+    got = mlp_ops.nerf_head(dfeat, dirs, w, cfg)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    if {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+            != {"mlp_fwd": 1, "mlp_fwd_head": 1}:
+        fail(f"head: launches {before} -> {after}, want one mlp_fwd_head "
+             "counted once as mlp_fwd")
+    want = mlp_ops.plain_head(dfeat, dirs, w, cfg)
+    err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or err > HEAD_TOL:
+        fail(f"head: max abs error {err} against the op-by-op head "
+             f"(tol {HEAD_TOL})")
+    del got, want
+
+    def bound(work):
+        t_bytes = work["bytes"] / H100_SXM["hbm_bw"] * 1e3
+        t_ops = kernel_ops_s(work) * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+    wbytes = kcost.tensor_bytes(w.values())
+    work = kcost.mlp_fwd_head(n, cfg, wbytes)
+    bound_ms, bound_by = bound(work)
+    ms = device_ms(lambda: mlp_ops.nerf_head(dfeat, dirs, w, cfg), reps=10)
+    plain_ms = device_ms(lambda: mlp_ops.plain_head(dfeat, dirs, w, cfg),
+                         reps=3)
+    color_in = torch.cat([sh_encode(dirs), dfeat], -1)
+    mlp_ms = device_ms(lambda: mlp_ops.mlp(w, color_in, cfg), reps=10)
+    mlp_bound_ms = bound(kcost.mlp_fwd(n, cfg, wbytes))[0]
+    del color_in, dfeat, dirs
+    torch.cuda.empty_cache()
+    return {"phase": "head", "rows": n, "max_abs_err": err, "tol": HEAD_TOL,
+            "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "roofline_pct": 100 * bound_ms / ms, "plain_ms": plain_ms,
+            "mlp_fwd_ms": mlp_ms, "mlp_fwd_bound_ms": mlp_bound_ms,
+            "bytes": work["bytes"], "flops": work["flops"],
+            "mlp_flops": work["mlp_flops"], **gpu}
 
 
 def lm_phase(dev, gpu):
@@ -3173,6 +3247,10 @@ def dryrun_phase(dev, gpu):
         got = {k: n for k, n in K.launch_counts().items() if n}
         for k, n in got.items():
             launches[k] += n
+        # the record counts kernels: an entry point that launches another's
+        # kernel (nerf's colour head, mlp_fwd_head) is counted as that one
+        got = {k: n for k, n in got.items()
+               if K.kernels()[k].counts_as is None}
         want = {k: w["launches"] for k, w in rec["kernels"].items()}
         ms = device_ms(lambda: render(fp, ids), reps=5)
         apps[app] = {"launches": got, "record_launches": want,
@@ -3615,6 +3693,7 @@ def main():
           "table_rows_touched": {app: t[2] for app, t in tiles.items()},
           "results": {n if v is None else f"{n}[{v}]": r
                       for (n, v), r in results.items()}, **gpu})
+    emit(head_phase(dev, gpu))
 
     # ---------------------------------------------------------- unfused
     # The unfused route: encode_fwd writes the (B, L*F) features to device

@@ -14,6 +14,13 @@ instead, the features going through device memory. A quantized scene
 (``repro_torch.quant``) carries its per-level table scales in a
 ``grid_scale`` leaf, which goes into the field kernel, and its MLP weights
 are dequantized on entry.
+
+NeRF's colour head (the SH encode, the colour MLP, sigmoid and sigma) is
+one launch of the MLP kernel (``fused_mlp/ops.nerf_head``) on the fused
+route wherever no gradient is needed: serving, and any render under
+``torch.no_grad()``. Training needs the head's autograd graph, and the
+unfused route is the paper's op-by-op GPU baseline, so both keep the head
+op by op around the differentiable MLP (``fused_mlp/ops.plain_head``).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from repro_torch.core import encoding as enc
 from repro_torch.core.encoding import GridConfig
 from repro_torch.core.mlp import MLPConfig, init_mlp
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.common import needs_grad
 from repro_torch.kernels.fused_field import ops as ff_ops
 from repro_torch.kernels.fused_mlp import ops as mlp_ops
 from repro_torch.kernels.hashgrid import ops as hashgrid_ops
@@ -246,6 +254,14 @@ def apply_field(params: Dict, cfg: FieldConfig, points: torch.Tensor,
     nvr do after the field call (activations; nerf's colour input, colour
     MLP and output) is the ``head`` phase.
 
+    Nerf's head is one kernel launch (``mlp_ops.nerf_head``: the SH, the
+    colour MLP, sigmoid and sigma, with no colour input in device memory)
+    when the route is fused and no gradient is needed (grad mode off, or
+    none of the density output, ``dirs`` and the colour weights requires
+    one). Otherwise it runs op by op (``mlp_ops.plain_head``): training
+    backpropagates through it, and the unfused route stays the op-by-op
+    baseline. Both launch the MLP kernel once a head, under ``mlp``.
+
     Returns: nerf/nvr -> (B, 4) [rgb, sigma]; gia -> (B, 3); nsdf -> (B, 1).
     """
     tscale = params.get("grid_scale")
@@ -261,11 +277,10 @@ def apply_field(params: Dict, cfg: FieldConfig, points: torch.Tensor,
     if cfg.app == "nerf":
         dfeat = grid_mlp(params["density_mlp"], cfg.density_mlp)
         with annotate("head"):
-            sigma = torch.exp(dfeat[:, :1])    # instant-NGP exp activation
-            color_in = torch.cat([enc.sh_encode(dirs), dfeat], dim=-1)
-            rgb = torch.sigmoid(mlp_ops.mlp(maybe_dequant_mlp(params["mlp"]),
-                                            color_in, cfg.mlp))
-            return torch.cat([rgb, sigma], dim=-1)
+            colour = maybe_dequant_mlp(params["mlp"])
+            if fused and not needs_grad(dfeat, dirs, *colour.values()):
+                return mlp_ops.nerf_head(dfeat, dirs, colour, cfg.mlp)
+            return mlp_ops.plain_head(dfeat, dirs, colour, cfg.mlp)
 
     out = grid_mlp(params["mlp"], cfg.mlp)
     if cfg.app == "gia":

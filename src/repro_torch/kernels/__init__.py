@@ -9,15 +9,17 @@ from typing import Dict
 
 
 def kernels() -> Dict:
-    """name -> :class:`~repro_torch.kernels.build.CudaKernel`, every kernel
-    of the library."""
+    """name -> :class:`~repro_torch.kernels.build.CudaKernel`, every entry
+    point of the library. ``mlp_fwd_head`` launches an instantiation of
+    ``mlp_fwd``'s kernel, so its launches count under both names."""
     from repro_torch.kernels.fused_field.fused_field import (FIELD_FWD,
                                                              FIELD_FWD_Q)
-    from repro_torch.kernels.fused_mlp.fused_mlp import MLP_FWD
+    from repro_torch.kernels.fused_mlp.fused_mlp import MLP_FWD, MLP_FWD_HEAD
     from repro_torch.kernels.hashgrid.hashgrid import ENCODE_BWD, ENCODE_FWD
     from repro_torch.kernels.ray_march.ray_march import COMPOSITE_FWD
     return {k.symbol: k for k in (FIELD_FWD, FIELD_FWD_Q, ENCODE_FWD,
-                                  ENCODE_BWD, MLP_FWD, COMPOSITE_FWD)}
+                                  ENCODE_BWD, MLP_FWD, MLP_FWD_HEAD,
+                                  COMPOSITE_FWD)}
 
 
 def launch_counts() -> Dict[str, int]:

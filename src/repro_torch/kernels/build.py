@@ -116,12 +116,16 @@ class CudaKernel:
     """One C entry point of the kernel library, with its launch count.
 
     ``launches`` counts successful launches; it is the evidence that a run
-    went through this kernel, and it is raised nowhere else."""
+    went through this kernel, and it is raised nowhere else. An entry point
+    that launches an instantiation of another entry point's kernel names
+    that one as ``counts_as``: each of its launches counts there too."""
 
-    def __init__(self, symbol: str, argtypes: Sequence):
+    def __init__(self, symbol: str, argtypes: Sequence,
+                 counts_as: Optional["CudaKernel"] = None):
         self.symbol = symbol
         # the device index and the stream come last
         self.argtypes = list(argtypes) + [INT, PTR]
+        self.counts_as = counts_as
         self.launches = 0
         self._fn = None
 
@@ -137,3 +141,5 @@ class CudaKernel:
             msg = load_library().repro_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+        if self.counts_as is not None:
+            self.counts_as.launches += 1

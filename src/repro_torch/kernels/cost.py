@@ -103,6 +103,21 @@ def mlp_fwd(n_rows: int, m: MLPConfig, weight_bytes: int) -> Dict[str, int]:
                 mlp=n_rows * mlp_flops(m))
 
 
+# f32 operations a row of nerf's colour head adds to its MLP: the degree-4
+# SH (csrc/mlp.cu sh_columns) 38, each sigmoid's negate, exp, add and
+# divide 12, sigma's exp 1
+HEAD_F32_OPS = 51
+
+
+def mlp_fwd_head(n_rows: int, m: MLPConfig, weight_bytes: int
+                 ) -> Dict[str, int]:
+    """``mlp_fwd_head``, nerf's colour head in one launch: the density
+    features (B, 16) and directions (B, 3) in, the (B, 4) [rgb, sigma] out,
+    the weights once; the MLP's products and the head's f32 operations."""
+    return work(n_rows * (16 + 3 + 4) * F32 + weight_bytes,
+                n_rows * HEAD_F32_OPS, mlp=n_rows * mlp_flops(m))
+
+
 def composite_fwd(n_rays: int, n_samples: int, dts_numel: int
                   ) -> Dict[str, int]:
     """``composite_fwd``: rgb + sigma a sample, the dts (one (1, S) row or

@@ -8,7 +8,10 @@ memory, and each warp carries 16 rows through every layer in registers
 with ``mma.sync`` TF32 products in the 3xTF32 split, which keeps f32
 accuracy. The source notes in ``csrc/mlp.cu`` and ``csrc/mlp.cuh`` say
 more. Weights are f32 or bf16 (converted exactly as they are staged, as
-the JAX kernel's ``astype(f32)``).
+the JAX kernel's ``astype(f32)``). :func:`nerf_head_cuda` launches the same
+kernel as NeRF's whole colour head (``mlp_fwd_head``): the SH in
+registers, the density features read as the MLP's other input columns, the
+sigmoid and sigma written as the (B, 4) output.
 
 :func:`mlp_plan` is the kernel's shared-memory plan; the wrapper raises on
 a width or a plan the kernel does not take.
@@ -25,6 +28,13 @@ from repro_torch.kernels.common import check_kernel_input
 
 MLP_FWD = CudaKernel("mlp_fwd", [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
                                  PTR, I64])
+# nerf's colour head: an instantiation of mlp_fwd's kernel (csrc/mlp.cu)
+MLP_FWD_HEAD = CudaKernel("mlp_fwd_head", [PTR, PTR, PTR, PTR, PTR, INT, INT,
+                                           INT, INT, INT, PTR, I64],
+                          counts_as=MLP_FWD)
+# the colour head's input: the SH of the direction, then the density
+# MLP's features; its output: rgb, to which the head adds sigma
+HEAD_SH, HEAD_FEATURES, HEAD_RGB = 16, 16, 3
 # shared memory a block may use on Hopper (csrc/mlp.cuh kMaxSmemBytes)
 MAX_SMEM_BYTES = 232_448
 WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
@@ -112,4 +122,31 @@ def fused_mlp_cuda(x: torch.Tensor, w_in: torch.Tensor,
     MLP_FWD(x.device, x.data_ptr(), w_in.data_ptr(), w_hidden.data_ptr(),
             w_out.data_ptr(), int(w_in.dtype == torch.bfloat16), cfg.in_dim,
             cfg.hidden_dim, cfg.n_hidden, cfg.out_dim, out.data_ptr(), b)
+    return out
+
+
+def nerf_head_cuda(dfeat: torch.Tensor, dirs: torch.Tensor,
+                   w_in: torch.Tensor, w_hidden: Optional[torch.Tensor],
+                   w_out: torch.Tensor, cfg: MLPConfig) -> torch.Tensor:
+    """NeRF's colour head in one launch: dfeat (B, 16) f32, the density
+    MLP's output, and dirs (B, 3) f32 -> (B, 4) f32 [sigmoid(MLP([SH(dirs),
+    dfeat])), exp(dfeat[:, 0])], all on one CUDA device; ``cfg`` is the
+    colour MLP (32 -> 3), its weights f32 or bf16. dfeat must be 8-byte
+    aligned (its rows are read two floats at a time)."""
+    if (cfg.in_dim, cfg.out_dim) != (HEAD_SH + HEAD_FEATURES, HEAD_RGB):
+        raise ValueError(f"colour head {cfg}: the kernel takes a "
+                         f"{HEAD_SH + HEAD_FEATURES} -> {HEAD_RGB} MLP")
+    mlp_plan(cfg)
+    b = dfeat.shape[0]
+    check_kernel_input("dfeat", dfeat, (b, HEAD_FEATURES))
+    check_kernel_input("dirs", dirs, (b, 3))
+    if dfeat.data_ptr() % 8:
+        raise ValueError("dfeat: its rows must be 8-byte aligned")
+    w_hidden = check_weights(w_in, w_hidden, w_out, cfg)
+    out = torch.empty((b, HEAD_RGB + 1), dtype=torch.float32,
+                      device=dfeat.device)
+    MLP_FWD_HEAD(dfeat.device, dfeat.data_ptr(), dirs.data_ptr(),
+                 w_in.data_ptr(), w_hidden.data_ptr(), w_out.data_ptr(),
+                 int(w_in.dtype == torch.bfloat16), cfg.in_dim,
+                 cfg.hidden_dim, cfg.n_hidden, cfg.out_dim, out.data_ptr(), b)
     return out

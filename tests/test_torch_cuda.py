@@ -36,6 +36,7 @@ from repro_torch.kernels.hashgrid.ref import encode_ref
 from repro_torch.kernels.ray_march import ops as rm_ops
 from repro_torch.kernels.ray_march import ray_march as rm_ray_march
 from repro_torch.quant import QuantSpec, quantize_field
+from repro_torch.quant.api import maybe_dequant_mlp
 from repro_torch.quant.calibrate import table_scales
 from repro_torch.quant.qtypes import quantize
 from repro_torch.serve import RenderEngine
@@ -208,6 +209,128 @@ def test_mlp_kernel_bf16_weights_match_plain(dev, in_dim, n_hidden, out_dim):
     torch.testing.assert_close(got, apply_mlp(w, x, m), atol=TOL, rtol=TOL)
 
 
+# nerf's colour head on the card against the op-by-op head that runs the
+# same mlp_fwd kernel: the SH in the same f32 operations, the same products,
+# IEEE expf in both sigmoids and in sigma, so they agree to f32 rounding
+HEAD_TOL = 1e-6
+_HEAD_DIFF = {}
+
+
+def _head_inputs(n, seed, dev, weights):
+    """dfeat (n, 16) with a row of large sigma, unit directions (n, 3) with
+    the axes among them, and the colour weights: f32, bf16, or an int8
+    scene's dequantized colour MLP."""
+    rng = np.random.default_rng(seed)
+    dfeat = rng.normal(size=(n, 16)).astype(np.float32)
+    dfeat[:1, 0] = 8.0
+    d = rng.normal(size=(n, 3))
+    d[:3] = np.eye(3)[:n]
+    dirs = d / np.linalg.norm(d, axis=1, keepdims=True)
+    cfg = fields.make_field_config("nerf", "hash").mlp
+    if weights == "int8":
+        spec = QuantSpec(table_qtype=None, mlp_qtype="int8")
+        w = {"mlp": _mlp_params(cfg, seed + 1, dev)}
+        w = maybe_dequant_mlp(quantize_field(w, spec)["mlp"])
+    else:
+        w = _mlp_params(cfg, seed + 1, dev, {"f32": torch.float32,
+                                             "bf16": torch.bfloat16}[weights])
+    return (torch.from_numpy(dfeat).to(dev),
+            torch.from_numpy(dirs.astype(np.float32)).to(dev), w, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4099, 131073])
+def test_nerf_head_kernel_matches_plain_head(dev, n, weights):
+    """``mlp_fwd_head`` (one launch, counted once as ``mlp_fwd``) against
+    the op-by-op head on the card to HEAD_TOL absolute, and against the
+    CPU's plain head to TOL; rows around the 16-row warp tiles and past
+    one round of the persistent grid."""
+    dfeat, dirs, w, cfg = _head_inputs(n, n, dev, weights)
+    before = tkernels.launch_counts()
+    got = mlp_ops.nerf_head(dfeat, dirs, w, cfg)
+    torch.cuda.synchronize()
+    after = tkernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k in ("mlp_fwd", "mlp_fwd_head")) for k in after}
+    want = mlp_ops.plain_head(dfeat, dirs, w, cfg)
+    diff = float((got - want).abs().max())
+    _HEAD_DIFF[n, weights] = diff
+    print(f"nerf_head rows {n} {weights} weights: largest difference from "
+          f"the plain head on the card {diff:.3g} (largest so far "
+          f"{max(_HEAD_DIFF.values()):.3g})")
+    torch.testing.assert_close(got, want, atol=HEAD_TOL, rtol=0)
+    cpu = mlp_ops.nerf_head(dfeat.cpu(), dirs.cpu(),
+                            {k: t.cpu() for k, t in w.items()}, cfg)
+    torch.testing.assert_close(got.cpu(), cpu, atol=TOL, rtol=TOL)
+
+
+def _nerf_field_inputs(dev, n=5000):
+    cfg = _small_field("nerf")
+    params = fields.to_device(_u11_params(cfg, 8), dev)
+    rng = np.random.default_rng(9)
+    pts = torch.from_numpy(rng.random((n, 3), dtype=np.float32)).to(dev)
+    d = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    return cfg, params, pts, (d / d.norm(dim=-1, keepdim=True)).to(dev)
+
+
+@pytest.mark.cuda
+def test_fused_nerf_field_without_grad_takes_the_head_kernel(dev):
+    """A fused nerf ``apply_field`` under ``torch.no_grad()``: ``field_fwd``
+    once, then the colour head as one ``mlp_fwd`` launch, which is the
+    ``mlp_fwd_head`` entry; the frame's field equals the op-by-op head's."""
+    cfg, params, pts, dirs = _nerf_field_inputs(dev)
+    tkernels.reset_launch_counts()
+    with torch.no_grad():
+        got = fields.apply_field(params, cfg, pts, dirs)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in tkernels.launch_counts().items() if n} == {
+        "field_fwd": 1, "mlp_fwd": 1, "mlp_fwd_head": 1}
+    dfeat = ff_ops.field(pts, params["grid"], params["density_mlp"],
+                         cfg.grid, cfg.density_mlp)
+    want = mlp_ops.plain_head(dfeat, dirs, params["mlp"], cfg.mlp)
+    torch.testing.assert_close(got, want, atol=HEAD_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs", ["mlp", "density_mlp"])
+def test_nerf_field_with_grad_keeps_the_plain_head(dev, needs):
+    """Weights that require a gradient keep the op-by-op head (its autograd
+    graph and ``mlp_fwd``'s VJP): ``mlp_fwd_head`` does not move, and the
+    gradients are those of the op-by-op head."""
+    cfg, params, pts, dirs = _nerf_field_inputs(dev)
+    for t in params[needs].values():
+        t.requires_grad_(True)
+    tkernels.reset_launch_counts()
+    out = fields.apply_field(params, cfg, pts, dirs)
+    torch.cuda.synchronize()
+    counts = tkernels.launch_counts()
+    assert counts["mlp_fwd_head"] == 0 and counts["mlp_fwd"] == 1
+    leaves = list(params[needs].values())
+    got = torch.autograd.grad(out.square().sum(), leaves)
+    dfeat = ff_ops.field(pts, params["grid"], params["density_mlp"],
+                         cfg.grid, cfg.density_mlp)
+    want_out = mlp_ops.plain_head(dfeat, dirs, params["mlp"], cfg.mlp)
+    want = torch.autograd.grad(want_out.square().sum(), leaves)
+    torch.testing.assert_close(out, want_out, atol=0, rtol=0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_mode", [False, True])
+def test_unfused_nerf_field_never_takes_the_head_kernel(dev, grad_mode):
+    """``fused=False`` stays the op-by-op baseline: ``encode_fwd`` and two
+    ``mlp_fwd`` launches (density, colour), never ``mlp_fwd_head``."""
+    cfg, params, pts, dirs = _nerf_field_inputs(dev)
+    tkernels.reset_launch_counts()
+    with torch.set_grad_enabled(grad_mode):
+        fields.apply_field(params, cfg, pts, dirs, fused=False)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in tkernels.launch_counts().items() if n} == {
+        "encode_fwd": 1, "mlp_fwd": 2}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,n_features,hidden,n_hidden,out_dim,w_dtype", [
     (1, 2, 64, 3, 16, torch.bfloat16), (129, 2, 64, 3, 16, torch.float32),
@@ -364,9 +487,11 @@ def test_engine_on_card_matches_cpu_render_frame(dev, app):
     tkernels.reset_launch_counts()
     got = engine.render_frame("a", cam)
     launched = {k for k, n in tkernels.launch_counts().items() if n > 0}
-    # nvr has no colour MLP; nerf runs all three kernels
+    # nvr has no colour MLP; nerf runs all three kernels, its colour head
+    # as the mlp_fwd_head entry of mlp_fwd
     assert launched == ({"field_fwd", "composite_fwd"}
-                        | ({"mlp_fwd"} if app == "nerf" else set()))
+                        | ({"mlp_fwd", "mlp_fwd_head"} if app == "nerf"
+                           else set()))
     ref = pipeline.render_frame(params, cfg, cam, settings, device="cpu")
     np.testing.assert_allclose(got, ref.numpy(), atol=TOL)
 
