@@ -25,6 +25,12 @@ ARCH_MODULES = {
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
 }
 
+# archs of the port alone (no JAX twin): ``get_config`` and ``--arch``
+# resolve them, ``list_archs`` (the JAX package's ten) does not list them
+PORT_ARCH_MODULES = {
+    "granite-4.0-h-small": "repro_torch.configs.granite_4_0_h_small",
+}
+
 FIELD_APPS = ["nerf", "nsdf", "gia", "nvr"]
 FIELD_ENCODINGS = ["hash", "dense", "tiled"]
 
@@ -33,13 +39,21 @@ def list_archs():
     return list(ARCH_MODULES)
 
 
+def _module(arch: str):
+    if arch in PORT_ARCH_MODULES:
+        return importlib.import_module(PORT_ARCH_MODULES[arch])
+    return importlib.import_module(ARCH_MODULES[arch])
+
+
 def get_config(arch: str) -> ModelConfig:
-    mod = importlib.import_module(ARCH_MODULES[arch])
-    return mod.CONFIG
+    return _module(arch).CONFIG
 
 
 def reduced_config(arch: str) -> ModelConfig:
-    """Same family/feature set, laptop-scale: used by smoke tests."""
+    """Same family/feature set, laptop-scale: used by smoke tests. A port
+    arch gives its own (``REDUCED``)."""
+    if arch in PORT_ARCH_MODULES:
+        return _module(arch).REDUCED
     cfg = get_config(arch)
     changes = dict(
         n_layers=max(2, (cfg.attn_every or 1)

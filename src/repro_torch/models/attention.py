@@ -13,7 +13,8 @@ heads attend identically, so on one device the port skips it (the
 outputs are equal: ``tests/test_torch_lm_layers.py``).
 
 Scores are f32 (the act-dtype operands widened, as the JAX einsum's f32
-result), scaled by 1/sqrt(hd), masked with ``NEG_INF = -1e30`` (a finite
+result), scaled by 1/sqrt(hd) (a port arch's ``attention_multiplier``
+in its place: granite's 1/128), masked with ``NEG_INF = -1e30`` (a finite
 number: a row with no visible key softmaxes to uniform, not NaN), and the
 probabilities are cast to the act dtype before the PV product.
 
@@ -146,8 +147,9 @@ def _project_qkv(params, cfg: ModelConfig, x, kv_x, positions,
     return q, k, v
 
 
-def _grouped_attend(q, k, v, mask, sharder=None):
-    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd), mask (1|B, Sq, Sk) bool."""
+def _grouped_attend(q, k, v, mask, sharder=None, scale=None):
+    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd), mask (1|B, Sq, Sk) bool;
+    ``scale`` the softmax scale (None: 1 / sqrt(hd))."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -159,7 +161,8 @@ def _grouped_attend(q, k, v, mask, sharder=None):
         .reshape(b, kv, g * sq, hd)
     kt = k.permute(0, 2, 3, 1)                           # (B, KV, hd, Sk)
     scores = torch.matmul(qg.float(), kt.float())        # f32 products
-    scores = scores.reshape(b, kv, g, sq, sk) / math.sqrt(hd)
+    scores = scores.reshape(b, kv, g, sq, sk)
+    scores = scores / math.sqrt(hd) if scale is None else scores * scale
     scores = torch.where(mask[:, None, None], scores,
                          torch.tensor(NEG_INF, dtype=scores.dtype,
                                       device=scores.device))
@@ -194,7 +197,7 @@ def q_chunk(cfg: ModelConfig, sq: int) -> Optional[int]:
 
 def _attend_block(q, k, v, qc: int, off: int, window: Optional[int],
                   causal: bool, slice_keys: bool,
-                  sharder=None) -> torch.Tensor:
+                  sharder=None, scale=None) -> torch.Tensor:
     """One query block of chunked attention: the block's ``qc`` queries
     from absolute position ``off`` against the keys they can see."""
     sk = k.shape[1]
@@ -211,7 +214,7 @@ def _attend_block(q, k, v, qc: int, off: int, window: Optional[int],
             (qc, sk), dtype=torch.bool, device=q.device)
         if window is not None:
             m = m & (kj > qi - window)
-    return _grouped_attend(q, k, v, m[None], sharder=sharder)
+    return _grouped_attend(q, k, v, m[None], sharder=sharder, scale=scale)
 
 
 def _attend_maybe_chunked(q, k, v, cfg: ModelConfig,
@@ -229,12 +232,14 @@ def _attend_maybe_chunked(q, k, v, cfg: ModelConfig,
     if qc is None:
         mask = causal_mask(sq, sk, window=window, causal=causal,
                            device=q.device)
-        return _grouped_attend(q, k, v, mask, sharder=sharder)
+        return _grouped_attend(q, k, v, mask, sharder=sharder,
+                               scale=cfg.attention_multiplier)
     slice_keys = window is not None and causal and sk > window + qc
     outs = [remat.checkpoint(
         functools.partial(_attend_block, qc=qc, off=i * qc + (sk - sq),
                           window=window, causal=causal,
-                          slice_keys=slice_keys, sharder=sharder),
+                          slice_keys=slice_keys, sharder=sharder,
+                          scale=cfg.attention_multiplier),
         q[:, i * qc:(i + 1) * qc], k, v) for i in range(sq // qc)]
     return torch.cat(outs, dim=1)
 
@@ -340,7 +345,7 @@ def decode_step_attn(params, cfg: ModelConfig, x, pos: int, cache,
     valid = _valid(cfg, cache["slot_pos"], pos)
     out = _grouped_attend(q, _take(cache["k"], kv_sel),
                           _take(cache["v"], kv_sel), valid[None, None, :],
-                          sharder=sharder)
+                          sharder=sharder, scale=cfg.attention_multiplier)
     return _out_proj(out, params["wo"], partial), cache
 
 

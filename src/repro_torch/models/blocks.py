@@ -27,6 +27,7 @@ from repro_torch.common.param import KeyGen
 from repro_torch.models import attention, layers, moe as moe_lib, \
     ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.trace import annotate
 from repro_torch.parallel import collectives as coll
 
 
@@ -63,29 +64,43 @@ def init_block(kg: KeyGen, cfg: ModelConfig, layer_idx: int,
     return p
 
 
+def residual(cfg: ModelConfig, x, y):
+    """``x`` plus a sub-layer's output ``y``, times a port arch's
+    ``residual_multiplier`` (granite: 0.22) when it has one."""
+    if cfg.residual_multiplier != 1.0:
+        y = y * cfg.residual_multiplier
+    return x + y
+
+
 def _ffn(params, cfg: ModelConfig, layer_idx: int, x, sharder=None):
-    """The block's FFN half: (x, aux)."""
+    """The block's FFN half: (x, aux). The expert layer (router, dispatch,
+    experts, combine, shared expert) is the ``moe`` phase."""
     ffn = cfg.ffn_kind(layer_idx)
     if ffn == "none":
         return x, {}
     h = layers.rmsnorm(params["norm2"], x, cfg.norm_eps)
     if ffn == "moe":
-        y, aux = moe_lib.apply_moe(params["moe"], cfg, h, sharder=sharder)
+        with annotate("moe"):
+            y, aux = moe_lib.apply_moe(params["moe"], cfg, h,
+                                       sharder=sharder)
     else:
         y, aux = layers.swiglu(params["mlp"], h, sharder=sharder), {}
-    return x + y, aux
+    return residual(cfg, x, y), aux
 
 
 def apply_block(params, cfg: ModelConfig, layer_idx: int, x, positions,
                 sharder=None) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence block. Returns (x, aux)."""
+    """Full-sequence block. Returns (x, aux). A Mamba-2 mixer is the
+    ``ssm`` phase."""
     h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if cfg.layer_kind(layer_idx) == "attn":
         mix = attention.attend_full(params["attn"], cfg, h, positions,
                                     sharder=sharder)
     else:
-        mix = ssm_lib.apply_ssm(params["ssm"], cfg, h, sharder=sharder)
-    x, aux = _ffn(params, cfg, layer_idx, x + mix, sharder=sharder)
+        with annotate("ssm"):
+            mix = ssm_lib.apply_ssm(params["ssm"], cfg, h, sharder=sharder)
+    x, aux = _ffn(params, cfg, layer_idx, residual(cfg, x, mix),
+                  sharder=sharder)
     if sharder is not None:
         x = sharder(x, "batch", "act_seq", "act_embed")
     return x, aux
@@ -115,11 +130,13 @@ def prefill_block(params, cfg: ModelConfig, layer_idx: int, x, positions,
         mix, cache = attention.prefill_into_cache(
             params["attn"], cfg, h, positions, cache, sharder=sharder)
     else:
-        mix, st = ssm_lib.apply_ssm(params["ssm"], cfg, h, sharder=sharder,
-                                    return_state=True)
+        with annotate("ssm"):
+            mix, st = ssm_lib.apply_ssm(params["ssm"], cfg, h,
+                                        sharder=sharder, return_state=True)
         cache["ssm_state"].copy_(st["ssm_state"])
         cache["conv_state"].copy_(st["conv_state"])
-    x, _ = _ffn(params, cfg, layer_idx, x + mix, sharder=sharder)
+    x, _ = _ffn(params, cfg, layer_idx, residual(cfg, x, mix),
+                sharder=sharder)
     return x, cache
 
 
@@ -131,11 +148,23 @@ def decode_block(params, cfg: ModelConfig, layer_idx: int, x, pos: int,
             params["attn"], cfg, h, pos, cache, sharder=sharder)
     else:
         mix, cache = ssm_lib.decode_step_ssm(params["ssm"], cfg, h, cache)
-    x, _ = _ffn(params, cfg, layer_idx, x + mix, sharder=sharder)
+    x, _ = _ffn(params, cfg, layer_idx, residual(cfg, x, mix),
+                sharder=sharder)
     return x, cache
 
 
 # ------------------------------------------------------ tensor parallelism
+def refuse_port_settings(cfg: ModelConfig) -> None:
+    """The tensor-parallel blocks compute the JAX twins' equations: a
+    config that moves a port-only setting (``PortModelConfig``) is
+    refused, not run without it."""
+    moved = cfg.port_settings()
+    if moved:
+        raise NotImplementedError(
+            f"{cfg.name}: the tensor-parallel path does not implement "
+            f"{', '.join(moved)}; train and serve it on one device")
+
+
 def mix_into(tp, xs, parts, partial: bool, sp: bool, biases=None):
     """The residual stream ``xs`` plus a mixer's or FFN's output: the
     group's sum of the f32 terms ``parts`` (``partial``; scattered along
@@ -197,6 +226,7 @@ def ffn_tp(tp, ps, cfg: ModelConfig, layer_idx: int, xs, sp: bool,
     first running rank). The router logits are gathered whole on every
     rank, so every rank forms the same load-balance term; its gradient
     reaches each rank's router columns through the gather's backward."""
+    refuse_port_settings(cfg)
     ffn = cfg.ffn_kind(layer_idx)
     if ffn == "none":
         return xs, {}
@@ -231,6 +261,7 @@ def prefill_block_tp(tp, ps, cfg: ModelConfig, layer_idx: int, xs,
     (``parallel/tp.cache_layout``: its chunk of the positions when
     ``kv_seq``, else its KV heads or all of them; its SSM heads), filled
     in place. Returns the new stream."""
+    refuse_port_settings(cfg)
     hs = whole_seq(tp, [layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
                         for p, x in zip(ps, xs)], sp)
     if cfg.layer_kind(layer_idx) == "attn" and kv_seq:
@@ -260,6 +291,7 @@ def apply_block_tp(tp, ps, cfg: ModelConfig, layer_idx: int, xs,
     cache (each rank's heads through ``attention.attend_full``, its SSM
     heads without states). Returns (the new stream, the first running
     rank's aux)."""
+    refuse_port_settings(cfg)
     hs = whole_seq(tp, [layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
                         for p, x in zip(ps, xs)], sp)
     if cfg.layer_kind(layer_idx) == "attn":
@@ -280,6 +312,7 @@ def decode_block_tp(tp, ps, cfg: ModelConfig, layer_idx: int, xs, pos: int,
     """:func:`decode_block` on the group: one token, the stream whole on
     every rank (a sequence of one does not split); ``kv_seq`` as in
     :func:`prefill_block_tp`."""
+    refuse_port_settings(cfg)
     hs = [layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
           for p, x in zip(ps, xs)]
     if cfg.layer_kind(layer_idx) == "attn" and kv_seq:

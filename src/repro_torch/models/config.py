@@ -8,7 +8,15 @@ only for that: ``scan_layers`` and ``unroll_chunks`` (the port loops over
 layer periods and SSD chunks in Python; there is no ``lax.scan`` to
 unroll). ``remat`` is live: the training backward recomputes each block
 as it says (``models/lm.py``). ``adtype`` and ``pdtype`` are
-``torch.dtype``s."""
+``torch.dtype``s.
+
+``PortModelConfig`` adds the settings of an arch the port runs and the
+JAX package has no twin of (granite-4.0-h-small): muP-style scalars, a
+softmax scale, a shared expert, dropless routing, the experts this device
+holds and the published Mamba-2 gated norm. ``ModelConfig`` carries each
+of them as a plain class attribute at its neutral value, not as a field,
+so every model reads ``cfg.<setting>`` and the ten JAX twins'
+``dataclasses.asdict`` stays the JAX one."""
 from __future__ import annotations
 
 import dataclasses
@@ -93,6 +101,17 @@ class ModelConfig:
     # one device and never repeats them (models/attention.py)
     attn_kv_pad_to: int = 16
 
+    # PortModelConfig's settings at their neutral values: class attributes,
+    # not fields (the module docstring)
+    embedding_multiplier = 1.0
+    residual_multiplier = 1.0
+    attention_multiplier = None
+    logits_scaling = 1.0
+    ssm_gate_before_norm = False
+    shared_expert_width = 0
+    moe_dropless = False
+    experts_held = None
+
     @property
     def head_dim_(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
@@ -124,8 +143,22 @@ class ModelConfig:
             return "moe"
         return "dense"
 
+    def port_settings(self) -> Tuple[str, ...]:
+        """The names of the ``PortModelConfig`` settings this config moves
+        off their neutral values (none for the JAX twins)."""
+        twin = {f.name for f in dataclasses.fields(ModelConfig)}
+        return tuple(f.name for f in dataclasses.fields(PortModelConfig)
+                     if f.name not in twin
+                     and getattr(self, f.name) != f.default)
+
+    def n_experts_held(self) -> int:
+        """The routed experts whose weights this device holds."""
+        return self.experts_held or self.moe.n_experts
+
     def param_count(self) -> int:
-        """Approximate total parameter count (embeddings included)."""
+        """Approximate total parameter count (embeddings included): the
+        held experts' weights, the router over every expert and the shared
+        expert."""
         d, hd = self.d_model, self.head_dim_
         n_q = self.n_heads * hd
         n_kv = self.n_kv_heads * hd
@@ -143,8 +176,9 @@ class ModelConfig:
             if fk == "dense":
                 total += 3 * d * self.d_ff
             elif fk == "moe":
-                total += self.moe.n_experts * 3 * d * self.moe.d_expert
+                total += self.n_experts_held() * 3 * d * self.moe.d_expert
                 total += d * self.moe.n_experts
+                total += 3 * d * self.shared_expert_width
             total += 2 * d                      # norms
         if self.is_encdec:                       # encoder side + cross-attn
             for _ in range(self.n_layers):
@@ -152,12 +186,39 @@ class ModelConfig:
         return int(total)
 
     def active_param_count(self) -> int:
-        """Params touched per token (MoE: top_k experts only)."""
+        """Params touched per token (MoE: top_k experts only; of a held
+        share, the top_k * held / n_experts picks a token makes on
+        average among the held experts)."""
         if self.moe is None:
             return self.param_count()
         total = self.param_count()
         moe_layers = sum(1 for l in range(self.n_layers)
                          if self.ffn_kind(l) == "moe")
-        inactive = (self.moe.n_experts - self.moe.top_k)
+        held, e, k = self.n_experts_held(), self.moe.n_experts, self.moe.top_k
+        inactive = held - k * held / e          # exact for whole counts
         total -= moe_layers * inactive * 3 * self.d_model * self.moe.d_expert
         return int(total)
+
+
+@dataclasses.dataclass(frozen=True)
+class PortModelConfig(ModelConfig):
+    """A ``ModelConfig`` with the port-only settings as fields (the module
+    docstring); each at its neutral value leaves the model a JAX twin's."""
+    # the embedding's output times this (granite's embedding_multiplier)
+    embedding_multiplier: float = 1.0
+    # each sub-layer's output times this before the residual add
+    residual_multiplier: float = 1.0
+    # the attention softmax's scale; None: 1 / sqrt(head_dim)
+    attention_multiplier: Optional[float] = None
+    # the logits divided by this (granite's logits_scaling)
+    logits_scaling: float = 1.0
+    # Mamba-2's published gated norm, rmsnorm(y * silu(z)); False: the JAX
+    # package's rmsnorm(y) * silu(z)
+    ssm_gate_before_norm: bool = False
+    # an always-on SwiGLU expert of this width added to the routed sum
+    shared_expert_width: int = 0
+    # route without capacity: every assignment runs (models/moe.py)
+    moe_dropless: bool = False
+    # the routed experts held here, the first ones of ``moe.n_experts``;
+    # None: all of them
+    experts_held: Optional[int] = None

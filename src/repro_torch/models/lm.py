@@ -81,12 +81,30 @@ def from_jax_params(np_tree, cfg: ModelConfig, device=None) -> Dict:
     return tree_from_numpy(np_tree, expected, resolve_device(device))
 
 
+def _embed(params, cfg: ModelConfig, tokens) -> torch.Tensor:
+    """The ids' embeddings, times a port arch's ``embedding_multiplier``
+    (granite: 12) when it has one."""
+    x = layers.embed(params["embedding"], tokens, cfg.adtype)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
+    return x
+
+
+def _logits(params, cfg: ModelConfig, x) -> torch.Tensor:
+    """The f32 logits of final states ``x``, over a port arch's
+    ``logits_scaling`` (granite: 16) when it has one."""
+    logits = layers.unembed(_unembed_table(params), x)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
+
+
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
     """Token ids or stubbed modality embeddings (audio frames / vision
     patches, per the assignment's frontend-stub rule)."""
     if "embeddings" in batch:
         return batch["embeddings"].to(cfg.adtype)
-    return layers.embed(params["embedding"], batch["tokens"], cfg.adtype)
+    return _embed(params, cfg, batch["tokens"])
 
 
 def _positions(cfg: ModelConfig, batch: Dict, b: int, s: int, device):
@@ -112,7 +130,7 @@ def forward(params, cfg: ModelConfig, batch: Dict, sharder=None
             ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence forward -> (logits (B, S, V), aux)."""
     x, aux = hidden_states(params, cfg, batch, sharder=sharder)
-    return layers.unembed(_unembed_table(params), x), aux
+    return _logits(params, cfg, x), aux
 
 
 def _layer_sharder(sharder, i: int, p: int):
@@ -122,7 +140,10 @@ def _layer_sharder(sharder, i: int, p: int):
 
 def hidden_states(params, cfg: ModelConfig, batch: Dict, sharder=None
                   ) -> Tuple[torch.Tensor, Dict]:
-    """Forward without the unembedding: (B, S, d) final-norm states."""
+    """Forward without the unembedding: (B, S, d) final-norm states, and
+    the MoE's ``moe_aux_loss`` summed over the layers (with a dropless
+    MoE also ``moe_dropped``, summed, and ``moe_max_load``, the largest
+    of the layers')."""
     x = _embed_inputs(params, cfg, batch)
     b, s = x.shape[:2]
     positions = _positions(cfg, batch, b, s, x.device)
@@ -134,6 +155,7 @@ def hidden_states(params, cfg: ModelConfig, batch: Dict, sharder=None
     # as one unit would hold the whole period's intermediates in its
     # backward, as in the JAX package
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    out: Dict = {}
     for i in range(np_):
         for p in range(period):
             fn = remat.maybe_remat(functools.partial(
@@ -142,8 +164,14 @@ def hidden_states(params, cfg: ModelConfig, batch: Dict, sharder=None
             x, aux = fn(subs[p][i], x)
             if "moe_aux_loss" in aux:
                 aux_sum = aux_sum + aux["moe_aux_loss"]
+            if "moe_dropped" in aux:
+                out["moe_dropped"] = out.get("moe_dropped", 0) + \
+                    aux["moe_dropped"]
+                out["moe_max_load"] = torch.maximum(
+                    out.get("moe_max_load", aux["moe_max_load"]),
+                    aux["moe_max_load"])
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, {"moe_aux_loss": aux_sum}
+    return x, {"moe_aux_loss": aux_sum, **out}
 
 
 def _apply_block(cfg: ModelConfig, p: int, positions, sharder, sub_params,
@@ -152,9 +180,11 @@ def _apply_block(cfg: ModelConfig, p: int, positions, sharder, sub_params,
                               sharder=sharder)
 
 
-def _ce_chunk(table, xb, lb) -> torch.Tensor:
+def _ce_chunk(table, xb, lb, logits_scaling: float = 1.0) -> torch.Tensor:
     """The summed CE of one sequence chunk (its logits are transient)."""
     logits = layers.unembed({"table": table}, xb)
+    if logits_scaling != 1.0:
+        logits = logits / logits_scaling
     logz = torch.logsumexp(logits.float(), dim=-1)
     gold = torch.gather(logits, -1, lb[..., None].long())[..., 0].float()
     return torch.sum(logz - gold)
@@ -162,18 +192,21 @@ def _ce_chunk(table, xb, lb) -> torch.Tensor:
 
 def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
                           labels: torch.Tensor,
-                          seq_chunk: int = 512) -> torch.Tensor:
+                          seq_chunk: int = 512,
+                          logits_scaling: float = 1.0) -> torch.Tensor:
     """CE against a big vocab without materializing (B, S, V) logits: one
     sequence chunk's logits at a time, each chunk recomputed by the
     backward (saving them is the memory the chunking exists to avoid).
     The chunk is the largest divisor of S up to ``seq_chunk``, as in the
-    JAX function: a prime S runs one position a chunk."""
+    JAX function: a prime S runs one position a chunk. The logits are
+    divided by ``logits_scaling``."""
     b, s, d = x.shape
     c = next(cc for cc in range(min(seq_chunk, s), 0, -1) if s % cc == 0)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for j in range(0, s, c):
-        total = total + remat.checkpoint(_ce_chunk, table, x[:, j:j + c],
-                                         labels[:, j:j + c])
+        total = total + remat.checkpoint(
+            functools.partial(_ce_chunk, logits_scaling=logits_scaling),
+            table, x[:, j:j + c], labels[:, j:j + c])
     return total / (b * s)
 
 
@@ -187,7 +220,8 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, sharder=None
     else:
         labels = batch["tokens"][:, 1:]
         x = x[:, :-1]
-    ce = chunked_cross_entropy(x, _unembed_table(params)["table"], labels)
+    ce = chunked_cross_entropy(x, _unembed_table(params)["table"], labels,
+                               logits_scaling=cfg.logits_scaling)
     loss = ce + 0.01 * aux.get("moe_aux_loss", 0.0) / max(cfg.n_layers, 1)
     return loss, {"ce": ce, **aux}
 
@@ -226,8 +260,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict, cache: Dict,
                 positions, _index(cache[f"sub{p}"], i),
                 sharder=_layer_sharder(sharder, i, p))
     x = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    logits = layers.unembed(_unembed_table(params), x)[:, 0]
-    return logits, cache
+    return _logits(params, cfg, x)[:, 0], cache
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -236,7 +269,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     """One decode step. tokens (B, 1) int; ``pos`` the new token's position
     (a host int: the lockstep batch's). The cache is updated in place."""
     pos = int(pos)
-    x = layers.embed(params["embedding"], tokens, cfg.adtype)
+    x = _embed(params, cfg, tokens)
     period = blocks.block_period(cfg)
     for i in range(n_periods(cfg)):
         for p in range(period):
@@ -245,8 +278,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 _index(cache[f"sub{p}"], i),
                 sharder=_layer_sharder(sharder, i, p))
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = layers.unembed(_unembed_table(params), x)[:, 0]
-    return logits, cache
+    return _logits(params, cfg, x)[:, 0], cache
 
 
 # ------------------------------------------------------ tensor parallelism

@@ -14,6 +14,20 @@ back to the act dtype, as in the JAX function.
 ``torch.topk`` and ``jax.lax.top_k`` may order exactly tied router
 probabilities differently; random f32 weights make ties rare, and the
 tests check that their inputs have none.
+
+A port arch (granite, ``config.PortModelConfig``) may route without
+capacity (``moe_dropless``) and add a shared expert
+(``shared_expert_width``). The dropless dispatch (:func:`dropless_experts`)
+sorts the assignments to the held experts by expert and runs each SwiGLU
+product as one grouped product over the held experts
+(``torch._grouped_mm``, group ends from a cumsum of the experts' counts);
+the combine adds each assignment's output, weighted, into an f32 buffer
+of the tokens. The number of assignments the device holds sets the
+products' shapes, so it is read on the host: one read a layer. Held
+experts (``experts_held``: the first of ``n_experts``, as one device of
+an expert-parallel group holds them) take their picks; the others' picks
+are another device's part and are left out, as ``first_expert`` and
+``partial`` leave them out of a tensor-parallel position's term.
 """
 from __future__ import annotations
 
@@ -23,16 +37,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.param import Boxed, KeyGen, scaled_init
+from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig, MoEConfig
 
 
 def init_moe(kg: KeyGen, cfg: ModelConfig, lead: Tuple[int, ...] = ()
              ) -> Dict:
+    """The router over every expert, the held experts' weights and, with
+    ``shared_expert_width``, the shared expert's (``shared``)."""
     m = cfg.moe
-    d, e, h = cfg.d_model, m.n_experts, m.d_expert
+    d, h = cfg.d_model, m.d_expert
+    e = cfg.n_experts_held()
     dt = cfg.pdtype
-    return {
-        "router": Boxed(scaled_init(kg(), lead + (d, e), dtype=dt, fan_in=d),
+    p = {
+        "router": Boxed(scaled_init(kg(), lead + (d, m.n_experts), dtype=dt,
+                                    fan_in=d),
                         ("embed", "expert")),
         "w_gate": Boxed(scaled_init(kg(), lead + (e, d, h), dtype=dt,
                                     fan_in=d),
@@ -44,6 +63,10 @@ def init_moe(kg: KeyGen, cfg: ModelConfig, lead: Tuple[int, ...] = ()
                                     fan_in=h),
                         ("expert", "expert_mlp", "embed")),
     }
+    if cfg.shared_expert_width:
+        p["shared"] = layers.init_swiglu(kg, d, cfg.shared_expert_width, dt,
+                                         lead=lead)
+    return p
 
 
 def moe_group_size(m: MoEConfig, n_tokens: int) -> int:
@@ -99,6 +122,12 @@ def apply_moe(params, cfg: ModelConfig, x: torch.Tensor, sharder=None,
     probs = torch.softmax(logits, dim=-1)                    # (n, E)
     gate, expert_id = torch.topk(probs, k, dim=-1)           # (n, k)
     gate = gate / gate.sum(-1, keepdim=True)
+    if cfg.moe_dropless:
+        y, aux = dropless_experts(params, xt, gate, expert_id, first_expert)
+        if "shared" in params:
+            y = y + layers.swiglu(params["shared"], xt)
+        aux["moe_aux_loss"] = load_balance_loss(expert_id, probs, e)
+        return y.reshape(b, s, d), aux
 
     # dispatch: the slot of each (token, k) in its expert is its group's
     # running count over the flat (token, k) order; past capacity ->
@@ -153,10 +182,8 @@ def apply_moe(params, cfg: ModelConfig, x: torch.Tensor, sharder=None,
     y = y.float().sum(1) if partial else y.sum(1)
 
     counts = onehot.sum(0)
-    density = counts.float() / (n * k)
-    router_mean = probs.mean(dim=0)
     aux = {
-        "moe_aux_loss": e * torch.sum(density * router_mean),
+        "moe_aux_loss": load_balance_loss(expert_id, probs, e, counts),
         "moe_drop_frac": 1.0 - keep.float().mean(),
     }
     if rows is not None and first:
@@ -167,3 +194,48 @@ def apply_moe(params, cfg: ModelConfig, x: torch.Tensor, sharder=None,
             "counts": counts, "router_sum": probs.sum(0),
             "kept": keep.sum(), "tokens": n})
     return y.reshape(b, s, d), aux
+
+
+def load_balance_loss(expert_id, probs, e: int, counts=None
+                      ) -> torch.Tensor:
+    """``E sum_e density_e router_mean_e``: the picks' share of each expert
+    (``counts`` of them, no gradient) times its mean router probability."""
+    if counts is None:
+        counts = torch.bincount(expert_id.reshape(-1), minlength=e)
+    density = counts.float() / expert_id.numel()
+    return e * torch.sum(density * probs.mean(dim=0))
+
+
+def dropless_experts(params, xt, gate, expert_id, first_expert: int = 0
+                     ) -> Tuple[torch.Tensor, Dict]:
+    """The held experts' part of the routed sum, every assignment run
+    (the module docstring): ``xt`` (n, d), ``gate`` and ``expert_id`` (n,
+    k) the router's renormalised weights and picks. Returns ((n, d) in
+    ``xt``'s dtype, aux): ``moe_dropped`` the held assignments the grouped
+    products did not run (0 unless the dispatch lost some),
+    ``moe_max_load`` the most assignments one held expert ran."""
+    n, d = xt.shape
+    k = expert_id.shape[1]
+    dt = xt.dtype
+    e_local = params["w_gate"].shape[0]
+    local = expert_id.reshape(n * k) - first_expert
+    mine = (local >= 0) & (local < e_local)
+    # the held experts' assignments first, by expert, in (token, k) order
+    key = torch.where(mine, local, torch.full_like(local, e_local))
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=e_local + 1)[:e_local]
+    offs = torch.cumsum(counts, 0).to(torch.int32)     # each group's end
+    # the one host read a layer: the products' row count
+    rows = order[:int(offs[-1])]
+    tok = torch.div(rows, k, rounding_mode="floor")
+    xs = xt[tok]
+    g_ = torch._grouped_mm(xs, params["w_gate"].to(dt), offs=offs)
+    u_ = torch._grouped_mm(xs, params["w_up"].to(dt), offs=offs)
+    h_ = F.silu(g_.float()).to(dt) * u_
+    out = torch._grouped_mm(h_, params["w_down"].to(dt), offs=offs)
+    weighted = out * gate.reshape(n * k)[rows].to(dt)[:, None]
+    y = torch.zeros((n, d), dtype=torch.float32, device=xt.device)
+    y = y.index_add(0, tok, weighted.float())
+    aux = {"moe_dropped": mine.sum() - offs[-1].long(),
+           "moe_max_load": counts.max()}
+    return y.to(dt), aux

@@ -203,14 +203,21 @@ def ssm_inner(params, cfg: ModelConfig, x, sharder=None):
 
 def ssm_out(params, cfg: ModelConfig, y, z, sumsq=None,
             partial: bool = False):
-    """The gated RMSNorm (mamba2's norm_before_gate=False path) and the out
-    projection. A position's heads (``partial``) take the group's f32 sum
-    of squares over the whole d_inner (``sumsq``) and give their f32 term
-    of the out projection's sum."""
-    n = cfg.ssm.d_inner(cfg.d_model) if sumsq is not None else None
-    y = layers.rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps,
-                       sumsq=sumsq, n=n)
-    y = y * F.silu(z)
+    """The gated RMSNorm and the out projection. The JAX package's order
+    normalises, then gates; with ``cfg.ssm_gate_before_norm`` (granite,
+    and Mamba-2's published ``norm_before_gate=False``) the gate comes
+    first: ``rmsnorm(y * silu(z))``, over the whole d_inner (one group).
+    A position's heads (``partial``) take the group's f32 sum of squares
+    over the whole d_inner (``sumsq``) and give their f32 term of the out
+    projection's sum."""
+    if cfg.ssm_gate_before_norm:
+        y = layers.rmsnorm({"scale": params["norm_scale"]}, y * F.silu(z),
+                           cfg.norm_eps)
+    else:
+        n = cfg.ssm.d_inner(cfg.d_model) if sumsq is not None else None
+        y = layers.rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps,
+                           sumsq=sumsq, n=n)
+        y = y * F.silu(z)
     w = params["w_out"].to(y.dtype)
     return layers.matmul_f32(y, w) if partial else y @ w
 

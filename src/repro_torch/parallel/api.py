@@ -108,6 +108,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.mesh import axes_devices
 from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.trace import annotate
 from repro_torch.parallel import collectives as coll, sharded as sh, tp
 from repro_torch.parallel.sharded import Sharded
 from repro_torch.parallel.tp import RowCache
@@ -801,7 +802,10 @@ def build_train_step(cfg: ModelConfig, mesh=None,
     more than one device info holds the JAX step's ``state``
     (NamedShardings), ``batch`` (from ``example_batch``'s specs, or
     ``batch_shardings``) and ``state_specs``; on one device it is empty.
-    The metrics stay on the device (``lr`` is a host number)."""
+    The metrics stay on the device (``lr`` is a host number). While the
+    process tracer records them, the loss is the ``forward`` phase, its
+    gradients ``backward`` (``train/loop.value_and_grad``) and Adam
+    ``adam``, the names ``loop.make_scanned_step`` gives them."""
     tc = train_cfg or TrainConfig()
     info: Dict = {}
     if _sharded_mesh(mesh):
@@ -824,8 +828,9 @@ def build_train_step(cfg: ModelConfig, mesh=None,
         if tc.compression is not None:
             grads, new_state = compression_mod.apply_inline(
                 grads, new_state, tc)
-        new_params, new_opt, metrics = optim.adam_update(
-            grads, state["opt"], params, tc.optimizer)
+        with annotate("adam"):
+            new_params, new_opt, metrics = optim.adam_update(
+                grads, state["opt"], params, tc.optimizer)
         metrics["loss"] = loss
         metrics.update({k: v for k, v in aux.items()
                         if isinstance(v, torch.Tensor) and v.ndim == 0})
