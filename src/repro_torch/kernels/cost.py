@@ -19,7 +19,11 @@ written once:
   writes pixel and opacity (16 bytes a ray); 16 operations a sample;
 * the encode's backward reads points and cotangent and writes the whole
   table gradient at the table's dtype; per corner d weight multiplies, F
-  products and F atomic adds.
+  products and F atomic adds;
+* Mamba-2's intra-chunk SSD reads each chunk's activations, scalars and
+  C.B once and writes its outputs once; its products are bf16 on the
+  tensor cores (``bf16_flops``), the rest f32 (:func:`ssd_intra_fwd`,
+  :func:`ssd_intra_bwd`).
 
 Distinct table rows depend on the data. A caller that counted them
 (``chip_smoke.py`` on its tiles) passes them in; otherwise each level
@@ -35,6 +39,7 @@ from repro_torch.core.encoding import GridConfig
 from repro_torch.core.mlp import MLPConfig
 
 F32 = 4
+BF16 = 2
 
 
 def mlp_flops(m: MLPConfig) -> int:
@@ -135,6 +140,38 @@ def encode_bwd(n_points: int, cfg: GridConfig, table_numel: int,
     return work((n_points * cfg.dim + n_points * cfg.out_dim) * F32
                 + table_numel * table_itemsize,
                 corners * (cfg.dim + 2 * cfg.n_features))
+
+
+def ssd_pairs(q: int) -> int:
+    """(i, j) pairs with j <= i in a chunk of q positions."""
+    return q * (q + 1) // 2
+
+
+def ssd_intra_fwd(chunks: int, q: int, h: int, p: int, g: int
+                  ) -> Dict[str, int]:
+    """``ssd_intra_fwd`` over ``chunks`` (b * nc) chunks: x in and y out
+    (bf16), cums and dt (f32) a position and head, C.B's lower triangle
+    (bf16) once per group; per pair and head the decay's subtract, exp and
+    two multiplies on the CUDA cores (``flops``) and the product's 2 p on
+    the tensor cores in bf16 (``bf16_flops``)."""
+    pairs = chunks * h * ssd_pairs(q)
+    w = work(chunks * (q * h * (2 * p * BF16 + 2 * F32)
+                       + g * ssd_pairs(q) * BF16), 4 * pairs)
+    w["bf16_flops"] = 2 * p * pairs
+    return w
+
+
+def ssd_intra_bwd(chunks: int, q: int, h: int, p: int, g: int
+                  ) -> Dict[str, int]:
+    """``ssd_intra_bwd``: dy and x in, dx out (bf16), cums and dt in and
+    their gradients out (f32), C.B's lower triangle in and the whole dCB
+    out (bf16) once per group; per pair and head 12 f32 operations (the
+    decay, m and the four sums) and two products of 2 p (dM and dx)."""
+    pairs = chunks * h * ssd_pairs(q)
+    w = work(chunks * (q * h * (3 * p * BF16 + 4 * F32)
+                       + g * (ssd_pairs(q) + q * q) * BF16), 12 * pairs)
+    w["bf16_flops"] = 4 * p * pairs
+    return w
 
 
 def tensor_bytes(tensors) -> int:

@@ -3,19 +3,22 @@
 
 Prefill: chunked SSD, an intra-chunk quadratic term of products and an
 inter-chunk state recurrence, the latter a Python loop over chunks (the
-JAX ``lax.scan``) carrying the (B, H, P, N) state. Decode: the O(1)
-recurrent update, its state kept in the act dtype between steps.
+JAX ``lax.scan``) carrying the (B, H, P, N) state. The intra-chunk term is
+``kernels/ssd``: one CUDA kernel each way where the call fits them (bf16
+activations on the card), its plain version (``kernels/ssd/ref.py``)
+elsewhere. Decode: the O(1) recurrent update, its state kept in the act
+dtype between steps.
 
 The segment sums above the diagonal are not used, and their ``exp`` can
-overflow once training grows ``dt``: the port sets them to -inf before
-the ``exp``, which gives 0 there. The JAX function exponentiates, then
-selects with ``where``: the same forward values, but in its backward an
-overflowed ``exp`` times its zero cotangent is NaN (it turns mamba2-2.7b's
-full-width training to NaN within 10 steps on the H100); the port's
-gradient is JAX's wherever JAX's is finite. ``apply_ssm`` runs the largest chunk up to
-``cfg.ssm.chunk`` that divides the sequence, so a prime prompt length
-falls to chunk 1, a loop of one step per token: serve prompt lengths that
-divide by the chunk.
+overflow once training grows ``dt``: the kernels never take it, and the
+plain term sets them to -inf before the ``exp``, which gives 0 there. The
+JAX function exponentiates, then selects with ``where``: the same forward
+values, but in its backward an overflowed ``exp`` times its zero cotangent
+is NaN (it turns mamba2-2.7b's full-width training to NaN within 10 steps
+on the H100); the port's gradient is JAX's wherever JAX's is finite.
+``apply_ssm`` runs the largest chunk up to ``cfg.ssm.chunk`` that divides
+the sequence, so a prime prompt length falls to chunk 1, a loop of one
+step per token: serve prompt lengths that divide by the chunk.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.param import Boxed, KeyGen, normal_init, \
     scaled_init
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
@@ -132,17 +136,9 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, sharder=None):
     dA = dtc * A[None, None, None, :]                 # (b, nc, q, h) <= 0
     cums = torch.cumsum(dA, dim=2)                    # within-chunk cumsum
 
-    # --- intra-chunk (quadratic in chunk len) ---
-    # L[i,j] = exp(cums_i - cums_j) * dt_j  for j <= i
-    seg = cums[:, :, :, None, :] - cums[:, :, None, :, :]   # (b,nc,q,q,h)
-    qi = torch.arange(chunk, device=x.device)
-    causal = (qi[:, None] >= qi[None, :])[None, None, :, :, None]
-    L = torch.exp(torch.where(causal, seg, torch.tensor(
-        float("-inf"), dtype=seg.dtype, device=x.device))) \
-        * dtc[:, :, None, :, :]
+    # --- intra-chunk (quadratic in chunk len): kernels/ssd ---
     CB = torch.einsum("bcigm,bcjgm->bcijg", Cc, Bc)   # (b,nc,q,q,g)
-    CBh = torch.repeat_interleave(CB, rep, dim=-1)    # (b,nc,q,q,h)
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", (CBh * L).to(xd), xc)
+    y_intra = ssd_ops.ssd_intra(CB, cums, dtc, xc)
 
     # --- inter-chunk state recurrence ---
     decay_chunk = torch.exp(cums[:, :, -1]).to(xd)    # (b, nc, h)

@@ -1733,3 +1733,139 @@ def test_lm_sharded_recovery_on_the_card(dev, tmp_path):
         assert torch.equal(sharded.gather(a, dev), sharded.gather(b, dev))
     got, m = step_fn(got, {"tokens": toks[1]})
     assert got["opt"].step == 2 and torch.isfinite(m["loss"])
+
+
+# ------------------------------------------ Mamba-2's intra-chunk SSD
+def _ssd_leaves(dev, b, nc, q, h, p, g, seed, dt_scale=1.0):
+    """Leaves (CB, cums, dtc, xc) of the intra-chunk term on ``dev``, as
+    ``ssd_chunked`` makes them: C.B of bf16 C and B (d_state 16) as a bf16
+    einsum, dt = softplus(N(-1, 1)) * ``dt_scale``, A = -exp(U(0, log 16))
+    as Mamba-2 draws it, cums the within-chunk cumsum of dt A; x N(0, 1)
+    in bf16."""
+    rng = np.random.default_rng(seed)
+
+    def bf16(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev, torch.bfloat16)
+    C, B = bf16((b, nc, q, g, 16), 0.5), bf16((b, nc, q, g, 16), 0.5)
+    CB = torch.einsum("bcigm,bcjgm->bcijg", C, B)
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.normal(-1.0, 1.0, (b, nc, q, h)).astype(np.float32))) * dt_scale
+    A = -torch.exp(torch.from_numpy(
+        rng.uniform(0.0, np.log(16.0), h).astype(np.float32)))
+    cums = torch.cumsum(dt * A, dim=2)
+    return [t.to(dev).requires_grad_() for t in
+            (CB, cums, dt, bf16((b, nc, q, h, p)))]
+
+
+def _within_bf16_rounding(got, want):
+    """Within one bf16 step of each other (2^-7 of the value), beside the
+    f32 sums' other order (1e-4 of the largest value)."""
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, rtol=2.0 ** -7,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+# (b, nc, q, heads, head dim, groups): q in {16, 64, 256}, rep = heads /
+# groups in {1, 8}, head dim in {16, 32, 64} (every head dim the kernels
+# take); then granite-4.0-h-small's layer
+SSD_SHAPES = [(1, 2, q, 2 * rep, p, 2) for q in (16, 64, 256)
+              for rep in (1, 8) for p in (16, 32, 64)] + [
+                  (1, 2, 256, 128, 64, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_intra_fwd_matches_plain(dev, shape):
+    """``ssd_intra_fwd`` (one launch) against the plain term on the card:
+    y within one bf16 rounding (the same bf16 products m, summed in f32
+    in another order than cuBLAS's)."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_intra_ref
+    leaves = [t.detach() for t in _ssd_leaves(dev, *shape, seed=3)]
+    tkernels.reset_launch_counts()
+    got = ssd_ops.ssd_intra(*leaves)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts()["ssd_intra_fwd"] == 1
+    _within_bf16_rounding(got, ssd_intra_ref(*leaves))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_intra_bwd_matches_autograd(dev, shape):
+    """Every input's gradient from ``ssd_intra_bwd`` against plain
+    autograd of the plain term on the card, each within 1e-2 of its
+    largest value (autograd rounds dM to bf16 before its products, the
+    kernel keeps it in f32), and against the kernel's f32 twin
+    (``ref.ssd_intra_bwd_ref``) to f32 order (dCB and dx to one bf16
+    rounding); the same bits on a second run (no atomics)."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_intra_bwd_ref, ssd_intra_ref
+    leaves = _ssd_leaves(dev, *shape, seed=4)
+    dy = torch.randn(leaves[3].shape, generator=torch.Generator(
+        device=dev).manual_seed(4), device=dev).to(torch.bfloat16)
+    tkernels.reset_launch_counts()
+    runs = [torch.autograd.grad(ssd_ops.ssd_intra(*leaves), leaves, dy)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = tkernels.launch_counts()
+    assert (counts["ssd_intra_fwd"], counts["ssd_intra_bwd"]) == (2, 2)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    got = runs[0]
+    want = torch.autograd.grad(ssd_intra_ref(*leaves), leaves, dy)
+    twin = ssd_intra_bwd_ref(dy, *[t.detach() for t in leaves])
+    for name, g_, w, t in zip(("CB", "cums", "dt", "x"), got, want, twin):
+        scale = float(w.float().abs().max())
+        err = float((g_.float() - w.float()).abs().max())
+        assert torch.isfinite(g_).all() and err <= 1e-2 * scale, \
+            (name, err, scale)
+        if t.dtype == torch.float32:
+            torch.testing.assert_close(
+                g_, t, rtol=0, atol=1e-4 * float(t.abs().max()))
+        else:
+            _within_bf16_rounding(g_, t)
+
+
+@pytest.mark.cuda
+def test_ssd_overflowing_segments_give_no_nan_on_the_card(dev):
+    """dt large enough that exp(cums_i - cums_j) above the diagonal
+    overflows f32: the kernels never take it, so the forward and every
+    gradient stay finite, and the forward still matches the plain term."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_intra_ref
+    leaves = _ssd_leaves(dev, 1, 2, 64, 16, 64, 2, seed=5, dt_scale=50.0)
+    cums = leaves[1].detach()
+    assert float((cums[:, :, :1] - cums[:, :, -1:]).max()) > 89.0
+    y = ssd_ops.ssd_intra(*leaves)
+    grads = torch.autograd.grad(y, leaves, torch.ones_like(y))
+    assert torch.isfinite(y).all()
+    assert all(bool(torch.isfinite(g_).all()) for g_ in grads)
+    _within_bf16_rounding(y, ssd_intra_ref(*[t.detach() for t in leaves]))
+
+
+@pytest.mark.cuda
+def test_ssd_kernels_launch_in_a_granite_train_step(dev):
+    """A reduced granite-4.0-h-small train step in bf16 under full remat
+    (head dim 16, so the kernels take it): each of the nine Mamba-2 layers
+    launches ``ssd_intra_fwd`` twice (the forward and the recompute) and
+    ``ssd_intra_bwd`` once, and the step's loss is finite."""
+    from repro_torch.configs import registry
+    from repro_torch.parallel import api
+    cfg = registry.reduced_config("granite-4.0-h-small")
+    cfg = dataclasses.replace(cfg, act_dtype="bfloat16", remat="full",
+                              ssm=dataclasses.replace(cfg.ssm, head_dim=16))
+    mamba = sum(cfg.layer_kind(l) != "attn" for l in range(cfg.n_layers))
+    step, _ = api.build_train_step(cfg)
+    state = api.make_train_state(api.init_params(cfg, 0, device=dev))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 33))).to(dev)
+    tkernels.reset_launch_counts()
+    state, metrics = step(state, {"tokens": toks[:, :32],
+                                  "labels": toks[:, 1:]})
+    torch.cuda.synchronize()
+    counts = tkernels.launch_counts()
+    assert mamba == 9
+    assert (counts["ssd_intra_fwd"], counts["ssd_intra_bwd"]) == \
+        (2 * mamba, mamba)
+    assert torch.isfinite(metrics["loss"])

@@ -276,7 +276,8 @@ def test_build_raises_without_nvcc(monkeypatch):
 def test_kernel_registry_lists_the_slice():
     assert set(tkernels.kernels()) == {"field_fwd", "field_fwd_q",
                                        "encode_fwd", "encode_bwd", "mlp_fwd",
-                                       "mlp_fwd_head", "composite_fwd"}
+                                       "mlp_fwd_head", "composite_fwd",
+                                       "ssd_intra_fwd", "ssd_intra_bwd"}
     tkernels.reset_launch_counts()
     assert set(tkernels.launch_counts().values()) == {0}
 
