@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+"""The port's measurement on one NVIDIA GPU: its kernel library's build,
+the kernels' table and the LM stack's full-width phases.
 
-Drives the port's serving paths through ``RenderEngine`` and its training
-path through ``TrainEngine`` at Table-I width and depth, and holds every
-CUDA kernel on them against its plain PyTorch version: ``nerf_hash`` (L=16 levels of 2^19 x 2 f32 tables, density MLP
-32->64x3->16, colour MLP 32->64x4->3), ``gia_hash`` (2-D points, L=16
-levels of 2^24 x 2 tables, 2 GiB per scene in f32; MLP 32->64x4->3) and
-``nsdf_hash`` (L=16 levels of 2^19 x 2; MLP 32->64x4->1, sphere-traced).
-Weights and U(-1, 1) tables come from a numpy seed; the served nsdf scenes
-are ``scenes.baked_sdf_params`` (a sphere in level 0, random perturbation
-elsewhere), on which sphere tracing converges. Phases, each printing one
-JSON line:
+The port's checks on the card are ``tests/test_torch_cuda.py`` (every
+serving and training path, at small and at Table-I width); the benchmark
+(``ngbench/``) measures the served and trained workloads end to end. This
+script builds the library from ``src/repro_torch/csrc``, holds it to its
+static budget, times each CUDA kernel on the inputs of one Table-I tile
+(``nerf_hash``: L=16 levels of 2^19 x 2 f32 tables, density MLP
+32->64x3->16, colour MLP 32->64x4->3; ``gia_hash``: 2-D points, L=16
+levels of 2^24 x 2 tables, 2 GiB in f32, MLP 32->64x4->3; ``nsdf_hash``:
+L=16 levels of 2^19 x 2, MLP 32->64x4->1) against its plain PyTorch
+version and its counted bound, runs the LM phases, and drives the serving
+and training paths once for the kernels' launch counts. Weights and
+U(-1, 1) tables come from a numpy seed. Phases, each printing one JSON line:
 
   build    compile the kernel library from ``src/repro_torch/csrc`` (nvcc,
            sm_90a); ptxas' registers and spills per kernel, the tensor-core
@@ -99,6 +102,10 @@ JSON line:
            jamba-v0.1-52b's and qwen2-vl-72b's bf16 serving params) on
            80 GB devices; a reduced danube state saved on (4, 1) and
            recovered onto the (2, 1) plan bit for bit, one more step
+ lm_tp    tensor, expert and sequence-parallel serving and training on
+           the one card repeated as (1, 4) and (2, 2) ("data", "model")
+           meshes, against the unsharded path (plain PyTorch: no kernel of
+           the port may launch on it)
  dryrun   the dry run (``python -m repro_torch.launch.dryrun``), which
            counts steps on meta tensors on the CPU, held to this card:
            (a) ``--fields`` in a child: 12 records, each fitting with a
@@ -161,183 +168,24 @@ JSON line:
            counted bound, on one chunk and head and the plain route's, and
            its registers, shared memory and blocks per SM; these numbers
            are the two kernels' rows of the final ``kernels`` line
-  unfused  the unfused route, encode_fwd then mlp_fwd, for nerf's f32, int8
-           and fp8 tables and gia's f32 and int8 ones, against the fused
-           kernel (the paper's fused-vs-unfused comparison), with both
-           device times
-  serve    2 nerf scenes, warmup, 120 random-pixel requests over 2 scenes x
-           3 orbit cameras at 256x256, at most 2 in flight (a closed loop);
-           latency (p50, and p90: the highest percentile with 10 samples
-           beyond it), throughput, and the launch count of every kernel
-           during the stream (each must be > 0)
-  profile  device busy time, idle share (1 - busy / wall) and time by
-           kernel, each from one torch.profiler trace of one steady window
-           of 20 served requests; one window with CPU + CUDA activity, one
-           with CUDA activity alone
-  parity   a 32x32 frame from the engine on the card against the port's
-           render_frame on the CPU (plain versions), same params
-  unfused_serve  the two serve scenes through an engine on the unfused
-           route (``RenderSettings(fused=False)``), the same 120 requests:
-           encode_fwd once and mlp_fwd twice a request, field_fwd never;
-           p50 and Mpix/s beside the fused stream's; its 32x32 frame against
-           the fused engine's (TOL) and the CPU's (PARITY_TOL); then 8 steps
-           of ``train_field(fused=False)`` on nerf (the loss must fall) and
-           the first step's gradients against the fused route's
-           (TRAIN_PARITY_TOL)
-  trace    the serve engine with the process tracer off (no event) and on,
-           8 rounds of 20 requests each, in turns (off, on, on, off, ...):
-           on, each request's 4 serve.<phase> spans, its serve.tile device
-           interval and each phase it names as a host span and a device
-           interval, all with its req, and serve.backpressure at most once
-           a request past max_inflight; the median p50 with it on within
-           the off rounds' spread (or 20% of their median); the host cost
-           of one tracer event and of the tracer in the engine a request;
-           annotate's calls a request and their cost;
-           one torch.profiler window (CPU + CUDA) that must show the
-           encode_mlp, mlp, raymarch and composite ranges, with the device
-           time under each; a training run's engine snapshot, validated
-           against the checked-in schema, with train.steps, train.step_s,
-           health.step_s.host0 and health.silent_hosts
-  serve_shard  the serve phase's scenes and 120 requests through a
-           RenderEngine on a mesh of 4 pixel shards (4 cards where there
-           are 4, else the one card 4 times): field_fwd, mlp_fwd and
-           composite_fwd 4 times a request; p50, p90 and Mpix/s beside the
-           serve phase's; the 32x32 frame within 1e-6 of the unsharded
-           engine's and PARITY_TOL of the CPU render; the gather's device
-           time; one gia f32 Table-I scene on the mesh, each shard on the
-           stack's device reading the stack's own 2 GiB tables (the same
-           data_ptr), its frame within 1e-6 of the unsharded tile's
-  serve_occ  the two nerf scenes, each with the analytic volume's 64^3
-           occupancy grid, served culled at a quarter of the dense sample
-           count (``RenderSettings(occupancy=True, sample_budget=32768)``):
-           as serve, plus the live-sample share, dropped samples and the
-           dense stream's numbers beside them; field_fwd, mlp_fwd and
-           composite_fwd must launch
-  profile_occ  one CUDA-only window of 20 culled requests, and the culled
-           branch's own ops (mask, argsort compaction, gathers; the scatter
-           back) on one request's tile, timed alone with CUDA events
-  parity_occ  an all-occupied grid at the full budget: the culled frame
-           equals the dense frame bit for bit; the culled 32x32 frame
-           against render_frame on the CPU; the card's grid words equal the
-           CPU's built from the same densities
-  serve_shard_occ  serve_occ's culled scenes and requests on the 4-shard
-           mesh, 8,192 of the 32,768 samples a shard: the summed live share
-           and dropped samples beside serve_occ's, the shards' own rows of
-           the first requests; an all-occupied culled frame on the mesh
-           equal bit for bit to serve_shard's dense frame
-  serve_quant  scene 0 quantized on the card twice, QuantSpec("int8") and
-           QuantSpec("fp8_e4m3", mlp_qtype="int8"), and with its tables cast
-           to bf16, one bucket each; 120 requests alternating between them
-           as in serve; field_fwd_q must launch for the quantized buckets and
-           field_fwd exactly once per bf16 request
-  parity_quant  each of those scenes' 32x32 frame on the card against
-           render_frame on the CPU on the same params, and its distance to
-           the dense frame (finite, non-zero, under 0.2)
-  serve_gia  2 gia scenes in three buckets (f32, bf16 tables, int8 tables
-           quantized on the card), 120 requests of 4096 random pixels of a
-           4096x4096 image; as serve, plus the seconds to make the tables
-           and the device memory quantize_field takes on top of a 2 GiB
-           stack; field_fwd and field_fwd_q must launch
-  serve_nsdf  2 baked nsdf scenes, 3 orbit cameras at 256x256, 120
-           requests of 4096 pixels; field_fwd must launch exactly 55 times
-           per request (48 trace steps, the hit points, 6 for the normal)
-  profile_gia, profile_nsdf  one CUDA-only window of 20 requests each
-  parity_gia  each gia bucket's 32x32 frame against render_frame on the
-           CPU, and the bf16 and int8 frames' distance to the f32 frame
-           (finite, non-zero, under 0.2)
-  parity_nsdf  the nsdf frame against render_frame on the CPU, and its hit
-           fraction, which must be neither 0 nor 1
-  train    after the serving phases, with their engines and gia's 2 GiB
-           stacks freed: train_field on each Table-I app (TrainEngine,
-           chunks of 8 steps, 4096 points or rays x 32 samples a step, nerf
-           32 steps, the others 16; nerf's and nvr's targets composited
-           with 64 samples): the first and last loss (the last must be
-           lower), ms per step, device memory allocated before and at the
-           peak (the initial params, kept for train_parity, count), and
-           each kernel's launches per step: field_fwd, encode_fwd (the
-           backward's recomputed features), encode_bwd (the table
-           gradient) and, for nerf, mlp_fwd must launch every step,
-           composite_fwd never
-  profile_train  nerf's and gia's device busy time, idle share and time
-           by kernel over 4 more training steps, from one CUDA-only trace
-  train_parity  nerf's and gia's first training step's gradient of every
-           leaf (its params and batch), the kernel route against the plain
-           versions on the card (the wrappers swapped for them; no kernel
-           may launch): max error over the leaf's max abs value, which must
-           not be 0
-  serve_trained  the trained nerf scene and its initial params in one
-           RenderEngine: a 32x32 frame of each from the training camera
-           against the analytic volume's pixels (gt_render_rays, 64
-           samples); the trained frame's MSE must be the lower (an
-           all-black frame's is printed beside them)
-  train_runtime  nerf: the first step's loss and gradients with
-           grad_accum=2 against one pass (ACCUM_TOL), then 16 steps each
-           with grad_accum=2, top-k (5%) and int8 compression of the table
-           gradient (the loss must fall; kept + efb_new == g + efb_old on
-           the next step's gradient, exactly for top-k, COMP_TOL for int8),
-           then 32 steps with a 64^3 occupancy grid: its occupied share at
-           each refresh, and the last refresh against the plain versions'
-           recomputation on the same params and previous grid
-  resume   nerf: two uninterrupted 48-step runs (their loss difference is
-           the card's run-to-run noise); a run stopped at step 16 whose
-           checkpoint restores bit for bit, resumed to 48; a child process
-           SIGKILLed after its first commit (every step directory
-           committed, latest_step the last commit, a temporary directory
-           only for a save the kill cut short), resumed to 48; every
-           resumed loss
-           within max(4 x the noise, 1e-5 of the loss) of the first run's;
-           the checkpoint's bytes and the seconds each save blocked; then
-           gia's 6 GiB train state saved and restored once when the disk
-           has room for it
-  train_dp  nerf data-parallel over the mesh of the sharded phases (4
-           shards: 4 cards where there are 4, else the one card 4 times):
-           the first step's loss and gradients against the unsharded step
-           (TRAIN_PARITY_TOL), 16 steps of ``train_field(mesh=)`` whose
-           loss must fall, ms per step beside the unsharded run's, each
-           training kernel 4 times a step, peak memory
-  elastic  nerf on that mesh, saving every 8 steps: two uninterrupted
-           48-step runs (the noise); a run whose second host (shards 2
-           and 3) stops beating, so the health stack's FailurePolicy emits
-           a FailureEvent at the step-15 chunk end, which stops it;
-           ``remesh_plan(2, 4, 1)`` == (2, 1, 2); ``recover`` onto 2 shards
-           restores the step-15 state bit for bit; it goes on with
-           grad_accum=2 to step 48, every loss within the resume phase's
-           bound of the uninterrupted run's
-  launch   ``python -m repro_torch.launch.serve`` in a child process, four
-           times: at its defaults (gia, hash, 2^14 tables, 150 steps, 2
-           scenes, 8 requests), ``--app nerf --occupancy``,
-           ``--app nsdf --quant int8`` and ``--shard`` (its 1 x 1 local
-           mesh; it must serve as many requests as the defaults), each
-           with ``--trace-out`` and
-           ``--metrics-out``: exit code 0, every stdout line one JSON
-           object, ``served`` with 8 requests and finite p50 and Mpix/s, one
-           tile function per bucket, the snapshot valid against the schema,
-           the trace a valid Chrome trace whose serve.submit, dispatch,
-           block and slice events number what the histograms count; wall
-           seconds and p50 of each
-  launch_apps  ``serve_render`` in this process for each app and encoding
-           (12 runs) at Table-I width (``log2_table_size=None``), 2 scenes
-           of 16 training steps each, 8 requests: scene 0's first and last
-           loss (it must fall), p50, Mpix/s, and the launches of
-           field_fwd, encode_fwd and encode_bwd (> 0), mlp_fwd (> 0 for
-           nerf) and composite_fwd (> 0 for nerf and nvr)
-  examples  the twins of the JAX examples (``examples/torch/``), each in
-           a child at its defaults on the card: quickstart's and
-           train_nerf's PSNR within 1.0 dB of the JAX example's (measured
-           on the CPU by ``tools/jax_example_psnr.py``), serve_render's
-           ``served`` event (p50, Mpix/s); the kernels each twin runs must
-           launch (counts written by the child at exit)
 
-then the ``{"kernels": [...]}`` line (every kernel, launches from the path
-that runs it and per path, ``train`` among them, ``floor_ms``, the rows of other table types,
-apps and layouts under ``variants``), the card's name and power limit as
-nvidia-smi gives them, and ``{"ok": true, "device": {...}}`` last. Any
-failure exits non-zero before that line.
+    paths  one short drive of each field main path for the kernel rows'
+           launch counts, untimed and held to no reference: 4 nerf
+           requests at Table-I width through ``RenderEngine`` on an f32
+           scene (``serve``) and 4 on its int8 twin (``serve_quant``), then
+           one chunk of 8 nerf steps through ``train_field`` (``train``)
+
+then the ``{"kernels": [...]}`` line (every kernel; its launches on the
+path named in its row, ``serve``, ``serve_quant`` or ``train`` for the
+field kernels and ``lm_train`` for the SSD pair, each of which must have
+launched it, and its launches on every path under ``launches_by_path``;
+``floor_ms``; the rows of other table types, apps and layouts under
+``variants``), the card's name and power limit as nvidia-smi gives them,
+and ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero before that line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Needs one CUDA
 GPU and the CUDA toolkit (nvcc); imports nothing of JAX.
 """
-import collections
 import contextlib
 import dataclasses
 import io
@@ -358,13 +206,13 @@ SRC = os.path.join(ROOT, "src")
 # ``repro_torch.launch.roofline.H100_SXM``; the kernels' work, the bounds
 # read, is ``repro_torch.kernels.cost``.
 TOL = 1e-4          # kernel vs plain, f32: 3xTF32 products, another sum order
-PARITY_TOL = 1e-4   # engine on the card vs render_frame on the CPU
-QUANT_DENSE_MAX = 0.2   # quantized frame vs dense frame (tests/test_quant.py)
 TILE_PIXELS, N_SAMPLES, FRAME = 4096, 32, 256
+# the paths phase: requests a scene through RenderEngine, and one chunk of
+# nerf steps through train_field (rays a step, ground-truth samples a ray)
+PATH_REQUESTS = 4
+TRAIN_CHUNK, TRAIN_BATCH, GT_SAMPLES = 8, 4096, 64
 GIA_FRAME = 4096             # gia's image side: 16.7 Mpix
 NSDF_POINTS = 131_072        # nsdf's kernel row: one nerf tile's points
-N_REQUESTS = 120
-PROFILE_REQUESTS = 20
 SEED = 0
 # encode_bwd against its twin: both sum each table row's terms in f32, the
 # kernel with atomics in an order that changes from run to run, so f32
@@ -373,66 +221,12 @@ SEED = 0
 # sums that differ in their last bits, up to one bf16 ulp (2^-7 relative)
 GRAD_TOL = 1e-5
 GRAD_TOL_BF16 = 2.0 ** -7
-# one training step's gradients, kernels against plain versions on the
-# card: the kernels' 3xTF32 forward products (the exp and sigmoid heads
-# magnify them, as for TOL) feed the loss's cotangent, and every sum runs
-# in another order: max error over the leaf's max abs value
-TRAIN_PARITY_TOL = 1e-4
-TRAIN_STEPS = {"nerf": 32, "gia": 16, "nsdf": 16, "nvr": 16}
-TRAIN_BATCH = 4096           # points (gia, nsdf) or rays (nerf, nvr)
-TRAIN_CHUNK = 8
-GT_SAMPLES = 64
-PROFILE_STEPS = 4
-OCC_RES = 64                 # occupancy grid cells per side
-OCC_BUDGET = TILE_PIXELS * N_SAMPLES // 4   # culled field evaluations
-OCC_THRESHOLD = 0.01         # train_field's default occupancy threshold
-# the last occupancy refresh in training against the plain versions': the
-# densities within TOL of their size (exp of 3xTF32 products), and the
-# same bits but for cells within OCC_EPS of the threshold
-OCC_EPS = 1e-3
-RUNTIME_STEPS = 16           # steps of each compressed and accumulated run
-RUNTIME_OCC_STEPS = 32       # four chunks: a build and three refreshes
-TOPK_FRAC = 0.05
-# grad_accum=2 against one pass on the card: f32 sums and atomics in
-# another order; max error over the leaf's max abs value (and the loss's)
-ACCUM_TOL = 1e-5
-# int8's kept + efb_new against g + efb_old: one f32 rounding of acc - deq
-# and one of the sum, against the tensor's max abs value
-COMP_TOL = 1e-6
-RESUME_STEPS = 48            # the uninterrupted runs
-RESUME_STOP = 16             # the stopped run's steps
-KILL_EVERY = 16              # the killed child saves every 16 steps
-KILL_TIMEOUT_S = 300
-# a resumed run's loss against an uninterrupted one's: at most this many
-# times the largest difference between two uninterrupted runs (one draw
-# of the atomics' rounding against another's maximum), or this share of
-# the loss, whichever is larger
-RESUME_NOISE_FACTOR = 4.0
-RESUME_FLOOR = 1e-5
 # the grids of Table I besides the hash grid: dense (L=8, F=2) and tiled
 # (L=2, F=8); their MLPs take L*F = 16 inputs
 GRID_VARIANTS = ("dense", "tiled")
-UNFUSED_TRAIN_STEPS = 8      # train_field(fused=False) on nerf
-LAUNCH_REQUESTS = 8          # the launcher's default stream
-LAUNCH_APPS_STEPS = 16       # training steps per scene in launch_apps
-LAUNCH_TIMEOUT_S = 300
-TRACE_ROUNDS = 8             # rounds of the tracer off and on, in turns
-# the tracer on must keep p50 within the host's spread with it off: the
-# range of the off rounds' p50s, or this share of their median if larger
-TRACE_P50_SLACK = 0.2
 # the phases obs.trace.annotate names in torch.profiler traces
 PHASES = ("encode", "mlp", "encode_mlp", "raymarch", "compact", "composite",
           "host")
-SERVE_PHASES = ("submit", "dispatch", "block", "slice")
-# the sharded phases: the pixel or batch shards of their mesh; the sharded
-# frame against the unsharded one (the JAX engine test's bar: the same
-# kernels on each ray, point and row, whatever the tile's size)
-SHARDS = 4
-SHARD_TOL = 1e-6
-DP_STEPS = 16                # train_field(mesh=) on nerf
-ELASTIC_STEPS = 48           # the elastic phase's uninterrupted runs
-ELASTIC_SAVE = 8             # its checkpoints' interval
-ELASTIC_LOST = 15            # the chunk end where the lost host shows
 # the lm phase: the ten archs at reduced_config, card against CPU (f32,
 # the unembed widened to f32 on both: see lm_phase), B x S prompt tokens
 # and LM_DECODE teacher-forced decode steps
@@ -676,33 +470,6 @@ def device_work(ev):
             and ev.name not in PHASES)
 
 
-def phase_device_ms(prof):
-    """{phase: {ranges, device_ms, gpu_span_ms}} of one trace's
-    ``annotate`` ranges: ``ranges`` and ``device_ms`` (the device time of
-    the work the profiler links to them) count the outermost range of each
-    name (a composite range inside a composite range counts once);
-    ``gpu_span_ms`` is the union of the ranges' device-side mirrors, each
-    from its first kernel's start to its last kernel's end."""
-    import torch
-    out, spans = {}, {}
-    for ev in prof.events():
-        if ev.name not in PHASES:
-            continue
-        row = out.setdefault(ev.name, {"ranges": 0, "device_ms": 0.0})
-        if ev.device_type != torch.autograd.DeviceType.CPU:
-            spans.setdefault(ev.name, []).append(
-                (ev.time_range.start / 1e3, ev.time_range.end / 1e3))
-            continue
-        parent = ev.cpu_parent
-        if parent is not None and parent.name == ev.name:
-            continue
-        row["ranges"] += 1
-        row["device_ms"] += ev.device_time_total / 1e3
-    for name, row in out.items():
-        row["gpu_span_ms"] = union_ms(spans.get(name, []))
-    return out
-
-
 def trace_device(run, acts, n, unit, top=10):
     """Device busy time, idle share, device events and time by kernel
     (the ``top`` longest) of one traced call of ``run``, which does
@@ -732,647 +499,6 @@ def trace_device(run, acts, n, unit, top=10):
             "device_idle_share": (1 - busy_ms / wall_ms) if spans
             else "not measured",
             "device_events": len(spans), "top_device_ms": top}
-
-
-def tree_items(tree, prefix=""):
-    """(path, leaf) of a param tree, in its order."""
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from tree_items(v, f"{prefix}{k}/")
-        else:
-            yield f"{prefix}{k}", v
-
-
-@contextlib.contextmanager
-def plain_wrappers():
-    """The field and MLP wrappers that ``apply_field`` calls, swapped for
-    their plain versions (autograd through plain PyTorch ops on the card)
-    inside the block and restored after: the plain side of train_parity."""
-    from repro_torch.core import fields
-    from repro_torch.kernels.fused_field.ref import field_ref
-    from repro_torch.kernels.fused_mlp.ref import mlp_ref
-    saved = fields.ff_ops.field, fields.mlp_ops.mlp
-
-    def field(points, tables, w, grid_cfg, mlp_cfg, table_scales=None):
-        return field_ref(points, tables, w, grid_cfg, mlp_cfg, table_scales)
-    fields.ff_ops.field, fields.mlp_ops.mlp = field, mlp_ref
-    try:
-        yield
-    finally:
-        fields.ff_ops.field, fields.mlp_ops.mlp = saved
-
-
-# the kill-and-resume child: trains nerf with checkpoints until killed
-KILL_CHILD = """
-import sys
-sys.path.insert(0, {src!r})
-import torch
-torch.backends.cuda.matmul.allow_tf32 = False
-from repro_torch.core import fields, train
-cfg = fields.make_field_config("nerf", "hash")
-train.train_field(cfg, steps=100000, batch_size={batch}, seed={seed},
-                  chunk_steps={chunk}, ckpt_dir={ckpt!r}, ckpt_every={every},
-                  gt_samples={gt}, device="cuda")
-"""
-
-
-# the launcher's child: runs the module as ``python -m`` does, then writes
-# its kernels' launch counts to a file
-LAUNCH_CHILD = """
-import json, runpy, sys
-sys.path.insert(0, {src!r})
-sys.argv = ["repro_torch.launch.serve"] + {argv!r}
-try:
-    runpy.run_module("repro_torch.launch.serve", run_name="__main__",
-                     alter_sys=True)
-finally:
-    from repro_torch import kernels
-    with open({launches!r}, "w") as f:
-        json.dump(kernels.launch_counts(), f)
-"""
-
-
-def annotate_calls(run):
-    """Calls of ``obs.trace.annotate`` that ``run()`` makes, by phase name
-    (a ``collections.Counter``), counted through every module of the port
-    that imported it."""
-    from repro_torch.obs import trace as ttrace
-    real, n = ttrace.annotate, collections.Counter()
-
-    def counting(name):
-        n[name] += 1
-        return real(name)
-    mods = [m for name, m in list(sys.modules.items())
-            if name.startswith("repro_torch.")
-            and getattr(m, "annotate", None) is real]
-    for m in mods:
-        m.annotate = counting
-    try:
-        run()
-    finally:
-        for m in mods:
-            m.annotate = real
-    return n
-
-
-def dir_bytes(path):
-    return sum(os.path.getsize(os.path.join(d, f))
-               for d, _, files in os.walk(path) for f in files)
-
-
-def resume_phase(cfg, gcfg, dev, clone_tree, nerf_init, nerf_batch,
-                 nerf_loss, gpu):
-    """The ``resume`` phase: (its JSON line, the kernels' launches in it).
-
-    nerf at Table-I width, the checkpoint store and TrainEngine's resume:
-    two uninterrupted runs of RESUME_STEPS (their per-step loss difference
-    is the card's run-to-run noise: encode_bwd's atomics sum in a varying
-    order); a run stopped at RESUME_STOP whose checkpoint restores the
-    state bit for bit, then resumed; a child process SIGKILLed after its
-    first commit, then resumed. Each resumed loss must be within
-    max(RESUME_NOISE_FACTOR x the noise, RESUME_FLOOR x the loss) of the
-    uninterrupted run's. Then gia's 6 GiB train state (tables, Adam's mu
-    and nu) saved and restored once, when the disk has room."""
-    import numpy as np
-    import torch
-    from repro_torch import kernels as K
-    from repro_torch.checkpoint import store as ckpt_store
-    from repro_torch.core import fields
-    from repro_torch.core import train as ctrain
-    from repro_torch.train import loop as tloop
-    from repro_torch.train import optim as toptim
-
-    root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
-    common = dict(batch_size=TRAIN_BATCH, seed=SEED, chunk_steps=TRAIN_CHUNK,
-                  gt_samples=GT_SAMPLES, device=dev)
-
-    def losses(steps, **kw):
-        rows = []
-        ctrain.train_field(cfg, steps=steps, on_metrics=lambda i, r, st:
-                           rows.append((i, r["loss"])), **common, **kw)
-        return rows
-
-    K.reset_launch_counts()
-    a, b = losses(RESUME_STEPS), losses(RESUME_STEPS)
-    noise = [abs(x - y) for (_, x), (_, y) in zip(a, b)]
-
-    def check(resumed, what):
-        """Each resumed step's loss against run a's, within the bound."""
-        worst = 0.0
-        for i, x in resumed:
-            y = a[i][1]
-            bound = max(RESUME_NOISE_FACTOR * max(noise), RESUME_FLOOR * abs(y))
-            worst = max(worst, abs(x - y) / bound)
-            if abs(x - y) > bound:
-                fail(f"resume: {what} step {i} loss {x} vs uninterrupted {y}: "
-                     f"over the bound {bound}")
-        return worst
-
-    # (1) stop at RESUME_STOP through TrainEngine (its checkpointer's
-    # blocking times), the state at the last step kept on the side
-    d1 = os.path.join(root, "stop")
-    saved = {}
-
-    def grab(i, r, st):
-        if i == RESUME_STOP - 1:
-            saved.update({k: (v.clone() if torch.is_tensor(v) else v)
-                          for k, v in ckpt_store._flatten(st)})
-    eng = tloop.TrainEngine(
-        tloop.EngineConfig(steps=RESUME_STOP, chunk_steps=TRAIN_CHUNK,
-                           ckpt_dir=d1, ckpt_every=TRAIN_CHUNK),
-        tloop.make_scanned_step(nerf_loss, toptim.AdamConfig()),
-        batch_fn=nerf_batch)
-    eng.run(tloop.init_train_state(nerf_init()), on_metrics=grab)
-    blocked = list(eng.checkpointer.blocked_s)
-    t0 = time.perf_counter()
-    restored = dict(ckpt_store._flatten(ckpt_store.restore(
-        d1, tloop.init_train_state(nerf_init()), step=RESUME_STOP - 1)))
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
-    if restored.keys() != saved.keys() or not all(
-            torch.equal(restored[k], v) if torch.is_tensor(v)
-            else restored[k] == v for k, v in saved.items()):
-        fail("resume: the restored state is not the saved one bit for bit")
-    ckpt_bytes = dir_bytes(os.path.join(d1, f"step_{RESUME_STOP - 1:08d}"))
-    del saved, restored
-    r1 = losses(RESUME_STEPS, ckpt_dir=d1, ckpt_every=TRAIN_CHUNK)
-    if [i for i, _ in r1] != list(range(RESUME_STOP, RESUME_STEPS)):
-        fail(f"resume: the resumed run ran steps {[i for i, _ in r1]}")
-    worst1 = check(r1, "stopped-and-resumed")
-
-    # (2) a child process killed (SIGKILL) after its first commit
-    d2 = os.path.join(root, "kill")
-    child = subprocess.Popen([sys.executable, "-c", KILL_CHILD.format(
-        src=SRC, batch=TRAIN_BATCH, seed=SEED, chunk=TRAIN_CHUNK, ckpt=d2,
-        every=KILL_EVERY, gt=GT_SAMPLES)])
-    t0 = time.perf_counter()
-    try:
-        while ckpt_store.latest_step(d2) is None:
-            if child.poll() is not None:
-                fail(f"resume: the child exited ({child.returncode}) before "
-                     "its first commit")
-            if time.perf_counter() - t0 > KILL_TIMEOUT_S:
-                fail("resume: the child made no commit in "
-                     f"{KILL_TIMEOUT_S} s")
-            time.sleep(0.005)
-        first_commit_s = time.perf_counter() - t0
-        os.kill(child.pid, signal.SIGKILL)
-    finally:
-        if child.poll() is None:
-            child.kill()
-        child.wait()
-    step_dirs = [p for p in os.listdir(d2) if p.startswith("step_")]
-    committed = sorted(int(p.split("_")[1]) for p in step_dirs
-                       if os.path.exists(os.path.join(d2, p,
-                                                      ckpt_store.MANIFEST)))
-    # a kill during a save leaves that save's temporary directory (the
-    # store commits by renaming it; latest_step never reads it): one may
-    # be left, for a step after the last commit only
-    temps = [p for p in os.listdir(d2) if p.startswith(".tmp_step_")]
-    temp_steps = [int(re.match(r"\.tmp_step_(\d+)_", p).group(1))
-                  for p in temps]
-    last = ckpt_store.latest_step(d2)
-    if len(committed) != len(step_dirs) or last != committed[-1] \
-            or last >= RESUME_STEPS - 1 \
-            or any(t <= last for t in temp_steps):
-        fail(f"resume: after the kill: step directories {step_dirs}, "
-             f"committed {committed}, latest_step {last}, temporary "
-             f"directories {temps}")
-    r2 = losses(RESUME_STEPS, ckpt_dir=d2, ckpt_every=KILL_EVERY)
-    if [i for i, _ in r2] != list(range(last + 1, RESUME_STEPS)):
-        fail(f"resume: the run resumed after the kill ran steps "
-             f"{[i for i, _ in r2]}")
-    worst2 = check(r2, "killed-and-resumed")
-    launches = K.launch_counts()
-
-    # (3) gia's train state at Table-I width: 2 GiB tables and Adam's
-    # moments, after one step so the moments are not zero
-    gia = {"state_bytes": None}
-    gstate = tloop.init_train_state(fields.init_field(
-        gcfg, torch.Generator().manual_seed(SEED), dev))
-    gstate, _ = tloop.make_scanned_step(
-        lambda p, bb: ctrain.field_loss(p, gcfg, bb), toptim.AdamConfig())(
-        gstate, 0, ctrain.make_batch(gcfg, ctrain.batch_generator(
-            SEED, 0, dev), TRAIN_BATCH))
-    nbytes = sum(v.numel() * v.element_size()
-                 for _, v in ckpt_store._flatten(gstate)
-                 if torch.is_tensor(v))
-    free = shutil.disk_usage(root).free
-    gia.update(state_bytes=nbytes, disk_free_bytes=free)
-    if free < 2 * nbytes:
-        gia["skipped"] = "not enough free disk for a second copy"
-    else:
-        d3 = os.path.join(root, "gia")
-        ck = ckpt_store.AsyncCheckpointer(d3, keep=1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ck.save(gstate, 0)
-        ck.wait()
-        gia.update(save_blocked_s=ck.blocked_s[0],
-                   save_total_s=time.perf_counter() - t0,
-                   checkpoint_bytes=dir_bytes(d3))
-        t0 = time.perf_counter()
-        got = ckpt_store.restore(d3, gstate)
-        torch.cuda.synchronize()
-        gia["restore_s"] = time.perf_counter() - t0
-        same = all(torch.equal(x, y) if torch.is_tensor(x) else x == y
-                   for (_, x), (_, y) in zip(ckpt_store._flatten(got),
-                                             ckpt_store._flatten(gstate)))
-        if not same:
-            fail("resume: gia's restored state is not the saved one")
-        gia["restored_equal"] = True
-        del got
-    del gstate
-    shutil.rmtree(root, ignore_errors=True)
-    torch.cuda.empty_cache()
-    return {"phase": "resume", "config": cfg.name, "steps": RESUME_STEPS,
-            "stop_at": RESUME_STOP, "chunk_steps": TRAIN_CHUNK,
-            "noise_max": max(noise), "noise_by_step": noise,
-            "bound": {"noise_factor": RESUME_NOISE_FACTOR,
-                      "floor": RESUME_FLOOR},
-            "stopped": {"worst_over_bound": worst1,
-                        "checkpoint_bytes": ckpt_bytes,
-                        "save_blocked_s": blocked, "restore_s": restore_s,
-                        "restored_equal": True},
-            "killed": {"first_commit_s": first_commit_s,
-                       "committed": committed, "resumed_from": last + 1,
-                       "worst_over_bound": worst2,
-                       "temp_dirs_of_steps": temp_steps},
-            "gia_state": gia, "launches": launches, **gpu}, launches
-
-
-def card_mesh(n=None):
-    """The mesh of the sharded phases: SHARDS shards, over that many
-    cards where there are as many, else the one card repeated (its shards
-    then run one after another on it, as the JAX package's tests run
-    shards on forced host devices)."""
-    import torch
-    from repro_torch.launch.mesh import Mesh, make_local_mesh
-    n = n or SHARDS
-    if torch.cuda.device_count() >= n:
-        return make_local_mesh(n)
-    return Mesh([torch.device("cuda", 0)] * n, ("data",))
-
-
-def mesh_info(mesh):
-    return {"shape": mesh.shape, "devices": [str(d) for d in mesh.devices]}
-
-
-def serve_shard_phase(serve, mesh, settings, cfg, scene_params, reqs,
-                      dense_line, pcam, dense_frame, cpu_frame, gcfg, gia_p,
-                      dev, gpu):
-    """The ``serve_shard`` phase: (its JSON line, the kernels' launches in
-    its stream, its 32x32 frame).
-
-    The serve phase's two nerf scenes and 120 requests through a
-    RenderEngine on ``mesh``: each kernel of the path launches once per
-    shard a request; p50, p90 and Mpix/s beside the unsharded stream's;
-    the 32x32 frame within SHARD_TOL of the unsharded engine's and
-    PARITY_TOL of the CPU render; the gather's device time; then one gia
-    f32 Table-I scene served on the mesh, every shard's replica of its
-    2 GiB tables at the stack's own address where the shard runs on the
-    stack's device (no copy), its frame within SHARD_TOL of the
-    unsharded tile on the card."""
-    import numpy as np
-    import torch
-    from repro_torch import kernels as K
-    from repro_torch.core import pipeline
-    from repro_torch.launch.mesh import shard_devices
-    from repro_torch.serve import RenderEngine, sharding
-
-    shards = sharding.pixel_shard_count(mesh)
-    engine = RenderEngine(settings, mesh=mesh, device=dev)
-    for s, p in enumerate(scene_params):
-        engine.add_scene(f"scene{s}", cfg, p)
-    _, launches, line = serve(engine, ["scene0", "scene1"], "serve_shard",
-                              reqs=reqs)
-    want = {k: shards * len(reqs) for k in ("field_fwd", "mlp_fwd",
-                                            "composite_fwd")}
-    if any(launches[k] != n for k, n in want.items()):
-        fail(f"serve_shard: launches {launches}, want {want}")
-    frame = engine.render_frame("scene0", pcam)
-    to_dense = float(np.abs(frame - dense_frame).max())
-    to_cpu = float(np.abs(frame - cpu_frame).max())
-    if not np.isfinite(frame).all() or to_dense > SHARD_TOL \
-            or to_cpu > PARITY_TOL:
-        fail(f"serve_shard: the sharded frame differs from the unsharded "
-             f"engine's by {to_dense} (tol {SHARD_TOL}) and from the CPU "
-             f"render by {to_cpu} (tol {PARITY_TOL})")
-    # the gather alone: the shards' pieces of one tile's pixels copied to
-    # the first device and joined in shard order
-    per = settings.tile_pixels // shards
-    pieces = [torch.rand((per, 3), device=d) for d in
-              shard_devices(mesh)]
-    first = mesh.devices[0]
-    gather_ms = device_ms(lambda: torch.cat([p.to(first) for p in pieces]),
-                          reps=20)
-    del engine, pieces
-
-    # gia: one Table-I f32 scene (2 GiB of tables) on the mesh
-    gengine = RenderEngine(settings, mesh=mesh, device=dev)
-    key = gengine.add_scene("gia0", gcfg, gia_p)
-    torch.cuda.synchronize()
-    mem0 = torch.cuda.memory_allocated(dev)
-    gengine.warmup()
-    stacked = gengine._get_stacked(key)
-    fn = gengine._buckets[key].fn
-    torch.cuda.synchronize()
-    stack_bytes = stacked["grid"].numel() * stacked["grid"].element_size()
-    extra = torch.cuda.memory_allocated(dev) - mem0 - stack_bytes
-    shared = {str(d): fn.replicas[d]["grid"].data_ptr()
-              == stacked["grid"].data_ptr() for d in fn.devices}
-    if any(not shared[str(d)] for d in fn.devices if d == dev):
-        fail(f"serve_shard: a shard on the stack's device reads a copy of "
-             f"gia's tables: {shared}")
-    gframe = gengine.render_frame("gia0", pcam)
-    gref = pipeline.render_frame(gia_p, gcfg, pcam, settings,
-                                 device=dev).cpu().numpy()
-    gerr = float(np.abs(gframe - gref).max())
-    if not np.isfinite(gframe).all() or gerr > SHARD_TOL:
-        fail(f"serve_shard: the sharded gia frame differs from the "
-             f"unsharded tile's by {gerr}")
-    del gengine, stacked, fn
-    line.update(
-        mesh=mesh_info(mesh), shards=shards,
-        launches_per_request={k: launches[k] / len(reqs) for k in want},
-        unsharded={k: dense_line[k] for k in ("p50_ms", "p90_ms",
-                                              "mpix_per_s", "launches")},
-        frame_max_abs_diff_to_unsharded=to_dense, frame_max_abs_err_cpu=to_cpu,
-        tol=SHARD_TOL, parity_tol=PARITY_TOL, gather_ms=gather_ms,
-        gia={"replica_shares_stack": shared,
-             "stack_bytes": stack_bytes,
-             "allocated_beyond_the_stack_bytes": extra,
-             "frame_max_abs_diff_to_unsharded": gerr})
-    return line, launches, frame
-
-
-def serve_shard_occ_phase(serve, mesh, occ_settings, cfg, scene_params,
-                          oreqs, occ_line, shard_frame, p0, grid, pcam, dev,
-                          gpu):
-    """The ``serve_shard_occ`` phase: (its JSON line, the launches in its
-    stream).
-
-    serve_occ's two culled nerf scenes and requests on ``mesh``, each
-    shard with a share of the budget (OCC_BUDGET / shards): the summed
-    live share and dropped samples beside the unsharded stream's, the
-    per-shard rows of the first requests; then an all-occupied grid at
-    the full budget: the culled sharded frame equals the dense sharded
-    frame bit for bit."""
-    import dataclasses
-
-    import numpy as np
-    import torch
-    from repro_torch.core import occupancy as occ_mod
-    from repro_torch.serve import RenderEngine, sharding
-
-    shards = sharding.pixel_shard_count(mesh)
-    engine = RenderEngine(occ_settings, mesh=mesh, device=dev)
-    keys = [engine.add_scene(f"scene{s}", cfg, p)
-            for s, p in enumerate(scene_params)]
-    _, launches, line = serve(engine, ["scene0", "scene1"],
-                              "serve_shard_occ", reqs=oreqs)
-    want = {k: shards * len(oreqs) for k in ("field_fwd", "mlp_fwd",
-                                             "composite_fwd")}
-    if any(launches[k] != n for k, n in want.items()):
-        fail(f"serve_shard_occ: launches {launches}, want {want}")
-    st = engine.stats()
-    # the shards' own rows for the first requests, through the bucket's
-    # sharded tile function
-    fn, stacked = engine._buckets[keys[0]].fn, engine._get_stacked(keys[0])
-    rows = torch.zeros((shards, 3), dtype=torch.float64)
-    for r in oreqs[:PROFILE_REQUESTS]:
-        if r.scene != "scene0":
-            continue
-        ids = torch.from_numpy(np.asarray(r.pixel_ids, np.int64)).to(dev)
-        mask = torch.ones(ids.shape[0], dtype=torch.bool, device=dev)
-        rows += fn(stacked, 0, r.camera, ids, mask, ids.shape[0])[1].cpu()
-    del engine, fn, stacked
-    aengine = RenderEngine(dataclasses.replace(occ_settings,
-                                               sample_budget=None),
-                           mesh=mesh, device=dev)
-    aengine.add_scene("scene0", cfg, occ_mod.attach(
-        p0, occ_mod.all_occupied(OCC_RES, dev)))
-    all_frame = aengine.render_frame("scene0", pcam)
-    if not np.array_equal(all_frame, shard_frame):
-        fail(f"serve_shard_occ: the all-occupied culled frame differs from "
-             f"the dense sharded frame by "
-             f"{float(np.abs(all_frame - shard_frame).max())}")
-    del aengine
-    line.update(
-        mesh=mesh_info(mesh), shards=shards, sample_budget=OCC_BUDGET,
-        shard_budget=occ_settings.tile_budget(
-            occ_settings.tile_pixels // shards),
-        live_sample_frac=st["live_sample_frac"],
-        samples_total=st["samples_total"],
-        samples_dropped=st["samples_dropped"],
-        effective_mpix_per_s=st["effective_mpix_per_s"],
-        launches_per_request={k: launches[k] / len(oreqs) for k in want},
-        shard_rows_scene0_first_requests=rows.tolist(),
-        all_occupied_equals_dense_sharded=True,
-        unsharded={k: occ_line[k] for k in (
-            "p50_ms", "p90_ms", "mpix_per_s", "live_sample_frac",
-            "samples_total", "samples_dropped")})
-    return line, launches
-
-
-def train_dp_phase(mesh, cfg, dev, nerf_init, nerf_batch, nerf_loss,
-                   unsharded_ms, gpu):
-    """The ``train_dp`` phase: (its JSON line, the launches in it).
-
-    nerf at Table-I width, TRAIN_BATCH rays x 32 samples a step, data
-    parallel over ``mesh``: the first step's loss and gradients against
-    the unsharded step's (TRAIN_PARITY_TOL of each leaf's max), then
-    DP_STEPS steps of train_field(mesh=) whose loss must fall, ms per
-    step beside the unsharded run's, launches per step (each kernel of
-    the training path once per shard a step) and the peak memory."""
-    import numpy as np
-    import torch
-    from repro_torch import kernels as K
-    from repro_torch.core import train as ctrain
-    from repro_torch.serve import sharding
-    from repro_torch.train import loop as tloop
-
-    shards = sharding.pixel_shard_count(mesh)
-    init = nerf_init()
-    batch = nerf_batch(0)
-    l1, g1 = tloop.value_and_grad(nerf_loss, init, batch)
-    ln, gn = tloop.data_parallel_grad_fn(nerf_loss, mesh)(init, batch)
-    plain = dict(tree_items(g1))
-    leaves = {path: rel_err(g, plain[path])[1] for path, g in tree_items(gn)}
-    loss_rel = abs(float(ln) - float(l1)) / abs(float(l1))
-    if loss_rel > TRAIN_PARITY_TOL or max(leaves.values()) \
-            > TRAIN_PARITY_TOL or min(float(v.abs().max())
-                                      for v in plain.values()) <= 0:
-        fail(f"train_dp: the sharded first step differs from the unsharded "
-             f"one: loss {loss_rel}, leaves {leaves}")
-    del g1, gn, plain, batch
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    mem_before = torch.cuda.memory_allocated(dev)
-    rows = []
-    K.reset_launch_counts()       # the DP path's run alone from here
-    ctrain.train_field(cfg, steps=DP_STEPS, batch_size=TRAIN_BATCH,
-                       seed=SEED, chunk_steps=TRAIN_CHUNK,
-                       gt_samples=GT_SAMPLES, device=dev, mesh=mesh,
-                       params=init, on_metrics=lambda i, r, st: rows.append(r))
-    torch.cuda.synchronize()
-    launches = K.launch_counts()
-    per_step = {k: launches[k] / DP_STEPS for k in launches}
-    losses = [r["loss"] for r in rows]
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"train_dp: the loss did not fall: {losses}")
-    path = ("field_fwd", "mlp_fwd", "encode_fwd", "encode_bwd")
-    if any(per_step[k] != shards for k in path) \
-            or per_step["composite_fwd"] != 0:
-        fail(f"train_dp: {path} must launch {shards} times a step and "
-             f"composite_fwd never: {per_step}")
-    line = {"phase": "train_dp", "config": cfg.name, "mesh": mesh_info(mesh),
-            "shards": shards, "batch": TRAIN_BATCH,
-            "rays_per_shard": TRAIN_BATCH // shards, "steps": DP_STEPS,
-            "first_step": {"loss_rel_err": loss_rel, "leaves": leaves,
-                           "tol": TRAIN_PARITY_TOL},
-            "loss_first": losses[0], "loss_last": losses[-1],
-            "ms_per_step": 1e3 * float(np.mean(
-                [r["dt"] for r in rows[TRAIN_CHUNK:]])),
-            "ms_per_step_unsharded": unsharded_ms,
-            "launches_per_step": per_step,
-            "mem_before_bytes": mem_before,
-            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev), **gpu}
-    del init
-    torch.cuda.empty_cache()
-    return line, launches
-
-
-class _HostLost(Exception):
-    """Raised by the elastic phase's failure handler to stop the run."""
-
-
-def elastic_phase(mesh, cfg, dev, nerf_init, nerf_batch, nerf_loss, gpu):
-    """The ``elastic`` phase: (its JSON line, the launches in it).
-
-    nerf on ``mesh`` (4 shards, two hosts of two), checkpoints every
-    ELASTIC_SAVE steps: two uninterrupted ELASTIC_STEPS runs give the
-    card's run-to-run noise; in a third run the second host beats at the
-    first chunk end only, so at the step-ELASTIC_LOST chunk end the
-    health stack's FailurePolicy emits a FailureEvent, which stops it; remesh_plan(2, 4, 1) must be (2, 1, 2);
-    ``recover`` restores the newest checkpoint onto the 2-shard mesh, bit
-    for bit the saved state, and the run goes on with grad_accum=2 (the
-    same global batch) to ELASTIC_STEPS, every resumed loss within the
-    resume phase's bound of the first uninterrupted run's."""
-    import torch
-    from repro_torch import kernels as K
-    from repro_torch.checkpoint import store as ckpt_store
-    from repro_torch.core import train as ctrain
-    from repro_torch.runtime import elastic
-    from repro_torch.runtime.health import HeartbeatMonitor
-    from repro_torch.train import loop as tloop
-    from repro_torch.train import optim as toptim
-
-    root = os.path.join(ROOT, "build", "chip_smoke_elastic")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
-    opt = toptim.AdamConfig(lr=1e-2)      # train_field's
-    K.reset_launch_counts()
-
-    def losses():
-        rows = []
-        ctrain.train_field(cfg, steps=ELASTIC_STEPS, batch_size=TRAIN_BATCH,
-                           seed=SEED, chunk_steps=TRAIN_CHUNK,
-                           gt_samples=GT_SAMPLES, device=dev, mesh=mesh,
-                           on_metrics=lambda i, r, st: rows.append(r["loss"]))
-        return rows
-    a, b = losses(), losses()
-    noise = max(abs(x - y) for x, y in zip(a, b))
-
-    clock = [0.0]
-    mon = HeartbeatMonitor(timeout_s=5.0, clock=lambda: clock[0])
-
-    def beat(end, state):        # host0 drives the engine; host1 goes quiet
-        clock[0] += 10.0
-        mon.beat("host0")
-        if end < ELASTIC_LOST:
-            mon.beat("host1")
-    events, saved = [], {}
-
-    def lost(ev):
-        events.append(ev)
-        raise _HostLost
-
-    def grab(i, row, state):
-        if i == ELASTIC_LOST:
-            saved.update({k: (v.clone() if torch.is_tensor(v) else v)
-                          for k, v in ckpt_store._flatten(state)})
-    d = os.path.join(root, "ckpt")
-    engine = tloop.TrainEngine(
-        tloop.EngineConfig(steps=ELASTIC_STEPS, chunk_steps=TRAIN_CHUNK,
-                           ckpt_dir=d, ckpt_every=ELASTIC_SAVE,
-                           host="host0"),
-        tloop.make_scanned_step(nerf_loss, opt, mesh=mesh),
-        batch_fn=nerf_batch, monitor=mon, on_chunk_end=beat, on_event=lost)
-    try:
-        engine.run(tloop.init_train_state(nerf_init()), on_metrics=grab)
-        fail("elastic: the run ended without a FailureEvent")
-    except _HostLost:
-        pass
-    ev = events[0] if events else None
-    if ev is None or (ev.kind, ev.hosts, ev.step) != (
-            "dead", ("host1",), ELASTIC_LOST) \
-            or ckpt_store.latest_step(d) != ELASTIC_LOST:
-        fail(f"elastic: events {events}, latest checkpoint "
-             f"{ckpt_store.latest_step(d)}")
-    plan = elastic.remesh_plan(2, 4, 1)
-    if (plan.data, plan.model, plan.microbatch_multiplier) != (2, 1, 2):
-        fail(f"elastic: remesh_plan(2, 4, 1) gave {plan}")
-    t0 = time.perf_counter()
-    mesh2, step_fn, state, step = elastic.recover(
-        d, tloop.init_train_state(nerf_init()), plan,
-        devices=mesh.devices,
-        make_step=lambda m, rules: tloop.make_scanned_step(
-            nerf_loss, opt, grad_accum=plan.microbatch_multiplier, mesh=m,
-            rules=rules))
-    torch.cuda.synchronize()
-    recover_s = time.perf_counter() - t0
-    restored = dict(ckpt_store._flatten(state))
-    if step != ELASTIC_LOST or restored.keys() != saved.keys() or not all(
-            torch.equal(restored[k], v) if torch.is_tensor(v)
-            else restored[k] == v for k, v in saved.items()):
-        fail("elastic: the recovered state is not the saved one bit for bit")
-    del saved, restored
-    resumed = []
-    tloop.TrainEngine(
-        tloop.EngineConfig(steps=ELASTIC_STEPS, chunk_steps=TRAIN_CHUNK,
-                           ckpt_dir=d, ckpt_every=ELASTIC_SAVE),
-        step_fn, batch_fn=nerf_batch).run(
-        state, on_metrics=lambda i, r, st: resumed.append((i, r["loss"])))
-    if [i for i, _ in resumed] != list(range(ELASTIC_LOST + 1,
-                                             ELASTIC_STEPS)):
-        fail(f"elastic: the recovered run ran steps "
-             f"{[i for i, _ in resumed]}")
-    worst = 0.0
-    for i, x in resumed:
-        bound = max(RESUME_NOISE_FACTOR * noise, RESUME_FLOOR * abs(a[i]))
-        worst = max(worst, abs(x - a[i]) / bound)
-        if abs(x - a[i]) > bound:
-            fail(f"elastic: step {i} loss {x} vs uninterrupted {a[i]}: "
-                 f"over the bound {bound}")
-    launches = K.launch_counts()
-    shutil.rmtree(root, ignore_errors=True)
-    torch.cuda.empty_cache()
-    return {"phase": "elastic", "config": cfg.name,
-            "mesh": mesh_info(mesh), "recovered_mesh": mesh_info(mesh2),
-            "steps": ELASTIC_STEPS, "save_every": ELASTIC_SAVE,
-            "event": {"kind": ev.kind, "hosts": list(ev.hosts),
-                      "step": ev.step},
-            "plan": {"data": plan.data, "model": plan.model,
-                     "microbatch_multiplier": plan.microbatch_multiplier},
-            "recovered_step": step, "recover_s": recover_s,
-            "restored_equal": True, "noise_max": noise,
-            "bound": {"noise_factor": RESUME_NOISE_FACTOR,
-                      "floor": RESUME_FLOOR},
-            "worst_over_bound": worst, "resumed_from": ELASTIC_LOST + 1,
-            "launches": launches, **gpu}, launches
 
 
 # the analysis phase: the linter's child, and the template arguments of
@@ -1485,94 +611,6 @@ def analysis_phase(ptxas, dev, gpu):
             **gpu}
 
 
-# the examples phase: each twin of examples/torch/ in a child at its
-# defaults, which writes its kernels' launch counts to a file at exit
-EXAMPLE_CHILD = """
-import json, runpy, sys
-sys.argv = [{script!r}]
-try:
-    runpy.run_path({script!r}, run_name="__main__")
-finally:
-    sys.path.insert(0, {src!r})
-    from repro_torch import kernels
-    with open({launches!r}, "w") as f:
-        json.dump(kernels.launch_counts(), f)
-"""
-EXAMPLE_TIMEOUT_S = 300
-# The JAX examples' PSNRs at their defaults (seed 0) and with training seed
-# 1, on the CPU: tools/jax_example_psnr.py --example <name> --seed 0|1.
-# The twins' random numbers are PyTorch's, so a twin lands within the JAX
-# seeds' spread (0.3 and 0.0 dB), bounded here at PSNR_BOUND_DB.
-# train_nerf's frame is all black in both packages (nerf's density
-# collapses at lr 1e-2: a black frame's PSNR, 16.9 dB).
-JAX_EXAMPLE_PSNR = {"quickstart": (27.7, 27.4), "train_nerf": (16.9, 16.9)}
-PSNR_BOUND_DB = 1.0
-PSNR_LINE = re.compile(r"(?:reconstruction|novel-view) PSNR[^:]*: "
-                       r"(-?[0-9.]+) dB")
-
-
-def examples_phase(kernel_names, gpu):
-    """Each twin (``examples/torch/``) in a child at its defaults on the
-    card: quickstart and train_nerf's PSNR within PSNR_BOUND_DB of the JAX
-    example's (seed 0), serve_render's ``served`` event; the kernels each
-    must launch. Returns (phase line, launches summed over the twins)."""
-    import numpy as np
-    out_dir = os.path.join(ROOT, "build", "chip_smoke_examples")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
-    need = {"quickstart": ("field_fwd", "encode_fwd", "encode_bwd"),
-            "train_nerf": ("field_fwd", "mlp_fwd", "encode_fwd",
-                           "encode_bwd", "composite_fwd"),
-            "serve_render": ("field_fwd", "encode_fwd", "encode_bwd")}
-    total = dict.fromkeys(kernel_names, 0)
-    runs = {}
-    t_phase = time.perf_counter()
-    for name, must in need.items():
-        script = os.path.join(ROOT, "examples", "torch", f"{name}.py")
-        launches = os.path.join(out_dir, f"{name}_launches.json")
-        t0 = time.perf_counter()
-        try:
-            out = subprocess.run(
-                [sys.executable, "-c", EXAMPLE_CHILD.format(
-                    script=script, src=SRC, launches=launches)],
-                capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S,
-                cwd=out_dir)
-        except subprocess.TimeoutExpired:
-            fail(f"examples[{name}]: no exit within {EXAMPLE_TIMEOUT_S} s")
-        wall_s = time.perf_counter() - t0
-        if out.returncode != 0:
-            fail(f"examples[{name}]: exit code {out.returncode}: "
-                 f"{out.stderr[-3000:]}")
-        with open(launches) as f:
-            counts = json.load(f)
-        for k, n in counts.items():
-            total[k] += n
-        if min(counts[k] for k in must) <= 0:
-            fail(f"examples[{name}]: {must} must launch: {counts}")
-        row = {"wall_s": wall_s, "launches": counts}
-        if name in JAX_EXAMPLE_PSNR:
-            found = PSNR_LINE.findall(out.stdout)
-            if len(found) != 1:
-                fail(f"examples[{name}]: no PSNR line: {out.stdout[-2000:]}")
-            jax0, jax1 = JAX_EXAMPLE_PSNR[name]
-            row.update(psnr_db=float(found[0]), jax_psnr_db=[jax0, jax1],
-                       bound_db=PSNR_BOUND_DB)
-            if not abs(row["psnr_db"] - jax0) <= PSNR_BOUND_DB:
-                fail(f"examples[{name}]: PSNR {row['psnr_db']} dB, the JAX "
-                     f"example's {jax0} dB (bound {PSNR_BOUND_DB})")
-        else:
-            served = [json.loads(l) for l in out.stdout.splitlines()
-                      if l.startswith("{") and '"served"' in l]
-            if len(served) != 1 or not all(
-                    np.isfinite(served[0].get(k, np.nan))
-                    for k in ("p50_ms", "mpix_per_s")):
-                fail(f"examples[{name}]: served {served}")
-            row.update({k: served[0][k] for k in (
-                "n_requests", "p50_ms", "p99_ms", "mpix_per_s", "compiles")})
-        runs[name] = row
-    shutil.rmtree(out_dir, ignore_errors=True)
-    return ({"phase": "examples", "seconds": time.perf_counter() - t_phase,
-             "runs": runs, "launches": total, **gpu}, total)
 
 def lm_inputs(cfg, batch, prompt, seed):
     """numpy prompt (tokens, or embeddings and (3, B, S) M-RoPE positions
@@ -3521,6 +2559,56 @@ def dryrun_phase(dev, gpu):
             "peak_tol": DRYRUN_PEAK_TOL, **gpu}
 
 
+def paths_phase(dev, gpu):
+    """One short drive of each field main path, for the launch counts of
+    the final ``kernels`` line: PATH_REQUESTS nerf requests at Table-I
+    width through ``RenderEngine`` on an f32 scene, then as many on its
+    int8 twin, then one chunk of nerf steps through ``train_field``
+    (TrainEngine). The counts are set to 0 before each run and read after
+    it; nothing here is timed or held to a reference (the card tests hold
+    the paths' outputs)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import fields, pipeline
+    from repro_torch.core import train as ctrain
+    from repro_torch.data import scenes
+    from repro_torch.quant import QuantSpec, quantize_field
+    from repro_torch.serve import RenderEngine, RenderRequest
+
+    cfg = fields.make_field_config("nerf", "hash")
+    p0 = fields.from_jax_params(np_params(cfg, SEED), cfg, dev)
+    spec = QuantSpec("int8")
+    engine = RenderEngine(pipeline.RenderSettings(
+        tile_pixels=TILE_PIXELS, n_samples=N_SAMPLES), device=dev)
+    engine.add_scene("f32", cfg, p0)
+    engine.add_scene("int8", cfg.with_quant(spec), quantize_field(p0, spec))
+    rng = np.random.default_rng(SEED)
+    cam = scenes.orbit_camera(FRAME, FRAME, 0.0)
+    launches = {}
+    for path, scene in (("serve", "f32"), ("serve_quant", "int8")):
+        K.reset_launch_counts()
+        tickets = [engine.submit(RenderRequest(
+            scene, cam, rng.integers(0, FRAME * FRAME, TILE_PIXELS)))
+            for _ in range(PATH_REQUESTS)]
+        engine.flush()
+        for t in tickets:
+            t.result()
+        launches[path] = K.launch_counts()
+    del engine, p0
+    K.reset_launch_counts()
+    ctrain.train_field(cfg, steps=TRAIN_CHUNK, batch_size=TRAIN_BATCH,
+                       seed=SEED, chunk_steps=TRAIN_CHUNK,
+                       gt_samples=GT_SAMPLES, device=dev)
+    torch.cuda.synchronize()
+    launches["train"] = K.launch_counts()
+    torch.cuda.empty_cache()
+    return {"phase": "paths", "requests": PATH_REQUESTS,
+            "tile_pixels": TILE_PIXELS, "n_samples": N_SAMPLES,
+            "train_steps": TRAIN_CHUNK, "train_batch": TRAIN_BATCH,
+            "launches": launches, **gpu}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3529,7 +2617,6 @@ def main():
         fail(f"{SRC}/repro_torch not found: run from a checkout of the repo")
     sys.path.insert(0, SRC)
     import numpy as np
-    from repro_torch import kernels as K
     from repro_torch.core import fields, pipeline, render
     from repro_torch.core.encoding import sh_encode
     from repro_torch.core.mlp import apply_mlp
@@ -3552,18 +2639,6 @@ def main():
     from repro_torch.kernels import cost as kcost
     from repro_torch.launch.roofline import H100_SXM, kernel_ops_s
     from repro_torch.quant import QuantSpec, quantize_field
-    from repro_torch.checkpoint import store as ckpt_store
-    from repro_torch.core import occupancy as occ_mod
-    from repro_torch.core import train as ctrain
-    from repro_torch.train import compression as tcomp
-    from repro_torch.serve import RenderEngine, RenderRequest
-    from repro_torch.train import loop as tloop
-    from repro_torch.train import optim as toptim
-    from repro_torch.launch import serve as lserve
-    from repro_torch.obs import export as texport
-    from repro_torch.obs import metrics as tmetrics
-    from repro_torch.obs import trace as ttrace
-    from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3630,9 +2705,7 @@ def main():
     emit(line)
 
     # ---------------------------------------------------------- kernels
-    params = [fields.from_jax_params(np_params(cfg, SEED + s), cfg, dev)
-              for s in range(2)]
-    p0 = params[0]
+    p0 = fields.from_jax_params(np_params(cfg, SEED), cfg, dev)
     # the quantized tables of the kernel rows, made in the port on the card
     qtab = {v: quantize_field(p0, QuantSpec(qtype))
             for v, qtype in (("int8", "int8"), ("fp8", "fp8_e4m3"))}
@@ -3643,26 +2716,13 @@ def main():
     pts, dts = render.sample_along_rays(origins, dirs, 0.5, 4.5, N_SAMPLES)
     flat_pts = render.normalize_to_unit(pts.reshape(-1, 3)).contiguous()
     flat_dirs = torch.repeat_interleave(dirs, N_SAMPLES, dim=0)
-    b = flat_pts.shape[0]
     dcfg, ccfg, g = cfg.density_mlp, cfg.mlp, cfg.grid
 
-    # gia: 2 scenes of 2 GiB f32 tables, made once (numpy, then the card);
-    # the int8 and fp8 stacks of scene 0 quantized on the card, with the
-    # device memory quantize_field takes on top of the stack
-    t0 = time.perf_counter()
-    gia_np0 = np_params(gcfg, SEED + 10)
-    gia_params = [fields.from_jax_params(gia_np0, gcfg, dev),
-                  fields.from_jax_params(np_params(gcfg, SEED + 11), gcfg,
-                                         dev)]
-    torch.cuda.synchronize()
-    gia_make_s = time.perf_counter() - t0
-    g0 = gia_params[0]
-    torch.cuda.reset_peak_memory_stats(dev)
-    base = torch.cuda.memory_allocated(dev)
-    gqtab = {"gia_int8": quantize_field(g0, QuantSpec("int8"))}
-    torch.cuda.synchronize()
-    quant_peak_extra = torch.cuda.max_memory_allocated(dev) - base
-    gqtab["gia_fp8"] = quantize_field(g0, QuantSpec("fp8_e4m3"))
+    # gia: one scene of 2 GiB f32 tables (numpy, then the card), and its
+    # int8 and fp8 stacks quantized on the card
+    g0 = fields.from_jax_params(np_params(gcfg, SEED + 10), gcfg, dev)
+    gqtab = {"gia_int8": quantize_field(g0, QuantSpec("int8")),
+             "gia_fp8": quantize_field(g0, QuantSpec("fp8_e4m3"))}
     gia_bf16 = g0["grid"].to(torch.bfloat16)
     gia_cam = scenes.orbit_camera(GIA_FRAME, GIA_FRAME, 0.0)
     gia_pts = pipeline.pixel_coords(gia_cam, torch.from_numpy(
@@ -3698,7 +2758,6 @@ def main():
             grid_scenes[v] = (c, fields.from_jax_params(
                 np_params(c, SEED + 40 + 2 * i + (app == "gia")), c, dev))
             tiles[v] = (x, c.grid, touched_rows(x, c.grid))
-
 
     grid_bf16 = p0["grid"].to(torch.bfloat16)
     dmlp_bf16 = {k: t.to(torch.bfloat16)
@@ -3800,7 +2859,7 @@ def main():
             lambda c=c, sg=sg, dt=dt: rm_ops.composite(c[:1], sg[:1],
                                                        dt[:1]))
 
-    results, outputs = {}, {}
+    results = {}
     for (name, v), (kern, plain, lib, w, tiny) in runs.items():
         label = name if v is None else f"{name}[{v}]"
         got, ref = kern(), plain()
@@ -3815,7 +2874,6 @@ def main():
         if bad > TOL:
             fail(f"{label}: max abs error {err} exceeds atol {TOL} + rtol "
                  f"{TOL}")
-        outputs[name, v] = got[0]
         # the least time on the units the kernel uses: HBM bytes, the MLP
         # products on the tensor cores (3 TF32 passes), the rest in f32 on
         # the CUDA cores, which run beside the tensor cores; and, for the
@@ -3921,1186 +2979,52 @@ def main():
     results.update(ssd_results(line))
     emit(line)
 
-    # ---------------------------------------------------------- unfused
-    # The unfused route: encode_fwd writes the (B, L*F) features to device
-    # memory and mlp_fwd reads them back, against the fused kernel.
-    def unfused(v):
-        app, tab, sc, w, m = field_inputs[v]
-        x, gg, _ = tiles[app]
-        return mlp_ops.mlp(w, hops.encode(x, tab, gg, table_scales=sc), m)
-
-    fused = {v: ("field_fwd" if field_inputs[v][2] is None
-                 else "field_fwd_q", v)
-             for v in ("f32", "int8", "fp8", "gia_f32", "gia_int8")}
-    K.reset_launch_counts()
-    unfused_out = {v: unfused(v) for v in fused}
-    torch.cuda.synchronize()
-    unfused_launches = K.launch_counts()
-    unfused_rows = {}
-    for v, key in fused.items():
-        ref = outputs[key]
-        err = float((unfused_out[v] - ref).abs().max())
-        if float(((unfused_out[v] - ref).abs() - TOL * ref.abs()).max()) \
-                > TOL:
-            fail(f"unfused[{v}]: differs from the fused kernel by {err}")
-        unfused_rows[v] = {
-            "max_abs_err_vs_fused": err,
-            "unfused_ms": device_ms(lambda v=v: unfused(v), reps=20),
-            "encode_fwd_ms": results["encode_fwd", v]["ms"],
-            "fused_ms": results[key]["ms"]}
-    if unfused_launches["encode_fwd"] != len(fused) \
-            or unfused_launches["mlp_fwd"] != len(fused):
-        fail(f"unfused: encode_fwd and mlp_fwd must launch {len(fused)} "
-             f"times each: {unfused_launches}")
-    emit({"phase": "unfused",
-          "mlp": {"nerf": "32->64x3->16", "gia": "32->64x4->3"},
-          "launches": unfused_launches, "results": unfused_rows, **gpu})
-    gia_q0 = gqtab["gia_int8"]
-    del runs, outputs, unfused_out, field_inputs, tiles, gqtab, nsdf_rand, \
-        grid_scenes
-
-    # ------------------------------------------------------------ serve
-    settings = pipeline.RenderSettings(tile_pixels=TILE_PIXELS,
-                                       n_samples=N_SAMPLES)
-    cams = [scenes.orbit_camera(FRAME, FRAME, a) for a in (0.0, 2.1, 4.2)]
-
-    def serve(engine, scene_names, phase, cams=cams, reqs=None):
-        """120 random-pixel requests, scene_names and cameras in turn (or
-        the given ``reqs``), with the launch counts of exactly this stream
-        and the peak device memory allocated while it runs (every live
-        tensor counts)."""
-        torch.cuda.reset_peak_memory_stats(dev)
-        warm_s = engine.warmup()
-        if reqs is None:
-            reqs = []
-            for i in range(N_REQUESTS):
-                c = cams[i % len(cams)]
-                reqs.append(RenderRequest(
-                    scene_names[i % len(scene_names)], c,
-                    rng.integers(0, c.height * c.width, TILE_PIXELS)))
-        K.reset_launch_counts()
-        tickets = [engine.submit(r) for r in reqs]
-        engine.flush()
-        launches = K.launch_counts()
-        for t in tickets:
-            o = t.result()
-            if o.shape != (TILE_PIXELS, 3) or not np.isfinite(o).all() \
-                    or o.min() < 0 or o.max() > 1:
-                fail(f"{phase}: a request returned a bad result")
-        st = engine.stats()
-        p50, p90, p99 = (1e3 * v for v in engine.exact_percentiles(50, 90, 99))
-        per_scene = {
-            n: 1e3 * statistics.median(t.latency_s
-                                       for r, t in zip(reqs, tickets)
-                                       if r.scene == n)
-            for n in scene_names}
-        return reqs, launches, {
-            "phase": phase, "scenes": len(scene_names),
-            "requests": st["n_requests"], "tile_pixels": TILE_PIXELS,
-            "n_samples": N_SAMPLES, "p50_ms": p50, "p90_ms": p90,
-            "p99_ms": p99, "p50_ms_by_scene": per_scene,
-            "hist_p50_ms": st["p50_ms"], "hist_p99_ms": st["p99_ms"],
-            "mpix_per_s": st["mpix_per_s"], "wall_s": st["wall_s"],
-            "warmup_s": warm_s, "launches": launches,
-            "buckets": list(st["buckets"]),
-            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev), **gpu}
-
-    engine = RenderEngine(settings, device=dev)
-    for s, p in enumerate(params):
-        engine.add_scene(f"scene{s}", cfg, p)
-    del params
-    reqs, launches, line = serve(engine, ["scene0", "scene1"], "serve")
-    dense_path = ("field_fwd", "mlp_fwd", "composite_fwd")
-    if min(launches[k] for k in dense_path) <= 0:
-        fail(f"serve: a kernel of the path never launched: {launches}")
-    emit(line)
-    dense_line = line
-
-    # ---------------------------------------------------------- profile
-    # Device busy time, idle share and time by kernel, each from one trace
-    # of one steady window of PROFILE_REQUESTS served requests. Two windows:
-    # CPU + CUDA activity (the breakdown), and CUDA activity alone, whose
-    # host overhead is smaller, so its idle share is nearer the unprofiled
-    # stream's.
-    trace = trace_device
-
-    def profile_window(engine, window_reqs, acts, top=10):
-        """``trace`` of one window of served requests."""
-        def run():
-            for r in window_reqs:
-                engine.submit(r)
-            engine.flush()
-        return trace(run, acts, len(window_reqs), "request", top)
-
-    for window, acts in (("cpu+cuda", [ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]),
-                         ("cuda", [ProfilerActivity.CUDA])):
-        emit({"phase": "profile", "window": window,
-              **profile_window(engine, reqs[:PROFILE_REQUESTS], acts), **gpu})
-
-    # ----------------------------------------------------------- parity
-    pcam = scenes.orbit_camera(32, 32, 0.9)
-    dense_frame = engine.render_frame("scene0", pcam)
-    cpu_params = fields.from_jax_params(np_params(cfg, SEED), cfg, "cpu")
-    ref = pipeline.render_frame(cpu_params, cfg, pcam, settings,
-                                device="cpu").numpy()
-    cpu_frame = ref
-    perr = float(np.abs(dense_frame - ref).max())
-    if not np.isfinite(dense_frame).all() or perr > PARITY_TOL:
-        fail(f"parity: engine vs CPU render_frame max abs error {perr}")
-    emit({"phase": "parity", "frame": [32, 32], "max_abs_err": perr,
-          "tol": PARITY_TOL, "mean_rgb": float(dense_frame.mean()), **gpu})
-
-    # ---------------------------------------------------- unfused_serve
-    # The two serve scenes on the unfused route (``RenderSettings(fused=
-    # False)``: encode_fwd writes the features to device memory, mlp_fwd
-    # reads them back, once per head), over the same 120 requests: the
-    # paper's fused-against-unfused comparison at the engine level; then
-    # nerf trained on that route.
-    usettings = dataclasses.replace(settings, fused=False)
-    uengine = RenderEngine(usettings, device=dev)
-    for s_ in range(2):
-        uengine.add_scene(f"scene{s_}", cfg, fields.from_jax_params(
-            np_params(cfg, SEED + s_), cfg, dev))
-    _, ulaunches, line = serve(uengine, ["scene0", "scene1"],
-                               "unfused_serve", reqs=reqs)
-    want = {"encode_fwd": N_REQUESTS, "mlp_fwd": 2 * N_REQUESTS,
-            "field_fwd": 0, "field_fwd_q": 0, "composite_fwd": N_REQUESTS}
-    if any(ulaunches[k] != n for k, n in want.items()):
-        fail(f"unfused_serve: launches {ulaunches}, want {want}")
-    ufr = uengine.render_frame("scene0", pcam)
-    uerr = float(np.abs(ufr - dense_frame).max())
-    if not np.isfinite(ufr).all() or float(np.max(
-            np.abs(ufr - dense_frame) - TOL * np.abs(dense_frame))) > TOL:
-        fail(f"unfused_serve: the frame differs from the fused engine's by "
-             f"{uerr}")
-    uref = pipeline.render_frame(cpu_params, cfg, pcam, usettings,
-                                 device="cpu").numpy()
-    ucpu = float(np.abs(ufr - uref).max())
-    if ucpu > PARITY_TOL:
-        fail(f"unfused_serve: engine vs CPU render_frame max abs error "
-             f"{ucpu}")
-    del uengine
-    uinit = fields.init_field(cfg, torch.Generator().manual_seed(SEED), dev)
-    urows = []
-    K.reset_launch_counts()
-    ctrain.train_field(cfg, steps=UNFUSED_TRAIN_STEPS, batch_size=TRAIN_BATCH,
-                       seed=SEED, chunk_steps=TRAIN_CHUNK, fused=False,
-                       gt_samples=GT_SAMPLES, device=dev, params=uinit,
-                       on_metrics=lambda i, r, st: urows.append(r))
-    torch.cuda.synchronize()
-    utrain = K.launch_counts()
-    ulosses = [r["loss"] for r in urows]
-    if not all(np.isfinite(ulosses)) or not ulosses[-1] < ulosses[0]:
-        fail(f"unfused_serve: the unfused route's loss did not fall: "
-             f"{ulosses}")
-    if utrain["field_fwd"] != 0 or min(
-            utrain[k] for k in ("encode_fwd", "mlp_fwd", "encode_bwd")) <= 0:
-        fail(f"unfused_serve: training launched {utrain}")
-    ubatch = ctrain.make_batch(cfg, ctrain.batch_generator(SEED, 0, dev),
-                               TRAIN_BATCH, scenes.default_camera(),
-                               gt_samples=GT_SAMPLES)
-    grads = {f: tloop.value_and_grad(
-        lambda p, b_, f=f: ctrain.field_loss(p, cfg, b_, fused=f), uinit,
-        ubatch)[1] for f in (True, False)}
-    fused_leaves = dict(tree_items(grads[True]))
-    ugrad = {path: rel_err(gu, fused_leaves[path])[1]
-             for path, gu in tree_items(grads[False])}
-    if max(ugrad.values()) > TRAIN_PARITY_TOL or min(
-            float(v.abs().max()) for v in fused_leaves.values()) <= 0:
-        fail(f"unfused_serve: the unfused route's first gradients differ "
-             f"from the fused route's: {ugrad}")
-    del uinit, grads, fused_leaves, ubatch
-    ulaunches = {k: ulaunches[k] + utrain[k] for k in ulaunches}
-    line.update(
-        fused={k: dense_line[k] for k in ("p50_ms", "p90_ms", "mpix_per_s",
-                                          "launches")},
-        frame_max_abs_diff_to_fused=uerr, frame_max_abs_err_cpu=ucpu,
-        tol=TOL, parity_tol=PARITY_TOL,
-        train={"steps": UNFUSED_TRAIN_STEPS, "loss_first": ulosses[0],
-               "loss_last": ulosses[-1], "ms_per_step": 1e3 * statistics.mean(
-                   r["dt"] for r in urows),
-               "launches": utrain, "grad_rel_err_vs_fused": ugrad,
-               "grad_tol": TRAIN_PARITY_TOL})
-    emit(line)
-
-    # ------------------------------------------------------------ trace
-    # The process tracer and the profiler ranges on the serve engine:
-    # rounds of PROFILE_REQUESTS requests with the tracer off (no event)
-    # and on, in turns: on, each request has its 4 serve.<phase> spans,
-    # its serve.tile device interval and each phase it names (counted
-    # with the tracer off) as a host span and a device interval, all
-    # carrying its req, and a serve.backpressure span at most; the calls
-    # to annotate a request makes and their host cost; the tracer's host
-    # time in the engine; one torch.profiler window (CPU + CUDA) with the
-    # phases as ranges and the device time under each; a training run's
-    # engine snapshot.
-    window = reqs[:PROFILE_REQUESTS]
-
-    def run_window():
-        tickets = [engine.submit(r) for r in window]
-        engine.flush()
-        return 1e3 * statistics.median(t.latency_s for t in tickets)
-
-    phase_calls = annotate_calls(run_window)
-    want = {f"serve/serve.{ph}": len(window) for ph in SERVE_PHASES}
-    want["device:serve/serve.tile"] = len(window)
-    for ph, k in phase_calls.items():
-        want[f"phase/{ph}"] = want[f"device:phase/{ph}"] = k
-    p50s, counts_on, waits_on = {"off": [], "on": []}, [], []
-    try:
-        for i in range(TRACE_ROUNDS):        # off, on, on, off, off, on, ...
-            for mode in ("off", "on") if i % 2 == 0 else ("on", "off"):
-                ttrace.TRACER.clear()
-                if mode == "on":
-                    ttrace.TRACER.enable()
-                p50s[mode].append(run_window())
-                ttrace.TRACER.disable()
-                evs = ttrace.TRACER.events()
-                if mode == "off" and evs:
-                    fail(f"trace: the disabled tracer recorded {len(evs)} "
-                         "events")
-                if mode == "on":
-                    counts = collections.Counter(
-                        f"{e['cat']}/{e['name']}" for e in evs)
-                    waits = [e["args"]["req"] for e in evs
-                             if e["name"] == "serve.backpressure"]
-                    del counts["serve/serve.backpressure"]
-                    counts_on.append(dict(counts))
-                    waits_on.append(len(waits))
-                    reqs_on = {e["args"].get("req") for e in evs}
-                    if len(reqs_on) != len(window) or None in reqs_on:
-                        fail(f"trace: a round's events carry the ids "
-                             f"{sorted(reqs_on, key=str)}, want one each of "
-                             f"{len(window)} requests")
-                    if len(set(waits)) != len(waits) or len(waits) > len(
-                            window) - engine.max_inflight:
-                        fail(f"trace: serve.backpressure for the requests "
-                             f"{waits}: at most one each past max_inflight "
-                             f"{engine.max_inflight}")
-    finally:
-        ttrace.TRACER.disable()
-        ttrace.TRACER.clear()
-    if any(c != want for c in counts_on):
-        fail(f"trace: events per round {counts_on}, want {want}")
-    off_med = statistics.median(p50s["off"])
-    bound = max(max(p50s["off"]) - min(p50s["off"]),
-                TRACE_P50_SLACK * off_med)
-    if abs(statistics.median(p50s["on"]) - off_med) > bound:
-        fail(f"trace: p50 with the tracer on {p50s['on']} is not within "
-             f"{bound} ms of off {p50s['off']}")
-    # the tracer's host time where the engine calls it, in one more window
-    # with the tracer on: every entry point of the tracer, its spans and
-    # its scopes timed (its events, phase spans, device events and
-    # intervals), a call inside another once
-    spent, depth = [0.0], [0]
-
-    def timed(fn):
-        def call(*args, **kwargs):
-            if depth[0]:
-                return fn(*args, **kwargs)
-            depth[0] += 1
-            t_in = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                spent[0] += time.perf_counter() - t_in
-                depth[0] -= 1
-        return call
-    patched = [(cls, name, getattr(cls, name)) for cls, names in (
-        (ttrace.Tracer, ("span", "phase", "scope", "add_event",
-                         "device_event", "add_interval")),
-        (ttrace._Span, ("__enter__", "__exit__")),
-        (ttrace._Scope, ("__enter__", "__exit__"))) for name in names]
-    for cls, name, fn in patched:
-        setattr(cls, name, timed(fn))
-    ttrace.TRACER.enable()
-    try:
-        run_window()
-    finally:
-        ttrace.TRACER.disable()
-        for cls, name, fn in patched:
-            setattr(cls, name, fn)
-        ttrace.TRACER.clear()
-    in_situ_ms = 1e3 * spent[0] / len(window)
-    if ttrace.annotate("a") is not ttrace.annotate("b"):
-        fail("trace: annotate is not the shared null context without a "
-             "profiler")
-    calls = sum(phase_calls.values()) / len(window)
-    t0 = time.perf_counter()
-    for _ in range(100_000):
-        with ttrace.annotate("encode"):
-            pass
-    annotate_us = (time.perf_counter() - t0) / 100_000 * 1e6
-    scratch_tracer = ttrace.Tracer()
-    scratch_tracer.enable()
-    t0 = time.perf_counter()
-    for _ in range(10_000):
-        scratch_tracer.add_event("serve.submit", t0, t0, cat="serve",
-                                 bucket=0, scene="scene0")
-    add_event_us = (time.perf_counter() - t0) / 10_000 * 1e6
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run_window()
-    phases = phase_device_ms(prof)
-    missing = {"encode_mlp", "mlp", "raymarch", "composite"} - {
-        k for k, row in phases.items() if row["ranges"]}
-    if missing:
-        fail(f"trace: no {sorted(missing)} ranges in the profiler trace: "
-             f"{phases}")
-    reg = tmetrics.Registry()
-    ctrain.train_field(cfg, steps=2 * TRAIN_CHUNK, batch_size=TRAIN_BATCH,
-                       seed=SEED, chunk_steps=TRAIN_CHUNK,
-                       gt_samples=GT_SAMPLES, device=dev,
-                       metrics_registry=reg)
-    snap = reg.snapshot()
-    texport.validate_snapshot(snap)
-    host = "host0"
-    if snap["counters"].get("train.steps") != 2 * TRAIN_CHUNK \
-            or snap["histograms"].get("train.step_s", {}).get("count") != 2 \
-            or snap["histograms"].get(f"health.step_s.{host}", {}).get(
-                "count") != 2 \
-            or snap["gauges"].get("health.silent_hosts") != 0:
-        fail(f"trace: the training engine's snapshot {snap}")
-    emit({"phase": "trace", "requests_per_round": len(window),
-          "rounds": TRACE_ROUNDS, "p50_ms_off": p50s["off"],
-          "p50_ms_on": p50s["on"], "p50_bound_ms": bound,
-          "events_per_round_on": counts_on[0],
-          "backpressure_per_round_on": waits_on,
-          "annotate_calls_per_request": calls,
-          "annotate_us_per_call": annotate_us,
-          "annotate_host_ms_per_request": calls * annotate_us / 1e3,
-          "tracer_add_event_us": add_event_us,
-          "tracer_host_ms_per_request": len(SERVE_PHASES) * add_event_us
-          / 1e3,
-          "tracer_in_engine_ms_per_request": in_situ_ms,
-          "profiler_phases": {k: {m: v if v > 0 or m == "ranges"
-                                  else "not measured"
-                                  for m, v in row.items()}
-                              for k, row in phases.items()},
-          "train_snapshot": {"counters": snap["counters"],
-                             "gauges": snap["gauges"],
-                             "histograms": sorted(snap["histograms"])},
-          **gpu})
-    del engine
-
-    # ------------------------------------------------------ serve_shard
-    # The serve phase's scenes and requests split over SHARDS pixel shards
-    # (serve/sharding.py), then one gia scene on the same mesh.
-    mesh = card_mesh()
-    line, sh_launches, shard_frame = serve_shard_phase(
-        serve, mesh, settings, cfg,
-        [fields.from_jax_params(np_params(cfg, SEED + s_), cfg, dev)
-         for s_ in range(2)], reqs, dense_line, pcam, dense_frame, cpu_frame,
-        gcfg, gia_params[0], dev, gpu)
-    emit(line)
-
-    # -------------------------------------------------------- serve_occ
-    # The same two Table-I scenes, each with the analytic volume's 64^3
-    # occupancy grid, served culled at a quarter of the dense sample count
-    # (the JAX occupancy test's budget): the field runs on at most
-    # OCC_BUDGET samples a request.
-    def volume_sigma(p):
-        return scenes.volume_field(p * 4.0 - 2.0)[:, 3]
-    t0 = time.perf_counter()
-    grid = occ_mod.build_occupancy_from_fn(volume_sigma, res=OCC_RES,
-                                           device=dev)
-    torch.cuda.synchronize()
-    grid_s = time.perf_counter() - t0
-    occ_settings = dataclasses.replace(settings, occupancy=True,
-                                       sample_budget=OCC_BUDGET)
-    oengine = RenderEngine(occ_settings, device=dev)
-    for s_ in range(2):
-        oengine.add_scene(f"scene{s_}", cfg, occ_mod.attach(
-            fields.from_jax_params(np_params(cfg, SEED + s_), cfg, dev),
-            grid))
-    oreqs, olaunches, line = serve(oengine, ["scene0", "scene1"],
-                                   "serve_occ")
-    if min(olaunches[k] for k in dense_path) <= 0:
-        fail(f"serve_occ: a kernel of the culled path never launched: "
-             f"{olaunches}")
-    st = oengine.stats()
-    line.update(
-        sample_budget=OCC_BUDGET, grid_res=OCC_RES, grid_build_s=grid_s,
-        grid_occupied_fraction=occ_mod.occupied_fraction(grid),
-        effective_mpix_per_s=st["effective_mpix_per_s"],
-        live_sample_frac=st["live_sample_frac"],
-        samples_total=st["samples_total"],
-        samples_dropped=st["samples_dropped"],
-        dense={k: dense_line[k] for k in ("p50_ms", "p90_ms", "mpix_per_s",
-                                          "launches")})
-    emit(line)
-    occ_line = line
-
-    # ------------------------------------------------------ profile_occ
-    # One CUDA-only trace of 20 culled requests, and the culled branch's
-    # own ops outside the field (the live mask, the argsort compaction,
-    # the gathers of the budget's points, the scatter back) on one
-    # request's tile, timed alone with CUDA events.
-    prof = profile_window(oengine, oreqs[:PROFILE_REQUESTS],
-                          [ProfilerActivity.CUDA], top=20)
-    o_, d_ = render.make_rays(cams[0], torch.from_numpy(oreqs[0].pixel_ids)
-                              .to(dev))
-    o_pts, o_dts = render.sample_along_rays(o_, d_, 0.5, 4.5, N_SAMPLES)
-    o_flat = render.normalize_to_unit(o_pts.reshape(-1, 3))
-    o_dirs = torch.repeat_interleave(d_, N_SAMPLES, dim=0)
-    o_live, o_sel = render.compact_samples(grid, o_flat, o_dts, N_SAMPLES,
-                                           OCC_BUDGET, 1e-3)
-    o_out = torch.zeros((OCC_BUDGET, 4), device=dev)
-
-    def compaction():
-        live, sel = render.compact_samples(grid, o_flat, o_dts, N_SAMPLES,
-                                           OCC_BUDGET, 1e-3)
-        return o_flat[sel], o_dirs[sel], live, sel
-
-    # few calls queued behind the spin: the compaction is ~45 launches, and
-    # 20 calls' enqueue can outlast the spin, which times the host instead
-    emit({"phase": "profile_occ", "window": "cuda", **prof,
-          "compaction_ms": device_ms(compaction, reps=4),
-          "scatter_ms": device_ms(lambda: render.scatter_samples(
-              o_out, o_sel, o_live), reps=20),
-          "tile_live_samples": int(o_live.sum()), **gpu})
-
-    # ------------------------------------------------------- parity_occ
-    # (1) an all-occupied grid at the full budget: the culled frame equals
-    # the dense frame on the card, bit for bit; (2) the quarter-budget
-    # culled frame on the card against render_frame on the CPU; (3) the
-    # card's grid words equal the CPU's built from the same densities.
-    aengine = RenderEngine(dataclasses.replace(settings, occupancy=True),
-                           device=dev)
-    aengine.add_scene("scene0", cfg, occ_mod.attach(
-        p0, occ_mod.all_occupied(OCC_RES, dev)))
-    all_frame = aengine.render_frame("scene0", pcam)
-    if not np.array_equal(all_frame, dense_frame):
-        fail(f"parity_occ: the all-occupied culled frame differs from the "
-             f"dense frame by {float(np.abs(all_frame - dense_frame).max())}")
-    del aengine
-    occ_frame = oengine.render_frame("scene0", pcam)
-    cpu_grid = fields.to_device(grid, torch.device("cpu"))
-    ref = pipeline.render_frame(occ_mod.attach(cpu_params, cpu_grid), cfg,
-                                pcam, occ_settings, device="cpu").numpy()
-    oerr = float(np.abs(occ_frame - ref).max())
-    if not np.isfinite(occ_frame).all() or oerr > PARITY_TOL:
-        fail(f"parity_occ: culled engine vs CPU render_frame max abs error "
-             f"{oerr}")
-    same_sigma = occ_mod.build_occupancy_from_fn(
-        lambda p: cpu_grid["sigma"], res=OCC_RES, device="cpu")
-    if not torch.equal(grid["bits"].cpu(), same_sigma["bits"]):
-        fail("parity_occ: the card's occupancy words differ from the CPU's "
-             "on the same densities")
-    emit({"phase": "parity_occ", "frame": [32, 32],
-          "all_occupied_equals_dense": True, "max_abs_err": oerr,
-          "tol": PARITY_TOL, "bits_equal_cpu": True,
-          "max_abs_diff_to_dense": float(np.abs(occ_frame - dense_frame)
-                                         .max()), **gpu})
-
-    # -------------------------------------------------- serve_shard_occ
-    line, sho_launches = serve_shard_occ_phase(
-        serve, mesh, occ_settings, cfg,
-        [occ_mod.attach(fields.from_jax_params(np_params(cfg, SEED + s_), cfg,
-                                               dev), grid)
-         for s_ in range(2)], oreqs, occ_line, shard_frame, p0, grid, pcam,
-        dev, gpu)
-    emit(line)
-    del oengine, cpu_grid, shard_frame
-
-    # ------------------------------------------------------ serve_quant
-    # Scene 0 quantized on the card two ways, and with its tables cast to
-    # bf16, one bucket each; the stream alternates between them.
-    qspecs = {"q_int8": QuantSpec("int8"),
-              "q_fp8": QuantSpec("fp8_e4m3", mlp_qtype="int8")}
-    qscenes = {n: (cfg.with_quant(spec), quantize_field(p0, spec))
-               for n, spec in qspecs.items()}
-    qscenes["bf16"] = (cfg, {**p0, "grid": grid_bf16})
-    qengine = RenderEngine(settings, device=dev)
-    for n, (qcfg, qp) in qscenes.items():
-        qengine.add_scene(n, qcfg, qp)
-    qreqs, qlaunches, line = serve(qengine, list(qscenes), "serve_quant")
-    n_bf16 = sum(r.scene == "bf16" for r in qreqs)
-    if qlaunches["field_fwd_q"] <= 0 or qlaunches["field_fwd"] != n_bf16 \
-            or min(qlaunches["mlp_fwd"], qlaunches["composite_fwd"]) <= 0:
-        fail(f"serve_quant: field_fwd_q, mlp_fwd and composite_fwd must "
-             f"launch, and field_fwd once per bf16 request ({n_bf16}): "
-             f"{qlaunches}")
-    # every device launch of each bucket's requests, the plain PyTorch ops
-    # around the kernels (the fp8 bucket's MLP dequant among them) included
-    line["profile_cuda_by_scene"] = {
-        n: profile_window(qengine, [r for r in qreqs if r.scene == n]
-                          [:PROFILE_REQUESTS // 2], [ProfilerActivity.CUDA])
-        for n in qscenes}
-    emit(line)
-
-    # ----------------------------------------------------- parity_quant
-    qparity = {}
-    for n, (qcfg, qp) in qscenes.items():
-        frame = qengine.render_frame(n, pcam)
-        ref = pipeline.render_frame(
-            fields.to_device(qp, torch.device("cpu")), qcfg, pcam, settings,
-            device="cpu").numpy()
-        err = float(np.abs(frame - ref).max())
-        to_dense = float(np.abs(frame - dense_frame).max())
-        if not np.isfinite(frame).all() or err > PARITY_TOL:
-            fail(f"parity_quant: {n} engine vs CPU render_frame max abs "
-                 f"error {err}")
-        if not 0.0 < to_dense < QUANT_DENSE_MAX:
-            fail(f"parity_quant: {n} differs from the dense frame by "
-                 f"{to_dense}, not in (0, {QUANT_DENSE_MAX})")
-        qparity[n] = {"spec": qcfg.quant.tag if qcfg.quant else "bf16 grid",
-                      "max_abs_err": err,
-                      "max_abs_diff_to_dense": to_dense}
-    emit({"phase": "parity_quant", "frame": [32, 32], "tol": PARITY_TOL,
-          "dense_max": QUANT_DENSE_MAX, "scenes": qparity, **gpu})
-
-    # -------------------------------------------------------- serve_gia
-    # 2 gia scenes, each in three buckets: f32 tables, bf16 tables, and
-    # int8 tables quantized on the card; requests of random pixels of a
-    # 4096x4096 image.
-    gia_scenes = {}
-    for s_, gp in enumerate(gia_params):
-        gia_scenes[f"gia{s_}"] = (gcfg, gp)
-    for s_, gp in enumerate(gia_params):
-        gia_scenes[f"gia{s_}_bf16"] = (gcfg, {
-            **gp, "grid": gia_bf16 if s_ == 0 else gp["grid"].to(
-                torch.bfloat16)})
-    qspec = QuantSpec("int8")
-    for s_, gp in enumerate(gia_params):
-        gia_scenes[f"gia{s_}_int8"] = (gcfg.with_quant(qspec), gia_q0
-                                       if s_ == 0 else quantize_field(
-                                           gp, qspec))
-    del gia_params, gia_bf16, gia_q0
-    gengine = RenderEngine(settings, device=dev)
-    for n, (c, gp) in gia_scenes.items():
-        gengine.add_scene(n, c, gp)
-    greqs, glaunches, line = serve(gengine, list(gia_scenes), "serve_gia",
-                                   cams=[gia_cam])
-    if min(glaunches["field_fwd"], glaunches["field_fwd_q"]) <= 0 \
-            or glaunches["field_fwd"] + glaunches["field_fwd_q"] \
-            != N_REQUESTS:
-        fail(f"serve_gia: field_fwd and field_fwd_q must launch, once per "
-             f"request in all: {glaunches}")
-    line.update(image=[GIA_FRAME, GIA_FRAME], make_tables_s=gia_make_s,
-                quantize_peak_extra_bytes=quant_peak_extra,
-                table_bytes_per_scene=g0["grid"].numel() * 4)
-    emit(line)
-    emit({"phase": "profile_gia", "window": "cuda",
-          **profile_window(gengine, greqs[:PROFILE_REQUESTS],
-                           [ProfilerActivity.CUDA]), **gpu})
-
-    # ------------------------------------------------------- parity_gia
-    gparity, gia_frames = {}, {}
-    gia_cpu = fields.from_jax_params(gia_np0, gcfg, "cpu")
-    del gia_np0
-    for n in ("gia0", "gia0_bf16", "gia0_int8"):
-        c, gp = gia_scenes[n]
-        frame = gengine.render_frame(n, pcam)
-        cpu_p = (gia_cpu if n == "gia0" else
-                 {**gia_cpu, "grid": gia_cpu["grid"].to(torch.bfloat16)}
-                 if n == "gia0_bf16" else
-                 fields.to_device(gp, torch.device("cpu")))
-        ref = pipeline.render_frame(cpu_p, c, pcam, settings,
-                                    device="cpu").numpy()
-        err = float(np.abs(frame - ref).max())
-        if not np.isfinite(frame).all() or err > PARITY_TOL:
-            fail(f"parity_gia: {n} engine vs CPU render_frame max abs "
-                 f"error {err}")
-        gia_frames[n] = frame
-        gparity[n] = {"max_abs_err": err, "mean_rgb": float(frame.mean())}
-        del cpu_p
-    for n in ("gia0_bf16", "gia0_int8"):
-        to_dense = float(np.abs(gia_frames[n] - gia_frames["gia0"]).max())
-        if not 0.0 < to_dense < QUANT_DENSE_MAX:
-            fail(f"parity_gia: {n} differs from the f32 frame by "
-                 f"{to_dense}, not in (0, {QUANT_DENSE_MAX})")
-        gparity[n]["max_abs_diff_to_f32"] = to_dense
-    emit({"phase": "parity_gia", "frame": [32, 32], "tol": PARITY_TOL,
-          "dense_max": QUANT_DENSE_MAX, "scenes": gparity, **gpu})
-    del gengine, gia_scenes, gia_cpu, g0
-
-    # ------------------------------------------------------- serve_nsdf
-    # 2 baked nsdf scenes: sphere tracing converges on them (a field with
-    # random tables would amplify any rounding difference without bound)
-    nsdf_np = [scenes.baked_sdf_params(ncfg, SEED + 30 + s_)
-               for s_ in range(2)]
-    nengine = RenderEngine(settings, device=dev)
-    for s_, npp in enumerate(nsdf_np):
-        nengine.add_scene(f"nsdf{s_}", ncfg,
-                          fields.from_jax_params(npp, ncfg, dev))
-    nreqs, nlaunches, line = serve(nengine, ["nsdf0", "nsdf1"], "serve_nsdf")
-    evals = settings.sphere_steps + 7
-    if nlaunches["field_fwd"] != evals * N_REQUESTS \
-            or sum(nlaunches.values()) != nlaunches["field_fwd"]:
-        fail(f"serve_nsdf: field_fwd must launch {evals} times per request "
-             f"and no other kernel: {nlaunches}")
-    line.update(field_evals_per_request=evals,
-                sphere_steps=settings.sphere_steps)
-    emit(line)
-    emit({"phase": "profile_nsdf", "window": "cuda",
-          **profile_window(nengine, nreqs[:PROFILE_REQUESTS],
-                           [ProfilerActivity.CUDA]), **gpu})
-
-    # ------------------------------------------------------ parity_nsdf
-    frame = nengine.render_frame("nsdf0", pcam)
-    ref = pipeline.render_frame(fields.from_jax_params(nsdf_np[0], ncfg,
-                                                       "cpu"),
-                                ncfg, pcam, settings, device="cpu").numpy()
-    err = float(np.abs(frame - ref).max())
-    hit = float((frame.sum(-1) > 0).mean())
-    if not np.isfinite(frame).all() or err > PARITY_TOL:
-        fail(f"parity_nsdf: engine vs CPU render_frame max abs error {err}")
-    if not 0.0 < hit < 1.0:
-        fail(f"parity_nsdf: hit fraction {hit}, not in (0, 1)")
-    emit({"phase": "parity_nsdf", "frame": [32, 32], "max_abs_err": err,
-          "tol": PARITY_TOL, "hit_fraction": hit,
-          "hit_fraction_cpu": float((ref.sum(-1) > 0).mean()), **gpu})
-    del nengine
-
-    # ------------------------------------------------------------ train
-    # Every app at Table-I width through train_field (TrainEngine), after
-    # the serving engines and gia's stacks are gone. Gradients flow through
-    # the field and MLP wrappers' autograd Functions: the kernels forward,
-    # encode_fwd and encode_bwd backward; the loss composites in plain ops.
-    del qengine, qscenes, qtab, grid_bf16, dmlp_bf16
-    torch.cuda.empty_cache()
-    train_launches, parity_rows, train_ms = {}, {}, {}
-    tpath = {"nerf": ("field_fwd", "mlp_fwd", "encode_fwd", "encode_bwd")}
-    for app in ("nerf", "gia", "nsdf", "nvr"):
-        tcfg = fields.make_field_config(app, "hash")
-        steps = TRAIN_STEPS[app]
-        rows = []
-        # the params train_field starts from with this seed
-        init = fields.init_field(tcfg, torch.Generator().manual_seed(SEED),
-                                 dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        mem_before = torch.cuda.memory_allocated(dev)
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        trained, _ = ctrain.train_field(
-            tcfg, steps=steps, batch_size=TRAIN_BATCH, seed=SEED,
-            chunk_steps=TRAIN_CHUNK, gt_samples=GT_SAMPLES, device=dev,
-            params=init, on_metrics=lambda i, r, st: rows.append(r))
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        counts = K.launch_counts()
-        for k, n in counts.items():
-            train_launches[k] = train_launches.get(k, 0) + n
-        per_step = {k: n / steps for k, n in counts.items()}
-        losses = [r["loss"] for r in rows]
-        line = {"phase": "train", "app": app, "config": tcfg.name,
-                "steps": steps, "batch": TRAIN_BATCH,
-                "points_per_step": TRAIN_BATCH * (N_SAMPLES if app in (
-                    "nerf", "nvr") else 1),
-                "chunk_steps": TRAIN_CHUNK, "loss_first": losses[0],
-                "loss_last": losses[-1], "loss_min": min(losses),
-                "psnr_last": rows[-1]["psnr"],
-                "ms_per_step": 1e3 * statistics.mean(
-                    r["dt"] for r in rows[TRAIN_CHUNK:]),
-                "ms_per_step_first_chunk": 1e3 * rows[0]["dt"],
-                "wall_s": wall_s,
-                "mem_before_bytes": mem_before,
-                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-                "table_bytes": tcfg.grid.params_bound() * 4,
-                "launches_per_step": per_step, **gpu}
-        emit(line)
-        train_ms[app] = line["ms_per_step"]
-        need = tpath.get(app, ("field_fwd", "encode_fwd", "encode_bwd"))
-        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-            fail(f"train[{app}]: the loss did not fall: {losses}")
-        if min(per_step[k] for k in need) <= 0 \
-                or counts["composite_fwd"] != 0:
-            fail(f"train[{app}]: {need} must launch every step and "
-                 f"composite_fwd never: {counts}")
-
-        # --------------------------------------------------- profile_train
-        # CUDA-only trace of PROFILE_STEPS more steps of the trained state
-        # (a copy of its params, fresh Adam moments), batches made inside
-        if app in ("nerf", "gia"):
-            step = ctrain.make_field_train_step(tcfg)
-            pstate = {"params": {k: (v.clone() if torch.is_tensor(v) else
-                                     {kk: vv.clone() for kk, vv in v.items()})
-                                 for k, v in trained.items()}}
-            pstate["opt"] = toptim.adam_init(pstate["params"])
-            cam = scenes.default_camera()
-
-            def run_steps(n, first, tcfg=tcfg, step=step, pstate=pstate,
-                          cam=cam):
-                for i in range(first, first + n):
-                    pstate["params"], pstate["opt"], _ = step(
-                        pstate["params"], pstate["opt"], ctrain.make_batch(
-                            tcfg, ctrain.batch_generator(SEED, i, dev),
-                            TRAIN_BATCH, cam, gt_samples=GT_SAMPLES))
-                torch.cuda.synchronize()
-            run_steps(2, steps)                          # warm
-            emit({"phase": "profile_train", "app": app, "window": "cuda",
-                  **trace(lambda: run_steps(PROFILE_STEPS, steps + 2),
-                          [ProfilerActivity.CUDA], PROFILE_STEPS, "step"),
-                  **gpu})
-            del pstate, step, run_steps
-
-        # -------------------------------------------------- train_parity
-        # the first step's gradients: at the trained params nerf's are
-        # exactly 0 (its density has collapsed, PERF.md), so they would
-        # compare nothing
-        if app in ("nerf", "gia"):
-            batch = ctrain.make_batch(
-                tcfg, ctrain.batch_generator(SEED, 0, dev), TRAIN_BATCH,
-                scenes.default_camera(), gt_samples=GT_SAMPLES)
-
-            def loss_fn(p, b, tcfg=tcfg):
-                return ctrain.field_loss(p, tcfg, b)
-            K.reset_launch_counts()
-            loss_k, grads_k = tloop.value_and_grad(loss_fn, init, batch)
-            torch.cuda.synchronize()
-            kcounts = K.launch_counts()
-            with plain_wrappers():
-                K.reset_launch_counts()
-                loss_p, grads_p = tloop.value_and_grad(loss_fn, init, batch)
-                torch.cuda.synchronize()
-                pcounts = K.launch_counts()
-            if kcounts["encode_bwd"] != 1 or any(pcounts.values()):
-                fail(f"train_parity[{app}]: the kernel route must launch "
-                     f"encode_bwd once and the plain route no kernel: "
-                     f"{kcounts}, {pcounts}")
-            leaves = {}
-            plain_leaves = dict(tree_items(grads_p))
-            for path, gk in tree_items(grads_k):
-                err, rel = rel_err(gk, plain_leaves[path])
-                leaves[path] = {"max_abs_err": err, "rel_err": rel,
-                                "max_abs": float(plain_leaves[path].abs()
-                                                 .max())}
-            parity_rows[app] = {"loss_kernels": float(loss_k),
-                                "loss_plain": float(loss_p),
-                                "leaves": leaves}
-            worst = max(r["rel_err"] for r in leaves.values())
-            if not np.isfinite(worst) or worst > TRAIN_PARITY_TOL \
-                    or min(r["max_abs"] for r in leaves.values()) <= 0:
-                fail(f"train_parity[{app}]: a gradient is 0 or differs by "
-                     f"{worst} of its max abs value: {leaves}")
-            del grads_k, grads_p, plain_leaves, batch
-        if app == "nerf":
-            trained_nerf, init_nerf = trained, init
-        del trained, init
-        torch.cuda.empty_cache()
-    emit({"phase": "train_parity", "tol": TRAIN_PARITY_TOL,
-          "batch": TRAIN_BATCH, "apps": parity_rows, **gpu})
-
-    # ---------------------------------------------------- serve_trained
-    # The trained nerf scene and the params its training started from, in
-    # one engine; a frame of each from the training camera against the
-    # analytic volume, and, for the record, an all-black frame's MSE.
-    cam32 = scenes.default_camera(32, 32)
-    tengine = RenderEngine(settings, device=dev)
-    tengine.add_scene("trained", cfg, trained_nerf)
-    tengine.add_scene("untrained", cfg, init_nerf)
-    tengine.warmup()
-    K.reset_launch_counts()
-    frames = {n: tengine.render_frame(n, cam32)
-              for n in ("trained", "untrained")}
-    slaunches = K.launch_counts()
-    o, d = render.make_rays(cam32, torch.arange(32 * 32, device=dev))
-    gt = scenes.gt_render_rays(o, d, n_samples=GT_SAMPLES).reshape(
-        32, 32, 3).cpu().numpy()
-    mse = {n: float(((f - gt) ** 2).mean()) for n, f in frames.items()}
-    mse_black = float((gt ** 2).mean())
-    emit({"phase": "serve_trained", "frame": [32, 32], "mse_black": mse_black,
-          "gt_samples": GT_SAMPLES, "mse": mse,
-          "psnr": {n: ctrain.psnr(m) for n, m in mse.items()},
-          "launches": slaunches, **gpu})
-    if not all(np.isfinite(m) for m in mse.values()) \
-            or not mse["trained"] < mse["untrained"]:
-        fail(f"serve_trained: the trained frame's MSE is not below the "
-             f"untrained one's: {mse}")
-    if min(slaunches[k] for k in dense_path) <= 0:
-        fail(f"serve_trained: a serving kernel never launched: {slaunches}")
-    del tengine, trained_nerf, init_nerf
-
-    # ---------------------------------------------------- train_runtime
-    # nerf at Table-I width through the rest of the training runtime:
-    # gradient accumulation, error-feedback compression of the table
-    # gradient, and an occupancy grid kept off the chunk ends.
-    cam_t = scenes.default_camera()
-
-    def nerf_batch(step):
-        return ctrain.make_batch(cfg, ctrain.batch_generator(SEED, step, dev),
-                                 TRAIN_BATCH, cam_t, gt_samples=GT_SAMPLES)
-
-    def nerf_loss(p, b):
-        return ctrain.field_loss(p, cfg, b)
-
-    def nerf_init():
-        return fields.init_field(cfg, torch.Generator().manual_seed(SEED),
-                                 dev)
-
-    def clone_tree(tree):
-        return {k: (clone_tree(v) if isinstance(v, dict) else v.clone())
-                for k, v in tree.items()}
-
-    runtime = {}
-    K.reset_launch_counts()
-    init = nerf_init()
-    batch0 = nerf_batch(0)
-    l1, g1 = tloop.value_and_grad(nerf_loss, init, batch0)
-    l2, g2 = tloop.accumulated_value_and_grad(nerf_loss, init, batch0, 2)
-    accum = {"loss_1": float(l1), "loss_2": float(l2),
-             "loss_rel_err": abs(float(l2) - float(l1)) / abs(float(l1)),
-             "leaves": {path: rel_err(b_, dict(tree_items(g1))[path])[1]
-                        for path, b_ in tree_items(g2)}}
-    if accum["loss_rel_err"] > ACCUM_TOL \
-            or max(accum["leaves"].values()) > ACCUM_TOL:
-        fail(f"train_runtime: grad_accum=2 differs from one pass: {accum}")
-    rows = []
-    ctrain.train_field(cfg, steps=RUNTIME_STEPS, batch_size=TRAIN_BATCH,
-                       seed=SEED, chunk_steps=TRAIN_CHUNK, grad_accum=2,
-                       gt_samples=GT_SAMPLES, device=dev, params=init,
-                       on_metrics=lambda i, r, st: rows.append(r))
-    accum.update(steps=RUNTIME_STEPS, loss_first=rows[0]["loss"],
-                 loss_last=rows[-1]["loss"], ms_per_step=1e3 * statistics.mean(
-                     r["dt"] for r in rows[TRAIN_CHUNK:]))
-    runtime["grad_accum"] = accum
-    del g1, g2, init
-    for scheme in ("topk", "int8"):
-        rows, last = [], {}
-
-        # the state after the first step: nerf's density collapses within
-        # tens of steps, and with it every later gradient
-        def grab(i, r, st, rows=rows, last=last):
-            rows.append(r)
-            if i == 0:
-                last.update(params=clone_tree(st["params"]),
-                            efb=st["efb"]["grid"].clone())
-        ctrain.train_field(cfg, steps=RUNTIME_STEPS, batch_size=TRAIN_BATCH,
-                           seed=SEED, chunk_steps=TRAIN_CHUNK,
-                           compression=scheme, compression_topk=TOPK_FRAC,
-                           gt_samples=GT_SAMPLES, device=dev,
-                           on_metrics=grab)
-        losses = [r["loss"] for r in rows]
-        # the invariant on step 1's table gradient with the feedback step 0
-        # left: what was not sent is kept, nothing is lost
-        _, g = tloop.value_and_grad(nerf_loss, last["params"], nerf_batch(1))
-        acc = g["grid"] + last["efb"]
-        kept, efb_new = (tcomp.compress_topk(g["grid"], last["efb"],
-                                             TOPK_FRAC) if scheme == "topk"
-                         else tcomp.compress_int8(g["grid"], last["efb"]))
-        inv_err = rel_err(kept + efb_new, acc)[1]
-        row = {"loss_first": losses[0], "loss_last": losses[-1],
-               "ms_per_step": 1e3 * statistics.mean(
-                   r["dt"] for r in rows[TRAIN_CHUNK:]),
-               "ms_per_step_uncompressed": train_ms["nerf"],
-               "sent_nonzero_frac": float((kept != 0).float().mean()),
-               "grad_max_abs": float(g["grid"].abs().max()),
-               "efb_old_max_abs": float(last["efb"].abs().max()),
-               "efb_max_abs": float(efb_new.abs().max()),
-               "invariant_rel_err": inv_err,
-               "invariant_tol": 0.0 if scheme == "topk" else COMP_TOL}
-        runtime[scheme] = row
-        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-            fail(f"train_runtime[{scheme}]: the loss did not fall: {losses}")
-        if inv_err > row["invariant_tol"] or not row["efb_old_max_abs"] > 0:
-            fail(f"train_runtime[{scheme}]: kept + efb_new differs from g + "
-                 f"efb_old by {inv_err} of its max")
-        del last, g, acc, kept, efb_new
-    # occupancy: every grid the run builds or refreshes, and the params of
-    # the chunk end it came from; the last refresh recomputed with the
-    # plain versions (the field wrappers swapped for them) on the same
-    # params and previous grid
-    refreshes = []
-    real_build, real_update = occ_mod.build_occupancy, \
-        occ_mod.update_occupancy
-
-    def rec_build(params, c, **kw):
-        g_ = real_build(params, c, **kw)
-        refreshes.append((None, clone_tree(params), g_))
-        return g_
-
-    def rec_update(prev, params, c, **kw):
-        g_ = real_update(prev, params, c, **kw)
-        refreshes.append((prev, clone_tree(params), g_))
-        return g_
-    occ_mod.build_occupancy, occ_mod.update_occupancy = rec_build, rec_update
-    try:
-        rows = []
-        trained_occ, _ = ctrain.train_field(
-            cfg, steps=RUNTIME_OCC_STEPS, batch_size=TRAIN_BATCH, seed=SEED,
-            chunk_steps=TRAIN_CHUNK, gt_samples=GT_SAMPLES, device=dev,
-            occupancy_res=OCC_RES, on_metrics=lambda i, r, st: rows.append(r))
-    finally:
-        occ_mod.build_occupancy, occ_mod.update_occupancy = real_build, \
-            real_update
-    prev, last_params, last_grid = refreshes[-1]
-    if not torch.equal(trained_occ["occupancy"]["bits"], last_grid["bits"]):
-        fail("train_runtime: the attached grid is not the last refresh's")
-    centers = occ_mod.cell_centers(OCC_RES, dev)
-    fresh = occ_mod.field_sigma(last_params, cfg, centers)
-    runtime_launches = K.launch_counts()
-    with plain_wrappers():
-        plain_grid = occ_mod.update_occupancy(prev, last_params, cfg)
-        fresh_ref = occ_mod.field_sigma(last_params, cfg, centers)
-    if K.launch_counts() != runtime_launches:
-        fail("train_runtime: the plain grid launched a kernel")
-    # the refresh's own field evaluation (field_fwd's density pass), which
-    # the EMA's max may hide once the density falls
-    fresh_err = float(((fresh - fresh_ref).abs() / fresh_ref.abs().clamp(
-        min=1e-30)).max())
-    if fresh_err > TOL:
-        fail(f"train_runtime: field_fwd's densities at the cell centres "
-             f"differ from the plain versions' by {fresh_err} relative")
-    sig, sig_ref = last_grid["sigma"], plain_grid["sigma"]
-    sig_err = float(((sig - sig_ref).abs() / sig_ref.abs().clamp(
-        min=1e-30)).max())
-    near = (sig_ref - OCC_THRESHOLD).abs() <= OCC_EPS * OCC_THRESHOLD
-    differ = occ_mod.unpack_bits(last_grid["bits"]) \
-        != occ_mod.unpack_bits(plain_grid["bits"])
-    if sig_err > TOL or bool((differ & ~near).any()):
-        fail(f"train_runtime: the last refresh differs from the plain "
-             f"versions': sigma {sig_err} relative, {int(differ.sum())} "
-             f"cells ({int((differ & ~near).sum())} away from the "
-             f"threshold)")
-    runtime["occupancy"] = {
-        "steps": RUNTIME_OCC_STEPS, "res": OCC_RES,
-        "threshold": OCC_THRESHOLD, "refresh_steps": [
-            TRAIN_CHUNK * (i + 1) - 1 for i in range(len(refreshes))],
-        "occupied_fraction": [occ_mod.occupied_fraction(r[2])
-                              for r in refreshes],
-        "sigma_max": [float(r[2]["sigma"].max()) for r in refreshes],
-        "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
-        "fresh_sigma_max": float(fresh_ref.max()),
-        "fresh_vs_plain_sigma_rel_err": fresh_err,
-        "last_refresh_vs_plain_sigma_rel_err": sig_err, "tol": TOL,
-        "cells_differing": int(differ.sum()),
-        "cells_near_threshold": int(near.sum()), "eps": OCC_EPS}
-    del refreshes, prev, last_params, last_grid, plain_grid, trained_occ, \
-        fresh, fresh_ref
-    emit({"phase": "train_runtime", "config": cfg.name, "batch": TRAIN_BATCH,
-          "topk_frac": TOPK_FRAC, "accum_tol": ACCUM_TOL, **runtime,
-          "launches": runtime_launches, **gpu})
-    if min(runtime_launches[k] for k in tpath["nerf"]) <= 0:
-        fail(f"train_runtime: a kernel of the training path never launched: "
-             f"{runtime_launches}")
-
-    # ----------------------------------------------------------- resume
-    resume_line, resume_launches = resume_phase(
-        cfg, gcfg, dev, clone_tree, nerf_init, nerf_batch, nerf_loss, gpu)
-    emit(resume_line)
-
-    # --------------------------------------------------------- train_dp
-    line, dp_launches = train_dp_phase(mesh, cfg, dev, nerf_init, nerf_batch,
-                                       nerf_loss, train_ms["nerf"], gpu)
-    emit(line)
-
-    # ---------------------------------------------------------- elastic
-    line, el_launches = elastic_phase(mesh, cfg, dev, nerf_init, nerf_batch,
-                                      nerf_loss, gpu)
-    emit(line)
-
-    # ----------------------------------------------------------- launch
-    # The launcher as a user starts it, ``python -m
-    # repro_torch.launch.serve``, in a child process three times: at its
-    # defaults (gia, hash, 2^14 tables, 150 steps, 2 scenes, 8 requests),
-    # nerf culled, nsdf with int8 tables; each traced
-    # and with a metrics snapshot. The child writes its kernels' launch
-    # counts to a file at exit.
-    launch_dir = os.path.join(ROOT, "build", "chip_smoke_launch")
-    shutil.rmtree(launch_dir, ignore_errors=True)
-    os.makedirs(launch_dir)
-    launch_runs = {"defaults": [],
-                   "nerf_occupancy": ["--app", "nerf", "--occupancy"],
-                   "nsdf_int8": ["--app", "nsdf", "--quant", "int8"],
-                   "defaults_shard": ["--shard"]}
-    launch_launches = dict.fromkeys(K.launch_counts(), 0)
-    launch_rows = {}
-    for name, flags in launch_runs.items():
-        files = {k: os.path.join(launch_dir, f"{name}_{k}.json")
-                 for k in ("trace", "metrics", "launches")}
-        argv = flags + ["--trace-out", files["trace"], "--metrics-out",
-                        files["metrics"]]
-        t0 = time.perf_counter()
-        try:
-            out = subprocess.run(
-                [sys.executable, "-c", LAUNCH_CHILD.format(
-                    src=SRC, argv=argv, launches=files["launches"])],
-                capture_output=True, text=True, timeout=LAUNCH_TIMEOUT_S,
-                cwd=launch_dir)
-        except subprocess.TimeoutExpired:
-            fail(f"launch[{name}]: no exit within {LAUNCH_TIMEOUT_S} s")
-        wall_s = time.perf_counter() - t0
-        if out.returncode != 0:
-            fail(f"launch[{name}]: exit code {out.returncode}: "
-                 f"{out.stderr[-3000:]}")
-        recs = []
-        for text in out.stdout.splitlines():
-            try:
-                rec = json.loads(text)
-            except json.JSONDecodeError:
-                rec = None
-            if not isinstance(rec, dict):
-                fail(f"launch[{name}]: a stdout line is not one JSON "
-                     f"object: {text!r}")
-            recs.append(rec)
-        events = {r["event"]: r for r in recs}
-        served = events.get("served", {})
-        if served.get("n_requests") != LAUNCH_REQUESTS or not all(
-                np.isfinite(served.get(k, float("nan")))
-                for k in ("p50_ms", "mpix_per_s")):
-            fail(f"launch[{name}]: served {served}")
-        with open(files["metrics"]) as f:
-            snap = json.load(f)
-        texport.validate_snapshot(snap)
-        with open(files["trace"]) as f:
-            trace_obj = json.load(f)
-        texport.validate_chrome_trace(trace_obj)
-        names = [e["name"] for e in trace_obj["traceEvents"]]
-        buckets = {k.rsplit(".bucket", 1)[1] for k in snap["histograms"]
-                   if ".bucket" in k}
-        for ph in SERVE_PHASES:
-            n_hist = sum(h["count"] for k, h in snap["histograms"].items()
-                         if k.startswith(f"serve.{ph}_s.bucket"))
-            if names.count(f"serve.{ph}") != n_hist or n_hist == 0:
-                fail(f"launch[{name}]: {names.count(f'serve.{ph}')} "
-                     f"serve.{ph} events, {n_hist} in the histograms")
-        if "bucket_leak" in events or served["compiles"] != len(buckets):
-            fail(f"launch[{name}]: {served['compiles']} tile functions for "
-                 f"{len(buckets)} buckets")
-        with open(files["launches"]) as f:
-            counts = json.load(f)
-        for k, n in counts.items():
-            launch_launches[k] += n
-        trained = [r for r in recs if r["event"] == "scene_trained"]
-        launch_rows[name] = {
-            "argv": flags, "wall_s": wall_s,
-            "requests": served["n_requests"], "p50_ms": served["p50_ms"],
-            "p99_ms": served["p99_ms"], "mpix_per_s": served["mpix_per_s"],
-            "compiles": served["compiles"], "buckets": len(buckets),
-            "events": [r["event"] for r in recs],
-            "trace_events": len(names), "loss_scene0": [
-                trained[0]["loss_first"], trained[0]["loss_last"]],
-            "launches": counts}
-    shutil.rmtree(launch_dir, ignore_errors=True)
-    if launch_rows["defaults_shard"]["requests"] \
-            != launch_rows["defaults"]["requests"]:
-        fail(f"launch: --shard served {launch_rows['defaults_shard']} "
-             f"requests, the defaults {launch_rows['defaults']}")
-    if min(launch_launches[k] for k in ("field_fwd", "field_fwd_q",
-                                        "encode_fwd", "encode_bwd",
-                                        "mlp_fwd", "composite_fwd")) <= 0:
-        fail(f"launch: a kernel never launched: {launch_launches}")
-    emit({"phase": "launch", "runs": launch_rows,
-          "launches": launch_launches, **gpu})
-
-    # ------------------------------------------------------ launch_apps
-    # serve_render in this process for every app and encoding at Table-I
-    # width (log2_table_size=None: nerf, nvr, nsdf at 2^19 rows, gia at
-    # 2^24), 2 scenes of LAUNCH_APPS_STEPS training steps each, 8
-    # requests; the first and last loss of scene 0 are read off the
-    # training history.
-    histories = []
-    real_train = ctrain.train_field
-
-    def recording_train(*a, **kw):
-        trained, hist = real_train(*a, **kw)
-        histories.append(hist)
-        return trained, hist
-    apps_launches = dict.fromkeys(K.launch_counts(), 0)
-    app_rows = {}
-    logs = io.StringIO()
-    ctrain.train_field, lserve._LOG.stream = recording_train, logs
-    try:
-        for app in ("nerf", "nvr", "gia", "nsdf"):
-            for kind in ("hash", "dense", "tiled"):
-                histories.clear()
-                K.reset_launch_counts()
-                t0 = time.perf_counter()
-                st = lserve.serve_render(
-                    app, kind, train_steps=LAUNCH_APPS_STEPS,
-                    n_requests=LAUNCH_REQUESTS, seed=SEED, device=dev,
-                    log2_table_size=None)
-                torch.cuda.synchronize()
-                wall_s = time.perf_counter() - t0
-                counts = K.launch_counts()
-                for k, n in counts.items():
-                    apps_launches[k] += n
-                losses = [l_ for _, l_ in histories[0]]
-                need = ["field_fwd", "encode_fwd", "encode_bwd"] + (
-                    ["mlp_fwd"] if app == "nerf" else []) + (
-                    ["composite_fwd"] if app in ("nerf", "nvr") else [])
-                v = f"{app}_{kind}"
-                app_rows[v] = {
-                    "loss_first": losses[0], "loss_last": losses[-1],
-                    "p50_ms": st["p50_ms"], "mpix_per_s": st["mpix_per_s"],
-                    "requests": st["n_requests"], "wall_s": wall_s,
-                    "table_bytes": fields.make_field_config(
-                        app, kind).grid.params_bound() * 4,
-                    "launches": {k: counts[k] for k in (
-                        "field_fwd", "encode_fwd", "encode_bwd", "mlp_fwd",
-                        "composite_fwd")}}
-                if not all(np.isfinite(losses)) \
-                        or not losses[-1] < losses[0]:
-                    fail(f"launch_apps[{v}]: the loss did not fall: "
-                         f"{losses}")
-                if st["n_requests"] != LAUNCH_REQUESTS or not np.isfinite(
-                        st["p50_ms"]) or not np.isfinite(st["mpix_per_s"]):
-                    fail(f"launch_apps[{v}]: served {st}")
-                if min(counts[k] for k in need) <= 0:
-                    fail(f"launch_apps[{v}]: {need} must launch: {counts}")
-                del st
-                torch.cuda.empty_cache()
-    finally:
-        ctrain.train_field, lserve._LOG.stream = real_train, None
-    emit({"phase": "launch_apps", "scenes": 2,
-          "train_steps": LAUNCH_APPS_STEPS, "requests": LAUNCH_REQUESTS,
-          "runs": app_rows, "launches": apps_launches, **gpu})
-
-    # --------------------------------------------------------- examples
-    # the twins of the JAX examples as a user runs them, each in a child
-    line, ex_launches = examples_phase(K.launch_counts(), gpu)
+    # ------------------------------------------------------------ paths
+    # the serving and training paths, driven once for their launch counts
+    line = paths_phase(dev, gpu)
     emit(line)
 
     # ----------------------------------------------------------- report
     # kernel -> (source, TPU kernel it replaces, path its launches are
-    # read from, launches on that path, variant of the row's own numbers)
-    paths = {"serve": launches, "serve_quant": qlaunches,
-             "serve_gia": glaunches, "serve_nsdf": nlaunches,
-             "unfused": unfused_launches, "train": train_launches,
-             "serve_occ": olaunches, "train_runtime": runtime_launches,
-             "resume": resume_launches, "unfused_serve": ulaunches,
-             "launch": launch_launches, "launch_apps": apps_launches,
-             "serve_shard": sh_launches, "serve_shard_occ": sho_launches,
-             "train_dp": dp_launches, "elastic": el_launches,
-             "examples": ex_launches, "dryrun": dr_launches,
+    # read from, variant of the row's own numbers). The path is a phase of
+    # this script that launches the kernel.
+    paths = {**line["launches"], "dryrun": dr_launches,
              "lm_train": lt_launches}
     report = {
         "field_fwd": ("src/repro_torch/csrc/field.cu",
                       "src/repro/kernels/fused_field/fused_field.py:111",
-                      "serve", launches, "f32"),
+                      "serve", "f32"),
         "field_fwd_q": ("src/repro_torch/csrc/field.cu",
                         "src/repro/kernels/fused_field/fused_field.py:111",
-                        "serve_quant", qlaunches, "int8"),
+                        "serve_quant", "int8"),
         "encode_fwd": ("src/repro_torch/csrc/encode.cu",
                        "src/repro/kernels/hashgrid/hashgrid.py:183",
-                       "unfused", unfused_launches, "f32"),
+                       "train", "f32"),
         # no TPU kernel: the JAX package's encode VJP is XLA
         "encode_bwd": ("src/repro_torch/csrc/encode_bwd.cu",
                        "src/repro/kernels/hashgrid/vjp.py:27",
-                       "train", train_launches, "f32"),
+                       "train", "f32"),
         "mlp_fwd": ("src/repro_torch/csrc/mlp.cu",
                     "src/repro/kernels/fused_mlp/fused_mlp.py:74",
-                    "serve", launches, None),
+                    "serve", None),
         "composite_fwd": ("src/repro_torch/csrc/composite.cu",
                           "src/repro/kernels/ray_march/ray_march.py:53",
-                          "serve", launches, "packed"),
+                          "serve", "packed"),
         # no TPU kernel: the JAX package's intra-chunk SSD term is XLA
         "ssd_intra_fwd": ("src/repro_torch/csrc/ssd.cu",
-                          "src/repro/models/ssm.py:110",
-                          "lm_train", lt_launches, None),
+                          "src/repro/models/ssm.py:110", "lm_train", None),
         "ssd_intra_bwd": ("src/repro_torch/csrc/ssd.cu",
-                          "src/repro/models/ssm.py:110",
-                          "lm_train", lt_launches, None)}
+                          "src/repro/models/ssm.py:110", "lm_train", None)}
+    unlaunched = [n for n, r in report.items() if not paths[r[2]][n]]
+    if unlaunched:
+        fail(f"kernels: never launched on the path their row names: "
+             f"{unlaunched} ({paths})")
     keys = ("max_abs_err", "ms", "floor_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     rows_out = []
-    for n, (src, tpu, path, counts, main_v) in report.items():
+    for n, (src, tpu, path, main_v) in report.items():
         row = {"name": n, "route": "cuda", "source": src, "replaces": tpu,
-               "launches": counts[n], "path": path,
+               "launches": paths[path][n], "path": path,
                "launches_by_path": {p: c[n] for p, c in paths.items()},
                **{k: results[n, main_v][k] for k in keys}}
         if main_v is not None:

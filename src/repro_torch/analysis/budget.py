@@ -23,8 +23,9 @@ Assumptions, for the card these kernels are built for (an H100 SXM):
 :data:`SERVE_TILE_PIXELS` pixels x :data:`SERVE_SAMPLES` samples (131,072
 points for the ray apps; gia's and nsdf's field calls take one point a
 pixel); training batches of ``core/train.py``'s default
-:data:`TRAIN_BATCH` rays (x 32 samples) or points. The card phase of
-``chip_smoke.py`` recomputes the plans at the card's own SM count.
+:data:`TRAIN_BATCH` rays (x 32 samples) or points. On the card,
+``chip_smoke.py``'s ``analysis`` phase and ``tests/test_torch_cuda.py``'s
+``test_budget_matches_cuda`` recompute the plans at the card's SM count.
 
 Verdicts per estimate, as ``vmem.py`` has them:
   * fits        — the group's bytes fit their L2 share and the block's

@@ -1,7 +1,8 @@
 """CUDA's own numbers for one kernel instantiation: the query entry points
 (``<kernel>_info`` in each ``csrc/*.cu``, through ``csrc/info.cuh``) that
-``chip_smoke.py``'s ``analysis`` phase holds ``analysis/budget.py``
-against.
+``analysis/budget.py`` is held against on the card: by ``chip_smoke.py``'s
+``analysis`` phase for every Table-I instantiation, and by
+``tests/test_torch_cuda.py``'s ``test_budget_matches_cuda``.
 
 :func:`kernel_info` takes an instantiation as ``budget.KernelEstimate``
 names it (``instance``) and returns what a launch of it would see: the

@@ -1,5 +1,9 @@
-"""Each CUDA kernel of repro_torch against its plain PyTorch version, on
-the card. Every test needs an NVIDIA GPU and skips without one.
+"""The port's checks on the card: each CUDA kernel of repro_torch against
+its plain PyTorch version, and the serving and training paths through
+them, on small configs and, where a path's behaviour depends on the size,
+at Table I's published width (``_table1``). Every test needs an NVIDIA GPU
+and skips without one. ``chip_smoke.py`` measures the kernels; the
+benchmark (``ngbench/``) measures the workloads.
 
 This file imports neither JAX nor the JAX package, so it runs on a GPU
 machine without them:
@@ -14,7 +18,16 @@ the exp heads magnify the difference. Row counts straddle the kernels'
 16-row warp tiles and 128-point field tiles, and reach past one round of
 the persistent grid (132 blocks on an H100), so its loop wraps.
 """
+import collections
 import dataclasses
+import json
+import os
+import re
+import signal
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,7 +38,7 @@ from repro_torch.core import encoding as tenc
 from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.core import fields, occupancy, pipeline, render
 from repro_torch.core import train as ttrain
-from repro_torch.core.mlp import MLPConfig, apply_mlp
+from repro_torch.core.mlp import MLPConfig, apply_mlp, init_mlp
 from repro_torch.data import scenes
 from repro_torch.kernels.fused_field import ops as ff_ops
 from repro_torch.kernels.fused_field.ref import field_ref
@@ -50,6 +63,25 @@ TOL = 1e-4
 # changes from run to run, so they differ by f32 rounding of sums of up to
 # a few hundred terms: max error at most this share of the leaf's max abs.
 GRAD_TOL = 1e-5
+# Table I's width: 4096-pixel tiles of 32 samples; training steps of 4096
+# rays or points in chunks of 8, the rays' targets composited from the
+# analytic volume at 64 samples; 64^3 occupancy grids.
+T1_TILE, T1_SAMPLES = 4096, 32
+T1_BATCH, T1_CHUNK, T1_GT = 4096, 8, 64
+T1_OCC_RES = 64
+# one training step's gradients at Table-I width, kernels against plain
+# versions on the card: the kernels' 3xTF32 forward products (the exp and
+# sigmoid heads magnify them, as for TOL) feed the loss's cotangent, and
+# every sum runs in another order: max error over the leaf's max abs value
+TRAIN_PARITY_TOL = 1e-4
+# a quantized or bf16 frame against the f32 frame of the same scene: they
+# differ, by less than this (tests/test_quant.py's bound)
+QUANT_DENSE_MAX = 0.2
+# a sharded frame against the unsharded one: the same kernels on each ray,
+# point and row, whatever the tile's size
+SHARD_TOL = 1e-6
+REPO = Path(__file__).resolve().parents[1]
+SRC = REPO / "src"
 
 
 @pytest.fixture
@@ -60,6 +92,39 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _table1(app, seed, device, encoding="hash"):
+    """Table I's ``app`` x ``encoding`` at its published width, and a
+    scene's params on ``device``: U(-1, 1) tables drawn in place in f32
+    (gia's hash grid is 2 GiB), so a wrong row or level shows, and the
+    port's initial weights (normal / sqrt(fan_in))."""
+    cfg = fields.make_field_config(app, encoding)
+    gen = torch.Generator().manual_seed(seed)
+    tables = np.random.default_rng(seed).random(
+        fields.param_shapes(cfg)["grid"], dtype=np.float32)
+    tables *= 2
+    tables -= 1
+    params = {"grid": torch.from_numpy(tables),
+              "mlp": init_mlp(cfg.mlp, gen)}
+    if cfg.density_mlp is not None:
+        params["density_mlp"] = init_mlp(cfg.density_mlp, gen)
+    return cfg, fields.to_device(params, torch.device(device))
+
+
+def _engine_frame(dev, cfg, params, settings, cam, mesh=None):
+    """One scene's frame from a warmed-up engine on the card, the kernels'
+    launches while it renders, and the scene's bucket key."""
+    engine = RenderEngine(settings, mesh=mesh, device=torch.device("cuda", 0))
+    key = engine.add_scene("a", cfg, params)
+    engine.warmup()
+    tkernels.reset_launch_counts()
+    frame = engine.render_frame("a", cam)
+    return frame, tkernels.launch_counts(), key
+
+
+def _tiles(cam, settings):
+    return -(-cam.height * cam.width // settings.tile_pixels)
 
 
 def _mlp_params(cfg, seed, device, dtype=torch.float32):
@@ -468,90 +533,113 @@ def test_encode_level_groups_match_plain(dev, table, dim, n_features,
                                atol=TOL, rtol=TOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("app", ["nerf", "nvr"])
-def test_engine_on_card_matches_cpu_render_frame(dev, app):
+def _small_scene(app, device="cpu"):
+    """``app``'s hash config at 2^14 rows and 6 levels, with U(-1, 1)
+    tables drawn from torch's generator."""
     cfg = fields.make_field_config(app, "hash")
     cfg = cfg.with_grid(dataclasses.replace(cfg.grid, log2_table_size=14,
                                             n_levels=6))
     params = fields.init_field(cfg, torch.Generator().manual_seed(0),
-                               device="cpu")
+                               device=device)
     params["grid"] = torch.rand(params["grid"].shape,
                                 generator=torch.Generator().manual_seed(1)
-                                ) * 2 - 1
-    settings = pipeline.RenderSettings(tile_pixels=64, n_samples=8)
-    engine = RenderEngine(settings, device=dev)
-    engine.add_scene("a", cfg, params)
-    engine.warmup()
-    cam = scenes.orbit_camera(12, 12, 0.7)
-    tkernels.reset_launch_counts()
-    got = engine.render_frame("a", cam)
-    launched = {k for k, n in tkernels.launch_counts().items() if n > 0}
-    # nvr has no colour MLP; nerf runs all three kernels, its colour head
-    # as the mlp_fwd_head entry of mlp_fwd
-    assert launched == ({"field_fwd", "composite_fwd"}
-                        | ({"mlp_fwd", "mlp_fwd_head"} if app == "nerf"
-                           else set()))
+                                ).to(device) * 2 - 1
+    return cfg, params
+
+
+def _frame_case(app, width, device="cpu"):
+    """(config, params, settings, camera) of a frame test: small (2^14
+    rows, 6 levels; 64-pixel tiles of 8 samples, a 12x12 frame) or at
+    Table I's width (a 32x32 frame in one 4096-pixel tile of 32 samples)."""
+    if width == "small":
+        return (*_small_scene(app, device),
+                pipeline.RenderSettings(tile_pixels=64, n_samples=8),
+                scenes.orbit_camera(12, 12, 0.7))
+    return (*_table1(app, 0, device),
+            pipeline.RenderSettings(tile_pixels=T1_TILE,
+                                    n_samples=T1_SAMPLES),
+            scenes.orbit_camera(32, 32, 0.9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app,width,fused", [
+    ("nerf", "small", True), ("nvr", "small", True),
+    ("nerf", "table1", False)])
+def test_engine_on_card_matches_cpu_render_frame(dev, app, width, fused):
+    """The engine's frame on the card against render_frame on the CPU on
+    the same params. The unfused route (``fused=False``: encode_fwd once
+    and mlp_fwd once for each head a tile, field_fwd never) also against
+    the fused engine's frame on the card, which launches the fused path's
+    kernels. The fused nerf frame at Table-I width against a plain render
+    is the ``nerf_hash.frames_720p`` cell's ``correct``."""
+    cfg, params, settings, cam = _frame_case(app, width)
+    settings = dataclasses.replace(settings, fused=fused)
+    got, counts, _ = _engine_frame(dev, cfg, params, settings, cam)
+
+    def fused_kernels(counts):
+        # nvr has no colour MLP; nerf runs all three kernels, its colour
+        # head as the mlp_fwd_head entry of mlp_fwd
+        assert {k for k, n in counts.items() if n > 0} == (
+            {"field_fwd", "composite_fwd"}
+            | ({"mlp_fwd", "mlp_fwd_head"} if app == "nerf" else set()))
+    if fused:
+        fused_kernels(counts)
+    else:
+        t = _tiles(cam, settings)
+        want = {"encode_fwd": t, "mlp_fwd": 2 * t, "field_fwd": 0,
+                "field_fwd_q": 0, "composite_fwd": t}
+        assert {k: counts[k] for k in want} == want
+        fused_frame, fcounts, _ = _engine_frame(
+            dev, cfg, params, dataclasses.replace(settings, fused=True), cam)
+        fused_kernels(fcounts)
+        np.testing.assert_allclose(got, fused_frame, atol=TOL, rtol=TOL)
     ref = pipeline.render_frame(params, cfg, cam, settings, device="cpu")
     np.testing.assert_allclose(got, ref.numpy(), atol=TOL)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("app,spec", [
-    ("nerf", QuantSpec("int8")), ("nerf", QuantSpec("fp8_e4m3", "int8")),
-    ("nvr", QuantSpec("fp8_e4m3"))])
-def test_quantized_engine_on_card_matches_cpu_render_frame(dev, app, spec):
+@pytest.mark.parametrize("app,spec,width", [
+    ("nerf", QuantSpec("int8"), "small"),
+    ("nerf", QuantSpec("fp8_e4m3", "int8"), "small"),
+    ("nvr", QuantSpec("fp8_e4m3"), "small"),
+    ("nerf", QuantSpec("int8"), "table1"),
+    ("nerf", QuantSpec("fp8_e4m3", "int8"), "table1")])
+def test_quantized_engine_on_card_matches_cpu_render_frame(dev, app, spec,
+                                                           width):
     """Scenes quantized on the card, served through their own bucket, equal
-    the CPU render of the same quantized params."""
-    cfg = fields.make_field_config(app, "hash")
-    cfg = cfg.with_grid(dataclasses.replace(cfg.grid, log2_table_size=14,
-                                            n_levels=6))
-    params = fields.init_field(cfg, torch.Generator().manual_seed(0),
-                               device=dev)
-    params["grid"] = torch.rand(params["grid"].shape,
-                                generator=torch.Generator().manual_seed(1)
-                                ).to(dev) * 2 - 1
+    the CPU render of the same quantized params; at Table-I width the
+    frame differs from the f32 scene's, by less than QUANT_DENSE_MAX."""
+    cfg, params, settings, cam = _frame_case(app, width, dev)
     qparams = quantize_field(params, spec)
     qcfg = cfg.with_quant(spec)
-    settings = pipeline.RenderSettings(tile_pixels=64, n_samples=8)
-    engine = RenderEngine(settings, device=dev)
-    engine.add_scene("q", qcfg, qparams)
-    engine.warmup()
-    cam = scenes.orbit_camera(12, 12, 0.7)
-    tkernels.reset_launch_counts()
-    got = engine.render_frame("q", cam)
-    counts = tkernels.launch_counts()
+    got, counts, _ = _engine_frame(dev, qcfg, qparams, settings, cam)
     assert counts["field_fwd_q"] > 0 and counts["field_fwd"] == 0
     ref = pipeline.render_frame(fields.to_device(qparams, torch.device("cpu")),
                                 qcfg, cam, settings, device="cpu")
     np.testing.assert_allclose(got, ref.numpy(), atol=TOL)
+    if width == "table1":
+        dense = _engine_frame(dev, cfg, params, settings, cam)[0]
+        assert 0.0 < float(np.abs(got - dense).max()) < QUANT_DENSE_MAX
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("app", ["nerf", "nvr"])
-def test_bf16_engine_on_card_matches_cpu_render_frame(dev, app):
+@pytest.mark.parametrize("app,width", [("nerf", "small"), ("nvr", "small"),
+                                       ("nerf", "table1")])
+def test_bf16_engine_on_card_matches_cpu_render_frame(dev, app, width):
     """A scene with bf16 tables gets its own bucket, runs field_fwd on its
-    bf16 tables, and equals the CPU render of the same params."""
-    cfg = fields.make_field_config(app, "hash")
-    cfg = cfg.with_grid(dataclasses.replace(cfg.grid, log2_table_size=14,
-                                            n_levels=6))
-    params = fields.init_field(cfg, torch.Generator().manual_seed(0),
-                               device="cpu")
-    params["grid"] = (torch.rand(params["grid"].shape,
-                                 generator=torch.Generator().manual_seed(1))
-                      * 2 - 1).to(torch.bfloat16)
-    settings = pipeline.RenderSettings(tile_pixels=64, n_samples=8)
-    engine = RenderEngine(settings, device=dev)
-    key = engine.add_scene("b", cfg, params)
+    bf16 tables, and equals the CPU render of the same params; at Table-I
+    width its frame differs from the f32 scene's, by less than
+    QUANT_DENSE_MAX."""
+    cfg, params, settings, cam = _frame_case(app, width)
+    bparams = {**params, "grid": params["grid"].to(torch.bfloat16)}
+    got, counts, key = _engine_frame(dev, cfg, bparams, settings, cam)
     assert key.dtype.startswith("torch.bfloat16")
-    engine.warmup()
-    cam = scenes.orbit_camera(12, 12, 0.7)
-    tkernels.reset_launch_counts()
-    got = engine.render_frame("b", cam)
-    counts = tkernels.launch_counts()
     assert counts["field_fwd"] > 0 and counts["field_fwd_q"] == 0
-    ref = pipeline.render_frame(params, cfg, cam, settings, device="cpu")
+    ref = pipeline.render_frame(bparams, cfg, cam, settings, device="cpu")
     np.testing.assert_allclose(got, ref.numpy(), atol=TOL)
+    if width == "table1":
+        dense = _engine_frame(dev, cfg, params, settings, cam)[0]
+        assert 0.0 < float(np.abs(got - dense).max()) < QUANT_DENSE_MAX
 
 
 def _grid2d_inputs(dev, n, n_features, table, seed):
@@ -645,48 +733,67 @@ def test_field_kernel_single_output_matches_plain(dev, monkeypatch, table, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("app,table", [("gia", "f32"), ("gia", "bf16"),
-                                       ("gia", "int8"), ("nsdf", "f32")])
-def test_app_engine_on_card_matches_cpu_render_frame(dev, app, table):
+@pytest.mark.parametrize("app,table,width", [
+    ("gia", "f32", "small"), ("gia", "bf16", "small"),
+    ("gia", "int8", "small"), ("nsdf", "f32", "small"),
+    ("gia", "f32", "table1"), ("gia", "bf16", "table1"),
+    ("gia", "int8", "table1")])
+def test_app_engine_on_card_matches_cpu_render_frame(dev, app, table, width):
     """gia (dense and hashed 2-D levels; f32, bf16 or int8 tables, each in
     its own bucket) and nsdf (the baked sphere, sphere-traced) through the
-    engine on the card, against the CPU render of the same params. nsdf
+    engine on the card, against the CPU render of the same params: small
+    (2^14 rows; 64-pixel tiles, a 12x12 frame) and at Table-I width (gia's
+    2 GiB of f32 tables; a 32x32 frame in one 4096-pixel tile). nsdf
     launches field_fwd 55 times per tile: 48 trace steps, the hit points
-    and six offsets for the normal."""
+    and six offsets for the normal. At Table-I width the bf16 and int8
+    frames differ from the f32 one, by less than QUANT_DENSE_MAX. nsdf's
+    frame at Table-I width against a plain render is the
+    ``nsdf_hash.frames_720p`` cell's ``correct``."""
     cfg = fields.make_field_config(app, "hash")
-    log2_T, n_levels = (14, 12) if app == "gia" else (14, 6)
-    cfg = cfg.with_grid(dataclasses.replace(cfg.grid, log2_table_size=log2_T,
-                                            n_levels=n_levels))
-    if app == "nsdf":
-        np_params = scenes.baked_sdf_params(cfg, 3)
+    if width == "small":
+        log2_T, n_levels = (14, 12) if app == "gia" else (14, 6)
+        cfg = cfg.with_grid(dataclasses.replace(
+            cfg.grid, log2_table_size=log2_T, n_levels=n_levels))
+        settings = pipeline.RenderSettings(tile_pixels=64)
+        cam = scenes.orbit_camera(12, 12, 0.7)
     else:
+        settings = pipeline.RenderSettings(tile_pixels=T1_TILE,
+                                           n_samples=T1_SAMPLES)
+        cam = scenes.orbit_camera(32, 32, 0.9)
+    if app == "nsdf":
+        params = fields.from_jax_params(scenes.baked_sdf_params(cfg, 3), cfg,
+                                        dev)
+    elif width == "small":
         rng = np.random.default_rng(3)
-        np_params = {"grid": rng.uniform(-1, 1, fields.param_shapes(cfg)[
-            "grid"]).astype(np.float32),
+        params = fields.from_jax_params({
+            "grid": rng.uniform(-1, 1, fields.param_shapes(cfg)[
+                "grid"]).astype(np.float32),
             "mlp": {k: v.cpu().numpy()
-                    for k, v in _mlp_params(cfg.mlp, 4, "cpu").items()}}
-    params = fields.from_jax_params(np_params, cfg, dev)
+                    for k, v in _mlp_params(cfg.mlp, 4, "cpu").items()}},
+            cfg, dev)
+    else:
+        cfg, params = _table1(app, 3, dev)
+    f32_params = params
     if table == "bf16":
-        params["grid"] = params["grid"].to(torch.bfloat16)
+        params = {**params, "grid": params["grid"].to(torch.bfloat16)}
     elif table == "int8":
         cfg = cfg.with_quant(QuantSpec("int8"))
         params = quantize_field(params, cfg.quant)
-    settings = pipeline.RenderSettings(tile_pixels=64)
-    engine = RenderEngine(settings, device=dev)
-    engine.add_scene("a", cfg, params)
-    engine.warmup()
-    cam = scenes.orbit_camera(12, 12, 0.7)
-    tkernels.reset_launch_counts()
-    got = engine.render_frame("a", cam)
-    counts = {k: n for k, n in tkernels.launch_counts().items() if n}
+    got, counts, _ = _engine_frame(dev, cfg, params, settings, cam)
+    counts = {k: n for k, n in counts.items() if n}
     kernel = "field_fwd_q" if table == "int8" else "field_fwd"
-    assert counts == {kernel: 3 * (55 if app == "nsdf" else 1)}
+    assert counts == {kernel: _tiles(cam, settings)
+                      * (55 if app == "nsdf" else 1)}
     ref = pipeline.render_frame(fields.to_device(params, torch.device("cpu")),
                                 cfg, cam, settings, device="cpu")
     np.testing.assert_allclose(got, ref.numpy(), atol=TOL)
     if app == "nsdf":
         hit = got.sum(-1) > 0
         assert 0 < hit.sum() < hit.size
+    if width == "table1" and table != "f32":
+        f32 = _engine_frame(dev, fields.make_field_config(app, "hash"),
+                            f32_params, settings, cam)[0]
+        assert 0.0 < float(np.abs(got - f32).max()) < QUANT_DENSE_MAX
 
 
 def _rel_err(got, ref):
@@ -872,21 +979,26 @@ def test_occupancy_grid_on_card_matches_cpu(dev, res):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("app", ["nerf", "nvr"])
-@pytest.mark.parametrize("tile", [4096, 333])
-def test_culled_tile_on_card_equals_dense_bitwise(dev, app, tile):
+@pytest.mark.parametrize("app,tile,width", [
+    ("nerf", 4096, "small"), ("nerf", 333, "small"), ("nvr", 4096, "small"),
+    ("nvr", 333, "small"), ("nerf", 4096, "table1")])
+def test_culled_tile_on_card_equals_dense_bitwise(dev, app, tile, width):
     """All-occupied grid, full budget: the culled tile on the card equals
-    the dense tile on the card bit for bit. The field kernels' output per
-    point does not depend on where the point sits in the batch: the field
-    of the points in the culled route's (sample-major) order equals the
-    dense output permuted, bit for bit."""
-    cfg, params = _occ_scene(app)
-    params = fields.to_device(params, dev)
+    the dense tile on the card bit for bit, small (2^14 rows, 4 levels) and
+    at Table-I width. The field kernels' output per point does not depend
+    on where the point sits in the batch: the field of the points in the
+    culled route's (sample-major) order equals the dense output permuted,
+    bit for bit."""
+    if width == "small":
+        cfg, params = _occ_scene(app)
+        params, res = fields.to_device(params, dev), 8
+    else:
+        (cfg, params), res = _table1(app, 3, dev), T1_OCC_RES
     cam = scenes.orbit_camera(64, 64, 0.7)
     ids = torch.arange(tile, device=dev) % (64 * 64)
     dense = pipeline.RenderSettings(tile_pixels=tile, n_samples=32)
     culled = dataclasses.replace(dense, occupancy=True)
-    p_occ = occupancy.attach(params, occupancy.all_occupied(8, dev))
+    p_occ = occupancy.attach(params, occupancy.all_occupied(res, dev))
     tkernels.reset_launch_counts()
     rgb_c, row = pipeline.make_tile_fn(cfg, culled, with_aux=True)(
         p_occ, cam, ids)
@@ -907,17 +1019,28 @@ def test_culled_tile_on_card_equals_dense_bitwise(dev, app, tile):
                        out[perm])
 
 
+def _volume_grid(res, device="cpu"):
+    """The analytic volume's densities as an occupancy grid: an oracle."""
+    return occupancy.build_occupancy_from_fn(
+        lambda p: scenes.volume_field(p * 4.0 - 2.0)[:, 3], res=res,
+        device=device)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("budget_div", [1, 4, 64])
-def test_culled_engine_on_card_matches_cpu(dev, budget_div):
+@pytest.mark.parametrize("budget_div,width", [(1, "small"), (4, "small"),
+                                              (64, "small"), (4, "table1")])
+def test_culled_engine_on_card_matches_cpu(dev, budget_div, width):
     """An oracle grid (the analytic volume's densities) at full, quarter
     and 1/64 budget: the engine's culled frame on the card against
     render_frame on the CPU within 1e-4, the same sample counts, and the
-    culled path launches the field, MLP and compositing kernels."""
-    cfg, params = _occ_scene("nerf")
-    grid = occupancy.build_occupancy_from_fn(
-        lambda p: scenes.volume_field(p * 4.0 - 2.0)[:, 3], res=32,
-        device="cpu")
+    culled path launches the field, MLP and compositing kernels; small
+    (2^14 rows, 4 levels, a 32^3 grid) and at Table-I width (a 64^3
+    grid)."""
+    if width == "small":
+        (cfg, params), grid = _occ_scene("nerf"), _volume_grid(32)
+    else:
+        (cfg, params), grid = _table1("nerf", 3, "cpu"), _volume_grid(
+            T1_OCC_RES)
     p_occ = occupancy.attach(params, grid)
     settings = pipeline.RenderSettings(
         tile_pixels=1024, n_samples=32, occupancy=True,
@@ -990,14 +1113,39 @@ def test_async_checkpointer_snapshots_card_state_before_update(dev, tmp_path):
         before = state["params"]["grid"].clone()
 
 
+def _nerf_train_case(width):
+    """(config, initial params' maker, batch of a step) of a nerf training
+    test: small (2^14 rows, 4 levels; 256 rays) or at Table-I width (4096
+    rays, targets from the analytic volume at 64 samples)."""
+    if width == "small":
+        cfg, _ = _occ_scene("nerf")
+
+        def batch(step, device):
+            return ttrain.make_batch(
+                cfg, ttrain.batch_generator(0, step, device), 256)
+    else:
+        cfg = fields.make_field_config("nerf", "hash")
+
+        def batch(step, device):
+            return ttrain.make_batch(
+                cfg, ttrain.batch_generator(0, step, device), T1_BATCH,
+                scenes.default_camera(), gt_samples=T1_GT)
+
+    def init(device):
+        return fields.init_field(cfg, torch.Generator().manual_seed(0),
+                                 device)
+    return cfg, init, batch
+
+
 @pytest.mark.cuda
-def test_grad_accum_on_card_matches_single_pass(dev):
-    """grad_accum=2 against 1 on the card, before Adam: the loss within
-    1e-6 of its size, every gradient leaf within 1e-5 of its max (f32 sums
-    in another order, atomics in another order)."""
-    cfg, _ = _occ_scene("nerf")
-    params = fields.init_field(cfg, torch.Generator().manual_seed(0), dev)
-    batch = ttrain.make_batch(cfg, ttrain.batch_generator(0, 0, dev), 256)
+@pytest.mark.parametrize("width", ["small", "table1"])
+def test_grad_accum_on_card_matches_single_pass(dev, width):
+    """grad_accum=2 against 1 on the card, before Adam, small and at
+    Table-I width: the loss within 1e-6 of its size, every gradient leaf
+    within 1e-5 of its max (f32 sums in another order, atomics in another
+    order)."""
+    cfg, init, make_batch = _nerf_train_case(width)
+    params, batch = init(dev), make_batch(0, dev)
 
     def loss_fn(p, b):
         return ttrain.field_loss(p, cfg, b)
@@ -1008,47 +1156,153 @@ def test_grad_accum_on_card_matches_single_pass(dev):
         assert _rel_err(b, a) <= GRAD_TOL
 
 
+# a resumed run's loss against an uninterrupted one's: at most this many
+# times the largest difference between two uninterrupted runs (one draw of
+# encode_bwd's atomics' rounding against another's), or this share of the
+# loss, whichever is larger
+RESUME_NOISE_FACTOR, RESUME_FLOOR = 4.0, 1e-5
+
+
+def _resume_bound(noise, y):
+    return max(RESUME_NOISE_FACTOR * noise, RESUME_FLOOR * abs(y))
+
+
+def _train_kw(width, dev):
+    """train_field's arguments of a nerf run: small (256 rays, chunks of
+    3, 12 steps) or at Table-I width (4096 rays, chunks of 8, 48 steps)."""
+    if width == "small":
+        return dict(steps=12, batch_size=256, seed=0, chunk_steps=3,
+                    device=dev, log_every=1)
+    return dict(steps=48, batch_size=T1_BATCH, seed=0, chunk_steps=T1_CHUNK,
+                gt_samples=T1_GT, device=dev, log_every=1)
+
+
+def _losses(cfg, **kw):
+    """(step, loss) of every step of one train_field run."""
+    rows = []
+    ttrain.train_field(cfg, on_metrics=lambda i, r, st: rows.append(
+        (i, r["loss"])), **kw)
+    return rows
+
+
 @pytest.mark.cuda
-def test_resumed_card_run_within_bound(dev, tmp_path):
-    """nerf (small grid) on the card: stopped at step 6 and resumed to 12.
-    The checkpoint restores the state at step 5 bit for bit. The resumed
-    run's losses differ from an uninterrupted run's by at most 4x what two
+@pytest.mark.parametrize("width,stop", [("small", 6), ("table1", 16)])
+def test_resumed_card_run_within_bound(dev, tmp_path, width, stop):
+    """nerf on the card, small (2^14 rows; 12 steps) and at Table-I width
+    (48 steps): stopped at ``stop`` and resumed to the end. The checkpoint
+    restores the state at the last step bit for bit. The resumed run's
+    losses differ from an uninterrupted run's by at most 4x what two
     uninterrupted runs differ by (encode_bwd's atomics sum in a varying
     order, so runs are not bitwise equal), with a floor of 1e-5 of the
     loss: the largest of one draw of that difference against another's."""
-    cfg, _ = _occ_scene("nerf")
-    kw = dict(steps=12, batch_size=256, seed=0, chunk_steps=3,
-              ckpt_every=3, device=dev, log_every=1)
-
-    def losses(**extra):
-        rows = []
-        ttrain.train_field(cfg, on_metrics=lambda i, r, st: rows.append(
-            (i, r["loss"])), **{**kw, **extra})
-        return rows
-    a, b = losses(), losses()
+    cfg, init, _ = _nerf_train_case(width)
+    kw = {**_train_kw(width, dev), "ckpt_every": _train_kw(width, dev)[
+        "chunk_steps"]}
+    a, b = _losses(cfg, **kw), _losses(cfg, **kw)
     saved = {}
 
     def grab(i, r, st):
-        if i == 5:
+        if i == stop - 1:
             saved.update({k: (v.clone() if torch.is_tensor(v) else v)
                           for k, v in ckpt_store._flatten(st)})
     ck = str(tmp_path / "ck")
     ttrain.train_field(cfg, on_metrics=grab, ckpt_dir=ck,
-                       **{**kw, "steps": 6})
-    target = tloop.init_train_state(fields.init_field(
-        cfg, torch.Generator().manual_seed(0), dev))
-    restored = dict(ckpt_store._flatten(ckpt_store.restore(ck, target,
-                                                           step=5)))
+                       **{**kw, "steps": stop})
+    target = tloop.init_train_state(init(dev))
+    restored = dict(ckpt_store._flatten(ckpt_store.restore(
+        ck, target, step=stop - 1)))
     assert restored.keys() == saved.keys()
     for k, v in saved.items():
         assert (torch.equal(restored[k], v) if torch.is_tensor(v)
                 else restored[k] == v), k
-    r = losses(ckpt_dir=ck)
-    assert [i for i, _ in r] == list(range(6, 12))
+    r = _losses(cfg, ckpt_dir=ck, **kw)
+    assert [i for i, _ in r] == list(range(stop, kw["steps"]))
     noise = max(abs(x - y) for (_, x), (_, y) in zip(a, b))
-    for (i, x), (j, y) in zip(r, a[6:]):
-        assert i == j and abs(x - y) <= max(4 * noise, 1e-5 * abs(y)), (
+    for (i, x), (j, y) in zip(r, a[stop:]):
+        assert i == j and abs(x - y) <= _resume_bound(noise, y), (
             i, x, y, noise)
+
+
+# the kill-and-resume child: trains Table-I nerf with checkpoints until
+# killed
+KILL_CHILD = """
+import sys
+sys.path.insert(0, {src!r})
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.core import fields, train
+cfg = fields.make_field_config("nerf", "hash")
+train.train_field(cfg, steps=100000, batch_size={batch}, seed=0,
+                  chunk_steps={chunk}, ckpt_dir={ckpt!r}, ckpt_every={every},
+                  gt_samples={gt}, device="cuda")
+"""
+
+
+@pytest.mark.cuda
+def test_killed_card_run_resumes_within_bound(dev, tmp_path):
+    """Table-I nerf in a child process, checkpointing every 16 steps,
+    SIGKILLed right after its first commit: every step directory left is
+    committed, latest_step is the last commit, and a temporary directory
+    is left at most for a save the kill cut short (after the last
+    commit). A run resumed from it to step 48 starts at the next step, its
+    losses within the bound of an uninterrupted run's."""
+    from repro_torch.checkpoint import store
+    cfg = fields.make_field_config("nerf", "hash")
+    kw = _train_kw("table1", dev)
+    a, b = _losses(cfg, **kw), _losses(cfg, **kw)
+    noise = max(abs(x - y) for (_, x), (_, y) in zip(a, b))
+    ck, every = str(tmp_path / "kill"), 16
+    child = subprocess.Popen([sys.executable, "-c", KILL_CHILD.format(
+        src=str(SRC), batch=T1_BATCH, chunk=T1_CHUNK, ckpt=ck, every=every,
+        gt=T1_GT)])
+    t0 = time.perf_counter()
+    try:
+        while store.latest_step(ck) is None:
+            assert child.poll() is None, "the child exited before a commit"
+            assert time.perf_counter() - t0 < 300, "no commit in 300 s"
+            time.sleep(0.005)
+        os.kill(child.pid, signal.SIGKILL)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+    step_dirs = [p for p in os.listdir(ck) if p.startswith("step_")]
+    committed = sorted(int(p.split("_")[1]) for p in step_dirs
+                       if os.path.exists(os.path.join(ck, p, store.MANIFEST)))
+    # the store commits a save by renaming its temporary directory, which
+    # latest_step never reads
+    temps = [int(re.match(r"\.tmp_step_(\d+)_", p).group(1))
+             for p in os.listdir(ck) if p.startswith(".tmp_step_")]
+    last = store.latest_step(ck)
+    assert len(committed) == len(step_dirs) and last == committed[-1]
+    assert last < kw["steps"] - 1 and all(t > last for t in temps)
+    r = _losses(cfg, ckpt_dir=ck, ckpt_every=every, **kw)
+    assert [i for i, _ in r] == list(range(last + 1, kw["steps"]))
+    for i, x in r:
+        assert abs(x - a[i][1]) <= _resume_bound(noise, a[i][1]), (i, x)
+
+
+@pytest.mark.cuda
+def test_gia_train_state_checkpoints_on_card(dev, tmp_path):
+    """gia's train state at Table-I width, 6 GiB on the card (2 GiB of
+    tables and Adam's two moments, after one step so the moments are not
+    zero), saved by the asynchronous checkpointer and restored bit for
+    bit."""
+    cfg = fields.make_field_config("gia", "hash")
+    state = tloop.init_train_state(fields.init_field(
+        cfg, torch.Generator().manual_seed(0), dev))
+    state, _ = tloop.make_scanned_step(
+        lambda p, b: ttrain.field_loss(p, cfg, b), toptim.AdamConfig())(
+        state, 0, ttrain.make_batch(cfg, ttrain.batch_generator(0, 0, dev),
+                                    T1_BATCH))
+    ck = ckpt_store.AsyncCheckpointer(tmp_path / "gia", keep=1)
+    ck.save(state, 0)
+    ck.wait()
+    got = ckpt_store.restore(tmp_path / "gia", state)
+    for (kx, x), (ky, y) in zip(ckpt_store._flatten(got),
+                                ckpt_store._flatten(state)):
+        assert kx == ky and (torch.equal(x, y) if torch.is_tensor(x)
+                             else x == y), kx
 
 
 # ------------------------------------- the unfused route, obs, the launcher
@@ -1068,22 +1322,30 @@ def _u11_params(cfg, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("quant", [None, "int8"])
-@pytest.mark.parametrize("encoding", ["hash", "dense", "tiled"])
-@pytest.mark.parametrize("app", ["nerf", "nvr", "gia", "nsdf"])
-def test_unfused_field_on_card_matches_cpu(dev, app, encoding, quant):
+@pytest.mark.parametrize("app,encoding,quant,n", [
+    *((app, encoding, quant, 5000) for app in ("nerf", "nvr", "gia", "nsdf")
+      for encoding in ("hash", "dense", "tiled") for quant in (None, "int8")),
+    *(("nerf", "table1", quant, 131_072)
+      for quant in (None, "int8", "fp8_e4m3")),
+    *(("gia", "table1", quant, 4096) for quant in (None, "int8"))])
+def test_unfused_field_on_card_matches_cpu(dev, app, encoding, quant, n):
     """``apply_field(fused=False)`` on the card (``encode_fwd``, then
     ``mlp_fwd`` per head, no ``field_fwd``) against the CPU's plain
-    versions, and against the fused route on the card, at TOL."""
-    cfg = _enc_field(app, encoding)
-    params = _u11_params(cfg, 5)
+    versions, and against the fused route on the card, at TOL: every
+    Table-I encoding at 2^14 rows on 5000 points, and the hash grid at
+    Table I's width (``table1``) on a tile's points (nerf's 4096 rays x 32
+    samples, gia's 4096 pixels)."""
+    if encoding == "table1":
+        cfg, params = _table1(app, 5, "cpu")
+    else:
+        cfg = _enc_field(app, encoding)
+        params = _u11_params(cfg, 5)
     if quant:
         spec = QuantSpec(quant)
         cfg, params = cfg.with_quant(spec), quantize_field(params, spec)
     rng = np.random.default_rng(6)
-    pts = torch.from_numpy(rng.random((5000, cfg.grid.dim),
-                                      dtype=np.float32))
-    d = torch.from_numpy(rng.normal(size=(5000, 3)).astype(np.float32))
+    pts = torch.from_numpy(rng.random((n, cfg.grid.dim), dtype=np.float32))
+    d = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
     d = d / d.norm(dim=-1, keepdim=True) if app == "nerf" else None
     dp = fields.to_device(params, dev)
 
@@ -1130,6 +1392,232 @@ def test_unfused_train_steps_on_card_match_cpu(dev, app):
     assert counts["field_fwd"] == 0 and counts["encode_bwd"] == 3
     assert counts["encode_fwd"] == 3
     assert counts["mlp_fwd"] == 3 * (2 if app == "nerf" else 1)
+
+
+def _leaves(tree, prefix=""):
+    """{path: leaf} of a param tree."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _clone(tree):
+    return {k: (_clone(v) if isinstance(v, dict) else v.clone())
+            for k, v in tree.items()}
+
+
+def _plain_wrappers(monkeypatch):
+    """``apply_field``'s field and MLP wrappers swapped for their plain
+    versions: autograd through plain PyTorch ops on the card."""
+    from repro_torch.kernels.fused_mlp.ref import mlp_ref
+
+    def field(points, tables, w, grid_cfg, mlp_cfg, table_scales=None):
+        return field_ref(points, tables, w, grid_cfg, mlp_cfg, table_scales)
+    monkeypatch.setattr(fields.ff_ops, "field", field)
+    monkeypatch.setattr(fields.mlp_ops, "mlp", mlp_ref)
+
+
+def _falls(rows):
+    losses = [loss for _, loss in rows]
+    return bool(np.isfinite(losses).all()) and losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+def test_unfused_route_trains_at_table1_width_on_card(dev):
+    """Table-I nerf on the unfused route: the first step's gradients
+    against the fused route's on the card (within TRAIN_PARITY_TOL of each
+    leaf's max, none all zero), and 8 steps of ``train_field(fused=False)``
+    whose loss falls, launching encode_fwd, mlp_fwd and encode_bwd and
+    never field_fwd."""
+    cfg, init, make_batch = _nerf_train_case("table1")
+    params, batch = init(dev), make_batch(0, dev)
+    grads = {f: _leaves(tloop.value_and_grad(
+        lambda p, b, f=f: ttrain.field_loss(p, cfg, b, fused=f), params,
+        batch)[1]) for f in (True, False)}
+    for path, g in grads[False].items():
+        assert float(grads[True][path].abs().max()) > 0, path
+        assert _rel_err(g, grads[True][path]) <= TRAIN_PARITY_TOL, path
+    tkernels.reset_launch_counts()
+    rows = _losses(cfg, fused=False, params=params,
+                   **{**_train_kw("table1", dev), "steps": 8})
+    counts = tkernels.launch_counts()
+    assert _falls(rows), rows
+    assert counts["field_fwd"] == 0 and min(
+        counts[k] for k in ("encode_fwd", "mlp_fwd", "encode_bwd")) > 0, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app,steps", [("nerf", 32), ("gia", 16),
+                                       ("nsdf", 16), ("nvr", 16)])
+def test_apps_train_at_table1_width_on_card(dev, app, steps):
+    """Each Table-I app at its published width (gia: 2 GiB of tables)
+    through ``train_field`` (TrainEngine; chunks of 8; 4096 points or rays
+    a step): the loss falls; field_fwd, encode_fwd (the backward's
+    recomputed features), encode_bwd and, for nerf, mlp_fwd launch every
+    step, composite_fwd never (the loss composites in plain ops)."""
+    cfg = fields.make_field_config(app, "hash")
+    init = fields.init_field(cfg, torch.Generator().manual_seed(0), dev)
+    tkernels.reset_launch_counts()
+    rows = _losses(cfg, params=init,
+                   **{**_train_kw("table1", dev), "steps": steps})
+    counts = tkernels.launch_counts()
+    assert _falls(rows), rows
+    for k in ["field_fwd", "encode_fwd", "encode_bwd"] + (
+            ["mlp_fwd"] if app == "nerf" else []):
+        assert counts[k] >= steps, (k, counts)
+    assert counts["composite_fwd"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["gia"])
+def test_first_step_grads_match_plain_at_table1_width_on_card(dev, app,
+                                                               monkeypatch):
+    """The first training step's gradient of every leaf at Table-I width,
+    the kernels (encode_bwd once) against the plain versions on the card
+    (no kernel launched): within TRAIN_PARITY_TOL of the leaf's max, which
+    is not 0. From the initial params: at trained ones gradients can be
+    exactly 0 (nerf's density collapses), so they would compare nothing.
+    nerf's first step at Table-I width against a plain reference is the
+    ``nerf_hash.train_32k_rays`` cell's ``correct``."""
+    cfg = fields.make_field_config(app, "hash")
+    params = fields.init_field(cfg, torch.Generator().manual_seed(0), dev)
+    batch = ttrain.make_batch(cfg, ttrain.batch_generator(0, 0, dev),
+                              T1_BATCH, scenes.default_camera(),
+                              gt_samples=T1_GT)
+
+    def loss_fn(p, b):
+        return ttrain.field_loss(p, cfg, b)
+    tkernels.reset_launch_counts()
+    got = _leaves(tloop.value_and_grad(loss_fn, params, batch)[1])
+    assert tkernels.launch_counts()["encode_bwd"] == 1
+    _plain_wrappers(monkeypatch)
+    tkernels.reset_launch_counts()
+    ref = _leaves(tloop.value_and_grad(loss_fn, params, batch)[1])
+    assert not any(tkernels.launch_counts().values())
+    for path, g in got.items():
+        assert float(ref[path].abs().max()) > 0, path
+        assert _rel_err(g, ref[path]) <= TRAIN_PARITY_TOL, path
+
+
+@pytest.mark.cuda
+def test_trained_nerf_frame_beats_its_init_on_card(dev):
+    """Table-I nerf trained 32 steps on the card and the params its
+    training started from, in one engine: a 32x32 frame of each from the
+    training camera against the analytic volume's pixels (64 samples). The
+    trained frame's MSE is the lower, and the serving kernels launch."""
+    cfg = fields.make_field_config("nerf", "hash")
+    init = fields.init_field(cfg, torch.Generator().manual_seed(0), dev)
+    trained, _ = ttrain.train_field(
+        cfg, params=init, **{**_train_kw("table1", dev), "steps": 32})
+    engine = RenderEngine(pipeline.RenderSettings(
+        tile_pixels=T1_TILE, n_samples=T1_SAMPLES), device=dev)
+    engine.add_scene("trained", cfg, trained)
+    engine.add_scene("untrained", cfg, init)
+    engine.warmup()
+    cam = scenes.default_camera(32, 32)
+    tkernels.reset_launch_counts()
+    frames = {n: engine.render_frame(n, cam) for n in ("trained",
+                                                       "untrained")}
+    counts = tkernels.launch_counts()
+    o, d = render.make_rays(cam, torch.arange(32 * 32, device=dev))
+    gt = scenes.gt_render_rays(o, d, n_samples=T1_GT).reshape(
+        32, 32, 3).cpu().numpy()
+    mse = {n: float(((f - gt) ** 2).mean()) for n, f in frames.items()}
+    assert np.isfinite(list(mse.values())).all() \
+        and mse["trained"] < mse["untrained"], mse
+    for k in ("field_fwd", "mlp_fwd", "composite_fwd"):
+        assert counts[k] > 0, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["topk", "int8"])
+def test_compressed_training_keeps_what_it_does_not_send_on_card(dev,
+                                                                 scheme):
+    """Table-I nerf, 16 steps with its table gradient compressed (top-k 5%
+    or int8) under error feedback: the loss falls, and on step 1's
+    gradient with the feedback step 0 left (not 0), kept + efb_new equals
+    g + efb_old: nothing is lost (exactly for top-k; int8 within 1e-6 of
+    the max: one f32 rounding of acc - deq and one of the sum)."""
+    cfg, _, make_batch = _nerf_train_case("table1")
+    rows, first = [], {}
+
+    def on_metrics(i, r, st):
+        rows.append((i, r["loss"]))
+        if i == 0:
+            first.update(params=_clone(st["params"]),
+                         efb=st["efb"]["grid"].clone())
+    ttrain.train_field(cfg, compression=scheme, compression_topk=0.05,
+                       on_metrics=on_metrics,
+                       **{**_train_kw("table1", dev), "steps": 16})
+    assert _falls(rows), rows
+    _, g = tloop.value_and_grad(lambda p, b: ttrain.field_loss(p, cfg, b),
+                                first["params"], make_batch(1, dev))
+    kept, efb_new = (compression.compress_topk(g["grid"], first["efb"], 0.05)
+                     if scheme == "topk"
+                     else compression.compress_int8(g["grid"], first["efb"]))
+    assert float(first["efb"].abs().max()) > 0
+    assert _rel_err(kept + efb_new, g["grid"] + first["efb"]) <= (
+        0.0 if scheme == "topk" else 1e-6)
+
+
+# train_field's default occupancy threshold; the refresh's bits against
+# the plain versions' agree but for cells within OCC_EPS of it (relative)
+OCC_THRESHOLD, OCC_EPS = 0.01, 1e-3
+
+
+@pytest.mark.cuda
+def test_occupancy_refresh_in_training_matches_plain_on_card(dev,
+                                                             monkeypatch):
+    """Table-I nerf, 32 steps with a 64^3 occupancy grid built at the
+    first chunk end and refreshed at the next three: the attached grid is
+    the last refresh's; field_fwd's densities at the cell centres within
+    TOL (relative) of the plain versions'; the last refresh recomputed by
+    the plain versions (no kernel launched) on the same params and previous
+    grid has its densities within TOL and its bits but for cells within
+    OCC_EPS of the threshold."""
+    cfg = fields.make_field_config("nerf", "hash")
+    refreshes = []
+    build, update = occupancy.build_occupancy, occupancy.update_occupancy
+
+    def rec_build(params, c, **kw):
+        grid = build(params, c, **kw)
+        refreshes.append((None, _clone(params), grid))
+        return grid
+
+    def rec_update(prev, params, c, **kw):
+        grid = update(prev, params, c, **kw)
+        refreshes.append((prev, _clone(params), grid))
+        return grid
+    with monkeypatch.context() as m:
+        m.setattr(occupancy, "build_occupancy", rec_build)
+        m.setattr(occupancy, "update_occupancy", rec_update)
+        trained, _ = ttrain.train_field(
+            cfg, occupancy_res=T1_OCC_RES,
+            **{**_train_kw("table1", dev), "steps": 32})
+    assert len(refreshes) == 4
+    prev, params, grid = refreshes[-1]
+    assert torch.equal(trained["occupancy"]["bits"], grid["bits"])
+    centers = occupancy.cell_centers(T1_OCC_RES, dev)
+    fresh = occupancy.field_sigma(params, cfg, centers)
+    with monkeypatch.context() as m:
+        _plain_wrappers(m)
+        tkernels.reset_launch_counts()
+        plain = occupancy.update_occupancy(prev, params, cfg)
+        fresh_ref = occupancy.field_sigma(params, cfg, centers)
+        assert not any(tkernels.launch_counts().values())
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+    assert rel(fresh, fresh_ref) <= TOL
+    assert rel(grid["sigma"], plain["sigma"]) <= TOL
+    near = (plain["sigma"] - OCC_THRESHOLD).abs() <= OCC_EPS * OCC_THRESHOLD
+    differ = occupancy.unpack_bits(grid["bits"]) \
+        != occupancy.unpack_bits(plain["bits"])
+    assert not bool((differ & ~near).any()), int(differ.sum())
 
 
 @pytest.mark.cuda
@@ -1302,20 +1790,278 @@ def test_traced_train_steps_order_their_phases_on_card(dev):
         assert iv["backward"].end <= iv["adam"].start
 
 
+def _annotate_calls(run):
+    """Calls of ``obs.trace.annotate`` that ``run()`` makes, by phase name,
+    counted through every module of the port that imported it."""
+    from repro_torch.obs import trace
+    real, n = trace.annotate, collections.Counter()
+
+    def counting(name):
+        n[name] += 1
+        return real(name)
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("repro_torch.")
+            and getattr(m, "annotate", None) is real]
+    for m in mods:
+        m.annotate = counting
+    try:
+        run()
+    finally:
+        for m in mods:
+            m.annotate = real
+    return n
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("encoding", ["hash", "dense", "tiled"])
-def test_launcher_serves_on_card(dev, encoding):
-    """``serve_render`` on the card at a tiny size: every request served,
-    one tile function per bucket, the field kernels launched."""
+def test_traced_serving_counts_every_event_at_table1_width_on_card(dev):
+    """Two Table-I nerf scenes served in rounds of 20 requests of 4096
+    random pixels, the process tracer off and on in turns (off, on, on,
+    off, ...; 4 rounds each). Off, no event. On, each request's four
+    serve.<phase> spans, its serve.tile device interval, and each phase it
+    names (its annotate calls, counted with the tracer off) as a host span
+    and a device interval, all carrying its req; serve.backpressure at
+    most once a request past max_inflight. Under torch.profiler the
+    encode_mlp, mlp, raymarch and composite ranges show."""
+    from repro_torch.obs.trace import TRACER
+    from repro_torch.serve import RenderRequest
+    engine = RenderEngine(pipeline.RenderSettings(
+        tile_pixels=T1_TILE, n_samples=T1_SAMPLES), device=dev)
+    for s in range(2):
+        engine.add_scene(f"scene{s}", *_table1("nerf", s, dev))
+    engine.warmup()
+    rng = np.random.default_rng(0)
+    cams = [scenes.orbit_camera(256, 256, a) for a in (0.0, 2.1, 4.2)]
+    window = [RenderRequest(f"scene{i % 2}", cams[i % 3],
+                            rng.integers(0, 256 * 256, T1_TILE))
+              for i in range(20)]
+
+    def run_window():
+        for r in window:
+            engine.submit(r)
+        engine.flush()
+    want = {f"serve/serve.{ph}": len(window) for ph in SERVE_PHASES}
+    want["device:serve/serve.tile"] = len(window)
+    for ph, k in _annotate_calls(run_window).items():
+        want[f"phase/{ph}"] = want[f"device:phase/{ph}"] = k
+    try:
+        for i in range(8):
+            on = i % 4 in (1, 2)
+            TRACER.clear()
+            if on:
+                TRACER.enable()
+            run_window()
+            TRACER.disable()
+            evs = TRACER.events()
+            if not on:
+                assert evs == [], i
+                continue
+            counts = collections.Counter(f"{e['cat']}/{e['name']}"
+                                         for e in evs)
+            waits = [e["args"]["req"] for e in evs
+                     if e["name"] == "serve.backpressure"]
+            del counts["serve/serve.backpressure"]
+            assert dict(counts) == want, i
+            reqs = {e["args"].get("req") for e in evs}
+            assert len(reqs) == len(window) and None not in reqs
+            assert len(set(waits)) == len(waits) \
+                <= len(window) - engine.max_inflight
+    finally:
+        TRACER.disable()
+        TRACER.clear()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run_window()
+    assert {"encode_mlp", "mlp", "raymarch", "composite"} <= {
+        e.name for e in prof.events()}
+
+
+@pytest.mark.cuda
+def test_train_engine_snapshot_at_table1_width_on_card(dev):
+    """Two chunks of 8 Table-I nerf steps with a metrics registry: its
+    snapshot is valid against the schema and counts 16 train.steps, two
+    train.step_s and two health.step_s.host0 observations (one a chunk),
+    and no silent host."""
+    from repro_torch.obs import export, metrics
+    reg = metrics.Registry()
+    ttrain.train_field(fields.make_field_config("nerf", "hash"),
+                       steps=2 * T1_CHUNK, batch_size=T1_BATCH, seed=0,
+                       chunk_steps=T1_CHUNK, gt_samples=T1_GT, device=dev,
+                       metrics_registry=reg)
+    snap = reg.snapshot()
+    export.validate_snapshot(snap)
+    assert snap["counters"].get("train.steps") == 2 * T1_CHUNK
+    assert snap["histograms"]["train.step_s"]["count"] == 2
+    assert snap["histograms"]["health.step_s.host0"]["count"] == 2
+    assert snap["gauges"].get("health.silent_hosts") == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app,encoding,width", [
+    *(("nvr", e, "small") for e in ("hash", "dense", "tiled")),
+    *((a, e, "table1") for a in ("nerf", "nvr", "gia", "nsdf")
+      for e in ("hash", "dense", "tiled"))])
+def test_launcher_serves_on_card(dev, monkeypatch, app, encoding, width):
+    """``serve_render`` on the card: small (nvr at 2^14 rows, 2 training
+    steps, 3 requests of a 16x16 frame: one tile function), and every app
+    and encoding at Table I's width (``log2_table_size=None``: gia's hash
+    grid 2 GiB; 2 scenes of 16 training steps, 8 requests: scene 0's loss
+    falls). Every request served, a finite p50 and Mpix/s, and the kernels
+    of the app's path launched."""
     from repro_torch.launch.serve import serve_render
+    histories = []
+    real = ttrain.train_field
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        histories.append(out[1])
+        return out
+    monkeypatch.setattr(ttrain, "train_field", recording)
     tkernels.reset_launch_counts()
-    st = serve_render("nvr", encoding, train_steps=2, n_requests=3,
-                      tile_pixels=256, height=16, width=16, device="cuda")
+    if width == "small":
+        st = serve_render(app, encoding, train_steps=2, n_requests=3,
+                          tile_pixels=256, height=16, width=16,
+                          device="cuda")
+        assert st["n_requests"] == 3 and st["n_traces_total"] == 1
+    else:
+        st = serve_render(app, encoding, train_steps=16, n_requests=8,
+                          seed=0, device=dev, log2_table_size=None)
+        assert st["n_requests"] == 8 and _falls(histories[0]), histories
     counts = tkernels.launch_counts()
-    assert st["n_requests"] == 3 and st["n_traces_total"] == 1
-    assert np.isfinite(st["p50_ms"])
-    for k in ("field_fwd", "encode_fwd", "encode_bwd", "composite_fwd"):
+    assert np.isfinite(st["p50_ms"]) and np.isfinite(st["mpix_per_s"])
+    for k in ["field_fwd", "encode_fwd", "encode_bwd"] + (
+            ["mlp_fwd"] if app == "nerf" else []) + (
+            ["composite_fwd"] if app in ("nerf", "nvr") else []):
         assert counts[k] > 0, (k, counts)
+
+
+# the launcher's child: runs the module as ``python -m`` does, then writes
+# its kernels' launch counts to a file
+LAUNCH_CHILD = """
+import json, runpy, sys
+sys.path.insert(0, {src!r})
+sys.argv = ["repro_torch.launch.serve"] + {argv!r}
+try:
+    runpy.run_module("repro_torch.launch.serve", run_name="__main__",
+                     alter_sys=True)
+finally:
+    from repro_torch import kernels
+    with open({launches!r}, "w") as f:
+        json.dump(kernels.launch_counts(), f)
+"""
+SERVE_PHASES = ("submit", "dispatch", "block", "slice")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags,kernels", [
+    ([], ()), (["--app", "nerf", "--occupancy"], ("mlp_fwd", "composite_fwd")),
+    (["--app", "nsdf", "--quant", "int8"], ("field_fwd_q",)),
+    (["--shard"], ())], ids=["defaults", "nerf_occupancy", "nsdf_int8",
+                             "shard"])
+def test_launcher_module_serves_on_card(dev, tmp_path, flags, kernels):
+    """``python -m repro_torch.launch.serve`` as a user starts it, in a
+    child on the card: at its defaults (gia, hash, 2^14 tables, 150 steps,
+    2 scenes, 8 requests), nerf culled, nsdf with int8 tables and
+    ``--shard`` (its local mesh), each with ``--trace-out`` and
+    ``--metrics-out``. Exit code 0; every stdout line one JSON object;
+    ``served`` with 8 requests and a finite p50 and Mpix/s; one tile
+    function per bucket and no leak; the snapshot valid against the
+    schema; the trace a valid Chrome trace whose serve.submit, dispatch,
+    block and slice events number what the histograms count (each > 0);
+    and field_fwd, encode_fwd, encode_bwd and the run's own ``kernels``
+    launched (counts written by the child at exit)."""
+    from repro_torch.obs import export
+    files = {k: str(tmp_path / f"{k}.json")
+             for k in ("trace", "metrics", "launches")}
+    argv = flags + ["--trace-out", files["trace"], "--metrics-out",
+                    files["metrics"]]
+    out = subprocess.run(
+        [sys.executable, "-c", LAUNCH_CHILD.format(
+            src=str(SRC), argv=argv, launches=files["launches"])],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-3000:]
+    recs = [json.loads(line) for line in out.stdout.splitlines()]
+    assert all(isinstance(r, dict) for r in recs)
+    events = {r["event"]: r for r in recs}
+    served = events["served"]
+    assert served["n_requests"] == 8 and np.isfinite(
+        served["p50_ms"]) and np.isfinite(served["mpix_per_s"])
+    with open(files["metrics"]) as f:
+        snap = json.load(f)
+    export.validate_snapshot(snap)
+    with open(files["trace"]) as f:
+        trace = json.load(f)
+    export.validate_chrome_trace(trace)
+    names = [e["name"] for e in trace["traceEvents"]]
+    buckets = {k.rsplit(".bucket", 1)[1] for k in snap["histograms"]
+               if ".bucket" in k}
+    for ph in SERVE_PHASES:
+        n_hist = sum(h["count"] for k, h in snap["histograms"].items()
+                     if k.startswith(f"serve.{ph}_s.bucket"))
+        assert names.count(f"serve.{ph}") == n_hist > 0, ph
+    assert "bucket_leak" not in events and served["compiles"] == len(buckets)
+    with open(files["launches"]) as f:
+        counts = json.load(f)
+    for k in ("field_fwd", "encode_fwd", "encode_bwd", *kernels):
+        assert counts[k] > 0, (k, counts)
+
+
+# each twin of examples/torch/ in a child at its defaults, which writes its
+# kernels' launch counts to a file at exit
+EXAMPLE_CHILD = """
+import json, runpy, sys
+sys.argv = [{script!r}]
+try:
+    runpy.run_path({script!r}, run_name="__main__")
+finally:
+    sys.path.insert(0, {src!r})
+    from repro_torch import kernels
+    with open({launches!r}, "w") as f:
+        json.dump(kernels.launch_counts(), f)
+"""
+# The JAX examples' PSNRs at their defaults (seed 0) on the CPU
+# (tools/jax_example_psnr.py): seed 1 gives 27.4 and 16.9 dB. The twins'
+# random numbers are PyTorch's, so a twin lands within the JAX seeds'
+# spread, bounded here at 1 dB. train_nerf's frame is all black in both
+# packages (nerf's density collapses at lr 1e-2: a black frame's PSNR).
+JAX_EXAMPLE_PSNR = {"quickstart": 27.7, "train_nerf": 16.9}
+PSNR_LINE = re.compile(r"(?:reconstruction|novel-view) PSNR[^:]*: "
+                       r"(-?[0-9.]+) dB")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kernels", [
+    ("quickstart", ("field_fwd", "encode_fwd", "encode_bwd")),
+    ("train_nerf", ("field_fwd", "mlp_fwd", "encode_fwd", "encode_bwd",
+                    "composite_fwd")),
+    ("serve_render", ("field_fwd", "encode_fwd", "encode_bwd"))],
+    ids=["quickstart", "train_nerf", "serve_render"])
+def test_example_twin_on_card(dev, tmp_path, name, kernels):
+    """Each twin of the JAX examples (``examples/torch/``) as a user runs
+    it, in a child at its defaults on the card: quickstart's and
+    train_nerf's PSNR within 1 dB of the JAX example's, serve_render's one
+    ``served`` event with a finite p50 and Mpix/s; the kernels each runs
+    launch."""
+    script = str(REPO / "examples" / "torch" / f"{name}.py")
+    launches = str(tmp_path / "launches.json")
+    out = subprocess.run(
+        [sys.executable, "-c", EXAMPLE_CHILD.format(
+            script=script, src=str(SRC), launches=launches)],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-3000:]
+    with open(launches) as f:
+        counts = json.load(f)
+    for k in kernels:
+        assert counts[k] > 0, (k, counts)
+    if name in JAX_EXAMPLE_PSNR:
+        found = PSNR_LINE.findall(out.stdout)
+        assert len(found) == 1, out.stdout[-2000:]
+        assert abs(float(found[0]) - JAX_EXAMPLE_PSNR[name]) <= 1.0, found
+    else:
+        served = [json.loads(line) for line in out.stdout.splitlines()
+                  if line.startswith("{") and '"served"' in line]
+        assert len(served) == 1 and all(np.isfinite(served[0][k])
+                                        for k in ("p50_ms", "mpix_per_s"))
 
 
 def _card_mesh(dev, n=4):
@@ -1328,21 +2074,28 @@ def _card_mesh(dev, n=4):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", ["small", "table1"])
 @pytest.mark.parametrize("occ", [False, True])
-def test_sharded_engine_on_card_matches_unsharded(dev, occ):
-    """A 32x32 nerf frame through the 4-shard engine on the card against
-    the same sharded engine on the CPU (1e-4, with the same sample
-    counts when culled at a quarter budget) and, where no shard drops a
-    sample, the unsharded card engine (1e-6); each kernel of the path
-    launches once per shard a tile."""
+def test_sharded_engine_on_card_matches_unsharded(dev, occ, width):
+    """A 32x32 nerf frame through the 4-shard engine on the card, small
+    (2^14 rows, 4 levels; a 32^3 grid when culled) and at Table-I width (a
+    64^3 grid), against the same sharded engine on the CPU (1e-4, with the
+    same sample counts when culled at a quarter budget) and, where no
+    shard drops a sample, the unsharded card engine (1e-6); each kernel of
+    the path launches once per shard a tile. Culled with an all-occupied
+    grid at the full budget, the sharded frame equals the dense sharded
+    frame bit for bit."""
     from repro_torch.launch.mesh import Mesh
-    cfg, params = _occ_scene("nerf")
-    settings = pipeline.RenderSettings(tile_pixels=1024, n_samples=32)
+    if width == "small":
+        (cfg, params), res = _occ_scene("nerf"), 32
+    else:
+        (cfg, params), res = _table1("nerf", 3, "cpu"), T1_OCC_RES
+    dense = pipeline.RenderSettings(tile_pixels=1024, n_samples=32)
+    settings = dense
+    scene = params
     if occ:
-        params = occupancy.attach(params, occupancy.build_occupancy_from_fn(
-            lambda p: scenes.volume_field(p * 4.0 - 2.0)[:, 3], res=32,
-            device="cpu"))
-        settings = dataclasses.replace(settings, occupancy=True,
+        scene = occupancy.attach(params, _volume_grid(res))
+        settings = dataclasses.replace(dense, occupancy=True,
                                        sample_budget=1024 * 32 // 4)
     cam = scenes.default_camera(32, 32)
     frames, stats = {}, {}
@@ -1352,7 +2105,7 @@ def test_sharded_engine_on_card_matches_unsharded(dev, occ):
                                torch.device("cuda", 0)),
                               ("cpu", cpu_mesh, torch.device("cpu"))):
         eng = RenderEngine(settings, mesh=mesh, device=where)
-        eng.add_scene("s", cfg, params)
+        eng.add_scene("s", cfg, scene)
         eng.warmup()
         tkernels.reset_launch_counts()
         frames[name] = eng.render_frame("s", cam)
@@ -1367,20 +2120,29 @@ def test_sharded_engine_on_card_matches_unsharded(dev, occ):
         for k in ("samples_total", "samples_dropped", "live_sample_frac"):
             assert stats["sharded"][k] == stats["cpu"][k], k
         assert stats["sharded"]["samples_total"] == 1024 * 32
+        full = dataclasses.replace(settings, sample_budget=None)
+        all_occ = occupancy.attach(params, occupancy.all_occupied(res,
+                                                                  "cpu"))
+        assert np.array_equal(
+            _engine_frame(dev, cfg, all_occ, full, cam, _card_mesh(dev))[0],
+            _engine_frame(dev, cfg, params, dense, cam, _card_mesh(dev))[0])
     if not occ or stats["sharded"]["samples_dropped"] == 0:
         np.testing.assert_allclose(frames["sharded"], frames["plain"],
-                                   rtol=0, atol=1e-6)
+                                   rtol=0, atol=SHARD_TOL)
 
 
 @pytest.mark.cuda
-def test_sharded_replicas_share_the_cards_storage(dev):
+@pytest.mark.parametrize("width", ["small", "table1"])
+def test_sharded_replicas_share_the_cards_storage(dev, width):
     """On a mesh that repeats the card, every shard reads the stack's own
-    tables: one data_ptr, no copy per shard."""
+    tables: one data_ptr, no copy per shard, small and at Table-I width
+    (gia's 2 GiB); the sharded frame within 1e-6 of the unsharded tile's."""
     from repro_torch.launch.mesh import Mesh
-    cfg, params = _occ_scene("gia")
+    cfg, params = _occ_scene("gia") if width == "small" \
+        else _table1("gia", 10, dev)
     mesh = Mesh([torch.device("cuda", 0)] * 4, ("data",))
-    eng = RenderEngine(pipeline.RenderSettings(tile_pixels=256), mesh=mesh,
-                       device=torch.device("cuda", 0))
+    settings = pipeline.RenderSettings(tile_pixels=256)
+    eng = RenderEngine(settings, mesh=mesh, device=torch.device("cuda", 0))
     key = eng.add_scene("s", cfg, params)
     eng.warmup()
     fn = eng._buckets[key].fn
@@ -1388,18 +2150,31 @@ def test_sharded_replicas_share_the_cards_storage(dev):
     assert list(fn.replicas) == [torch.device("cuda", 0)]
     assert fn.replicas[torch.device("cuda", 0)]["grid"].data_ptr() \
         == stacked["grid"].data_ptr()
+    cam = scenes.orbit_camera(32, 32, 0.9)
+    want = pipeline.render_frame(fields.to_device(params, dev), cfg, cam,
+                                 settings, device=dev).cpu().numpy()
+    np.testing.assert_allclose(eng.render_frame("s", cam), want, rtol=0,
+                               atol=SHARD_TOL)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("app", ["nerf", "gia"])
-def test_data_parallel_first_step_grads_on_card(dev, app):
+@pytest.mark.parametrize("app,width", [("nerf", "small"), ("gia", "small"),
+                                       ("nerf", "table1")])
+def test_data_parallel_first_step_grads_on_card(dev, app, width):
     """The first step's loss and gradients on a 4-shard mesh on the card
-    against one pass on the card: the loss within 1e-6 of its size, every
-    leaf within 1e-5 of its max (f32 sums and atomics in another order);
-    each shard launches the field kernel and encode_bwd once."""
-    cfg, _ = _occ_scene(app)
-    params = fields.init_field(cfg, torch.Generator().manual_seed(0), dev)
-    batch = ttrain.make_batch(cfg, ttrain.batch_generator(0, 0, dev), 256)
+    against one pass on the card, small (256 rays or points) and at Table-I
+    width (4096 rays): the loss within 1e-6 of its size, every leaf within
+    1e-5 of its max (f32 sums and atomics in another order); each shard
+    launches the field kernel and encode_bwd once."""
+    if width == "small":
+        cfg, _ = _occ_scene(app)
+        params = fields.init_field(cfg, torch.Generator().manual_seed(0),
+                                   dev)
+        batch = ttrain.make_batch(cfg, ttrain.batch_generator(0, 0, dev),
+                                  256)
+    else:
+        cfg, init, make_batch = _nerf_train_case(width)
+        params, batch = init(dev), make_batch(0, dev)
 
     def loss_fn(p, b):
         return ttrain.field_loss(p, cfg, b)
@@ -1413,6 +2188,101 @@ def test_data_parallel_first_step_grads_on_card(dev, app):
     for a, b in zip(toptim.tree_leaves(g1), toptim.tree_leaves(g4)):
         assert b.device == a.device
         assert _rel_err(b, a) <= GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_data_parallel_training_at_table1_width_on_card(dev):
+    """16 steps of Table-I nerf data-parallel over 4 shards on the card
+    (``train_field(mesh=)``, 4096 rays a step): the loss falls; field_fwd,
+    mlp_fwd, encode_fwd and encode_bwd launch once a shard a step,
+    composite_fwd never."""
+    cfg, init, _ = _nerf_train_case("table1")
+    tkernels.reset_launch_counts()
+    rows = _losses(cfg, params=init(dev), mesh=_card_mesh(dev),
+                   **{**_train_kw("table1", dev), "steps": 16})
+    counts = tkernels.launch_counts()
+    assert _falls(rows), rows
+    for k in ("field_fwd", "mlp_fwd", "encode_fwd", "encode_bwd"):
+        assert counts[k] == 4 * 16, (k, counts)
+    assert counts["composite_fwd"] == 0
+
+
+class _HostLost(Exception):
+    """Raised by the elastic test's failure handler to stop the run."""
+
+
+@pytest.mark.cuda
+def test_elastic_recovery_at_table1_width_on_card(dev, tmp_path):
+    """Table-I nerf on 4 shards (two hosts of two), a checkpoint every 8
+    steps. Two uninterrupted 48-step runs give the run-to-run noise. In a
+    third the second host beats at the first chunk end only, so at the
+    step-15 chunk end the health stack's FailurePolicy emits a
+    FailureEvent, which stops it; ``remesh_plan(2, 4, 1)`` is (2, 1, 2);
+    ``recover`` restores the step-15 checkpoint onto 2 shards bit for bit,
+    and the run goes on with grad_accum=2 (the same global batch) to step
+    48, every loss within the resume bound of the uninterrupted run's."""
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime.health import HeartbeatMonitor
+    cfg, init, make_batch = _nerf_train_case("table1")
+    mesh, steps, lost_at, every = _card_mesh(dev), 48, 15, 8
+    kw = {**_train_kw("table1", dev), "mesh": mesh}
+    a = [loss for _, loss in _losses(cfg, **kw)]
+    noise = max(abs(x - y) for x, (_, y) in zip(a, _losses(cfg, **kw)))
+    opt = toptim.AdamConfig(lr=1e-2)      # train_field's
+
+    def loss_fn(p, b):
+        return ttrain.field_loss(p, cfg, b)
+    clock = [0.0]
+    mon = HeartbeatMonitor(timeout_s=5.0, clock=lambda: clock[0])
+
+    def beat(end, state):        # host0 drives the engine; host1 goes quiet
+        clock[0] += 10.0
+        mon.beat("host0")
+        if end < lost_at:
+            mon.beat("host1")
+    events, saved = [], {}
+
+    def lost(ev):
+        events.append(ev)
+        raise _HostLost
+
+    def grab(i, row, state):
+        if i == lost_at:
+            saved.update({k: (v.clone() if torch.is_tensor(v) else v)
+                          for k, v in ckpt_store._flatten(state)})
+    ck = str(tmp_path / "ckpt")
+    engine = tloop.TrainEngine(
+        tloop.EngineConfig(steps=steps, chunk_steps=T1_CHUNK, ckpt_dir=ck,
+                           ckpt_every=every, host="host0"),
+        tloop.make_scanned_step(loss_fn, opt, mesh=mesh),
+        batch_fn=lambda i: make_batch(i, dev), monitor=mon,
+        on_chunk_end=beat, on_event=lost)
+    with pytest.raises(_HostLost):
+        engine.run(tloop.init_train_state(init(dev)), on_metrics=grab)
+    assert events and (events[0].kind, tuple(events[0].hosts),
+                       events[0].step) == ("dead", ("host1",), lost_at)
+    assert ckpt_store.latest_step(ck) == lost_at
+    plan = elastic.remesh_plan(2, 4, 1)
+    assert (plan.data, plan.model, plan.microbatch_multiplier) == (2, 1, 2)
+    _, step_fn, state, step = elastic.recover(
+        ck, tloop.init_train_state(init(dev)), plan, devices=mesh.devices,
+        make_step=lambda m, rules: tloop.make_scanned_step(
+            loss_fn, opt, grad_accum=plan.microbatch_multiplier, mesh=m,
+            rules=rules))
+    restored = dict(ckpt_store._flatten(state))
+    assert step == lost_at and restored.keys() == saved.keys()
+    for k, v in saved.items():
+        assert (torch.equal(restored[k], v) if torch.is_tensor(v)
+                else restored[k] == v), k
+    resumed = []
+    tloop.TrainEngine(
+        tloop.EngineConfig(steps=steps, chunk_steps=T1_CHUNK, ckpt_dir=ck,
+                           ckpt_every=every),
+        step_fn, batch_fn=lambda i: make_batch(i, dev)).run(
+        state, on_metrics=lambda i, r, st: resumed.append((i, r["loss"])))
+    assert [i for i, _ in resumed] == list(range(lost_at + 1, steps))
+    for i, x in resumed:
+        assert abs(x - a[i]) <= _resume_bound(noise, a[i]), (i, x, a[i])
 
 
 @pytest.mark.cuda

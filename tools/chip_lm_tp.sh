@@ -1,10 +1,13 @@
 #!/bin/sh
 # Runs chip_smoke.py's LM phases of the tensor-parallel slice alone on the
-# card: lm_tp, lm_shard and, after the kernel build, dryrun. One JSON line
-# each, then the card's name and power limit.
+# card: lm_tp, lm_shard and, after the kernel build, dryrun, or the phases
+# named as arguments (any ``<name>_phase(dev, gpu)`` of chip_smoke.py:
+# lm, lm_train, lm_shard, lm_tp, dryrun, head, ssd, paths; the kernels
+# build at their first launch). One JSON line each, then the card's name
+# and power limit. The card's checks are tests/test_torch_cuda.py.
 set -e
 cd "$(dirname "$0")/.."
-python - <<'PY'
+python - "$@" <<'PY'
 import json, sys, time, torch
 sys.path.insert(0, "src")
 import chip_smoke as cs
