@@ -58,9 +58,10 @@ U(-1, 1) tables come from a numpy seed. Phases, each printing one JSON line:
  lm_train  LM training (``parallel/api.build_train_step``, the backward
            with remat, ``launch/train.py``), plain PyTorch but for
            Mamba-2's SSD kernels: no other kernel of the port may launch
-           on it, and full-width bf16 mamba2 must launch ssd_intra_bwd
-           once a layer and step and ssd_intra_fwd once or twice (its
-           launches are the SSD rows' of the final ``kernels`` line). The
+           on it, and full-width bf16 mamba2 must launch ssd_intra_bwd and
+           ssd_inter_bwd once a layer and step and ssd_intra_fwd and
+           ssd_inter_fwd once or twice (its launches are the SSD rows' of
+           the final ``kernels`` line). The
            ten archs at ``reduced_config``
            in f32 (attention chunked in 4 query blocks, danube's window
            slicing the keys): one loss and every gradient leaf, then
@@ -157,17 +158,23 @@ U(-1, 1) tables come from a numpy seed. Phases, each printing one JSON line:
            head (mlp_fwd_head) against the op-by-op head on the card to
            1e-6, and the device time of each beside the head's counted
            bound, with mlp_fwd alone on the (B, 32) colour input
-     ssd   Mamba-2's intra-chunk SSD at one granite-4.0-h-small layer's
-           shape (2 x 8,192 tokens in chunks of 256, 128 heads of 64):
+     ssd   Mamba-2's SSD at one granite-4.0-h-small layer's shape (2 x
+           8,192 tokens in chunks of 256, 128 heads of 64, d_state 128):
            ssd_intra_fwd and ssd_intra_bwd (one launch each, the counts
            set to 0 first) against the plain term and autograd through it
            (y within one bf16 step, each gradient within SSD_GRAD_TOL of
            its largest value) and the backward against its f32 twin
            (within SSD_TWIN_TOL of each gradient's largest value, dCB and
-           dx beside one bf16 step), each kernel's device time beside its
-           counted bound, on one chunk and head and the plain route's, and
-           its registers, shared memory and blocks per SM; these numbers
-           are the two kernels' rows of the final ``kernels`` line
+           dx beside one bf16 step); ssd_inter_fwd and ssd_inter_bwd (one
+           call each) against the plain inter-chunk term and autograd
+           through it and against their twin, y_inter, the final state and
+           every gradient within one bf16 step of its largest value, the
+           states before each chunk bit for bit the plain loop's on the
+           kernels' chunk states; each entry point's device time beside
+           its counted bound, on one chunk and head and the plain route's,
+           peak memory, and each kernel's registers, shared memory and
+           blocks per SM; these numbers are the four rows of the final
+           ``kernels`` line
 
     paths  one short drive of each field main path for the kernel rows'
            launch counts, untimed and held to no reference: 4 nerf
@@ -177,7 +184,7 @@ U(-1, 1) tables come from a numpy seed. Phases, each printing one JSON line:
 
 then the ``{"kernels": [...]}`` line (every kernel; its launches on the
 path named in its row, ``serve``, ``serve_quant`` or ``train`` for the
-field kernels and ``lm_train`` for the SSD pair, each of which must have
+field kernels and ``lm_train`` for the SSD kernels, each of which must have
 launched it, and its launches on every path under ``launches_by_path``;
 ``floor_ms``; the rows of other table types, apps and layouts under
 ``variants``), the card's name and power limit as nvidia-smi gives them,
@@ -773,7 +780,6 @@ def ssd_phase(dev, gpu):
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_intra_bwd_ref, ssd_intra_ref
     from repro_torch.kernels.ssd.ssd import ssd_intra_bwd_cuda
-    from repro_torch.launch.roofline import H100_SXM
     sh = SSD_SHAPE
     b, q, h, p, g = sh["b"], sh["q"], sh["h"], sh["p"], sh["g"]
     nc = sh["s"] // q
@@ -838,15 +844,8 @@ def ssd_phase(dev, gpu):
 
     fwd_w = kcost.ssd_intra_fwd(b * nc, q, h, p, g)
     bwd_w = kcost.ssd_intra_bwd(b * nc, q, h, p, g)
-
-    def bound(w):
-        t_bytes = w["bytes"] / H100_SXM["hbm_bw"] * 1e3
-        t_ops = max(w["bf16_flops"] / H100_SXM["peak_flops_bf16"],
-                    w["flops"] / H100_SXM["peak_flops_f32"]) * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                     else "operations")
-    fwd_bound, fwd_by = bound(fwd_w)
-    bwd_bound, bwd_by = bound(bwd_w)
+    fwd_bound, fwd_by = ssd_bound(fwd_w)
+    bwd_bound, bwd_by = ssd_bound(bwd_w)
     fwd_ms = device_ms(lambda: ssd_ops.ssd_intra(*ins), reps=10)
     bwd_ms = device_ms(lambda: ssd_intra_bwd_cuda(dy, *ins), reps=10)
     # one chunk of one head: the launch's fixed cost
@@ -872,7 +871,9 @@ def ssd_phase(dev, gpu):
            for name in ("ssd_intra_fwd", "ssd_intra_bwd")}
     del y_plain, leaves, ins, one, dy, dy_one, C, B, CB, dt, cums, x
     torch.cuda.empty_cache()
-    return {"phase": "ssd", **sh, "y_max_abs_err": y_err,
+    inter = ssd_inter_part(dev)
+    res.update(inter.pop("resources"))
+    return {"phase": "ssd", **sh, **inter, "y_max_abs_err": y_err,
             "y_past_one_bf16_step": y_excess, "grad_err": grad_err,
             "twin_max_abs_err": twin_err, "twin_excess": twin_excess,
             "fwd_ms": fwd_ms, "fwd_floor_ms": fwd_floor,
@@ -887,11 +888,172 @@ def ssd_phase(dev, gpu):
             "fwd_work": fwd_w, "bwd_work": bwd_w, "resources": res, **gpu}
 
 
+def ssd_bound(w):
+    """(the least ms of the counted work ``w`` on an H100, what bounds it):
+    bytes at the HBM rate, or the bf16 products and f32 operations at
+    their peaks."""
+    from repro_torch.launch.roofline import H100_SXM
+    t_bytes = w["bytes"] / H100_SXM["hbm_bw"] * 1e3
+    t_ops = max(w["bf16_flops"] / H100_SXM["peak_flops_bf16"],
+                w["flops"] / H100_SXM["peak_flops_f32"]) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def ssd_inter_part(dev):
+    """The inter-chunk half of ``ssd_phase`` at ``SSD_SHAPE``: x, B and C
+    as views of one (b, s, h p + 2 g n) bf16 tensor, as the in-projection's
+    split gives them (x N(0, 1), B and C N(0, 1/4)), dt and cums as the
+    intra half draws them, dy N(0, 1), no gradient of the final state (the
+    training path's). ``ssd_ops.ssd_inter`` (one ``ssd_inter_fwd`` call;
+    its backward one ``ssd_inter_bwd``) against the plain term
+    (``ref.ssd_inter_ref``, autograd through it) and the backward's twin
+    (``ref.ssd_inter_bwd_ref``): each result's largest error over one bf16
+    step at its largest value (``*_steps``, at most 1), the states before
+    each chunk bit for bit the plain loop's on the kernels' chunk states;
+    each entry point's device time, bound, floor (one chunk of one head)
+    and the plain route's time, the peaks of the kernels' backward and of
+    the plain forward and backward, and each kernel's resources."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels import info as kinfo
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ssd as ssd_launch
+    from repro_torch.kernels.ssd.ref import ssd_inter_bwd_ref, ssd_inter_ref
+    sh = SSD_SHAPE
+    b, q, h, p, g, n = (sh[k] for k in ("b", "q", "h", "p", "g", "n"))
+    s = sh["s"]
+    nc = s // q
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+    conv = torch.cat([randn(b, s, h * p), randn(b, s, 2 * g * n, scale=0.5)],
+                     dim=-1).requires_grad_()
+    dt = torch.nn.functional.softplus(
+        randn(b, nc, q, h, dtype=torch.float32) - 1.0).requires_grad_()
+    A = -torch.exp(torch.rand(h, generator=gen, device=dev)
+                   * float(np.log(16.0)))
+    cums = torch.cumsum(dt.detach() * A, dim=2).requires_grad_()
+    dy = randn(b, nc, q, h, p)
+
+    def views(c):
+        x, B, C = torch.split(c, [h * p, g * n, g * n], dim=-1)
+        return (x.reshape(b, nc, q, h, p), B.reshape(b, nc, q, g, n),
+                C.reshape(b, nc, q, g, n))
+    leaves = [cums, dt, conv]
+    args = [cums, dt, *views(conv)]
+    ins = [t.detach() for t in (cums, dt)] + list(views(conv.detach()))
+    names = ("cums", "dt", "x", "B", "C")
+
+    def parts(grads):
+        return list(grads[:2]) + [t.reshape(u.shape) for t, u in zip(
+            torch.split(grads[2], [h * p, g * n, g * n], dim=-1), ins[2:])]
+
+    def steps(got, want):
+        # the largest error over one bf16 step at want's largest magnitude
+        want = want.detach().float()
+        top = float(want.abs().max())
+        return float((got.detach().float() - want).abs().max()) / (
+            2.0 ** (np.floor(np.log2(top)) - 7))
+
+    K.reset_launch_counts()
+    y, state = ssd_ops.ssd_inter(*args)
+    got = parts(torch.autograd.grad(y, leaves, dy))
+    torch.cuda.synchronize()
+    launched = {k: c for k, c in K.launch_counts().items() if c}
+    if launched != {"ssd_inter_fwd": 1, "ssd_inter_bwd": 1}:
+        fail(f"ssd: launches {launched}, want one ssd_inter_fwd and one "
+             "ssd_inter_bwd")
+    finite = bool(torch.isfinite(y).all()) and all(
+        bool(torch.isfinite(a).all()) for a in got)
+    twin_steps = {name: steps(a, t) for name, a, t in zip(
+        names, got, ssd_inter_bwd_ref(dy, None, *ins))}
+    torch.cuda.empty_cache()
+    y_ref, state_ref = ssd_inter_ref(*args)
+    want = parts(torch.autograd.grad(y_ref, leaves, dy))
+    y_steps = {"y": steps(y, y_ref), "state": steps(state, state_ref)}
+    grad_steps = {name: steps(a, w) for name, a, w in zip(names, got, want)}
+    y_err = float((y.detach().float() - y_ref.detach().float()).abs().max())
+    twin_err = max(twin_steps.values())
+    _, final, prev, states = ssd_launch.ssd_inter_fwd_cuda(*ins)
+    decay = torch.exp(ins[0][:, :, -1]).to(torch.bfloat16)
+    carried = torch.zeros_like(final)
+    bitwise = True
+    for c in range(nc):
+        bitwise = bitwise and torch.equal(prev[:, c], carried)
+        carried = carried * decay[:, c, :, None, None] + states[:, c]
+    bitwise = bitwise and torch.equal(final, carried)
+    if not finite or not bitwise or max(y_steps.values()) > 1 or \
+            max(grad_steps.values()) > 1 or twin_err > 1:
+        fail(f"ssd: inter-chunk errors in bf16 steps at the largest value: "
+             f"{y_steps}, gradients {grad_steps}, against the twin "
+             f"{twin_steps}; prev bit for bit {bitwise}, finite {finite}")
+    del y, got, want, y_ref, state_ref, states, final
+    torch.cuda.empty_cache()
+
+    fwd_w = kcost.ssd_inter_fwd(b, nc, q, h, p, g, n)
+    bwd_w = kcost.ssd_inter_bwd(b, nc, q, h, p, g, n)
+    fwd_bound, fwd_by = ssd_bound(fwd_w)
+    bwd_bound, bwd_by = ssd_bound(bwd_w)
+    fwd_ms = device_ms(lambda: ssd_launch.ssd_inter_fwd_cuda(*ins), reps=10)
+    bwd_ms = device_ms(lambda: ssd_launch.ssd_inter_bwd_cuda(
+        dy, None, *ins, prev), reps=10)
+    one = [t[:1, :1, :, :1].contiguous() for t in ins[:3]] + [
+        t[:1, :1].contiguous() for t in ins[3:]]
+    _, _, prev_one, _ = ssd_launch.ssd_inter_fwd_cuda(*one)
+    dy_one = dy[:1, :1, :, :1].contiguous()
+    fwd_floor = device_ms(lambda: ssd_launch.ssd_inter_fwd_cuda(*one),
+                          reps=20)
+    bwd_floor = device_ms(lambda: ssd_launch.ssd_inter_bwd_cuda(
+        dy_one, None, *one, prev_one), reps=20)
+    with torch.no_grad():
+        plain_fwd_ms = device_ms(lambda: ssd_inter_ref(*ins), reps=2,
+                                 rounds=3)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ssd_launch.ssd_inter_bwd_cuda(dy, None, *ins, prev)
+    kernel_peak = torch.cuda.max_memory_allocated() - base
+    del prev
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y_plain, _ = ssd_inter_ref(*args)
+    torch.autograd.grad(y_plain, leaves, dy, retain_graph=True)
+    plain_peak = torch.cuda.max_memory_allocated() - base
+    plain_bwd_ms = device_ms(lambda: torch.autograd.grad(
+        y_plain, leaves, dy, retain_graph=True), reps=1, rounds=3)
+    res = {f"ssd_inter_{d}[{i}]": kinfo.kernel_info((f"ssd_inter_{d}", q, p,
+                                                      n, i))
+           for d, stages in (("fwd", 3), ("bwd", 5)) for i in range(stages)}
+    del y_plain, leaves, args, ins, one, dy, dy_one, conv, dt, cums
+    torch.cuda.empty_cache()
+    return {"inter_y_max_abs_err": y_err, "inter_steps": y_steps,
+            "inter_grad_steps": grad_steps, "inter_twin_steps": twin_steps,
+            "inter_prev_bitwise": bitwise,
+            "inter_fwd_ms": fwd_ms, "inter_fwd_floor_ms": fwd_floor,
+            "inter_fwd_bound_ms": fwd_bound, "inter_fwd_bound_by": fwd_by,
+            "inter_fwd_roofline_pct": 100 * fwd_bound / fwd_ms,
+            "inter_bwd_ms": bwd_ms, "inter_bwd_floor_ms": bwd_floor,
+            "inter_bwd_bound_ms": bwd_bound, "inter_bwd_bound_by": bwd_by,
+            "inter_bwd_roofline_pct": 100 * bwd_bound / bwd_ms,
+            "plain_inter_fwd_ms": plain_fwd_ms,
+            "plain_inter_bwd_ms": plain_bwd_ms,
+            "inter_bwd_peak_bytes": kernel_peak,
+            "plain_inter_fwd_bwd_peak_bytes": plain_peak,
+            "inter_fwd_work": fwd_w, "inter_bwd_work": bwd_w,
+            "resources": res}
+
+
 def ssd_results(line):
-    """The ``kernels`` rows' numbers of ``ssd_intra_fwd`` and
-    ``ssd_intra_bwd`` from ``ssd_phase``'s line, keyed as ``results``:
-    the forward's error is y's against the plain term, the backward's the
-    largest of its gradients' against the f32 twin."""
+    """The ``kernels`` rows' numbers of the four SSD entry points from
+    ``ssd_phase``'s line, keyed as ``results``: the intra forward's error
+    is y's against the plain term, its backward's the largest of its
+    gradients' against the f32 twin; the inter forward's y_inter's against
+    the plain term, its backward's the largest over its twin's of one bf16
+    step at each gradient's largest value."""
     return {(name, None): {
         "max_abs_err": err, "ms": line[f"{k}_ms"],
         "floor_ms": line[f"{k}_floor_ms"],
@@ -900,27 +1062,36 @@ def ssd_results(line):
         "library_ms": None}
         for name, k, err in (
             ("ssd_intra_fwd", "fwd", line["y_max_abs_err"]),
-            ("ssd_intra_bwd", "bwd", max(line["twin_max_abs_err"].values())))}
+            ("ssd_intra_bwd", "bwd", max(line["twin_max_abs_err"].values())),
+            ("ssd_inter_fwd", "inter_fwd", line["inter_y_max_abs_err"]),
+            ("ssd_inter_bwd", "inter_bwd",
+             max(line["inter_twin_steps"].values())))}
 
 
-# Mamba-2's intra-chunk SSD kernels (kernels/ssd): the LM paths take them
-# for bf16 chunks on the card; no other kernel of the port runs on them
-SSD_KERNELS = ("ssd_intra_fwd", "ssd_intra_bwd")
+# Mamba-2's SSD kernels (kernels/ssd): the LM paths take them for bf16
+# chunks on the card; no other kernel of the port runs on them
+SSD_KERNELS = ("ssd_intra_fwd", "ssd_intra_bwd", "ssd_inter_fwd",
+               "ssd_inter_bwd")
 
 
 def non_ssd(launches):
-    """The launches of kernels other than Mamba-2's SSD pair."""
+    """The launches of kernels other than Mamba-2's SSD kernels."""
     return {k: n for k, n in launches.items() if n and k not in SSD_KERNELS}
 
 
-def ssd_launches_per_step(cfg, seq, dev):
-    """``ssd_intra_bwd`` launches of one train step of ``cfg`` on rows of
-    ``seq`` tokens on ``dev``: one a Mamba-2 layer where the kernels fit
-    its SSD (``ssd.takes`` at the chunk ``apply_ssm`` runs), else 0."""
-    from repro_torch.kernels.ssd.ssd import takes
+def ssd_launches_per_step(cfg, seq, dev, inter=False):
+    """``ssd_intra_bwd`` (``inter``: ``ssd_inter_bwd``) launches of one
+    train step of ``cfg`` on rows of ``seq`` tokens on ``dev``: one a
+    Mamba-2 layer where the kernels fit its SSD (``ssd.takes``, or
+    ``ssd.inter_takes``, at the chunk ``apply_ssm`` runs), else 0."""
+    from repro_torch.kernels.ssd.ssd import inter_takes, takes
     from repro_torch.models import ssm
-    if cfg.ssm is None or not takes(dev, cfg.adtype, ssm.ssd_chunk(cfg, seq),
-                                    cfg.ssm.head_dim):
+    if cfg.ssm is None:
+        return 0
+    q = ssm.ssd_chunk(cfg, seq)
+    if not (inter_takes(dev, cfg.adtype, q, cfg.ssm.head_dim,
+                        cfg.ssm.d_state) if inter
+            else takes(dev, cfg.adtype, q, cfg.ssm.head_dim)):
         return 0
     return sum(cfg.layer_kind(l) == "ssm" for l in range(cfg.n_layers))
 
@@ -1330,14 +1501,18 @@ def lm_train_phase(dev, gpu):
         ssd = {k: K.launch_counts()[k] - ssd_before[k] for k in SSD_KERNELS}
         row["ssd_launches"] = ssd
         # bf16 Mamba-2 layers the kernels fit must take them: one
-        # ssd_intra_bwd a layer and step, one or two ssd_intra_fwd (the
-        # forward, and the recompute under remat)
-        want = ssd_launches_per_step(cfg, seq, dev) * (LM_TRAIN_STEPS + 1)
-        if ssd["ssd_intra_bwd"] != want or ssd["ssd_intra_fwd"] not in (
-                want, 2 * want):
-            fail(f"lm_train[{arch}]: SSD launches {ssd} over "
-                 f"{LM_TRAIN_STEPS + 1} steps, want {want} ssd_intra_bwd "
-                 f"and as many or twice as many ssd_intra_fwd")
+        # ssd_intra_bwd and ssd_inter_bwd a layer and step, one or two
+        # ssd_intra_fwd and ssd_inter_fwd (the forward, and the recompute
+        # under remat)
+        for term in ("intra", "inter"):
+            want = ssd_launches_per_step(cfg, seq, dev, term == "inter") * (
+                LM_TRAIN_STEPS + 1)
+            if ssd[f"ssd_{term}_bwd"] != want or ssd[f"ssd_{term}_fwd"] \
+                    not in (want, 2 * want):
+                fail(f"lm_train[{arch}]: SSD launches {ssd} over "
+                     f"{LM_TRAIN_STEPS + 1} steps, want {want} "
+                     f"ssd_{term}_bwd and as many or twice as many "
+                     f"ssd_{term}_fwd")
         full[arch] = row
         if not all(math.isfinite(l) for l in losses):
             fail(f"lm_train[{arch}]: a loss is not finite: {losses}")
@@ -3014,7 +3189,12 @@ def main():
         "ssd_intra_fwd": ("src/repro_torch/csrc/ssd.cu",
                           "src/repro/models/ssm.py:110", "lm_train", None),
         "ssd_intra_bwd": ("src/repro_torch/csrc/ssd.cu",
-                          "src/repro/models/ssm.py:110", "lm_train", None)}
+                          "src/repro/models/ssm.py:110", "lm_train", None),
+        # no TPU kernel: the JAX package's inter-chunk term is XLA
+        "ssd_inter_fwd": ("src/repro_torch/csrc/ssd_inter.cu",
+                          "src/repro/models/ssm.py:121", "lm_train", None),
+        "ssd_inter_bwd": ("src/repro_torch/csrc/ssd_inter.cu",
+                          "src/repro/models/ssm.py:121", "lm_train", None)}
     unlaunched = [n for n, r in report.items() if not paths[r[2]][n]]
     if unlaunched:
         fail(f"kernels: never launched on the path their row names: "

@@ -2,8 +2,8 @@
 package, each with its wrapper (``ops.py``), its launch code and its plain
 PyTorch version (``ref.py``), plus two terms the JAX package computes in
 XLA: the encode's backward scatter-add (its plain twin is
-``hashgrid/vjp.py``) and Mamba-2's intra-chunk SSD, forward and backward
-(``ssd``). The CUDA sources are in ``../csrc``."""
+``hashgrid/vjp.py``) and Mamba-2's SSD, its intra-chunk and inter-chunk
+terms, forward and backward (``ssd``). The CUDA sources are in ``../csrc``."""
 from __future__ import annotations
 
 from typing import Dict
@@ -18,11 +18,13 @@ def kernels() -> Dict:
     from repro_torch.kernels.fused_mlp.fused_mlp import MLP_FWD, MLP_FWD_HEAD
     from repro_torch.kernels.hashgrid.hashgrid import ENCODE_BWD, ENCODE_FWD
     from repro_torch.kernels.ray_march.ray_march import COMPOSITE_FWD
-    from repro_torch.kernels.ssd.ssd import SSD_INTRA_BWD, SSD_INTRA_FWD
+    from repro_torch.kernels.ssd.ssd import (SSD_INTER_BWD, SSD_INTER_FWD,
+                                            SSD_INTRA_BWD, SSD_INTRA_FWD)
     return {k.symbol: k for k in (FIELD_FWD, FIELD_FWD_Q, ENCODE_FWD,
                                   ENCODE_BWD, MLP_FWD, MLP_FWD_HEAD,
                                   COMPOSITE_FWD, SSD_INTRA_FWD,
-                                  SSD_INTRA_BWD)}
+                                  SSD_INTRA_BWD, SSD_INTER_FWD,
+                                  SSD_INTER_BWD)}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -23,7 +23,11 @@ written once:
 * Mamba-2's intra-chunk SSD reads each chunk's activations, scalars and
   C.B once and writes its outputs once; its products are bf16 on the
   tensor cores (``bf16_flops``), the rest f32 (:func:`ssd_intra_fwd`,
-  :func:`ssd_intra_bwd`).
+  :func:`ssd_intra_bwd`);
+* its inter-chunk term reads x (dy), B, C and the per-position scalars
+  once, writes its outputs once, and moves the (b, nc, h, p, n) states
+  between its kernels: each written once and read once where a kernel
+  hands it to the next (:func:`ssd_inter_fwd`, :func:`ssd_inter_bwd`).
 
 Distinct table rows depend on the data. A caller that counted them
 (``chip_smoke.py`` on its tiles) passes them in; otherwise each level
@@ -171,6 +175,48 @@ def ssd_intra_bwd(chunks: int, q: int, h: int, p: int, g: int
     w = work(chunks * (q * h * (3 * p * BF16 + 4 * F32)
                        + g * (ssd_pairs(q) + q * q) * BF16), 12 * pairs)
     w["bf16_flops"] = 4 * p * pairs
+    return w
+
+
+def ssd_inter_fwd(b: int, nc: int, q: int, h: int, p: int, g: int, n: int
+                  ) -> Dict[str, int]:
+    """``ssd_inter_fwd`` over b rows of nc chunks: x in and y_inter out
+    (bf16), cums and dt (f32) a position and head, B and C (bf16) a
+    position and group; the chunk states written and read by the
+    recurrence, the states before each chunk written (kept for the
+    backward) and read for y_inter, the final state written. Products: the
+    chunk states' and y_inter's 2 q p n a chunk and head in bf16 on the
+    tensor cores; f32: the weights (exp, subtract, multiply; exp), the
+    products with B and C a position, head and state column, the
+    recurrence's multiply and add a state element and chunk."""
+    chunks = b * nc
+    st = chunks * h * p * n
+    w = work(chunks * q * (2 * h * p * BF16 + 2 * h * F32 + 2 * g * n * BF16)
+             + 4 * st * BF16 + b * h * p * n * BF16,
+             chunks * h * (4 * q + 2 * q * n) + 2 * st)
+    w["bf16_flops"] = 4 * q * p * n * chunks * h
+    return w
+
+
+def ssd_inter_bwd(b: int, nc: int, q: int, h: int, p: int, g: int, n: int
+                  ) -> Dict[str, int]:
+    """``ssd_inter_bwd``: dy and x in, dx out (bf16); cums and dt in,
+    their gradients out, and the weights' gradients written and read back
+    (f32) a position and head; B and C in, dB and dC out (bf16); the states
+    before each chunk read twice (the recurrence, dC), their gradient and
+    the chunk states' written and read once, the final state's gradient
+    in. Products: d prev, dv, du and dx, 2 q p n each a chunk and head, in
+    bf16; f32: the products with the weights, B and C and their sums (6 a
+    position, head and state column), the reverse recurrence's four a
+    state element and chunk, a dozen a position and head for the
+    scalars."""
+    chunks = b * nc
+    st = chunks * h * p * n
+    w = work(chunks * q * (3 * h * p * BF16 + 8 * h * F32
+                           + 4 * g * n * BF16)
+             + 6 * st * BF16 + b * h * p * n * BF16,
+             chunks * h * (12 * q + 6 * q * n) + 4 * st)
+    w["bf16_flops"] = 8 * q * p * n * chunks * h
     return w
 
 

@@ -22,7 +22,8 @@ FIELDS = ("threads", "dynamic_smem", "static_smem", "registers",
           "local_bytes", "blocks_per_sm")
 # entry point -> the int arguments before (device, out)
 _ARGS = {"encode_fwd": 4, "encode_bwd": 4, "field_fwd": 7, "mlp_fwd": 4,
-         "composite_fwd": 1, "ssd_intra_fwd": 2, "ssd_intra_bwd": 2}
+         "composite_fwd": 1, "ssd_intra_fwd": 2, "ssd_intra_bwd": 2,
+         "ssd_inter_fwd": 4, "ssd_inter_bwd": 4}
 
 
 def kernel_info(instance: Tuple, device_index: int = 0) -> Dict[str, int]:

@@ -2,12 +2,12 @@
 ``models/ssm.py`` in plain PyTorch.
 
 Prefill: chunked SSD, an intra-chunk quadratic term of products and an
-inter-chunk state recurrence, the latter a Python loop over chunks (the
-JAX ``lax.scan``) carrying the (B, H, P, N) state. The intra-chunk term is
-``kernels/ssd``: one CUDA kernel each way where the call fits them (bf16
-activations on the card), its plain version (``kernels/ssd/ref.py``)
-elsewhere. Decode: the O(1) recurrent update, its state kept in the act
-dtype between steps.
+inter-chunk state recurrence carrying the (B, H, P, N) state over the
+chunks (the JAX ``lax.scan``). Both terms are ``kernels/ssd``: CUDA kernels
+each way where the call fits them (bf16 activations on the card), their
+plain versions (``kernels/ssd/ref.py``, the recurrence a Python loop over
+the chunks) elsewhere. Decode: the O(1) recurrent update, its state kept in
+the act dtype between steps.
 
 The segment sums above the diagonal are not used, and their ``exp`` can
 overflow once training grows ``dt``: the kernels never take it, and the
@@ -119,8 +119,6 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, sharder=None):
     g, n = B.shape[2], B.shape[3]
     assert s % chunk == 0, (s, chunk)
     nc = s // chunk
-    rep = h // g
-    xd = x.dtype
 
     xc = x.reshape(b, nc, chunk, h, p)
     dtc = dt.reshape(b, nc, chunk, h)
@@ -140,25 +138,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, sharder=None):
     CB = torch.einsum("bcigm,bcjgm->bcijg", Cc, Bc)   # (b,nc,q,q,g)
     y_intra = ssd_ops.ssd_intra(CB, cums, dtc, xc)
 
-    # --- inter-chunk state recurrence ---
-    decay_chunk = torch.exp(cums[:, :, -1]).to(xd)    # (b, nc, h)
-    # each chunk's state: sum_j exp(cums_last - cums_j) dt_j B_j x_j
-    w = (torch.exp(cums[:, :, -1:, :] - cums) * dtc).to(xd)   # (b,nc,q,h)
-    Bh = torch.repeat_interleave(Bc, rep, dim=-2).to(xd)      # (b,nc,q,h,n)
-    chunk_state = torch.einsum("bcqhn,bcqhp->bchpn", w[..., None] * Bh, xc)
-
-    state = torch.zeros((b, h, p, n), dtype=xd, device=x.device)
-    prev = []
-    for c in range(nc):                               # state BEFORE chunk c
-        prev.append(state)
-        state = state * decay_chunk[:, c, :, None, None] + chunk_state[:, c]
-    prev_states = torch.stack(prev, dim=1)            # (b, nc, h, p, n)
-
-    # --- contribution of carried state to each position ---
-    Ch = torch.repeat_interleave(Cc, rep, dim=-2).to(xd)      # (b,nc,q,h,n)
-    outw = torch.exp(cums).to(xd)                             # (b,nc,q,h)
-    y_inter = torch.einsum("bcqhn,bchpn->bcqhp", Ch * outw[..., None],
-                           prev_states)
+    # --- inter-chunk: the chunk states, their recurrence and y_inter ---
+    y_inter, state = ssd_ops.ssd_inter(cums, dtc, xc, Bc, Cc)
     y = (y_intra + y_inter).reshape(b, s, h, p)
     return y, state
 

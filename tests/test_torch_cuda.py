@@ -2717,9 +2717,10 @@ def test_ssd_overflowing_segments_give_no_nan_on_the_card(dev):
 @pytest.mark.cuda
 def test_ssd_kernels_launch_in_a_granite_train_step(dev):
     """A reduced granite-4.0-h-small train step in bf16 under full remat
-    (head dim 16, so the kernels take it): each of the nine Mamba-2 layers
-    launches ``ssd_intra_fwd`` twice (the forward and the recompute) and
-    ``ssd_intra_bwd`` once, and the step's loss is finite."""
+    (head dim 16 and d_state 16, so the kernels take it): each of the nine
+    Mamba-2 layers launches ``ssd_intra_fwd`` and ``ssd_inter_fwd`` twice
+    (the forward and the recompute) and ``ssd_intra_bwd`` and
+    ``ssd_inter_bwd`` once, and the step's loss is finite."""
     from repro_torch.configs import registry
     from repro_torch.parallel import api
     cfg = registry.reduced_config("granite-4.0-h-small")
@@ -2736,6 +2737,120 @@ def test_ssd_kernels_launch_in_a_granite_train_step(dev):
     torch.cuda.synchronize()
     counts = tkernels.launch_counts()
     assert mamba == 9
+    assert cfg.ssm.d_state == 16
     assert (counts["ssd_intra_fwd"], counts["ssd_intra_bwd"]) == \
         (2 * mamba, mamba)
+    assert (counts["ssd_inter_fwd"], counts["ssd_inter_bwd"]) == \
+        (2 * mamba, mamba)
     assert torch.isfinite(metrics["loss"])
+
+
+# ------------------------------------------ Mamba-2's inter-chunk SSD
+def _inter_leaves(dev, b, nc, q, h, p, g, n, seed):
+    """Leaves (cums, dtc, xc, Bc, Cc) of the inter-chunk term on ``dev`` as
+    ``ssd_chunked`` makes them: dt = softplus(N(-1, 1)), A = -exp(U(0, log
+    16)) as Mamba-2 draws it, cums the within-chunk cumsum of dt A; x, B
+    and C bf16 views of one (b, nc q, h p + 2 g n) tensor, x N(0, 1), B
+    and C N(0, 1/4), as the in-projection's split gives them."""
+    rng = np.random.default_rng(seed)
+    conv = rng.standard_normal((b, nc * q, h * p + 2 * g * n))
+    conv[..., h * p:] *= 0.5
+    conv = torch.from_numpy(conv.astype(np.float32)).to(dev, torch.bfloat16)
+    conv.requires_grad_()
+    x, B, C = torch.split(conv, [h * p, g * n, g * n], dim=-1)
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.normal(-1.0, 1.0, (b, nc, q, h)).astype(np.float32))).to(dev)
+    A = -torch.exp(torch.from_numpy(
+        rng.uniform(0.0, np.log(16.0), h).astype(np.float32))).to(dev)
+    cums = torch.cumsum(dt * A, dim=2).detach().requires_grad_()
+    dt.requires_grad_()
+    return [cums, dt, x.reshape(b, nc, q, h, p),
+            B.reshape(b, nc, q, g, n), C.reshape(b, nc, q, g, n)], conv
+
+
+def _within_a_bf16_step_of_max(got, want, name=""):
+    """The largest difference at most one bf16 step at want's largest
+    magnitude (2^(floor(log2 max) - 7))."""
+    want = want.float()
+    top = float(want.abs().max())
+    step = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+    err = float((got.float() - want).abs().max())
+    assert torch.isfinite(got).all() and err <= step, (name, err, step, top)
+
+
+# (b, nc, q, heads, head dim, groups, d_state): granite-4.0-h-small's
+# layer, mamba2-2.7b's chunk of 128 (80 heads), jamba's d_state 16 at its
+# chunk of 64, two groups at head dims 32 and 16 (a chunk of 16 under the
+# 64 positions an inter_dm block takes), a chunk of 48 (a partial block)
+INTER_SHAPES = [(2, 32, 256, 128, 64, 1, 128), (1, 4, 128, 80, 64, 1, 128),
+                (1, 4, 64, 16, 64, 1, 16), (1, 3, 64, 16, 32, 2, 128),
+                (1, 2, 16, 8, 16, 2, 16), (2, 2, 48, 4, 32, 1, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", INTER_SHAPES)
+def test_ssd_inter_fwd_matches_plain(dev, shape):
+    """``ssd_inter_fwd`` (one call) against the plain term on the card:
+    y_inter and the final state within one bf16 step of their largest
+    value (the chunk states' and y_inter's f32 sums run in another order
+    than cuBLAS's), and the states before each chunk and the final state
+    bit for bit the plain loop's on the kernels' own chunk states."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ssd as ssd_launch
+    from repro_torch.kernels.ssd.ref import ssd_inter_ref
+    leaves = [t.detach() for t in _inter_leaves(dev, *shape, seed=3)[0]]
+    tkernels.reset_launch_counts()
+    y, state = ssd_ops.ssd_inter(*leaves)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts()["ssd_inter_fwd"] == 1
+    want_y, want_state = ssd_inter_ref(*leaves)
+    _within_a_bf16_step_of_max(y, want_y, "y")
+    _within_a_bf16_step_of_max(state, want_state, "state")
+    _, final, prev, states = ssd_launch.ssd_inter_fwd_cuda(*leaves)
+    decay = torch.exp(leaves[0][:, :, -1]).to(torch.bfloat16)
+    s = torch.zeros_like(final)
+    for c in range(shape[1]):
+        assert torch.equal(prev[:, c], s), c
+        s = s * decay[:, c, :, None, None] + states[:, c]
+    assert torch.equal(final, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", INTER_SHAPES)
+def test_ssd_inter_bwd_matches_autograd(dev, shape):
+    """Every input's gradient from ``ssd_inter_bwd`` (with a gradient of
+    the final state too) against autograd through the plain term on the
+    card and against the kernels' twin (``ref.ssd_inter_bwd_ref``), each
+    within one bf16 step of its largest value; the same bits on a second
+    run (no atomics)."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_inter_bwd_ref, ssd_inter_ref
+    leaves, conv = _inter_leaves(dev, *shape, seed=4)
+    b, nc, q, h, p, g, n = shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dy = torch.randn((b, nc, q, h, p), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    ds = torch.randn((b, h, p, n), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    ins = [leaves[0], leaves[1], conv]
+    tkernels.reset_launch_counts()
+    runs = [torch.autograd.grad(ssd_ops.ssd_inter(*leaves), ins, (dy, ds))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = tkernels.launch_counts()
+    assert (counts["ssd_inter_fwd"], counts["ssd_inter_bwd"]) == (2, 2)
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+    want = torch.autograd.grad(ssd_inter_ref(*leaves), ins, (dy, ds))
+    got = list(runs[0][:2]) + list(torch.split(
+        runs[0][2], [h * p, g * n, g * n], dim=-1))
+    want = list(want[:2]) + list(torch.split(
+        want[2], [h * p, g * n, g * n], dim=-1))
+    dcums, ddt, dx, dB, dC = ssd_inter_bwd_ref(
+        dy, ds, *[t.detach() for t in leaves])
+    twin = [dcums, ddt, dx.reshape(b, nc * q, h * p),
+            dB.reshape(b, nc * q, g * n), dC.reshape(b, nc * q, g * n)]
+    for name, g_, w, t in zip(("cums", "dt", "x", "B", "C"), got, want,
+                              twin):
+        _within_a_bf16_step_of_max(g_, w, name)
+        _within_a_bf16_step_of_max(g_, t, name + " twin")

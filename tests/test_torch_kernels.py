@@ -277,7 +277,8 @@ def test_kernel_registry_lists_the_slice():
     assert set(tkernels.kernels()) == {"field_fwd", "field_fwd_q",
                                        "encode_fwd", "encode_bwd", "mlp_fwd",
                                        "mlp_fwd_head", "composite_fwd",
-                                       "ssd_intra_fwd", "ssd_intra_bwd"}
+                                       "ssd_intra_fwd", "ssd_intra_bwd",
+                                       "ssd_inter_fwd", "ssd_inter_bwd"}
     tkernels.reset_launch_counts()
     assert set(tkernels.launch_counts().values()) == {0}
 
